@@ -1,0 +1,431 @@
+"""The rasterization op: forward pipeline, autograd Function, caps.
+
+Counterpart of ``dirt_tpu/ops/raster.py``, forward half. The op takes
+*screen-space* face vertex data ``[F, 3, 4]`` (x_s, y_s, z_ndc, 1/w) and
+per-face vertex attributes ``[F, 3, C]``; everything upstream (vertex
+gather, clipping, clip -> screen transform, camera) is ordinary
+differentiable PyTorch.
+
+Ported so far: the packed engine's forward (setup -> packed binning ->
+face table -> ``raster_fwd.raster_forward_packed``), ``RasterConfig``,
+engine resolution, and the count-then-allocate helpers
+(``suggest_config``, ``count_bins_exact``, ``count_packed_exact``). The
+dense and CSR engines and the backward are not ported yet and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from dirt_tpu_torch import config as cfg
+from dirt_tpu_torch.ops import binning, raster_fwd
+from dirt_tpu_torch.ops.triangle_setup import (
+    edge_filter_cols,
+    face_bbox_cols,
+    face_bboxes,
+    setup_planes,
+)
+
+_NOT_PORTED = {
+    "dense": "the dense engine (raster_fwd._fwd_kernel, fused_bwd) is "
+             "ported in a later PR (ROADMAP Queue 1 item 12)",
+    "csr": "the CSR engine (raster_fwd._fwd_csr_kernel, fused_bwd) is "
+           "ported in a later PR (ROADMAP Queue 1 item 13)",
+}
+
+
+class RasterConfig(NamedTuple):
+    """Static kernel configuration (same fields as ``dirt_tpu``'s).
+
+    ``engine``: ``"packed"`` (8x16-subtile engine; the only one ported),
+    ``"dense"``, ``"csr"`` or ``"auto"`` (packed for >= PACKED_MIN_FACES
+    faces, dense below). ``expand_cap`` caps the subtiles one face may
+    overlap; ``budget`` is the packed engine's iteration budget;
+    ``clip_cap`` the near-plane clip's secondary slots; ``pool_cap`` the
+    packed binning's candidate pool; ``work_cap`` its live-prefix cap.
+    None means auto. Auto caps are overflow-flagged, never silent;
+    ``suggest_config`` measures exact requirements.
+    """
+
+    tile_h: int | None = None
+    tile_w: int = cfg.TILE_W
+    bin_cap: int | None = None
+    streaming: bool | None = None
+    expand_cap: int | None = None
+    engine: str = "auto"
+    budget: int | None = None
+    clip_cap: int | None = None
+    pool_cap: int | None = None
+    work_cap: int | None = None
+
+    def concrete(self, height: int) -> "RasterConfig":
+        """Resolve auto fields for a given image height (64-row tiles at
+        >= 512 rows, ``cfg.TILE_H`` below)."""
+        if self.tile_h is not None:
+            return self
+        return self._replace(tile_h=64 if height >= 512 else cfg.TILE_H)
+
+
+# Above this face count the non-packed engines stream (CSR).
+STREAMING_FACES = 16384
+
+# Below this, ``engine="auto"`` picks the dense whole-tile engine, which
+# handles faces of any screen size with no caps.
+PACKED_MIN_FACES = 4096
+
+
+def use_streaming(config: RasterConfig, num_faces: int) -> bool:
+    if config.streaming is not None:
+        return config.streaming
+    return num_faces > STREAMING_FACES
+
+
+def resolve_engine(config: RasterConfig, num_faces: int) -> str:
+    """Which raster path runs for this (config, face count).
+
+    ``streaming=True`` still forces the csr path; ``streaming=False`` only
+    rules csr out.
+    """
+    if config.engine != "auto":
+        return config.engine
+    if config.streaming is True:
+        return "csr"
+    if num_faces >= PACKED_MIN_FACES:
+        return "packed"
+    return "dense"
+
+
+def _pad_to(value: int, multiple: int) -> int:
+    return -(-value // multiple) * multiple
+
+
+def _packed_caps(config: RasterConfig, num_faces: int, hp: int, wp: int):
+    """(expand, budget) of the packed engine: explicit or auto."""
+    tiles_y, tiles_x, strips, groups = binning.packed_grid(
+        hp, wp, config.tile_h, config.tile_w
+    )
+    nsid = tiles_y * tiles_x * strips * groups
+    expand = config.expand_cap or binning.auto_packed_expand(num_faces, nsid)
+    budget = config.budget or binning.auto_packed_budget(
+        num_faces, hp, wp, config.tile_h, config.tile_w, expand
+    )
+    return expand, budget
+
+
+def prepare_packed(face_verts_screen, face_attrs, background, config):
+    """The packed forward up to the raster kernel.
+
+    Triangle setup, packed binning and the face table, with the entry
+    rows gathered once (they ride on ``bins.rows`` for the backward).
+    Returns (table2 [F + 1, W], bins, background [C, Hp, Wp] padded to
+    whole tiles, the concrete config).
+    """
+    height, width, channels = background.shape
+    config = config.concrete(height)
+    tile_h, tile_w = config.tile_h, config.tile_w
+    num_faces = face_verts_screen.shape[0]
+    engine = resolve_engine(config, num_faces)
+    if engine != "packed":
+        raise NotImplementedError(
+            _NOT_PORTED.get(engine, f"unknown engine {engine!r}")
+        )
+
+    geo, att, valid = setup_planes(face_verts_screen, face_attrs)
+    bbox = face_bbox_cols(face_verts_screen, valid, height, width)
+
+    hp, wp = _pad_to(height, tile_h), _pad_to(width, tile_w)
+    bg_chw = torch.as_tensor(background, dtype=torch.float32).permute(2, 0, 1)
+    bg_chw = torch.nn.functional.pad(
+        bg_chw, (0, wp - width, 0, hp - height)
+    ).contiguous()
+
+    expand, budget = _packed_caps(config, num_faces, hp, wp)
+    edges = edge_filter_cols(face_verts_screen)
+    bins = binning.bin_faces_packed(
+        bbox, hp, wp, tile_h, tile_w, budget, expand,
+        edges=edges, pool_cap=config.pool_cap, work_cap=config.work_cap,
+    )
+    table2 = raster_fwd.pack_face_table_v2(geo, att)
+    # Pre-set the backward's "ones" indicator column (ignored by the
+    # forward kernel).
+    col_one = raster_fwd.COL_ATT + 3 * channels
+    if col_one < table2.shape[1]:
+        table2[:, col_one] = 1.0
+    rows = table2[bins.entries.long() // 8].contiguous()
+    return table2, bins._replace(rows=rows), bg_chw, config
+
+
+def _forward_impl(face_verts_screen, face_attrs, background, config):
+    height, width, _ = background.shape
+    table2, bins, bg_chw, config = prepare_packed(
+        face_verts_screen, face_attrs, background, config
+    )
+    pixels_chw, fid, zbuf = raster_fwd.raster_forward_packed(
+        table2, bins, bg_chw, tile_h=config.tile_h, tile_w=config.tile_w,
+        rows=bins.rows,
+    )
+    pixels = pixels_chw.permute(1, 2, 0)[:height, :width]
+    return pixels, fid[:height, :width], zbuf[:height, :width], bins
+
+
+class _RasterizeScreen(torch.autograd.Function):
+    """Forward of the raster op; the backward is the next slice."""
+
+    @staticmethod
+    def forward(ctx, face_verts_screen, face_attrs, background, config):
+        pixels, fid, zbuf, bins = _forward_impl(
+            face_verts_screen, face_attrs, background, config
+        )
+        ctx.mark_non_differentiable(fid, zbuf, bins.overflow)
+        return pixels, fid, zbuf, bins.overflow
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "rasterize_screen's backward (raster_bwd.py, packed_bwd.py: "
+            "kernels K2, K3) is ported in the next PR (ROADMAP Queue 1 "
+            "items 6-7)"
+        )
+
+
+def rasterize_screen(face_verts_screen, face_attrs, background, config):
+    """Rasterize screen-space faces over a background image.
+
+    Args:
+        face_verts_screen: [F, 3, 4] f32 (x_s, y_s, z_ndc, invw).
+        face_attrs: [F, 3, C] f32.
+        background: [H, W, C] f32.
+        config: RasterConfig.
+    Returns:
+        (pixels [H, W, C] f32,
+         fid [H, W] int32 — face id per pixel, -1 = background,
+         zbuf [H, W] f32 — screen-space depth, BIG_Z at background,
+         overflow [] bool tensor — True if any static cap truncated faces,
+         i.e. the image may be missing coverage: redo with
+         ``suggest_config``'s caps).
+    """
+    return _RasterizeScreen.apply(
+        torch.as_tensor(face_verts_screen, dtype=torch.float32),
+        torch.as_tensor(face_attrs, dtype=torch.float32),
+        torch.as_tensor(background, dtype=torch.float32),
+        config,
+    )
+
+
+def count_bins_exact(bbox, height, width, tile_h, tile_w):
+    """Exact per-tile face counts + max per-face tile span, O(F + T).
+
+    2D interval stabbing by inclusion-exclusion: each face adds +1/-1 at
+    the four corners of its tile range in a difference grid; a double
+    prefix sum recovers the per-tile counts.
+    """
+    bbox = torch.as_tensor(bbox).to(torch.int64)
+    tiles_y = -(-height // tile_h)
+    tiles_x = -(-width // tile_w)
+
+    def fdiv(a, b):
+        return torch.div(a, b, rounding_mode="floor")
+
+    txmin, txmax = fdiv(bbox[:, 0], tile_w), fdiv(bbox[:, 1], tile_w)
+    tymin, tymax = fdiv(bbox[:, 2], tile_h), fdiv(bbox[:, 3], tile_h)
+    valid = (bbox[:, 1] >= bbox[:, 0]) & (bbox[:, 3] >= bbox[:, 2])
+    w = valid.to(torch.int64)
+    # Boxes come clipped to the image (``face_bboxes``; an empty box is
+    # (0, -1, 0, -1)), so every corner index lies in [0, tiles].
+    nx = tiles_x + 1
+    diff = torch.zeros(((tiles_y + 1) * nx,), dtype=torch.int64,
+                       device=bbox.device)
+    for ys, xs, sign in ((tymin, txmin, 1), (tymin, txmax + 1, -1),
+                         (tymax + 1, txmin, -1), (tymax + 1, txmax + 1, 1)):
+        diff.index_add_(0, ys * nx + xs, sign * w)
+    diff = diff.reshape(tiles_y + 1, nx)
+    counts = torch.cumsum(torch.cumsum(diff, dim=0), dim=1)
+    counts = counts[:tiles_y, :tiles_x].reshape(-1)
+    span = torch.where(valid, (txmax - txmin + 1) * (tymax - tymin + 1), 0)
+    return counts, torch.max(span)
+
+
+def _bbox_from_fv(fv, height, width):
+    """[F, 4] bbox from screen verts (counting-stage helper)."""
+    _, _, valid = setup_planes(
+        fv, torch.zeros((fv.shape[0], 3, 1), dtype=torch.float32,
+                        device=fv.device)
+    )
+    return face_bboxes(fv, valid, height, width)
+
+
+def _subtile_spans(bbox, height, width, tile_h, tile_w):
+    """(span_x, span_y, span, (gxmin, gymin)) at 8x16-subtile granularity."""
+    bbox = bbox.to(torch.int64)
+    hp = _pad_to(height, tile_h)
+    wp = _pad_to(width, tile_w)
+    tiles_y, tiles_x, strips, groups = binning.packed_grid(
+        hp, wp, tile_h, tile_w
+    )
+    gy_n = tiles_y * strips
+    gx_n = tiles_x * groups
+
+    def cell(v, size, n):
+        return torch.clamp(torch.div(v, size, rounding_mode="floor"), 0, n - 1)
+
+    gxmin = cell(bbox[:, 0], binning.SUB_W, gx_n)
+    gxmax = cell(bbox[:, 1], binning.SUB_W, gx_n)
+    gymin = cell(bbox[:, 2], binning.SUB_H, gy_n)
+    gymax = cell(bbox[:, 3], binning.SUB_H, gy_n)
+    valid = (bbox[:, 1] >= bbox[:, 0]) & (bbox[:, 3] >= bbox[:, 2])
+    span_x = torch.where(valid, gxmax - gxmin + 1, 0)
+    span_y = torch.where(valid, gymax - gymin + 1, 0)
+    return span_x, span_y, span_x * span_y, (gxmin, gymin)
+
+
+def suggest_config(
+    face_verts_screen, height: int, width: int,
+    config: RasterConfig | None = None, margin: float = 1.25,
+):
+    """Concrete RasterConfig whose caps cannot overflow for this scene.
+
+    The "allocate" half of count-then-allocate: measures the exact
+    per-tile bin occupancy and per-face spans for the given geometry and
+    returns ``config`` with its caps set just above the measured maxima
+    (times ``margin``). Host-synchronizing: fetches a few scalars.
+    """
+    config = (config or RasterConfig()).concrete(height)
+    fv = torch.as_tensor(face_verts_screen, dtype=torch.float32).detach()
+    num_faces = fv.shape[0]
+    streaming = use_streaming(config, num_faces)
+    engine = resolve_engine(config, num_faces)
+
+    bbox = _bbox_from_fv(fv, height, width)
+    counts, max_span = count_bins_exact(
+        bbox, height, width, config.tile_h, config.tile_w
+    )
+    _, _, sub_span, _ = _subtile_spans(
+        bbox, height, width, config.tile_h, config.tile_w
+    )
+    max_count, max_span, max_sub = (
+        int(v) for v in torch.stack(
+            [torch.max(counts), max_span, torch.max(sub_span)]
+        ).tolist()
+    )
+    cap = _pad_to(max(int(max_count * margin), 1), binning.CHUNK)
+    kwargs = dict(bin_cap=cap)
+    if streaming or config.streaming:
+        kwargs["expand_cap"] = max(int(max_span * margin), 1)
+    if engine == "packed":
+        exp, bud, pool, work = count_packed_exact(
+            bbox, height, width, config.tile_h, config.tile_w, margin,
+            face_verts_screen=fv, max_subspan=max_sub,
+        )
+        kwargs.update(expand_cap=exp, budget=bud, pool_cap=pool,
+                      work_cap=work)
+    return config._replace(**kwargs)
+
+
+def _count_packed_device(bbox, fv, height, width, tile_h, tile_w, e_max,
+                         expand, margin):
+    """Counting stage 2: candidate enumeration, scalars out.
+
+    Returns (budget, pool_blocks_sum, jobs_sum) as 0-dim tensors. Mirrors
+    the candidate layout and the edge filter of
+    ``binning.bin_faces_packed`` so the budget counts the iterations the
+    kernel actually executes.
+    """
+    hp = _pad_to(height, tile_h)
+    wp = _pad_to(width, tile_w)
+    tiles_y, tiles_x, strips, groups = binning.packed_grid(
+        hp, wp, tile_h, tile_w
+    )
+    nsid = tiles_y * tiles_x * strips * groups
+    span_x, span_y, span, (gxmin, gymin) = _subtile_spans(
+        bbox, height, width, tile_h, tile_w
+    )
+    al = binning.POOL_ALIGN
+    blocks = -torch.div(-torch.clamp(span, max=expand), al,
+                        rounding_mode="floor")
+    blocks_sum = torch.sum(blocks)
+
+    # Candidate enumeration [F, e_max].
+    e = torch.arange(e_max, dtype=torch.int64, device=bbox.device)[None, :]
+    sx = torch.clamp(span_x, min=1)[:, None]
+    ey = torch.div(e, sx, rounding_mode="floor")
+    ex = e - ey * sx
+    gy = gymin[:, None] + ey
+    gx = gxmin[:, None] + ex
+    ok = e < torch.clamp(span, max=expand)[:, None]
+    if fv is not None:
+        x0, y0, a0, b0, a1, b1, a2, b2, c0 = edge_filter_cols(fv)
+        rx0 = gx.to(torch.float32) * binning.SUB_W + 0.5 - x0[:, None]
+        ry0 = gy.to(torch.float32) * binning.SUB_H + 0.5 - y0[:, None]
+        zero = torch.zeros_like(c0)
+        for a, b, c in ((a0, b0, c0), (a1, b1, zero), (a2, b2, zero)):
+            av, bv, cv = a[:, None], b[:, None], c[:, None]
+            emax = (av * rx0 + bv * ry0 + cv
+                    + torch.clamp(av, min=0.0) * (binning.SUB_W - 1)
+                    + torch.clamp(bv, min=0.0) * (binning.SUB_H - 1))
+            slack = 0.5 * torch.sqrt(av * av + bv * bv)
+            ok = ok & (emax >= -slack)
+    t_id = torch.div(gy, strips, rounding_mode="floor") * tiles_x \
+        + torch.div(gx, groups, rounding_mode="floor")
+    sid = (t_id * strips + torch.remainder(gy, strips)) * groups \
+        + torch.remainder(gx, groups)
+    sid = torch.where(ok, sid, nsid)
+    counts = torch.bincount(sid.reshape(-1), minlength=nsid + 1)[:nsid]
+    # As in dirt_tpu: sids run (tile, strip, group), so with several tile
+    # columns this grouping mixes tiles and the budget can come out short
+    # (flagged, never silent). Kept for cap parity; see ROADMAP Queue 3.
+    counts = counts.reshape(tiles_y, strips, tiles_x, groups)
+    n_iter = torch.amax(counts, dim=3)                # [ty, strips, tx]
+    tile_iters = torch.sum(n_iter, dim=1)             # [ty, tx]
+    ti_m = (tile_iters.to(torch.float32) * margin).to(torch.int64)
+    chunks = torch.clamp(
+        -torch.div(-ti_m, binning.PACK_ITERS, rounding_mode="floor"), min=1
+    )
+    budget = torch.sum(chunks) * binning.PACK_ITERS
+    # Surviving (post-filter) jobs: the live-prefix work_cap is nsid
+    # headers + this many real pairs.
+    jobs_sum = torch.sum(counts)
+    return budget, blocks_sum, jobs_sum
+
+
+def count_packed_exact(bbox, height: int, width: int, tile_h: int,
+                       tile_w: int, margin: float = 1.25,
+                       face_verts_screen=None,
+                       max_subspan: int | None = None):
+    """Exact (expand_cap, budget, pool_cap, work_cap) for the packed engine.
+
+    Counting half of count-then-allocate at subtile granularity. With
+    ``face_verts_screen`` given, candidates go through the same edge
+    filter the binning applies, so the budget reflects the iterations the
+    kernel executes. ``bbox`` may be None when ``face_verts_screen`` is
+    given. Host-synchronizing: fetches scalars.
+    """
+    fv = face_verts_screen
+    if fv is not None:
+        fv = torch.as_tensor(fv, dtype=torch.float32).detach()
+    if bbox is None:
+        bbox = _bbox_from_fv(fv, height, width)
+    bbox = torch.as_tensor(bbox).to(torch.int64)
+    if max_subspan is None:
+        _, _, span, _ = _subtile_spans(bbox, height, width, tile_h, tile_w)
+        max_subspan = int(torch.max(span))
+    e_max = max(int(max_subspan), 1)
+    expand = max(int(max_subspan * margin), 1)
+    budget, blocks_sum, jobs_sum = (
+        int(v) for v in torch.stack(_count_packed_device(
+            bbox, fv, height, width, tile_h, tile_w, e_max, expand,
+            float(margin),
+        )).tolist()
+    )
+    al = binning.POOL_ALIGN
+    pool = int(blocks_sum * margin + 1) * al
+    hp = _pad_to(height, tile_h)
+    wp = _pad_to(width, tile_w)
+    tiles_y, tiles_x, strips, groups = binning.packed_grid(
+        hp, wp, tile_h, tile_w
+    )
+    nsid = tiles_y * tiles_x * strips * groups
+    work = nsid + int(jobs_sum * margin) + 8
+    return expand, budget, pool, work
