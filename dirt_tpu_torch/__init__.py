@@ -6,20 +6,24 @@ It keeps ``dirt_tpu``'s module layout and names; ``dirt_tpu`` stays the
 reference the port's tests hold it to. The package imports torch and
 numpy, never jax.
 
-Ported so far: the packed engine's forward path (clipping, triangle setup,
-packed binning, the packed raster kernel in CUDA for sm_90a with a plain
-PyTorch version for CPU tensors) and count-then-allocate caps.
+Ported so far: the packed engine, forward and backward (clipping,
+triangle setup, packed binning, and three CUDA kernels for sm_90a — the
+packed raster, the backward's neighbor prologue and the fused packed
+backward — each with a plain PyTorch version for CPU tensors), and
+count-then-allocate caps.
 """
 
 from dirt_tpu_torch.ops.raster import RasterConfig
 from dirt_tpu_torch.rasterise_ops import (
     rasterise,
+    rasterise_batch,
     rasterise_with_aux,
     suggest_raster_config,
 )
 
 __all__ = [
     "rasterise",
+    "rasterise_batch",
     "rasterise_with_aux",
     "suggest_raster_config",
     "RasterConfig",

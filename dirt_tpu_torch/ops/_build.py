@@ -4,7 +4,8 @@ Each ``dirt_tpu_torch/csrc/<name>.cu`` exposes a plain C entry point and is
 compiled on first use, on the machine with the card, into
 ``build/dirt_tpu_torch/lib<name>_<hash>.so`` under the checkout root. The
 hash covers the source and the compiler flags, so an edited source
-rebuilds and an unchanged one loads the library already built. A missing
+rebuilds and an unchanged one loads the library already built;
+:func:`build` compiles several sources at once, one nvcc each. A missing
 ``nvcc`` or a failed build raises with the compiler's output; nothing is
 downloaded.
 
@@ -22,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
@@ -54,24 +56,57 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
+def build(names) -> dict:
+    """Build every library of ``names`` not built yet, one nvcc each, all
+    started together; raises with the compiler's output if one fails.
+
+    Returns, for each library built here, the seconds from the start of
+    the builds to its nvcc's exit.
+    """
+    start = time.perf_counter()
+    jobs = {}
+    for name in dict.fromkeys(names):
+        out = library_path(name)
+        if out.exists():
+            continue
+        if not jobs:
+            nvcc = find_nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        # The compiler writes to a file, not a pipe, so a long error
+        # report cannot block it while the others are polled.
+        log = Path(f"{tmp}.log")
+        with log.open("w") as sink:
+            proc = subprocess.Popen(cmd, stdout=sink,
+                                    stderr=subprocess.STDOUT)
+        jobs[name] = (out, tmp, log, cmd, proc)
+    seconds, failed = {}, []
+    while jobs:
+        for name, (out, tmp, log, cmd, proc) in list(jobs.items()):
+            if proc.poll() is None:
+                continue
+            seconds[name] = time.perf_counter() - start
+            del jobs[name]
+            text = log.read_text()
+            log.unlink()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed building {name} (exit "
+                              f"{proc.returncode}):\n{' '.join(cmd)}\n{text}")
+                continue
+            Path(f"{out}.log").write_text(text)
+            os.replace(tmp, out)
+        time.sleep(0.01)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
-    out = library_path(name)
-    if not out.exists():
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed building {name} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
-        Path(f"{out}.log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    return ctypes.CDLL(str(out))
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))
 
 
 def build_log(name: str) -> str:

@@ -12,6 +12,12 @@ parameter ``t`` per crossing edge, so gradients flow through the seam.
 
 Every branch is computed for every face with guarded denominators and
 then selected, so discarded branches stay finite.
+
+Gradients come from autograd's own backward of these plain torch ops; the
+compaction's gathers (``[idx]``) reduce through the ``index`` backward's
+scatter-add. The JAX package wraps its compaction in a rank-gather custom
+VJP (``dirt_tpu/ops/clipping.py:187-223``) only because scatter-add is slow
+on a TPU; it has no counterpart here.
 """
 
 from __future__ import annotations

@@ -1,17 +1,17 @@
 """The rasterization op: forward pipeline, autograd Function, caps.
 
-Counterpart of ``dirt_tpu/ops/raster.py``, forward half. The op takes
-*screen-space* face vertex data ``[F, 3, 4]`` (x_s, y_s, z_ndc, 1/w) and
-per-face vertex attributes ``[F, 3, C]``; everything upstream (vertex
-gather, clipping, clip -> screen transform, camera) is ordinary
-differentiable PyTorch.
+Counterpart of ``dirt_tpu/ops/raster.py``. The op takes *screen-space*
+face vertex data ``[F, 3, 4]`` (x_s, y_s, z_ndc, 1/w) and per-face vertex
+attributes ``[F, 3, C]``; everything upstream (vertex gather, clipping,
+clip -> screen transform, camera) is ordinary differentiable PyTorch.
 
-Ported so far: the packed engine's forward (setup -> packed binning ->
-face table -> ``raster_fwd.raster_forward_packed``), ``RasterConfig``,
-engine resolution, and the count-then-allocate helpers
-(``suggest_config``, ``count_bins_exact``, ``count_packed_exact``). The
-dense and CSR engines and the backward are not ported yet and raise
-``NotImplementedError``.
+Ported so far: the packed engine, forward (setup -> packed binning ->
+face table -> ``raster_fwd.raster_forward_packed``) and backward
+(``packed_bwd.backward_packed``, chained through ``setup_planes`` by
+autograd), ``RasterConfig``, engine resolution, and the
+count-then-allocate helpers (``suggest_config``, ``count_bins_exact``,
+``count_packed_exact``). The dense and CSR engines are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from dirt_tpu_torch import config as cfg
-from dirt_tpu_torch.ops import binning, raster_fwd
+from dirt_tpu_torch.ops import binning, packed_bwd, raster_fwd
 from dirt_tpu_torch.ops.triangle_setup import (
     edge_filter_cols,
     face_bbox_cols,
@@ -159,6 +159,7 @@ def prepare_packed(face_verts_screen, face_attrs, background, config):
 
 
 def _forward_impl(face_verts_screen, face_attrs, background, config):
+    """(pixels, fid, zbuf, bins, concrete config) of the packed forward."""
     height, width, _ = background.shape
     table2, bins, bg_chw, config = prepare_packed(
         face_verts_screen, face_attrs, background, config
@@ -168,27 +169,65 @@ def _forward_impl(face_verts_screen, face_attrs, background, config):
         rows=bins.rows,
     )
     pixels = pixels_chw.permute(1, 2, 0)[:height, :width]
-    return pixels, fid[:height, :width], zbuf[:height, :width], bins
+    return pixels, fid[:height, :width], zbuf[:height, :width], bins, config
 
 
 class _RasterizeScreen(torch.autograd.Function):
-    """Forward of the raster op; the backward is the next slice."""
+    """The raster op: packed forward, packed backward.
+
+    Counterpart of ``dirt_tpu.ops.raster``'s custom VJP (``_fwd`` and
+    ``_bwd``). The forward keeps the screen-space faces, the outputs and
+    the bins (with the gathered entry rows and the pool backpointers) for
+    the backward, which recomputes the plane coefficients under autograd
+    and chains the packed backward's plane cotangents through them.
+    """
 
     @staticmethod
     def forward(ctx, face_verts_screen, face_attrs, background, config):
-        pixels, fid, zbuf, bins = _forward_impl(
+        pixels, fid, zbuf, bins, config = _forward_impl(
             face_verts_screen, face_attrs, background, config
         )
         ctx.mark_non_differentiable(fid, zbuf, bins.overflow)
+        ctx.save_for_backward(face_verts_screen.detach(),
+                              face_attrs.detach(), pixels, fid, zbuf)
+        ctx.bins = bins
+        ctx.config = config
         return pixels, fid, zbuf, bins.overflow
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "rasterize_screen's backward (raster_bwd.py, packed_bwd.py: "
-            "kernels K2, K3) is ported in the next PR (ROADMAP Queue 1 "
-            "items 6-7)"
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_pixels, *_):
+        fv, fa, pixels, fid, zbuf = ctx.saved_tensors
+        need_fv, need_fa, need_bg, _ = ctx.needs_input_grad
+        d_bg = (torch.where((fid >= 0)[..., None], 0.0, grad_pixels)
+                if need_bg else None)
+        if not (need_fv or need_fa):
+            return None, None, d_bg, None
+        config = ctx.config
+        height, width = fid.shape
+        num_faces = fv.shape[0]
+        expand, _ = _packed_caps(config, num_faces,
+                                 _pad_to(height, config.tile_h),
+                                 _pad_to(width, config.tile_w))
+        with torch.enable_grad():
+            fv = fv.detach().requires_grad_(need_fv)
+            fa = fa.detach().requires_grad_(need_fa)
+            geo, att, _ = setup_planes(fv, fa)
+        d_geo, d_att, _ = packed_bwd.backward_packed(
+            geo.detach(), att.detach(), fid, zbuf, pixels,
+            grad_pixels.contiguous(), ctx.bins, num_faces, config.tile_h,
+            config.tile_w, bmax=-(-expand // binning.POOL_ALIGN),
         )
+        outs = [(o, d) for o, d in ((geo, d_geo), (att, d_att))
+                if o.requires_grad]
+        wanted = [x for x, need in ((fv, need_fv), (fa, need_fa)) if need]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in outs], wanted, [d for _, d in outs],
+            allow_unused=True,
+        ))
+        d_fv = next(grads) if need_fv else None
+        d_fa = next(grads) if need_fa else None
+        return d_fv, d_fa, d_bg, None
 
 
 def rasterize_screen(face_verts_screen, face_attrs, background, config):

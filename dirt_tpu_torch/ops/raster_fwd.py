@@ -104,6 +104,18 @@ def raster_forward_packed(
     return _launch(rows, bins, background_chw, tile_h, tile_w)
 
 
+def check_tensor(name, arr, dtype, shape, device):
+    """Raise unless ``arr`` is a contiguous ``dtype`` tensor of ``shape``
+    on ``device`` (what a kernel's raw pointer needs)."""
+    if (arr.device != device or arr.dtype != dtype
+            or tuple(arr.shape) != tuple(shape) or not arr.is_contiguous()):
+        raise ValueError(
+            f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
+            f"got {'' if arr.is_contiguous() else 'non-contiguous '}"
+            f"{arr.dtype} {tuple(arr.shape)} on {arr.device}"
+        )
+
+
 def _check_geometry(background_chw, tile_h: int, tile_w: int):
     channels, hp, wp = background_chw.shape
     if tile_w != GROUPS * SUB_W:
@@ -115,6 +127,24 @@ def _check_geometry(background_chw, tile_h: int, tile_w: int):
         raise ValueError(f"image {hp}x{wp} is not padded to {tile_h}x"
                          f"{tile_w} tiles")
     return channels, hp, wp
+
+
+def check_meta(bins: PackedBins, total: int, strips: int, device):
+    """The per-tile and per-strip int32 fields a packed kernel reads."""
+    for name, n in (("start_block", total), ("n_iters", total),
+                    ("iter_off", total * strips),
+                    ("strip_iters", total * strips)):
+        check_tensor(name, getattr(bins, name), torch.int32, (n,), device)
+
+
+def check_rows(rows, bins: PackedBins, channels: int, device):
+    """The gathered entry rows: [budget_rows, >= COL_ATT + 3C] float32."""
+    min_width = COL_ATT + 3 * channels
+    if rows.ndim != 2 or rows.shape[1] < min_width:
+        raise ValueError(f"rows: want [budget_rows, >= {min_width}], got "
+                         f"{tuple(rows.shape)}")
+    check_tensor("rows", rows, torch.float32,
+                 (bins.entries.shape[0], rows.shape[1]), device)
 
 
 @functools.cache
@@ -136,27 +166,10 @@ def _launch(rows, bins, background_chw, tile_h, tile_w):
     device = background_chw.device
     total = (hp // tile_h) * (wp // tile_w)
     strips = tile_h // SUB_H
-    meta = {
-        "start_block": (bins.start_block, total),
-        "n_iters": (bins.n_iters, total),
-        "iter_off": (bins.iter_off, total * strips),
-        "strip_iters": (bins.strip_iters, total * strips),
-    }
-    for name, (arr, n) in meta.items():
-        if (arr.device != device or arr.dtype != torch.int32
-                or arr.shape != (n,) or not arr.is_contiguous()):
-            raise ValueError(
-                f"{name}: want contiguous int32 [{n}] on {device}, got "
-                f"{arr.dtype} {tuple(arr.shape)} on {arr.device}"
-            )
-    for name, arr in (("rows", rows), ("background", background_chw)):
-        if (arr.device != device or arr.dtype != torch.float32
-                or not arr.is_contiguous()):
-            raise ValueError(f"{name}: want contiguous float32 on {device}")
-    min_width = COL_ATT + 3 * channels
-    if rows.ndim != 2 or rows.shape[1] < min_width:
-        raise ValueError(f"rows: want [budget_rows, >= {min_width}], got "
-                         f"{tuple(rows.shape)}")
+    check_meta(bins, total, strips, device)
+    check_rows(rows, bins, channels, device)
+    check_tensor("background", background_chw, torch.float32,
+                 (channels, hp, wp), device)
 
     pix = torch.empty((channels, hp, wp), dtype=torch.float32, device=device)
     fid = torch.empty((hp, wp), dtype=torch.int32, device=device)

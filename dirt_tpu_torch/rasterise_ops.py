@@ -2,7 +2,10 @@
 
 Counterpart of ``dirt_tpu/rasterise_ops.py``: ``rasterise`` renders one
 mesh, ``rasterise_with_aux`` also returns face ids, depth and the overflow
-flag, and ``suggest_raster_config`` measures caps that cannot overflow.
+flag, ``rasterise_batch`` renders a batch of views of one mesh, and
+``suggest_raster_config`` measures caps that cannot overflow. All three
+renderers are differentiable with respect to background, vertices and
+vertex colors.
 Vertices are OpenGL-style clip-space homogeneous coordinates ``[V, 4]``;
 ``vertex_colors`` may carry any number of channels; ``faces`` is an
 ``[F, 3]`` integer triangle list. Everything runs on the device of
@@ -153,6 +156,30 @@ def rasterise_with_aux(
         background, vertices, vertex_colors, faces,
         config or RasterConfig(), clip,
     )
+
+
+def rasterise_batch(
+    background, vertices, vertex_colors, faces,
+    height=None, width=None, channels=None,
+    config: RasterConfig | None = None, clip: bool = True,
+):
+    """Batched rasterization over the leading dim of background, vertices
+    and vertex_colors (multi-view fitting).
+
+    ``faces`` is shared across the batch. Scenes render one after another
+    (a single render already fills the card) and the images are stacked:
+    [B, H, W, C]. ``background`` None means zeros of the given size.
+    """
+    vertices, vertex_colors, faces = _as_inputs(vertices, vertex_colors,
+                                                faces)
+    if background is None:
+        background = _resolve_background(
+            None, height, width, channels, vertices.device
+        ).expand(vertices.shape[0], -1, -1, -1)
+    return torch.stack([
+        rasterise(bg, verts, colors, faces, config=config, clip=clip)
+        for bg, verts, colors in zip(background, vertices, vertex_colors)
+    ])
 
 
 def suggest_raster_config(
