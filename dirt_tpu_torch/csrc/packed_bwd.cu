@@ -20,10 +20,13 @@
 // strip are [iter_off, iter_off + strip_iters), clamped to the tile's
 // n_iters (which drops chunks past the tile's content) and to the chunk
 // slice [c_lo, c_hi).
-//   pass 1: each thread finds its owner, evaluates the cotangent core (the
-//           expressions of raster_bwd.pixel_cotangents_core, in the same
-//           order) and stages its 12 + 3C values and its owner in dynamic
-//           shared memory (~88 KB at C = 3);
+//   pass 1: each thread finds its owner, evaluates the cotangent core
+//           (cotangent_core.cuh: the expressions of
+//           raster_bwd.pixel_cotangents_core, in the same order) and stages
+//           its 12 + 3C values and its owner in dynamic shared memory
+//           (1024 * (13 + 3C) floats: 88 KB at C = 3, 160 KB at C = 9; the
+//           card's opt-in shared memory per block caps C, see
+//           packed_bwd.max_channels);
 //   pass 2: one thread per (live row, column) sums that column over the
 //           row's group pixels it owns, in the subtile's row-major pixel
 //           order, and writes it. The fixed order makes the kernel
@@ -41,6 +44,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cotangent_core.cuh"
+
 namespace {
 
 constexpr int SUB_H = 8;
@@ -52,7 +57,6 @@ constexpr int PACK_CHUNK = PACK_ITERS * GROUPS;
 constexpr int THREADS = SUB_H * TILE_W;       // 1024
 constexpr int COL_ID = 17;
 constexpr int STAGE = 128;                    // iterations per id stage
-constexpr float A_EPS = 1e-12f;
 
 __global__ void __launch_bounds__(THREADS)
 packed_bwd_kernel(
@@ -118,73 +122,8 @@ packed_bwd_kernel(
     float* my = cot + tid * k_cols;
     const float dx = ((float)x + 0.5f) - m[0];
     const float dy = ((float)y + 0.5f) - m[1];
-
-    // Interior term.
-    const float den = m[14] * dx + m[15] * dy + m[16];
-    const float recip = 1.0f / den;
-    float s_acc = 0.0f;
-    for (int ch = 0; ch < channels; ++ch) {
-      const float g_c = grad[ch * plane + p];
-      const float w_c = g_c * recip;
-      my[12 + 3 * ch] = w_c * dx;
-      my[13 + 3 * ch] = w_c * dy;
-      my[14 + 3 * ch] = w_c;
-      s_acc = s_acc + g_c * pix[ch * plane + p];
-    }
-    const float t_den = -recip * s_acc;
-    my[9] = t_den * dx;
-    my[10] = t_den * dy;
-    my[11] = t_den;
-
-    // Boundary term: boundary_cases() = right, left, below, above.
-    float a_e[3], b_e[3], e_own[3], acc[3][3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      a_e[j] = m[2 + 3 * j];
-      b_e[j] = m[3 + 3 * j];
-      e_own[j] = a_e[j] * dx + b_e[j] * dy + m[4 + 3 * j];
-      acc[j][0] = acc[j][1] = acc[j][2] = 0.0f;
-    }
-    const int pair_bits = bits[p];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const bool horizontal = n < 2;
-      const float off = (n == 0 || n == 2) ? 1.0f : -1.0f;
-      const bool active = (pair_bits >> n) & 1;
-      const float s_val = sval[n * plane + p];
-      bool chosen = false;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float a_j = a_e[j], b_j = b_e[j], e_j = e_own[j];
-        const float slope = horizontal ? a_j : b_j;
-        const float e_back = e_j + off * slope;
-        const bool crossing = e_j >= 0.0f && e_back < 0.0f && !chosen;
-        chosen = chosen || crossing;
-        const float denom = fabsf(a_j) + fabsf(b_j);
-        const float d_own = horizontal ? dx : dy;
-        const bool guard = fabsf(slope) >= A_EPS;
-        const float safe = guard ? slope : 1.0f;
-        const float coord = d_own - e_j / safe;
-        const float d_back = d_own + off;
-        const float lo_c = fminf(d_own, d_back);
-        const float hi_c = fmaxf(d_own, d_back);
-        const float cross = fminf(fmaxf(coord, lo_c), hi_c);
-        const float v0 = horizontal ? cross : dx;
-        const float v1 = horizontal ? dy : cross;
-        const float scale = (active && crossing && guard && denom >= A_EPS)
-                                ? s_val / fmaxf(denom, A_EPS)
-                                : 0.0f;
-        acc[j][0] = acc[j][0] + scale * v0;
-        acc[j][1] = acc[j][1] + scale * v1;
-        acc[j][2] = acc[j][2] + scale;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      my[3 * j] = acc[j][0];
-      my[3 * j + 1] = acc[j][1];
-      my[3 * j + 2] = acc[j][2];
-    }
+    dirt::pixel_cotangents(m, dx, dy, channels, grad, pix, plane, p, bits[p],
+                           sval, [my](int k, float v) { my[k] = v; });
   }
   __syncthreads();
 

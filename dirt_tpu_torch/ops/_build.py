@@ -3,8 +3,10 @@
 Each ``dirt_tpu_torch/csrc/<name>.cu`` exposes a plain C entry point and is
 compiled on first use, on the machine with the card, into
 ``build/dirt_tpu_torch/lib<name>_<hash>.so`` under the checkout root. The
-hash covers the source and the compiler flags, so an edited source
-rebuilds and an unchanged one loads the library already built;
+hash covers the source, every header it includes from ``csrc/`` (such as
+``cotangent_core.cuh``, shared by the two backward kernels) and the
+compiler flags, so an edited source or header rebuilds what uses it and an
+unchanged one loads the library already built;
 :func:`build` compiles several sources at once, one nvcc each. A missing
 ``nvcc`` or a failed build raises with the compiler's output; nothing is
 downloaded.
@@ -21,6 +23,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -49,9 +52,28 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list:
+    """``csrc/<name>.cu`` and every file of ``csrc/`` it includes with
+    ``#include "..."``, directly or through another header."""
+    files, queue = [], [CSRC_DIR / f"{name}.cu"]
+    while queue:
+        path = queue.pop()
+        if path in files:
+            continue
+        files.append(path)
+        for header in _INCLUDE.findall(path.read_bytes()):
+            candidate = CSRC_DIR / header.decode()
+            if candidate.is_file():
+                queue.append(candidate)
+    return files
+
+
 def library_path(name: str) -> Path:
     """Where the built library of ``csrc/<name>.cu`` lives."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src = b"".join(path.read_bytes() for path in source_files(name))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -1,7 +1,9 @@
-"""Packed-subtile tile binning (PyTorch, static caps).
+"""Tile binning (PyTorch, static caps): packed-subtile and dense bins.
 
-Counterpart of the packed half of ``dirt_tpu/ops/binning.py``
-(``PackedBins`` .. ``bin_faces_packed``). Sorts, scans and scatters are
+Counterpart of ``dirt_tpu/ops/binning.py``: the packed half
+(``PackedBins`` .. ``bin_faces_packed``) and the dense engine's
+``BinningResult`` / ``bin_faces`` (at the end of the module); the CSR bins
+come with their engine. Sorts, scans and scatters are
 plain torch ops; the layout, the static caps and the overflow flag are
 exactly the JAX package's, and the tests hold every integer field to it.
 
@@ -451,3 +453,62 @@ def bin_faces_packed(
         pair_rows=pair_rows,
         pool_offs=pool_offs,
     )
+
+
+# --- dense whole-tile bins -------------------------------------------------
+
+
+class BinningResult(NamedTuple):
+    """Per-tile face lists of the dense engine (``bin_faces``)."""
+
+    bins: torch.Tensor      # [num_tiles, cap] int32, face index or F (sentinel)
+    counts: torch.Tensor    # [num_tiles] int32, clamped to cap
+    overflow: torch.Tensor  # [num_tiles] bool, True where count exceeded cap
+
+
+def bin_faces(bbox, height: int, width: int, tile_h: int, tile_w: int,
+              cap: int) -> BinningResult:
+    """Bin faces by conservative bbox/tile overlap (dense engine).
+
+    A [num_tiles, F] overlap matrix, each row left-compacted into the first
+    ``cap`` overlapping face ids in ascending order (the order the raster
+    kernel's depth-tie rule needs); slots past a tile's count hold the
+    sentinel ``F``. Supports faces of any screen size.
+
+    Args:
+        bbox: [F, 4] int32 (xmin, xmax, ymin, ymax) inclusive pixel indices,
+            or the four columns as a tuple; empty boxes have max < min.
+    """
+    if isinstance(bbox, (tuple, list)):
+        bxmin, bxmax, bymin, bymax = (torch.as_tensor(c).to(_I64)
+                                      for c in bbox)
+    else:
+        bxmin, bxmax, bymin, bymax = torch.as_tensor(bbox).to(_I64).unbind(1)
+    device = bxmin.device
+    nf = bxmin.shape[0]
+    tiles_y, tiles_x = num_tiles(height, width, tile_h, tile_w)
+    total = tiles_y * tiles_x
+
+    def fdiv(a, b):
+        return torch.div(a, b, rounding_mode="floor")
+
+    txmin, txmax = fdiv(bxmin, tile_w), fdiv(bxmax, tile_w)
+    tymin, tymax = fdiv(bymin, tile_h), fdiv(bymax, tile_h)
+    tile_ids = torch.arange(total, dtype=_I64, device=device)
+    tx = (tile_ids % tiles_x)[:, None]
+    ty = (tile_ids // tiles_x)[:, None]
+    overlap = ((txmin[None, :] <= tx) & (tx <= txmax[None, :])
+               & (tymin[None, :] <= ty) & (ty <= tymax[None, :]))  # [T, F]
+
+    raw_counts = overlap.sum(dim=1)
+    overflow = raw_counts > cap
+    counts = torch.clamp(raw_counts, max=cap).to(_I32)
+
+    # A key positive exactly on overlaps and decreasing in face index: its
+    # ``cap`` largest entries per row, in descending key order, are the first
+    # ``cap`` overlapping ids in ascending order.
+    face_ids = torch.arange(nf, dtype=_I64, device=device)[None, :]
+    key = torch.where(overlap, nf - face_ids, 0)
+    val, idx = torch.topk(key, cap, dim=1, sorted=True)
+    bins = torch.where(val > 0, idx, nf).to(_I32)
+    return BinningResult(bins=bins, counts=counts, overflow=overflow)

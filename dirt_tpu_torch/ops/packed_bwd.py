@@ -68,12 +68,24 @@ from dirt_tpu_torch.ops.triangle_setup import GEO_USED
 LAUNCHES_PROLOGUE = 0
 LAUNCHES_BWD = 0
 
-# Channels the backward kernel takes (its per-pixel cotangent rows of
-# 12 + 3C floats are staged in shared memory: 147 KB at C = 8).
-MAX_CHANNELS = 8
+# Shared memory of one packed_bwd block: a static id stage (128 iterations
+# x 8 groups of floats) plus, per thread, the owner index and the 12 + 3C
+# cotangent columns.
+_BWD_THREADS = SUB_H * GROUPS * SUB_W
+_BWD_STATIC_SMEM = 128 * GROUPS * 4
 
 _PROLOGUE = "packed_prologue"
 _BWD = "packed_bwd"
+
+
+def max_channels(device=None) -> int:
+    """Channels the backward kernel takes on ``device`` (default: the
+    current CUDA device): what the card's opt-in shared memory per block
+    holds of its staging, 14 on an H100 (227 KB)."""
+    smem = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    floats = (smem - _BWD_STATIC_SMEM) // (4 * _BWD_THREADS)
+    return (floats - 13) // 3
 
 
 # --- K3: the neighbor prologue ------------------------------------------
@@ -365,10 +377,12 @@ def _launch_bwd(prep, rows, c_lo, c_hi):
     global LAUNCHES_BWD
     channels, tile_h = prep.channels, prep.tile_h
     _, hp, wp = _check_geometry(prep.pix_cf, tile_h, prep.tile_w)
-    if not 1 <= channels <= MAX_CHANNELS:
-        raise ValueError(f"packed_bwd kernel takes 1..{MAX_CHANNELS} "
-                         f"channels, got {channels}")
     device = prep.fid_p.device
+    cap = max_channels(device)
+    if not 1 <= channels <= cap:
+        raise ValueError(f"packed_bwd kernel takes 1..{cap} channels on "
+                         f"this card (shared memory per block), got "
+                         f"{channels}")
     bins = prep.bins
     check_meta(bins, (hp // tile_h) * (wp // prep.tile_w), tile_h // SUB_H,
                device)

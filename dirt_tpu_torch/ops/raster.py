@@ -5,13 +5,15 @@ face vertex data ``[F, 3, 4]`` (x_s, y_s, z_ndc, 1/w) and per-face vertex
 attributes ``[F, 3, C]``; everything upstream (vertex gather, clipping,
 clip -> screen transform, camera) is ordinary differentiable PyTorch.
 
-Ported so far: the packed engine, forward (setup -> packed binning ->
-face table -> ``raster_fwd.raster_forward_packed``) and backward
-(``packed_bwd.backward_packed``, chained through ``setup_planes`` by
-autograd), ``RasterConfig``, engine resolution, and the
+Ported so far: the packed engine (setup -> packed binning -> face table
+-> ``raster_fwd.raster_forward_packed``; backward
+``packed_bwd.backward_packed``) and the dense whole-tile engine (setup ->
+``binning.bin_faces`` -> ``raster_fwd.raster_forward``; backward
+``raster_bwd.backward_fused``), both chained through ``setup_planes`` by
+autograd, ``RasterConfig``, engine resolution, ``resolve_bin_cap`` and the
 count-then-allocate helpers (``suggest_config``, ``count_bins_exact``,
-``count_packed_exact``). The dense and CSR engines are not ported yet
-and raise ``NotImplementedError``.
+``count_packed_exact``). The CSR (streaming) engine is not ported yet and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from dirt_tpu_torch import config as cfg
-from dirt_tpu_torch.ops import binning, packed_bwd, raster_fwd
+from dirt_tpu_torch.ops import binning, packed_bwd, raster_bwd, raster_fwd
 from dirt_tpu_torch.ops.triangle_setup import (
     edge_filter_cols,
     face_bbox_cols,
@@ -29,21 +31,23 @@ from dirt_tpu_torch.ops.triangle_setup import (
     setup_planes,
 )
 
-_NOT_PORTED = {
-    "dense": "the dense engine (raster_fwd._fwd_kernel, fused_bwd) is "
-             "ported in a later PR (ROADMAP Queue 1 item 12)",
-    "csr": "the CSR engine (raster_fwd._fwd_csr_kernel, fused_bwd) is "
-           "ported in a later PR (ROADMAP Queue 1 item 13)",
-}
+_CSR_NOT_PORTED = (
+    "the CSR (streaming) engine (raster_fwd._fwd_csr_kernel, "
+    "fused_bwd._fused_csr_kernel) is ported in a later PR (ROADMAP Queue 1 "
+    "item 13)"
+)
 
 
 class RasterConfig(NamedTuple):
     """Static kernel configuration (same fields as ``dirt_tpu``'s).
 
-    ``engine``: ``"packed"`` (8x16-subtile engine; the only one ported),
-    ``"dense"``, ``"csr"`` or ``"auto"`` (packed for >= PACKED_MIN_FACES
-    faces, dense below). ``expand_cap`` caps the subtiles one face may
-    overlap; ``budget`` is the packed engine's iteration budget;
+    ``engine``: ``"packed"`` (8x16-subtile engine), ``"dense"`` (whole-tile
+    engine, faces of any screen size), ``"csr"`` (not ported yet) or
+    ``"auto"`` (packed for >= PACKED_MIN_FACES faces, dense below).
+    ``bin_cap`` caps the faces per tile of the dense engine (None: a
+    multiple of the mean density, ``resolve_bin_cap``); ``expand_cap`` caps
+    the subtiles one face may overlap; ``budget`` is the packed engine's
+    iteration budget;
     ``clip_cap`` the near-plane clip's secondary slots; ``pool_cap`` the
     packed binning's candidate pool; ``work_cap`` its live-prefix cap.
     None means auto. Auto caps are overflow-flagged, never silent;
@@ -102,6 +106,24 @@ def _pad_to(value: int, multiple: int) -> int:
     return -(-value // multiple) * multiple
 
 
+def resolve_bin_cap(config: RasterConfig, num_faces: int,
+                    num_tiles: int) -> int:
+    """Per-tile face cap of the dense engine: explicit, or a multiple of
+    the mean density.
+
+    Mean binned faces per tile is about F * overlap / T; hot tiles (mesh
+    silhouettes, dense regions) run several times the mean, so the cap
+    takes an 8x margin. Overflow is reported, never silent. The cap never
+    exceeds the face count.
+    """
+    if config.bin_cap is not None:
+        cap = config.bin_cap
+    else:
+        mean = -(-2 * num_faces // max(num_tiles, 1))
+        cap = max(cfg.DEFAULT_BIN_CAP, 8 * mean)
+    return max(min(cap, max(num_faces, 1)), 1)
+
+
 def _packed_caps(config: RasterConfig, num_faces: int, hp: int, wp: int):
     """(expand, budget) of the packed engine: explicit or auto."""
     tiles_y, tiles_x, strips, groups = binning.packed_grid(
@@ -113,6 +135,57 @@ def _packed_caps(config: RasterConfig, num_faces: int, hp: int, wp: int):
         num_faces, hp, wp, config.tile_h, config.tile_w, expand
     )
     return expand, budget
+
+
+def _padded_background(background, tile_h: int, tile_w: int):
+    """[H, W, C] -> contiguous [C, Hp, Wp] f32 padded to whole tiles."""
+    height, width, _ = background.shape
+    bg_chw = torch.as_tensor(background, dtype=torch.float32).permute(2, 0, 1)
+    return torch.nn.functional.pad(
+        bg_chw, (0, _pad_to(width, tile_w) - width,
+                 0, _pad_to(height, tile_h) - height)
+    ).contiguous()
+
+
+class DenseBins(NamedTuple):
+    """What the dense forward leaves for its backward: ``binning.bin_faces``'
+    result and the boxes it was made from."""
+
+    bins: torch.Tensor      # [T, cap] int32 ascending ids, sentinel F
+    counts: torch.Tensor    # [T] int32
+    overflow: torch.Tensor  # [T] bool: the tile's list was cut at cap
+    bbox: torch.Tensor      # [F, 4] int32 (xmin, xmax, ymin, ymax)
+
+
+def prepare_dense(face_verts_screen, face_attrs, background, config):
+    """The dense forward up to the raster kernel.
+
+    Triangle setup, whole-tile binning and the face table. Returns (table
+    [Fp, 17 + 3C], DenseBins, background [C, Hp, Wp] padded to whole tiles,
+    the concrete config). More faces than ``STREAMING_FACES`` belong to the
+    streaming engine, as in ``dirt_tpu``.
+    """
+    height, width, _ = background.shape
+    config = config.concrete(height)
+    tile_h, tile_w = config.tile_h, config.tile_w
+    num_faces = face_verts_screen.shape[0]
+    if resolve_engine(config, num_faces) != "dense":
+        raise ValueError(f"prepare_dense needs the dense engine, got "
+                         f"{config} for {num_faces} faces")
+    if use_streaming(config, num_faces):
+        raise NotImplementedError(_CSR_NOT_PORTED)
+
+    geo, att, valid = setup_planes(face_verts_screen, face_attrs)
+    bbox = face_bboxes(face_verts_screen, valid, height, width).contiguous()
+    bg_chw = _padded_background(background, tile_h, tile_w)
+    hp, wp = bg_chw.shape[1:]
+    cap = resolve_bin_cap(config, num_faces,
+                          (hp // tile_h) * (wp // tile_w))
+    bins = binning.bin_faces(bbox, height, width, tile_h, tile_w, cap)
+    table = raster_fwd.pack_face_table(geo, att)
+    dense = DenseBins(bins.bins.contiguous(), bins.counts.contiguous(),
+                      bins.overflow, bbox)
+    return table, dense, bg_chw, config
 
 
 def prepare_packed(face_verts_screen, face_attrs, background, config):
@@ -127,20 +200,14 @@ def prepare_packed(face_verts_screen, face_attrs, background, config):
     config = config.concrete(height)
     tile_h, tile_w = config.tile_h, config.tile_w
     num_faces = face_verts_screen.shape[0]
-    engine = resolve_engine(config, num_faces)
-    if engine != "packed":
-        raise NotImplementedError(
-            _NOT_PORTED.get(engine, f"unknown engine {engine!r}")
-        )
+    if resolve_engine(config, num_faces) != "packed":
+        raise ValueError(f"prepare_packed needs the packed engine, got "
+                         f"{config} for {num_faces} faces")
 
     geo, att, valid = setup_planes(face_verts_screen, face_attrs)
     bbox = face_bbox_cols(face_verts_screen, valid, height, width)
-
-    hp, wp = _pad_to(height, tile_h), _pad_to(width, tile_w)
-    bg_chw = torch.as_tensor(background, dtype=torch.float32).permute(2, 0, 1)
-    bg_chw = torch.nn.functional.pad(
-        bg_chw, (0, wp - width, 0, hp - height)
-    ).contiguous()
+    bg_chw = _padded_background(background, tile_h, tile_w)
+    hp, wp = bg_chw.shape[1:]
 
     expand, budget = _packed_caps(config, num_faces, hp, wp)
     edges = edge_filter_cols(face_verts_screen)
@@ -159,27 +226,46 @@ def prepare_packed(face_verts_screen, face_attrs, background, config):
 
 
 def _forward_impl(face_verts_screen, face_attrs, background, config):
-    """(pixels, fid, zbuf, bins, concrete config) of the packed forward."""
+    """(pixels, fid, zbuf, bins, concrete config) of the forward.
+
+    ``bins`` is the engine's own record (PackedBins or DenseBins); both
+    carry ``overflow`` flags (packed: 0-dim, dense: per tile).
+    """
     height, width, _ = background.shape
-    table2, bins, bg_chw, config = prepare_packed(
-        face_verts_screen, face_attrs, background, config
-    )
-    pixels_chw, fid, zbuf = raster_fwd.raster_forward_packed(
-        table2, bins, bg_chw, tile_h=config.tile_h, tile_w=config.tile_w,
-        rows=bins.rows,
-    )
+    engine = resolve_engine(config, face_verts_screen.shape[0])
+    if engine == "packed":
+        table2, bins, bg_chw, config = prepare_packed(
+            face_verts_screen, face_attrs, background, config
+        )
+        pixels_chw, fid, zbuf = raster_fwd.raster_forward_packed(
+            table2, bins, bg_chw, tile_h=config.tile_h, tile_w=config.tile_w,
+            rows=bins.rows,
+        )
+    elif engine == "dense":
+        table, bins, bg_chw, config = prepare_dense(
+            face_verts_screen, face_attrs, background, config
+        )
+        pixels_chw, fid, zbuf = raster_fwd.raster_forward(
+            table, bins.bins, bins.counts, bg_chw, tile_h=config.tile_h,
+            tile_w=config.tile_w,
+        )
+    elif engine == "csr":
+        raise NotImplementedError(_CSR_NOT_PORTED)
+    else:
+        raise ValueError(f"unknown engine {engine!r}")
     pixels = pixels_chw.permute(1, 2, 0)[:height, :width]
     return pixels, fid[:height, :width], zbuf[:height, :width], bins, config
 
 
 class _RasterizeScreen(torch.autograd.Function):
-    """The raster op: packed forward, packed backward.
+    """The raster op: forward and backward of the resolved engine.
 
     Counterpart of ``dirt_tpu.ops.raster``'s custom VJP (``_fwd`` and
     ``_bwd``). The forward keeps the screen-space faces, the outputs and
-    the bins (with the gathered entry rows and the pool backpointers) for
-    the backward, which recomputes the plane coefficients under autograd
-    and chains the packed backward's plane cotangents through them.
+    the engine's bins (packed: with the gathered entry rows and the pool
+    backpointers; dense: the per-tile lists and the boxes) for the
+    backward, which recomputes the plane coefficients under autograd and
+    chains the engine's plane cotangents through them.
     """
 
     @staticmethod
@@ -187,12 +273,13 @@ class _RasterizeScreen(torch.autograd.Function):
         pixels, fid, zbuf, bins, config = _forward_impl(
             face_verts_screen, face_attrs, background, config
         )
-        ctx.mark_non_differentiable(fid, zbuf, bins.overflow)
+        overflow = torch.any(bins.overflow)
+        ctx.mark_non_differentiable(fid, zbuf, overflow)
         ctx.save_for_backward(face_verts_screen.detach(),
                               face_attrs.detach(), pixels, fid, zbuf)
         ctx.bins = bins
         ctx.config = config
-        return pixels, fid, zbuf, bins.overflow
+        return pixels, fid, zbuf, overflow
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -206,18 +293,26 @@ class _RasterizeScreen(torch.autograd.Function):
         config = ctx.config
         height, width = fid.shape
         num_faces = fv.shape[0]
-        expand, _ = _packed_caps(config, num_faces,
-                                 _pad_to(height, config.tile_h),
-                                 _pad_to(width, config.tile_w))
         with torch.enable_grad():
             fv = fv.detach().requires_grad_(need_fv)
             fa = fa.detach().requires_grad_(need_fa)
             geo, att, _ = setup_planes(fv, fa)
-        d_geo, d_att, _ = packed_bwd.backward_packed(
-            geo.detach(), att.detach(), fid, zbuf, pixels,
-            grad_pixels.contiguous(), ctx.bins, num_faces, config.tile_h,
-            config.tile_w, bmax=-(-expand // binning.POOL_ALIGN),
-        )
+        bins = ctx.bins
+        if isinstance(bins, DenseBins):
+            d_geo, d_att, _ = raster_bwd.backward_fused(
+                geo.detach(), att.detach(), fid, zbuf, pixels,
+                grad_pixels.contiguous(), bins.bins, bins.counts,
+                config.tile_h, config.tile_w, bbox=bins.bbox,
+            )
+        else:
+            expand, _ = _packed_caps(config, num_faces,
+                                     _pad_to(height, config.tile_h),
+                                     _pad_to(width, config.tile_w))
+            d_geo, d_att, _ = packed_bwd.backward_packed(
+                geo.detach(), att.detach(), fid, zbuf, pixels,
+                grad_pixels.contiguous(), bins, num_faces, config.tile_h,
+                config.tile_w, bmax=-(-expand // binning.POOL_ALIGN),
+            )
         outs = [(o, d) for o, d in ((geo, d_geo), (att, d_att))
                 if o.requires_grad]
         wanted = [x for x, need in ((fv, need_fv), (fa, need_fa)) if need]
@@ -252,6 +347,16 @@ def rasterize_screen(face_verts_screen, face_attrs, background, config):
         torch.as_tensor(background, dtype=torch.float32),
         config,
     )
+
+
+def check_bin_overflow(face_verts_screen, face_attrs, background, config):
+    """Per-tile overflow flags of the dense engine's binning for a scene
+    (diagnostics): True where a tile's list was cut at ``bin_cap``."""
+    return prepare_dense(
+        torch.as_tensor(face_verts_screen, dtype=torch.float32).detach(),
+        torch.as_tensor(face_attrs, dtype=torch.float32).detach(),
+        background, config,
+    )[1].overflow
 
 
 def count_bins_exact(bbox, height, width, tile_h, tile_w):

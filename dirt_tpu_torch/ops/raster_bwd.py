@@ -1,7 +1,8 @@
 """Backward pass: exact interior gradients + occlusion-aware edge gradients.
 
 Counterpart of the part of ``dirt_tpu/ops/raster_bwd.py`` that the packed
-engine's backward needs; see that module's docstring for the semantics:
+and dense engines' backwards need; see that module's docstring for the
+semantics:
 
 * interior: the gradient of ``num_plane / den_plane`` with respect to the
   plane coefficients at fixed coverage (exact; chained to the screen
@@ -16,9 +17,11 @@ reduction, from ``c_global = c0 - a*ax - b*ay`` (``anchor_cotangents``).
 
 :func:`backward_torch` is the reference's pure engine, per-pixel
 cotangents reduced onto faces, and the in-package oracle that the packed
-backward (``ops.packed_bwd``) is tested against. The dense, CSR and
-sharded engines (``backward_fused``, ``backward_fused_csr``,
-``backward_scatter*``, ``pack_cotangent_tiles``) come with their paths.
+backward (``ops.packed_bwd``) and the dense one are tested against.
+:func:`backward_fused` is the dense engine's backward (kernel
+``csrc/fused_bwd.cu`` through ``ops.fused_bwd``). The CSR and sharded
+engines (``backward_fused_csr``, ``backward_scatter*``,
+``pack_cotangent_tiles``) come with their paths.
 """
 
 from __future__ import annotations
@@ -313,4 +316,46 @@ def backward_torch(geo, att, fid, zbuf, pixels, grad_pixels, own_mask=None):
 
     d_geo = anchor_cotangents(geo, att, d_geo, d_att)
     d_background = torch.where(covered[..., None], 0.0, grad_pixels)
+    return d_geo, d_att, d_background
+
+
+def backward_fused(geo, att, fid, zbuf, pixels, grad_pixels, bins, counts,
+                   tile_h: int, tile_w: int, bbox=None):
+    """Dense-path backward: neighbor prologue + the fused kernel.
+
+    Same semantics and returns as :func:`backward_torch`. The image-space
+    fields are padded to whole tiles with fid -2 / BIG_Z / 0, so padding
+    neither owns cotangents nor pairs with true image-border pixels; the
+    boundary-pair bits and ``sval`` come from
+    ``packed_bwd.fused_neighbor_prologue`` on the padded arrays, and
+    ``fused_bwd.fused_backward_rows`` sums the per-pixel cotangents onto
+    the owning faces. ``bins`` / ``counts`` are the forward's
+    (``binning.bin_faces``), at any cap; ``bbox`` [F, 4] are the boxes they
+    were made from, which the kernel needs on CUDA tensors (see
+    ``fused_bwd``).
+    """
+    from dirt_tpu_torch.ops.fused_bwd import fused_backward_rows
+    from dirt_tpu_torch.ops.packed_bwd import fused_neighbor_prologue
+
+    geo = torch.as_tensor(geo, dtype=torch.float32)
+    att = torch.as_tensor(att, dtype=torch.float32)
+    num_faces = geo.shape[0]
+    channels = pixels.shape[-1]
+    height, width = fid.shape
+    hp = -(-height // tile_h) * tile_h
+    wp = -(-width // tile_w) * tile_w
+    pad2 = (0, wp - width, 0, hp - height)
+    pad = torch.nn.functional.pad
+    fid_p = pad(fid.to(torch.int32), pad2, value=-2).contiguous()
+    zbuf_p = pad(zbuf, pad2, value=BIG_Z).contiguous()
+    pix_cf = pad(pixels.permute(2, 0, 1), pad2).contiguous()
+    grad_cf = pad(grad_pixels.to(torch.float32).permute(2, 0, 1),
+                  pad2).contiguous()
+    bits, sval = fused_neighbor_prologue(fid_p, zbuf_p, pix_cf, grad_cf)
+    rows = fused_backward_rows(
+        geo.contiguous(), bins, counts, fid_p, bits, sval, pix_cf, grad_cf,
+        num_faces + 1, tile_h=tile_h, tile_w=tile_w, bbox=bbox,
+    )[:num_faces]
+    d_geo, d_att = assemble_face_gradients(geo, att, rows, channels)
+    d_background = torch.where((fid >= 0)[..., None], 0.0, grad_pixels)
     return d_geo, d_att, d_background

@@ -1,6 +1,12 @@
-"""Packed-engine forward: face table, CUDA kernel wrapper, plain version.
+"""Raster forward, packed and dense engines: face tables, CUDA kernel
+wrappers, plain versions.
 
-Counterpart of the packed half of ``dirt_tpu/ops/raster_fwd.py``.
+Counterpart of ``dirt_tpu/ops/raster_fwd.py`` (the CSR kernel comes with
+its engine). The dense whole-tile engine is at the end of the module:
+``pack_face_table``, ``raster_forward`` (kernel
+``csrc/raster_fwd_dense.cu`` for CUDA tensors, replacing ``_fwd_kernel``)
+and ``raster_forward_plain`` (CPU tensors).
+
 ``raster_forward_packed`` returns what the JAX function of that name
 returns — pixels [C, Hp, Wp], fid [Hp, Wp] and zbuf [Hp, Wp] in image
 layout — through one of two implementations of the same function:
@@ -44,8 +50,10 @@ COL_ATT = GEO_USED + 2     # 3 columns per channel
 # it launches, and nowhere else (the smoke script reads it to prove that
 # the main path went through the kernel).
 LAUNCHES = 0
+LAUNCHES_DENSE = 0
 
 _KERNEL = "raster_fwd_packed"
+_DENSE = "raster_fwd_dense"
 
 
 def packed_table_width(channels: int) -> int:
@@ -297,4 +305,205 @@ def raster_forward_packed_plain(
         _to_image(pix, tiles_y, tiles_x, strips),
         _to_image(fid, tiles_y, tiles_x, strips),
         _to_image(zb, tiles_y, tiles_x, strips),
+    )
+
+
+# --- dense whole-tile engine -------------------------------------------------
+
+
+def pack_face_table(geo, att):
+    """[Fp, GEO_USED + 3C] face table of the dense engine.
+
+    ``table[:F, :17]`` is geo's used columns and ``table[:F, 17:]`` is att.
+    One sentinel row follows (index F, the bin fill value: its edges exclude
+    every pixel and its denominator is 1), repeated so the row count is a
+    multiple of 8, as in ``dirt_tpu``.
+    """
+    num_faces = geo.shape[0]
+    table = torch.cat([geo[:, :GEO_USED], att], dim=1)
+    sentinel = torch.zeros((1, table.shape[1]), dtype=torch.float32,
+                           device=geo.device)
+    sentinel[0, 4] = -1.0
+    sentinel[0, 7] = -1.0
+    sentinel[0, 10] = -1.0
+    sentinel[0, 16] = 1.0
+    rows_padded = -(-(num_faces + 1) // 8) * 8
+    return torch.cat(
+        [table, sentinel.expand(rows_padded - num_faces, -1)], dim=0
+    )
+
+
+def _check_dense(table, bins, counts, background_chw, tile_h, tile_w):
+    channels, hp, wp = background_chw.shape
+    if hp % tile_h or wp % tile_w:
+        raise ValueError(f"image {hp}x{wp} is not padded to {tile_h}x"
+                         f"{tile_w} tiles")
+    total = (hp // tile_h) * (wp // tile_w)
+    if bins.ndim != 2 or bins.shape[0] != total or counts.shape != (total,):
+        raise ValueError(f"bins {tuple(bins.shape)} / counts "
+                         f"{tuple(counts.shape)} do not match {total} tiles")
+    if table.ndim != 2 or table.shape[1] != GEO_USED + 3 * channels:
+        raise ValueError(f"table: want [Fp, {GEO_USED + 3 * channels}], got "
+                         f"{tuple(table.shape)}")
+    return channels, hp, wp, total
+
+
+def raster_forward(table, bins, counts, background_chw, *, tile_h: int,
+                   tile_w: int):
+    """Dense forward: every tile scan-converts its binned faces.
+
+    Args:
+        table: [Fp, GEO_USED + 3C] f32 from :func:`pack_face_table`.
+        bins: [T, cap] int32 face ids per tile, ascending, sentinel F in
+            empty slots (``binning.bin_faces``).
+        counts: [T] int32 (<= cap); slots past a tile's count are not read.
+        background_chw: [C, Hp, Wp] f32 padded to tile multiples.
+    Returns:
+        pixels [C, Hp, Wp] f32, fid [Hp, Wp] int32 (-1 background), zbuf
+        [Hp, Wp] f32 (BIG_Z background). A depth tie goes to the lower
+        face id.
+    """
+    device = background_chw.device
+    if device.type == "cpu":
+        return raster_forward_plain(table, bins, counts, background_chw,
+                                    tile_h=tile_h, tile_w=tile_w)
+    if device.type != "cuda":
+        raise ValueError(f"raster_forward: no kernel for device {device}")
+    return _launch_dense(table, bins, counts, background_chw, tile_h, tile_w)
+
+
+@functools.cache
+def _dense_fn():
+    fn = _build.load(_DENSE).dirt_raster_fwd_dense
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int]
+        + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 5
+        + [ctypes.c_void_p]
+    )
+    return fn
+
+
+def _launch_dense(table, bins, counts, background_chw, tile_h, tile_w):
+    global LAUNCHES_DENSE
+    channels, hp, wp, total = _check_dense(table, bins, counts,
+                                           background_chw, tile_h, tile_w)
+    if tile_h % 8 or (tile_w > 128 and tile_w % 128) or tile_w < 1:
+        raise ValueError(
+            f"raster_fwd_dense kernel needs tile_h a multiple of 8 and "
+            f"tile_w <= 128 or a multiple of 128, got {tile_h}x{tile_w}")
+    device = background_chw.device
+    cap = bins.shape[1]
+    check_tensor("table", table, torch.float32, table.shape, device)
+    check_tensor("bins", bins, torch.int32, (total, cap), device)
+    check_tensor("counts", counts, torch.int32, (total,), device)
+    check_tensor("background", background_chw, torch.float32,
+                 (channels, hp, wp), device)
+
+    pix = torch.empty((channels, hp, wp), dtype=torch.float32, device=device)
+    fid = torch.empty((hp, wp), dtype=torch.int32, device=device)
+    zbuf = torch.empty((hp, wp), dtype=torch.float32, device=device)
+    fn = _dense_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            table.data_ptr(), table.shape[1], bins.data_ptr(),
+            counts.data_ptr(), cap, background_chw.data_ptr(),
+            pix.data_ptr(), fid.data_ptr(), zbuf.data_ptr(),
+            channels, hp, wp, tile_h, tile_w, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{_DENSE} launch failed: CUDA error {err}")
+    LAUNCHES_DENSE += 1
+    return pix, fid, zbuf
+
+
+def _to_tiles(x, tiles_y, tiles_x, tile_h, tile_w):
+    """[..., Hp, Wp] image layout -> [..., T, tile_h, tile_w]."""
+    lead = x.shape[:-2]
+    n = len(lead)
+    x = x.reshape(*lead, tiles_y, tile_h, tiles_x, tile_w)
+    x = x.permute(*range(n), n, n + 2, n + 1, n + 3)
+    return x.reshape(*lead, tiles_y * tiles_x, tile_h, tile_w)
+
+
+def _from_tiles(x, tiles_y, tiles_x, tile_h, tile_w):
+    """[..., T, tile_h, tile_w] -> [..., Hp, Wp] image layout."""
+    lead = x.shape[:-3]
+    n = len(lead)
+    x = x.reshape(*lead, tiles_y, tiles_x, tile_h, tile_w)
+    x = x.permute(*range(n), n, n + 2, n + 1, n + 3)
+    return x.reshape(*lead, tiles_y * tile_h, tiles_x * tile_w)
+
+
+def raster_forward_plain(table, bins, counts, background_chw, *,
+                         tile_h: int, tile_w: int):
+    """Plain PyTorch version of the dense kernel (any device).
+
+    Step k evaluates slot k of every tile's list over the tile's pixels; a
+    step at or past the tile's count is masked. Like the kernel, the loop
+    keeps the depth and the winning face per pixel, and the reciprocal and
+    attribute planes are evaluated once, from the winner's row, afterwards:
+    the same expressions in the same order.
+    """
+    channels, hp, wp, total = _check_dense(table, bins, counts,
+                                           background_chw, tile_h, tile_w)
+    device = background_chw.device
+    tiles_y, tiles_x = hp // tile_h, wp // tile_w
+
+    def arange(n):
+        return torch.arange(n, dtype=torch.int64, device=device)
+
+    t = arange(total)[:, None, None]
+    xf = ((t % tiles_x) * tile_w + arange(tile_w)).to(torch.float32) + 0.5
+    yf = ((t // tiles_x) * tile_h
+          + arange(tile_h)[:, None]).to(torch.float32) + 0.5
+
+    shape = (total, tile_h, tile_w)
+    zb = torch.full(shape, BIG_Z, dtype=torch.float32, device=device)
+    best = torch.full(shape, -1, dtype=torch.int64, device=device)
+    n_steps = int(counts.max()) if total else 0
+    ids = bins.long()
+    for k in range(n_steps):
+        live = (k < counts)[:, None, None]                   # [T, 1, 1]
+        face = ids[:, k]                                     # [T]
+        m = table[face][:, :GEO_USED, None, None]            # [T, 17, 1, 1]
+
+        def cf(q):
+            return m[:, q]
+
+        dx = xf - cf(0)
+        dy = yf - cf(1)
+        e0 = cf(2) * dx + cf(3) * dy + cf(4)
+        e1 = cf(5) * dx + cf(6) * dy + cf(7)
+        e2 = cf(8) * dx + cf(9) * dy + cf(10)
+        inside = torch.minimum(torch.minimum(e0, e1), e2) >= 0.0
+        zv = cf(11) * dx + cf(12) * dy + cf(13)
+        mask = inside & (zv < zb) & (zv >= -1.0) & (zv <= 1.0) & live
+        zb = torch.where(mask, zv, zb)
+        best = torch.where(mask, face[:, None, None], best)
+
+    hit = best >= 0
+    w = table[torch.clamp(best, min=0)]                      # [T, h, w, 17+3C]
+    dx = xf - w[..., 0]
+    dy = yf - w[..., 1]
+    den = w[..., 14] * dx + w[..., 15] * dy + w[..., 16]
+    recip = 1.0 / den
+    fid = torch.where(hit, best, -1).to(torch.int32)
+    bg = _to_tiles(background_chw, tiles_y, tiles_x, tile_h, tile_w)
+    pix = torch.stack([
+        torch.where(
+            hit,
+            (w[..., GEO_USED + 3 * ch] * dx + w[..., GEO_USED + 3 * ch + 1] * dy
+             + w[..., GEO_USED + 3 * ch + 2]) * recip,
+            bg[ch],
+        )
+        for ch in range(channels)
+    ])
+    return (
+        _from_tiles(pix, tiles_y, tiles_x, tile_h, tile_w),
+        _from_tiles(fid, tiles_y, tiles_x, tile_h, tile_w),
+        _from_tiles(zb, tiles_y, tiles_x, tile_h, tile_w),
     )

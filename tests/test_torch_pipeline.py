@@ -1,4 +1,5 @@
-"""End to end: dirt_tpu_torch.rasterise_with_aux vs dirt_tpu's, packed engine.
+"""End to end: dirt_tpu_torch.rasterise_with_aux vs dirt_tpu's, packed engine
+(the dense engine's end-to-end checks are in tests/test_torch_dense.py).
 
 Scenes: the bench camera on a small UV sphere at 128x128 (entirely in
 front of the camera), and the same sphere moved so close that faces cross
@@ -110,9 +111,7 @@ def test_rasterise_matches_aux_and_default_background():
 
 
 @pytest.mark.parametrize("config", [
-    RasterConfig(engine="dense"),
     RasterConfig(engine="csr"),
-    RasterConfig(),            # auto: < 4096 faces picks the dense engine
     RasterConfig(streaming=True),
 ])
 def test_unported_engines_raise(config):

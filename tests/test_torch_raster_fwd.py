@@ -8,8 +8,7 @@ pixels and zbuf within 1e-5 absolute (identical expressions, ~2e-6 seen:
 XLA may fuse a multiply into an add where PyTorch rounds each step).
 
 Also here: the no-fallback rules (a tensor on another device raises, a
-missing CUDA toolchain raises, the engines whose backward is not ported
-raise). The kernel itself is checked against its plain version in
+missing CUDA toolchain raises, the engine that is not ported raises). The kernel itself is checked against its plain version in
 tests/test_torch_cuda.py.
 """
 
@@ -141,16 +140,15 @@ def test_cuda_build_without_toolchain_raises(monkeypatch, tmp_path):
 
 
 def test_backward_raises_not_implemented():
-    """The dense and CSR engines (forward and backward) raise, naming
-    their later PRs; the packed engine's backward runs."""
+    """The CSR engine (forward and backward) raises, naming its later PR;
+    the packed engine's backward runs."""
     clip, colors, faces = sphere_scene(4, 6)
     fv = torch.tensor(
         np.asarray(jt.screen_from_clip(clip, 32, 128))[faces],
         requires_grad=True)
     args = (fv, torch.tensor(colors[faces]), torch.zeros(32, 128, 3))
-    for engine in ("dense", "csr"):
-        with pytest.raises(NotImplementedError, match="later PR"):
-            tr.rasterize_screen(*args, tr.RasterConfig(engine=engine))
+    with pytest.raises(NotImplementedError, match="later PR"):
+        tr.rasterize_screen(*args, tr.RasterConfig(engine="csr"))
     pixels, _, _, _ = tr.rasterize_screen(*args,
                                           tr.RasterConfig(engine="packed"))
     pixels.sum().backward()
