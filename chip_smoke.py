@@ -52,7 +52,23 @@ raises and exits non-zero; nothing is caught):
    version, launch counts > 0; then 10 Adam steps on the flagship loss
    over (vertices, pose), which must fall;
 9. configs 1-4 of ``bench_configs.py`` on the port, once each: forward and
-   a gradient step on the auto (dense) engine, overflow clear, times.
+   a gradient step on the auto (dense) engine, overflow clear, times;
+10. the streaming (CSR) engine's kernels, raster_fwd_csr and fused_bwd_csr,
+    against their plain versions at three shapes: the 99,904-face sphere
+    (``mesh.uv_sphere(224, 224)``, the camera and colors above) at 1024x1024
+    with 3 and with 9 channels, on the faces the default API's own render
+    hands the raster op, and the 10,224-face bench sphere under
+    ``RasterConfig(streaming=True)``; same checks and tolerances as phase 7;
+11. the default API on the 99,904-face sphere, as a user calls it:
+    ``suggest_raster_config(verts, faces, 1024, 1024)`` (which must choose
+    the csr engine), ``rasterise_with_aux`` and ``loss.backward()`` to
+    vertices, colors and background: overflow clear, the streaming kernels
+    launched and no other engine's, gradients finite, nonzero and within
+    1e-5 of max |gradient| of the plain path's, d_background equal to w off
+    the mesh and 0 on it; against the packed engine on the same scene:
+    differing fid pixels at most 1e-4 of the covered ones, gradients within
+    1e-4 of max |gradient|; times of both engines; and a two-triangle quad
+    over a 64x256 image under ``RasterConfig(streaming=True)``.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -93,14 +109,21 @@ TOL_ROWS = 1e-5
 # scatter-adds (vertex normals, texture and vertex gathers) sum with atomics.
 TOL_DEFERRED = 1e-4
 KERNELS = ("raster_fwd_packed", "packed_prologue", "packed_bwd",
-           "raster_fwd_dense", "fused_bwd")
+           "raster_fwd_dense", "fused_bwd", "raster_fwd_csr", "fused_bwd_csr")
+CSR_PATH = ("raster_fwd_csr", "packed_prologue", "fused_bwd_csr")
 REPLACES = {
     "raster_fwd_packed": "dirt_tpu/ops/raster_fwd.py:413",
     "packed_prologue": "dirt_tpu/ops/packed_bwd.py:293",
     "packed_bwd": "dirt_tpu/ops/packed_bwd.py:96",
     "raster_fwd_dense": "dirt_tpu/ops/raster_fwd.py:38",
     "fused_bwd": "dirt_tpu/ops/fused_bwd.py:44",
+    "raster_fwd_csr": "dirt_tpu/ops/raster_fwd.py:197",
+    "fused_bwd_csr": "dirt_tpu/ops/fused_bwd.py:233",
 }
+# The streaming engine against the packed engine on one scene: gradients as
+# max |diff| over max |gradient| (one forward arithmetic, two reductions in
+# other orders), and differing face ids as a share of the covered pixels.
+TOL_ENGINES = 1e-4
 TRAIN_STEPS = 10
 # Published peaks of one H100 SXM: HBM bytes/s and float32 FLOP/s outside
 # the tensor cores (the kernels use no tensor core).
@@ -222,6 +245,8 @@ def _launch_counts():
         "packed_bwd": packed_bwd.LAUNCHES_BWD,
         "raster_fwd_dense": raster_fwd.LAUNCHES_DENSE,
         "fused_bwd": fused_bwd.LAUNCHES,
+        "raster_fwd_csr": raster_fwd.LAUNCHES_CSR,
+        "fused_bwd_csr": fused_bwd.LAUNCHES_CSR,
     }
 
 
@@ -229,8 +254,9 @@ def _reset_launch_counts():
     from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster_fwd
 
     raster_fwd.LAUNCHES = raster_fwd.LAUNCHES_DENSE = 0
+    raster_fwd.LAUNCHES_CSR = 0
     packed_bwd.LAUNCHES_PROLOGUE = packed_bwd.LAUNCHES_BWD = 0
-    fused_bwd.LAUNCHES = 0
+    fused_bwd.LAUNCHES = fused_bwd.LAUNCHES_CSR = 0
 
 
 def _need_launches(path, counts, kernels):
@@ -259,7 +285,17 @@ def _plain_patches():
         return fused_bwd.fused_backward_rows_plain(
             geo, fid, bits, sval, pix_cf, grad_cf, num_rows)
 
+    def plain_fused_csr(geo, entry_face, start_block, counts, fid, bits,
+                        sval, pix_cf, grad_cf, num_faces, *, tile_h, tile_w,
+                        bbox=None):
+        return fused_bwd.fused_backward_rows_csr_plain(
+            geo, fid, bits, sval, pix_cf, grad_cf, num_faces)
+
     return (
+        mock.patch.object(raster_fwd, "raster_forward_csr",
+                          raster_fwd.raster_forward_csr_plain),
+        mock.patch.object(fused_bwd, "fused_backward_rows_csr",
+                          plain_fused_csr),
         mock.patch.object(raster_fwd, "raster_forward_packed", plain_forward),
         mock.patch.object(packed_bwd, "fused_neighbor_prologue",
                           packed_bwd.fused_neighbor_prologue_plain),
@@ -405,35 +441,52 @@ def _check_packed_kernels(tag, face_verts, face_attrs, background, weights,
     return record
 
 
-def _check_dense_kernels(tag, face_verts, face_attrs, size, config, weights,
-                         card, runs=RUNS, plain_runs=3):
-    """raster_fwd_dense and fused_bwd against their plain versions on one
+def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
+                        weights, card, runs=RUNS, plain_runs=3):
+    """The whole-tile engines' kernels against their plain versions on one
     scene at ``size`` x ``size`` (a multiple of the tile, so nothing is
-    padded); ``weights`` [size, size, C] is the upstream gradient. Returns
-    {kernel: max_abs_err, ms, plain_ms, bound_ms, bound_by}; raises on a
-    mismatch."""
+    padded): raster_fwd_dense and fused_bwd for ``engine`` "dense",
+    raster_fwd_csr and fused_bwd_csr for "csr". ``weights`` [size, size, C]
+    is the upstream gradient. Returns {kernel: max_abs_err, ms, plain_ms,
+    bound_ms, bound_by}; raises on a mismatch."""
     from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster, raster_fwd
     from dirt_tpu_torch.ops.triangle_setup import setup_planes
 
     channels = face_attrs.shape[-1]
     background = torch.zeros((size, size, channels), device=face_verts.device)
-    table, bins, bg_chw, cfg = raster.prepare_dense(
-        face_verts, face_attrs, background, config)
-    if bool(bins.overflow.any()):
-        raise RuntimeError(f"[{tag}] dense binning overflowed under {cfg}")
-    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     num_faces = face_verts.shape[0]
+    if engine == "csr":
+        fwd_name, bwd_name = "raster_fwd_csr", "fused_bwd_csr"
+        table, bins, bg_chw, cfg = raster.prepare_csr(
+            face_verts, face_attrs, background, config)
+        lists = (bins.entry_face, bins.start_block, bins.counts)
+        forward = raster_fwd.raster_forward_csr
+        forward_plain = raster_fwd.raster_forward_csr_plain
+        rows_fn = fused_bwd.fused_backward_rows_csr
+        rows_plain_fn = fused_bwd.fused_backward_rows_csr_plain
+        n_rows = num_faces
+    else:
+        fwd_name, bwd_name = "raster_fwd_dense", "fused_bwd"
+        table, bins, bg_chw, cfg = raster.prepare_dense(
+            face_verts, face_attrs, background, config)
+        lists = (bins.bins, bins.counts)
+        forward = raster_fwd.raster_forward
+        forward_plain = raster_fwd.raster_forward_plain
+        rows_fn = fused_bwd.fused_backward_rows
+        rows_plain_fn = fused_bwd.fused_backward_rows_plain
+        n_rows = num_faces + 1
+    if bool(bins.overflow.any()):
+        raise RuntimeError(f"[{tag}] {engine} binning overflowed under {cfg}")
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     _, hp, wp = bg_chw.shape
     plane = hp * wp
     record = {}
 
     def kernel():
-        return raster_fwd.raster_forward(table, bins.bins, bins.counts,
-                                         bg_chw, **geom)
+        return forward(table, *lists, bg_chw, **geom)
 
     def plain():
-        return raster_fwd.raster_forward_plain(table, bins.bins, bins.counts,
-                                               bg_chw, **geom)
+        return forward_plain(table, *lists, bg_chw, **geom)
 
     pix_k, fid_k, z_k = kernel()
     pix_p, fid_p, z_p = plain()
@@ -444,47 +497,45 @@ def _check_dense_kernels(tag, face_verts, face_attrs, size, config, weights,
     err = float((pix_k - pix_p).abs().max())
     listed = int(bins.counts.sum())
     covered = int((fid_k >= 0).sum())
-    list_bytes = 4 * (listed + bins.counts.numel())
+    list_bytes = 4 * (listed + (len(lists) - 1) * bins.counts.numel())
     # The tests rasterising needs: one per pixel of each face's box (clipped
     # to the image), not one per pixel of every tile the face is listed in.
     box = bins.bbox.long()
     box_px = int((torch.clamp(box[:, 1] - box[:, 0] + 1, min=0)
                   * torch.clamp(box[:, 3] - box[:, 2] + 1, min=0)).sum())
-    record["raster_fwd_dense"] = dict(
+    record[fwd_name] = dict(
         max_abs_err=err, ms=_median_ms(kernel, runs),
         plain_ms=_median_ms(plain, plain_runs, warmup=1),
         **_bound(4 * table.numel() + list_bytes
                  + 4 * plane * (2 * channels + 2),
                  box_px * TEST_FLOPS + covered * _attr_flops(channels)))
-    print(f"[{tag}] raster_fwd_dense table {tuple(table.shape)} bins "
-          f"{tuple(bins.bins.shape)} (listed {listed}, largest tile "
+    print(f"[{tag}] {fwd_name} table {tuple(table.shape)} lists "
+          f"{tuple(lists[0].shape)} (listed {listed}, largest tile "
           f"{int(bins.counts.max())}, box pixels {box_px}) tiles {cfg.tile_h}x{cfg.tile_w} bg "
           f"{tuple(bg_chw.shape)}: fid mismatches {fid_bad}, zbuf mismatches "
           f"{z_bad}, pixels outside allclose(rtol=1e-6, atol=1e-6) {pix_bad}, "
           f"max |pix diff| {err:.3g}, covered {covered} px; kernel "
-          f"{record['raster_fwd_dense']['ms']:.4f} ms, plain "
-          f"{record['raster_fwd_dense']['plain_ms']:.4f} ms, bound "
-          f"{record['raster_fwd_dense']['bound_ms']:.4f} ms by "
-          f"{record['raster_fwd_dense']['bound_by']} (medians of "
+          f"{record[fwd_name]['ms']:.4f} ms, plain "
+          f"{record[fwd_name]['plain_ms']:.4f} ms, bound "
+          f"{record[fwd_name]['bound_ms']:.4f} ms by "
+          f"{record[fwd_name]['bound_by']} (medians of "
           f"{runs} and {plain_runs}, {card})")
     if fid_bad or z_bad or pix_bad or not covered:
-        raise RuntimeError(f"[{tag}] raster_fwd_dense disagrees with its "
-                           "plain version")
+        raise RuntimeError(f"[{tag}] {fwd_name} disagrees with its plain "
+                           "version")
 
     grad_cf = weights.permute(2, 0, 1).contiguous()
     bits, sval = packed_bwd.fused_neighbor_prologue(fid_k, z_k, pix_k,
                                                     grad_cf)
     geo, _, _ = setup_planes(face_verts, face_attrs)
     geo = geo.contiguous()
-    args = (geo, bins.bins, bins.counts, fid_k, bits, sval, pix_k, grad_cf,
-            num_faces + 1)
+    fields = (fid_k, bits, sval, pix_k, grad_cf, n_rows)
 
     def fused():
-        return fused_bwd.fused_backward_rows(*args, bbox=bins.bbox, **geom)
+        return rows_fn(geo, *lists, *fields, bbox=bins.bbox, **geom)
 
     def fused_plain():
-        return fused_bwd.fused_backward_rows_plain(
-            geo, fid_k, bits, sval, pix_k, grad_cf, num_faces + 1)
+        return rows_plain_fn(geo, *fields)
 
     rows_k = fused()
     rows_p = fused_plain()
@@ -493,23 +544,23 @@ def _check_dense_kernels(tag, face_verts, face_attrs, size, config, weights,
     rows_bad = int(((rows_k - rows_p).abs() > TOL_ROWS * scale + 1e-6).sum())
     err = float((rows_k - rows_p).abs().max())
     same = torch.equal(rows_k, fused())
-    record["fused_bwd"] = dict(
+    record[bwd_name] = dict(
         max_abs_err=err, ms=_median_ms(fused, runs),
         plain_ms=_median_ms(fused_plain, plain_runs, warmup=1),
         **_bound(4 * 17 * num_faces + list_bytes + 16 * num_faces
                  + 4 * plane * (6 + 2 * channels) + 4 * rows_k.numel(),
                  covered * _core_flops(channels)))
-    print(f"[{tag}] fused_bwd rows {tuple(rows_k.shape)}: values outside "
+    print(f"[{tag}] {bwd_name} rows {tuple(rows_k.shape)}: values outside "
           f"{TOL_ROWS:g} * max |column| + 1e-6: {rows_bad}, max |diff| "
           f"{err:.3g}, max |row| {float(rows_p.abs().max()):.4g}, nonzero "
           f"rows {int((rows_p != 0).any(1).sum())}, second run equal {same}; "
-          f"kernel {record['fused_bwd']['ms']:.4f} ms, plain "
-          f"{record['fused_bwd']['plain_ms']:.4f} ms, bound "
-          f"{record['fused_bwd']['bound_ms']:.4f} ms by "
-          f"{record['fused_bwd']['bound_by']} (medians of {runs} and "
+          f"kernel {record[bwd_name]['ms']:.4f} ms, plain "
+          f"{record[bwd_name]['plain_ms']:.4f} ms, bound "
+          f"{record[bwd_name]['bound_ms']:.4f} ms by "
+          f"{record[bwd_name]['bound_by']} (medians of {runs} and "
           f"{plain_runs}, {card})")
     if rows_bad or not same or not bool((rows_k != 0).any()):
-        raise RuntimeError(f"[{tag}] fused_bwd disagrees with its plain "
+        raise RuntimeError(f"[{tag}] {bwd_name} disagrees with its plain "
                            "version or with itself")
     _sync()
     return record
@@ -614,6 +665,40 @@ def config4_loss(device):
     return loss_fn, (torch.tensor([0.3, 0.8, 0.52], device=device), pose)
 
 
+def big_sphere_step(device):
+    """(loss_fn, leaves, scene) of the default API on a mesh above the
+    streaming threshold: ``mesh.uv_sphere(224, 224)`` (99,904 faces, the
+    sphere of ``bench.py``'s 100k cell) under the bench camera at 1024 x 1024,
+    colors ``RandomState(0)``, under ``suggest_raster_config``'s caps with the
+    default ``clip=True``, which pins ``streaming`` and so picks the csr
+    engine. ``loss_fn(background, vertices, colors)`` is ``sum(image * w)``
+    with ``w = RandomState(1).rand(1024, 1024, 3)``; ``scene`` is (faces,
+    config)."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.core import mesh
+    from dirt_tpu_torch.ops import raster
+
+    verts_obj, faces, _ = mesh.uv_sphere(n_lat=224, n_lon=224)
+    verts_obj = torch.as_tensor(verts_obj, device=device)
+    clip = _clip_verts(verts_obj, torch.tensor([0.4, 0.3, 0.0], device=device),
+                       device)
+    colors = _rand(0, len(verts_obj), 3, device=device)
+    faces = torch.as_tensor(faces.astype(np.int64), device=device)
+    background = torch.zeros((SIZE, SIZE, CHANNELS), device=device)
+    weights = _rand(1, SIZE, SIZE, CHANNELS, device=device)
+    config = dirt_tpu_torch.suggest_raster_config(clip, faces, SIZE, SIZE)
+    if (config.streaming is not True
+            or raster.resolve_engine(config, faces.shape[0]) != "csr"):
+        raise RuntimeError(f"the default API did not choose the csr engine "
+                           f"for {faces.shape[0]} faces: {config}")
+
+    def loss_fn(bg, verts, cols):
+        return (dirt_tpu_torch.rasterise(bg, verts, cols, faces,
+                                         config=config) * weights).sum()
+
+    return loss_fn, (background, clip, colors), (faces, config)
+
+
 def _raster_inputs(fn):
     """Run ``fn()`` and return what its one rasterisation handed the raster
     op: (face_verts_screen, face_attrs, background, config), detached. These
@@ -700,6 +785,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
 
     # --- 1. versions and card -------------------------------------------
     card = card_line()
@@ -920,22 +1006,22 @@ def main():
     c4_loss, c4_leaves = config4_loss(device)
     with torch.no_grad():
         c4_fv, c4_fa, _, c4_cfg = _raster_inputs(lambda: c4_loss(*c4_leaves))
-    _check_dense_kernels(
+    _check_tile_kernels(
         f"7 dense kernels config4 512^2 ({c4_fv.shape[0]} face slots of the "
-        f"path's own render)", c4_fv, c4_fa, 512, c4_cfg,
+        f"path's own render)", "dense", c4_fv, c4_fa, 512, c4_cfg,
         _rand(1, 512, 512, 3, device=device), card)
     dense_big = dirt_tpu_torch.suggest_raster_config(
         clip, faces, SIZE, SIZE,
         config=dirt_tpu_torch.RasterConfig(engine="dense"), clip=False)
-    _check_dense_kernels(
-        "7 dense kernels bench sphere 1024^2", face_verts, colors[faces],
+    _check_tile_kernels(
+        "7 dense kernels bench sphere 1024^2", "dense", face_verts, colors[faces],
         SIZE, dense_big, weights, card)
     step_fn, (e_verts, e_pose) = entry.entry()
     with torch.no_grad():
         e_fv, e_fa, _, e_cfg = _raster_inputs(lambda: step_fn(e_verts, e_pose))
-    record.update(_check_dense_kernels(
+    record.update(_check_tile_kernels(
         f"7 dense kernels flagship G-buffer 256^2 ({e_fv.shape[0]} face "
-        f"slots of the step's own render)", e_fv, e_fa, 256, e_cfg,
+        f"slots of the step's own render)", "dense", e_fv, e_fa, 256, e_cfg,
         _rand(5, 256, 256, 9, device=device), card))
 
     # --- 8. the deferred pipeline at full width -------------------------------
@@ -1039,6 +1125,169 @@ def main():
 
     run_config("9 config4 lit 512^2", c4_loss, c4_leaves)
 
+    # --- 10. the streaming kernels vs plain versions --------------------------
+    big_loss, (big_bg, big_clip, big_colors), (big_faces, big_cfg) = \
+        big_sphere_step(device)
+    n_big = big_faces.shape[0]
+    with torch.no_grad():
+        b_fv, b_fa, _, b_cfg = _raster_inputs(
+            lambda: big_loss(big_bg, big_clip, big_colors))
+    record.update(_check_tile_kernels(
+        f"10 csr kernels {n_big}-face sphere 1024^2 C=3 ({b_fv.shape[0]} face "
+        f"slots of the default API's own render)", "csr", b_fv, b_fa, SIZE,
+        b_cfg, weights, card, plain_runs=1))
+    big_colors9 = _rand(3, big_clip.shape[0], 9, device=device)
+    with torch.no_grad():
+        b9_fv, b9_fa, _, b9_cfg = _raster_inputs(
+            lambda: dirt_tpu_torch.rasterise(
+                torch.zeros((SIZE, SIZE, 9), device=device), big_clip,
+                big_colors9, big_faces, config=big_cfg))
+    _check_tile_kernels(
+        f"10 csr kernels {n_big}-face sphere 1024^2 C=9", "csr", b9_fv, b9_fa,
+        SIZE, b9_cfg, _rand(4, SIZE, SIZE, 9, device=device), card,
+        plain_runs=1)
+    stream_cfg = dirt_tpu_torch.suggest_raster_config(
+        clip, faces, SIZE, SIZE,
+        config=dirt_tpu_torch.RasterConfig(streaming=True), clip=False)
+    _check_tile_kernels(
+        "10 csr kernels bench sphere 1024^2 streaming=True", "csr",
+        face_verts, colors[faces], SIZE, stream_cfg, weights, card)
+    del b_fv, b_fa, b9_fv, b9_fa
+
+    # --- 11. the default API above the streaming threshold ---------------------
+    big_leaves = (big_bg, big_clip, big_colors)
+    packed_cfg = dirt_tpu_torch.suggest_raster_config(
+        big_clip, big_faces, SIZE, SIZE,
+        config=dirt_tpu_torch.RasterConfig(engine="packed"))
+
+    def big_render(config):
+        return dirt_tpu_torch.rasterise_with_aux(
+            big_bg, big_clip, big_colors, big_faces, config=config)
+
+    def big_step(config):
+        return _grads(dirt_tpu_torch.rasterise_with_aux, big_bg, big_clip,
+                      big_colors, big_faces, weights, config, True)
+
+    _reset_launch_counts()
+    (pix_s, fid_s, z_s, ovf_s), grads_s = big_step(big_cfg)
+    _sync()
+    counts = _launch_counts()
+    _need_launches("default API csr path", counts, CSR_PATH)
+    others = [k for k in KERNELS if k not in CSR_PATH and counts[k]]
+    if others:
+        raise RuntimeError(f"the csr path launched other engines' kernels: "
+                           f"{others} of {counts}")
+    launches.update({k: counts[k] for k in ("raster_fwd_csr",
+                                            "fused_bwd_csr")})
+    hit = fid_s >= 0
+    covered_big = int(hit.sum())
+    if (bool(ovf_s) or tuple(pix_s.shape) != (SIZE, SIZE, CHANNELS)
+            or not covered_big or int(fid_s.max()) >= n_big
+            or not bool(torch.isfinite(pix_s).all())
+            or not bool(((z_s[hit] >= -1) & (z_s[hit] <= 1)).all())):
+        raise RuntimeError(f"[11] bad render: overflow {bool(ovf_s)}, "
+                           f"covered {covered_big}, {big_cfg}")
+    d_v, d_c, d_bg = grads_s
+    for label, g in (("vertices", d_v), ("colors", d_c), ("background", d_bg)):
+        if g is None or not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"[11] {label} gradient missing or not finite")
+    if not (bool(d_v.abs().sum() > 0) and bool(d_c.abs().sum() > 0)):
+        raise RuntimeError("[11] zero vertex or color gradient")
+    if not (torch.equal(d_bg[~hit], weights[~hit])
+            and bool((d_bg[hit] == 0).all())):
+        raise RuntimeError("[11] d_background is not w off the mesh and 0 on "
+                           "it")
+
+    # The same step with every kernel replaced by its plain version.
+    plain_patches = _plain_patches()
+    for patch in plain_patches:
+        patch.start()
+    before = _launch_counts()
+    start = time.perf_counter()
+    (pix_pl, fid_pl, _, _), grads_pl = big_step(big_cfg)
+    _sync()
+    plain_step_s = time.perf_counter() - start
+    if before != _launch_counts():
+        raise RuntimeError("[11] plain path launched a kernel")
+    for patch in plain_patches:
+        patch.stop()
+    if not (torch.equal(fid_pl, fid_s)
+            and torch.allclose(pix_pl, pix_s, **TOL)):
+        raise RuntimeError("[11] kernel and plain path images disagree")
+    err_plain = [_rel_err(g_k, g_p) for g_k, g_p in zip(grads_s, grads_pl)]
+    if not all(e <= TOL_GRAD for e in err_plain):
+        raise RuntimeError(f"[11] kernel and plain path gradients disagree: "
+                           f"{err_plain}")
+    del pix_pl, fid_pl, grads_pl
+
+    # The packed engine on the same scene, under its own suggested caps.
+    (pix_k, fid_k, _, ovf_k), grads_k = big_step(packed_cfg)
+    _sync()
+    if bool(ovf_k):
+        raise RuntimeError(f"[11] packed engine overflowed: {packed_cfg}")
+    fid_diff = int((fid_k != fid_s).sum())
+    err_packed = [_rel_err(g_s, g_k) for g_s, g_k in zip(grads_s, grads_k)]
+    if fid_diff > TOL_ENGINES * covered_big \
+            or not all(e <= TOL_ENGINES for e in err_packed):
+        raise RuntimeError(f"[11] csr and packed engines disagree: "
+                           f"{fid_diff} fids of {covered_big} covered, "
+                           f"gradients {err_packed}")
+
+    big_times = {}
+    for label, config in (("csr", big_cfg), ("packed", packed_cfg)):
+        with torch.no_grad():
+            big_times[label, "fwd"] = _median_ms(lambda: big_render(config))
+        big_times[label, "step"] = _median_ms(lambda: big_step(config))
+        leaves = [t.clone().requires_grad_() for t in big_leaves]
+        loss = (dirt_tpu_torch.rasterise(
+            leaves[0], leaves[1], leaves[2], big_faces, config=config)
+            * weights).sum()
+        big_times[label, "bwd"] = _median_ms(lambda: torch.autograd.grad(
+            loss, leaves, retain_graph=True))
+        del loss, leaves
+    with torch.no_grad():
+        s_fv, s_fa, s_bg, s_cfg = _raster_inputs(lambda: big_render(big_cfg))
+    prep_ms = _median_ms(lambda: raster.prepare_csr(s_fv, s_fa, s_bg, s_cfg))
+    print(f"[11 default API {n_big} faces {SIZE}^2] caps tile_h="
+          f"{big_cfg.tile_h} bin_cap={big_cfg.bin_cap} expand_cap="
+          f"{big_cfg.expand_cap} clip_cap={big_cfg.clip_cap} streaming="
+          f"{big_cfg.streaming} -> engine csr; overflow False; covered "
+          f"{covered_big} px; gradients finite, d_background = w off the "
+          f"mesh; launches {counts}; kernel vs plain path max |grad diff| / "
+          f"max |grad|: vertices {err_plain[0]:.3g} colors "
+          f"{err_plain[1]:.3g} background {err_plain[2]:.3g} (limit "
+          f"{TOL_GRAD:g}; plain path fwd+bwd {plain_step_s:.2f} s, one run); "
+          f"csr vs packed engine: {fid_diff} differing fid pixels (limit "
+          f"{TOL_ENGINES:g} of covered), max |grad diff| / max |grad| "
+          f"vertices {err_packed[0]:.3g} colors {err_packed[1]:.3g} "
+          f"background {err_packed[2]:.3g} (limit {TOL_ENGINES:g})")
+    for label in ("csr", "packed"):
+        step_ms = big_times[label, "step"]
+        print(f"[11 default API {n_big} faces {SIZE}^2] {label} engine: "
+              f"forward {big_times[label, 'fwd']:.4f} ms, fwd+bwd "
+              f"{step_ms:.4f} ms "
+              f"({SIZE * SIZE / 1e6 / step_ms * 1e3:.2f} Mpix/s fwd+bwd), "
+              f"backward alone {big_times[label, 'bwd']:.4f} ms (medians of "
+              f"{RUNS}) ({card})")
+    print(f"[11 default API {n_big} faces {SIZE}^2] csr stages: "
+          f"setup+binning+table {prep_ms:.4f} ms, raster kernel "
+          f"{record['raster_fwd_csr']['ms']:.4f} ms, backward kernel "
+          f"{record['fused_bwd_csr']['ms']:.4f} ms ({card})")
+
+    quad_v, quad_f = mesh.unit_quad()
+    quad = dirt_tpu_torch.rasterise(
+        None, torch.cat([torch.as_tensor(quad_v, device=device) * 2.0,
+                         torch.ones((4, 1), device=device)], dim=1),
+        torch.ones((4, 1), device=device),
+        torch.as_tensor(quad_f.astype(np.int64), device=device),
+        height=64, width=256, channels=1,
+        config=dirt_tpu_torch.RasterConfig(streaming=True))
+    print(f"[11 quad 64x256 streaming=True] two faces over every tile: "
+          f"minimum pixel {float(quad.min()):.6f}")
+    if not float(quad.min()) > 0.99:
+        raise RuntimeError("[11] the all-tiles quad is not fully covered")
+
+    print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": k,
         "route": "cuda",

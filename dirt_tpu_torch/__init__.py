@@ -6,10 +6,11 @@ It keeps ``dirt_tpu``'s module layout and names; ``dirt_tpu`` stays the
 reference the port's tests hold it to. The package imports torch and
 numpy, never jax.
 
-Ported so far: the packed and the dense engine, forward and backward
-(clipping, triangle setup, binning, and five CUDA kernels for sm_90a: the
-packed raster, the backward's neighbor prologue, the fused packed
-backward, the dense whole-tile raster and the fused dense backward, each
+Ported so far: the packed, the dense and the streaming (CSR) engine,
+forward and backward (clipping, triangle setup, binning, and seven CUDA
+kernels for sm_90a: the packed raster, the backward's neighbor prologue,
+the fused packed backward, the dense whole-tile raster, the fused dense
+backward, the streaming raster and the fused streaming backward, each
 with a plain PyTorch version for CPU tensors), count-then-allocate caps,
 and the render stack above them (``core.lighting``, ``core.texture``,
 ``render.gbuffer``, ``render.deferred``).

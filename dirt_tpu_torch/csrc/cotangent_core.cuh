@@ -1,6 +1,7 @@
-// The per-pixel cotangent core shared by the backward kernels (packed_bwd.cu,
-// fused_bwd.cu): the CUDA form of raster_bwd.pixel_cotangents_core with the
-// pre-combined (active bit, sval) neighbor inputs, for ONE covered pixel.
+// The per-pixel cotangent core shared by the backward kernels (packed_bwd.cu;
+// fused_bwd.cu and fused_bwd_csr.cu through fused_rows.cuh): the CUDA form
+// of raster_bwd.pixel_cotangents_core with the pre-combined (active bit,
+// sval) neighbor inputs, for ONE covered pixel.
 //
 // Every expression is written in the order of the PyTorch function, and the
 // sources are built with -fmad=false and IEEE division, so each product, sum

@@ -1,0 +1,126 @@
+// The two passes shared by the fused backward kernels (fused_bwd.cu over
+// dense [T, cap] bins, fused_bwd_csr.cu over CSR runs): per-face cotangent
+// rows [9 edge | 3 den | 3C attribute], summed over the pixels each face
+// owns, without atomics.
+//
+//   pass 1 (warp_partial_row): one warp per listed (tile, face) entry. The
+//           warp scans the pixels of its tile inside the face's bounding box
+//           (grown by one pixel), 32 consecutive pixels of a row at a time;
+//           a lane whose pixel the face owns evaluates the cotangent core
+//           (cotangent_core.cuh) and adds the 12 + 3C values to its own
+//           accumulators in shared memory, in scan order. A fixed xor
+//           butterfly then sums the 32 lanes, and the warp writes the
+//           entry's partial row. A pixel's owner is always in its tile's
+//           list, since the forward draws only listed faces, and a face is
+//           listed at most once per tile, so every covered pixel is summed
+//           exactly once.
+//   pass 2 (reduce_face_column): one thread per (face, column) walks the
+//           tiles the face's box touches in ascending order, finds the
+//           face's slot in each tile's ascending list by binary search, and
+//           sums the partial rows. A face that a cap cut from a tile's list
+//           is not found there, and owns no pixel there.
+// Both orders are fixed, so two runs give equal bits. Built with
+// -fmad=false and IEEE division.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "cotangent_core.cuh"
+
+namespace dirt {
+
+constexpr int ROW_WARPS = 4;                  // list entries per block
+constexpr int REDUCE_THREADS = 256;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// Dynamic shared memory of a pass-1 block: [ROW_WARPS][12 + 3C][32] floats.
+inline int partial_smem_bytes(int channels) {
+  return ROW_WARPS * (12 + 3 * channels) * 32 * (int)sizeof(float);
+}
+
+// Pass 1 for one warp: the partial row of `face` in tile `t`, written to
+// dst[0 .. 12 + 3C). `acc` is the warp's [12 + 3C][32] shared accumulator.
+__device__ __forceinline__ void warp_partial_row(
+    const float* __restrict__ geo, int geo_width, int face, int t,
+    const int* __restrict__ bbox, const int* __restrict__ fid,
+    const int* __restrict__ bits, const float* __restrict__ sval,
+    const float* __restrict__ pix, const float* __restrict__ grad,
+    float* __restrict__ dst, float* acc, int lane, int channels, int hp,
+    int wp, int tile_h, int tile_w) {
+  const int k_cols = 12 + 3 * channels;
+  for (int k = 0; k < k_cols; ++k) acc[k * 32 + lane] = 0.0f;
+
+  const int tiles_x = wp / tile_w;
+  const int tx = (t % tiles_x) * tile_w, ty = (t / tiles_x) * tile_h;
+  const int* bb = bbox + 4 * (long long)face;     // xmin, xmax, ymin, ymax
+  const int x0 = max(tx, bb[0] - 1), x1 = min(tx + tile_w - 1, bb[1] + 1);
+  const int y0 = max(ty, bb[2] - 1), y1 = min(ty + tile_h - 1, bb[3] + 1);
+  if (x0 <= x1 && y0 <= y1) {
+    float m[17];
+#pragma unroll
+    for (int k = 0; k < 17; ++k) m[k] = geo[(long long)face * geo_width + k];
+    const long long plane = (long long)hp * wp;
+    const int w = x1 - x0 + 1;
+    const int n = w * (y1 - y0 + 1);
+    for (int idx = lane; idx < n; idx += 32) {
+      const int yy = idx / w;
+      const int x = x0 + (idx - yy * w);
+      const int y = y0 + yy;
+      const long long p = (long long)y * wp + x;
+      if (fid[p] != face) continue;
+      const float dx = ((float)x + 0.5f) - m[0];
+      const float dy = ((float)y + 0.5f) - m[1];
+      pixel_cotangents(
+          m, dx, dy, channels, grad, pix, plane, p, bits[p], sval,
+          [acc, lane](int k, float v) {
+            acc[k * 32 + lane] = acc[k * 32 + lane] + v;
+          });
+    }
+  }
+  __syncwarp();
+  for (int k = 0; k < k_cols; ++k) {
+    float v = acc[k * 32 + lane];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v = v + __shfl_xor_sync(FULL_MASK, v, off);
+    }
+    if (lane == 0) dst[k] = v;
+  }
+}
+
+// Pass 2 for one thread: column `k` of `face`, summed over the tiles of the
+// face's box in ascending tile order. lists(t, &list, &n) gives tile t's
+// ascending face list and its length, and returns the row of `partial` that
+// holds the list's first entry.
+template <class Lists>
+__device__ __forceinline__ float reduce_face_column(
+    Lists lists, const int* __restrict__ bbox,
+    const float* __restrict__ partial, int face, int k, int k_cols,
+    int tiles_x, int tile_h, int tile_w) {
+  // The box binning used (clipped to the image; empty when max < min).
+  const int* bb = bbox + 4 * (long long)face;
+  const int tx0 = bb[0] / tile_w;
+  const int tx1 = bb[1] < bb[0] ? -1 : bb[1] / tile_w;
+  const int ty0 = bb[2] / tile_h;
+  const int ty1 = bb[3] < bb[2] ? -1 : bb[3] / tile_h;
+  float sum = 0.0f;
+  for (int ty = ty0; ty <= ty1; ++ty) {
+    for (int tx = tx0; tx <= tx1; ++tx) {
+      const int* list;
+      int n;
+      const long long row0 = lists(ty * tiles_x + tx, &list, &n);
+      int lo = 0, hi = n;
+      while (lo < hi) {                       // first slot with id >= face
+        const int mid = (lo + hi) >> 1;
+        if (list[mid] < face) lo = mid + 1; else hi = mid;
+      }
+      if (lo < n && list[lo] == face) {
+        sum = sum + partial[(row0 + lo) * k_cols + k];
+      }
+    }
+  }
+  return sum;
+}
+
+}  // namespace dirt

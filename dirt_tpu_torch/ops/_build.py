@@ -4,7 +4,7 @@ Each ``dirt_tpu_torch/csrc/<name>.cu`` exposes a plain C entry point and is
 compiled on first use, on the machine with the card, into
 ``build/dirt_tpu_torch/lib<name>_<hash>.so`` under the checkout root. The
 hash covers the source, every header it includes from ``csrc/`` (such as
-``cotangent_core.cuh``, shared by the two backward kernels) and the
+``cotangent_core.cuh``, shared by the backward kernels) and the
 compiler flags, so an edited source or header rebuilds what uses it and an
 unchanged one loads the library already built;
 :func:`build` compiles several sources at once, one nvcc each. A missing

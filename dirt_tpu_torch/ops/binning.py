@@ -2,8 +2,8 @@
 
 Counterpart of ``dirt_tpu/ops/binning.py``: the packed half
 (``PackedBins`` .. ``bin_faces_packed``) and the dense engine's
-``BinningResult`` / ``bin_faces`` (at the end of the module); the CSR bins
-come with their engine. Sorts, scans and scatters are
+``BinningResult`` / ``bin_faces`` and the streaming engine's ``CSRBins`` /
+``bin_faces_csr`` (at the end of the module). Sorts, scans and scatters are
 plain torch ops; the layout, the static caps and the overflow flag are
 exactly the JAX package's, and the tests hold every integer field to it.
 
@@ -31,8 +31,8 @@ from typing import NamedTuple
 
 import torch
 
-CHUNK = 128  # CSR chunk granularity (the unit ``suggest_config`` rounds
-             # ``bin_cap`` to)
+CHUNK = 128  # CSR chunk granularity: every tile's run starts at a multiple
+             # of CHUNK rows, and ``bin_cap`` is rounded to it
 
 # Packed-subtile geometry: jobs are (face, 8x16-pixel subtile) pairs; 8
 # lane groups of 16 pixels tile a 128-wide strip row.
@@ -512,3 +512,122 @@ def bin_faces(bbox, height: int, width: int, tile_h: int, tile_w: int,
     val, idx = torch.topk(key, cap, dim=1, sorted=True)
     bins = torch.where(val > 0, idx, nf).to(_I32)
     return BinningResult(bins=bins, counts=counts, overflow=overflow)
+
+
+# --- CSR bins of the streaming engine --------------------------------------
+
+
+class CSRBins(NamedTuple):
+    """Chunk-padded CSR tile bins of the streaming engine.
+
+    ``entry_face[start_block[t] * CHUNK + i]`` for ``i < counts[t]`` are the
+    face ids overlapping tile ``t`` in ascending order; slots between
+    ``counts[t]`` and the next tile's start hold the sentinel id F. Every
+    tile's run begins at a CHUNK-aligned row.
+    """
+
+    entry_face: torch.Tensor   # [n_pad] int32, sentinel = F
+    start_block: torch.Tensor  # [num_tiles] int32, in units of CHUNK rows
+    counts: torch.Tensor       # [num_tiles] int32, clamped to cap
+    overflow: torch.Tensor     # [] bool: any tile over cap, or any face over
+                               # expand_cap (its tail tiles were dropped)
+
+
+def csr_pad_bound(num_faces: int, expand_cap: int, num_tiles: int) -> int:
+    """Static upper bound on the padded CSR length."""
+    pairs = num_faces * expand_cap
+    return -(-pairs // CHUNK) * CHUNK + num_tiles * CHUNK
+
+
+def auto_expand_cap(num_faces: int, num_tiles: int) -> int:
+    """Default per-face tile-overlap cap of the streaming engine.
+
+    Expansion work is O(F * E), so large meshes (whose triangles are small
+    beside the tile grid) get a tight cap and low-poly scenes one that lets
+    a single face span the whole grid. A face spanning more tiles than the
+    cap is truncated and flagged through ``overflow``.
+    """
+    if num_faces > 65536:
+        return 8
+    target = max(16, (16 * num_tiles) // max(num_faces, 1))
+    cap = 16
+    while cap < target and cap < num_tiles:
+        cap *= 2
+    return min(max(cap, 16), max(num_tiles, 16))
+
+
+def bin_faces_csr(bbox, height: int, width: int, tile_h: int, tile_w: int,
+                  cap: int, expand_cap: int) -> CSRBins:
+    """Pair-expansion binning into chunk-padded CSR runs (:class:`CSRBins`).
+
+    Every face expands into at most ``expand_cap`` (tile, face) pairs, one
+    sort orders them by tile and then face, and each tile's run (cut at
+    ``cap``, rounded up to a CHUNK multiple) is written at its CHUNK-aligned
+    start. Work is O(F * expand_cap), with no [T, F] matrix.
+
+    The pair's destination is ``start_block[tile] * CHUNK`` plus its rank in
+    the tile's sorted run, read off by direct gathers (``dirt_tpu`` reaches
+    the same value through running maxima and sums, which suit a TPU).
+
+    Args:
+        bbox: [F, 4] int32 (xmin, xmax, ymin, ymax) inclusive pixel indices,
+            or the four columns as a tuple; empty boxes have max < min.
+        cap: per-tile face cap (overflow-flagged), rounded up to CHUNK.
+        expand_cap: most tiles one face may overlap (overflow-flagged).
+    """
+    bxmin, bxmax, bymin, bymax = _bbox_cols(bbox)
+    device = bxmin.device
+    nf = bxmin.shape[0]
+    tiles_y, tiles_x = num_tiles(height, width, tile_h, tile_w)
+    total = tiles_y * tiles_x
+    cap = -(-cap // CHUNK) * CHUNK
+    n_pad = csr_pad_bound(nf, expand_cap, total)
+
+    txmin, txmax = _fdiv(bxmin, tile_w), _fdiv(bxmax, tile_w)
+    tymin, tymax = _fdiv(bymin, tile_h), _fdiv(bymax, tile_h)
+    valid = (bxmax >= bxmin) & (bymax >= bymin)
+    span_x = torch.where(valid, txmax - txmin + 1, 0)
+    span_y = torch.where(valid, tymax - tymin + 1, 0)
+    n_e = span_x * span_y
+    face_overflow = n_e > expand_cap
+
+    # Pair e of face f covers tile (tymin + e // span_x, txmin + e % span_x);
+    # pairs past n_e (or expand_cap) get the sentinel tile id `total` and
+    # sort to the end.
+    e = torch.arange(expand_cap, dtype=_I64, device=device)[None, :]
+    sx = torch.clamp(span_x, min=1)[:, None]
+    ey = _fdiv(e, sx)
+    ex = e - ey * sx
+    tile = (tymin[:, None] + ey) * tiles_x + (txmin[:, None] + ex)
+    pair_valid = e < torch.clamp(n_e, max=expand_cap)[:, None]
+    tile = torch.where(pair_valid, tile, total)                  # [F, E]
+    face = torch.arange(nf, dtype=_I64, device=device)[:, None]
+    # One int64 key for the (tile, face) order; live pairs have unique keys.
+    key_s = torch.sort((tile * (nf + 1) + face).reshape(-1)).values
+    tile_s = _fdiv(key_s, nf + 1)
+    face_s = key_s - tile_s * (nf + 1)
+
+    tile_ids = torch.arange(total, dtype=_I64, device=device)
+    starts_raw = torch.searchsorted(tile_s, tile_ids)
+    counts_raw = torch.searchsorted(tile_s, tile_ids, right=True) - starts_raw
+    overflow = torch.any(counts_raw > cap) | torch.any(face_overflow & valid)
+    counts = torch.clamp(counts_raw, max=cap)
+    padded = -_fdiv(-counts, CHUNK) * CHUNK
+    start_block = _fdiv(_exclusive_cumsum(padded), CHUNK)
+
+    tile_c = torch.clamp(tile_s, max=max(total - 1, 0))
+    rank = torch.arange(key_s.shape[0], dtype=_I64, device=device) \
+        - starts_raw[tile_c]
+    keep = (tile_s < total) & (rank < cap)
+    # Dropped pairs all write the sentinel to the dump slot n_pad - 1. No
+    # kept pair lands there: the padded runs sum to at most
+    # ceil(F * E / CHUNK) * CHUNK + T * (CHUNK - 1) = n_pad - T < n_pad.
+    dest = torch.where(keep, start_block[tile_c] * CHUNK + rank, n_pad - 1)
+    entry_face = torch.full((n_pad,), nf, dtype=_I64, device=device)
+    entry_face[dest] = torch.where(keep, face_s, nf)
+    return CSRBins(
+        entry_face=entry_face.to(_I32),
+        start_block=start_block.to(_I32),
+        counts=counts.to(_I32),
+        overflow=overflow,
+    )

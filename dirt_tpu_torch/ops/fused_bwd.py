@@ -1,18 +1,21 @@
-"""Fused dense backward: per-pixel cotangents summed onto the owning faces.
+"""Fused backward: per-pixel cotangents summed onto the owning faces.
 
-Counterpart of the dense half of ``dirt_tpu/ops/fused_bwd.py``
-(``_fused_kernel`` / ``fused_backward_rows``). One call turns the forward's
-outputs and the upstream gradient into per-face cotangent rows
-``[12 + 3C]`` (9 edge, 3 denominator, 3C attribute columns):
-``raster_bwd.pixel_cotangents_core`` on every covered pixel, summed over
-the pixels each face owns.
+Counterpart of ``dirt_tpu/ops/fused_bwd.py``: ``_fused_kernel`` /
+``fused_backward_rows`` over the dense engine's bins and
+``_fused_csr_kernel`` / ``fused_backward_rows_csr`` over the streaming
+engine's CSR runs. One call turns the forward's outputs and the upstream
+gradient into per-face cotangent rows ``[12 + 3C]`` (9 edge, 3 denominator,
+3C attribute columns): ``raster_bwd.pixel_cotangents_core`` on every covered
+pixel, summed over the pixels each face owns.
 
-* CUDA tensors launch the hand-written kernel ``csrc/fused_bwd.cu``: it
-  reads each owner's geometry row directly (the TPU kernel's ``binned17``
-  pre-gather and one-hot matrix products have no counterpart) and reduces
-  without atomics, in a fixed order, through per-(tile, slot) partial rows,
+* CUDA tensors launch the hand-written kernels ``csrc/fused_bwd.cu`` and
+  ``csrc/fused_bwd_csr.cu`` (the passes are ``csrc/fused_rows.cuh``'s): they
+  read each owner's geometry row directly (the TPU kernels' ``binned17``
+  pre-gather and one-hot matrix products have no counterpart) and reduce
+  without atomics, in a fixed order, through per-list-entry partial rows,
   so two runs give equal bits.
-* CPU tensors take :func:`fused_backward_rows_plain`.
+* CPU tensors take :func:`fused_backward_rows_plain` /
+  :func:`fused_backward_rows_csr_plain`.
 
 The boundary-pair inputs are the packed backward's bit plane and ``sval``
 planes (``packed_bwd.fused_neighbor_prologue``), not the ``nfid4`` /
@@ -28,6 +31,7 @@ import functools
 import torch
 
 from dirt_tpu_torch.ops import _build
+from dirt_tpu_torch.ops.binning import CHUNK
 from dirt_tpu_torch.ops.raster_bwd import (
     GEO_DEN,
     GEO_EDGE,
@@ -40,8 +44,10 @@ from dirt_tpu_torch.ops.triangle_setup import GEO_USED
 # Launches of the CUDA kernel in this process: the wrapper adds one where it
 # launches, and nowhere else.
 LAUNCHES = 0
+LAUNCHES_CSR = 0
 
 _KERNEL = "fused_bwd"
+_CSR = "fused_bwd_csr"
 
 
 def fused_backward_rows(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf,
@@ -113,6 +119,25 @@ def fused_backward_rows_plain(geo, fid, bits, sval, pix_cf, grad_cf,
     return out.to(torch.float32)
 
 
+def _check_fields(geo, bbox, fid, bits, sval, pix_cf, grad_cf, num_faces):
+    """The per-face and image-space tensors both fused kernels read."""
+    device = fid.device
+    channels, hp, wp = pix_cf.shape
+    if geo.ndim != 2 or geo.shape[0] < num_faces or geo.shape[1] < GEO_USED:
+        raise ValueError(f"geo: want [>= {num_faces}, >= {GEO_USED}], got "
+                         f"{tuple(geo.shape)}")
+    check_tensor("geo", geo, torch.float32, geo.shape, device)
+    check_tensor("bbox", bbox, torch.int32, (num_faces, 4), device)
+    for name, arr, dtype, lead in (
+        ("fid", fid, torch.int32, ()),
+        ("bits", bits, torch.int32, ()),
+        ("sval", sval, torch.float32, (4,)),
+        ("pix_cf", pix_cf, torch.float32, (channels,)),
+        ("grad_cf", grad_cf, torch.float32, (channels,)),
+    ):
+        check_tensor(name, arr, dtype, (*lead, hp, wp), device)
+
+
 @functools.cache
 def _kernel_fn():
     fn = _build.load(_KERNEL).dirt_fused_bwd
@@ -141,21 +166,9 @@ def _launch(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf, num_rows,
         raise ValueError(f"bins {tuple(bins.shape)} do not match {total} "
                          f"tiles")
     cap = bins.shape[1]
-    if geo.ndim != 2 or geo.shape[0] < num_faces or geo.shape[1] < GEO_USED:
-        raise ValueError(f"geo: want [>= {num_faces}, >= {GEO_USED}], got "
-                         f"{tuple(geo.shape)}")
-    check_tensor("geo", geo, torch.float32, geo.shape, device)
     check_tensor("bins", bins, torch.int32, (total, cap), device)
     check_tensor("counts", counts, torch.int32, (total,), device)
-    check_tensor("bbox", bbox, torch.int32, (num_faces, 4), device)
-    for name, arr, dtype, lead in (
-        ("fid", fid, torch.int32, ()),
-        ("bits", bits, torch.int32, ()),
-        ("sval", sval, torch.float32, (4,)),
-        ("pix_cf", pix_cf, torch.float32, (channels,)),
-        ("grad_cf", grad_cf, torch.float32, (channels,)),
-    ):
-        check_tensor(name, arr, dtype, (*lead, hp, wp), device)
+    _check_fields(geo, bbox, fid, bits, sval, pix_cf, grad_cf, num_faces)
 
     rows_padded = -(-num_rows // 8) * 8
     # The kernel writes the first num_faces rows; the sentinel and padding
@@ -178,4 +191,112 @@ def _launch(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf, num_rows,
     if err != 0:
         raise RuntimeError(f"{_KERNEL} launch failed: CUDA error {err}")
     LAUNCHES += 1
+    return out
+
+
+# --- streaming (CSR) engine --------------------------------------------------
+
+
+def fused_backward_rows_csr(geo, entry_face, start_block, counts, fid, bits,
+                            sval, pix_cf, grad_cf, num_faces: int, *,
+                            tile_h: int, tile_w: int, bbox=None):
+    """Per-face cotangent rows [12 + 3C columns] for the streaming path.
+
+    Where ``dirt_tpu``'s function takes the pre-gathered ``binned17`` rows,
+    the ``nfid4`` / ``nz4`` / ``sval4`` maps and a static chunk bound, this
+    one takes the geometry table itself and the prologue's bits and
+    ``sval``.
+
+    Args:
+        geo: [F, >= 17] f32 anchored plane data (``setup_planes``).
+        entry_face: [n_pad] int32, start_block, counts: [T] int32, the
+            forward's CSR bins (``binning.bin_faces_csr``): every covered
+            pixel's fid is in its tile's run.
+        fid: [Hp, Wp] int32, padded to whole tiles with -2.
+        bits: [Hp, Wp] int32 and sval: [4, Hp, Wp] f32 from
+            ``packed_bwd.fused_neighbor_prologue`` on the padded arrays.
+        pix_cf, grad_cf: [C, Hp, Wp] f32.
+        bbox: [F, 4] int32 (xmin, xmax, ymin, ymax), the boxes the bins
+            were made from. CUDA tensors need it; the plain version does
+            not read it.
+    Returns:
+        [num_faces, 12 + 3C] f32.
+    """
+    device = fid.device
+    if device.type == "cpu":
+        return fused_backward_rows_csr_plain(geo, fid, bits, sval, pix_cf,
+                                             grad_cf, num_faces)
+    if device.type != "cuda":
+        raise ValueError(
+            f"fused_backward_rows_csr: no kernel for device {device}")
+    if bbox is None:
+        raise ValueError("fused_backward_rows_csr: the kernel needs the "
+                         "faces' bbox")
+    return _launch_csr(geo, entry_face, start_block, counts, fid, bits, sval,
+                       pix_cf, grad_cf, num_faces, tile_h, tile_w, bbox)
+
+
+def fused_backward_rows_csr_plain(geo, fid, bits, sval, pix_cf, grad_cf,
+                                  num_faces: int):
+    """Plain PyTorch version of the streaming fused kernel (any device).
+
+    A face's row sums the pixels it owns whichever lists name it, so this
+    is :func:`fused_backward_rows_plain` cut to the faces' rows.
+    """
+    return fused_backward_rows_plain(geo, fid, bits, sval, pix_cf, grad_cf,
+                                     num_faces + 1)[:num_faces]
+
+
+@functools.cache
+def _csr_fn():
+    fn = _build.load(_CSR).dirt_fused_bwd_csr
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 11
+        + [ctypes.c_int] * 7
+        + [ctypes.c_void_p]
+    )
+    return fn
+
+
+def _launch_csr(geo, entry_face, start_block, counts, fid, bits, sval,
+                pix_cf, grad_cf, num_faces, tile_h, tile_w, bbox):
+    global LAUNCHES_CSR
+    device = fid.device
+    channels, hp, wp = pix_cf.shape
+    if hp % tile_h or wp % tile_w:
+        raise ValueError(f"image {hp}x{wp} is not padded to {tile_h}x"
+                         f"{tile_w} tiles")
+    total = (hp // tile_h) * (wp // tile_w)
+    k_cols = 12 + 3 * channels
+    if entry_face.ndim != 1 or entry_face.shape[0] % CHUNK:
+        raise ValueError(f"entry_face {tuple(entry_face.shape)} is not a "
+                         f"CHUNK-padded CSR array")
+    n_pad = entry_face.shape[0]
+    check_tensor("entry_face", entry_face, torch.int32, (n_pad,), device)
+    check_tensor("start_block", start_block, torch.int32, (total,), device)
+    check_tensor("counts", counts, torch.int32, (total,), device)
+    _check_fields(geo, bbox, fid, bits, sval, pix_cf, grad_cf, num_faces)
+
+    # ``partial`` holds one row per CSR slot and needs no clearing: pass 2
+    # reads only the rows of live entries, which pass 1 wrote.
+    out = torch.zeros((num_faces, k_cols), dtype=torch.float32,
+                      device=device)
+    partial = torch.empty((n_pad, k_cols), dtype=torch.float32,
+                          device=device)
+    fn = _csr_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            geo.data_ptr(), geo.shape[1], entry_face.data_ptr(),
+            start_block.data_ptr(), counts.data_ptr(), bbox.data_ptr(),
+            fid.data_ptr(), bits.data_ptr(), sval.data_ptr(),
+            pix_cf.data_ptr(), grad_cf.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), channels, hp, wp, tile_h, tile_w, n_pad,
+            num_faces, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{_CSR} launch failed: CUDA error {err}")
+    LAUNCHES_CSR += 1
     return out

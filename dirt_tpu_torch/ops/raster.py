@@ -5,15 +5,16 @@ face vertex data ``[F, 3, 4]`` (x_s, y_s, z_ndc, 1/w) and per-face vertex
 attributes ``[F, 3, C]``; everything upstream (vertex gather, clipping,
 clip -> screen transform, camera) is ordinary differentiable PyTorch.
 
-Ported so far: the packed engine (setup -> packed binning -> face table
+Three engines: the packed engine (setup -> packed binning -> face table
 -> ``raster_fwd.raster_forward_packed``; backward
-``packed_bwd.backward_packed``) and the dense whole-tile engine (setup ->
+``packed_bwd.backward_packed``), the dense whole-tile engine (setup ->
 ``binning.bin_faces`` -> ``raster_fwd.raster_forward``; backward
-``raster_bwd.backward_fused``), both chained through ``setup_planes`` by
-autograd, ``RasterConfig``, engine resolution, ``resolve_bin_cap`` and the
+``raster_bwd.backward_fused``) and the streaming (CSR) engine (setup ->
+``binning.bin_faces_csr`` -> ``raster_fwd.raster_forward_csr``; backward
+``raster_bwd.backward_fused_csr``), all chained through ``setup_planes`` by
+autograd; ``RasterConfig``, engine resolution, ``resolve_bin_cap`` and the
 count-then-allocate helpers (``suggest_config``, ``count_bins_exact``,
-``count_packed_exact``). The CSR (streaming) engine is not ported yet and
-raises ``NotImplementedError``.
+``count_packed_exact``).
 """
 
 from __future__ import annotations
@@ -31,23 +32,20 @@ from dirt_tpu_torch.ops.triangle_setup import (
     setup_planes,
 )
 
-_CSR_NOT_PORTED = (
-    "the CSR (streaming) engine (raster_fwd._fwd_csr_kernel, "
-    "fused_bwd._fused_csr_kernel) is ported in a later PR (ROADMAP Queue 1 "
-    "item 13)"
-)
-
-
 class RasterConfig(NamedTuple):
     """Static kernel configuration (same fields as ``dirt_tpu``'s).
 
     ``engine``: ``"packed"`` (8x16-subtile engine), ``"dense"`` (whole-tile
-    engine, faces of any screen size), ``"csr"`` (not ported yet) or
-    ``"auto"`` (packed for >= PACKED_MIN_FACES faces, dense below).
-    ``bin_cap`` caps the faces per tile of the dense engine (None: a
-    multiple of the mean density, ``resolve_bin_cap``); ``expand_cap`` caps
-    the subtiles one face may overlap; ``budget`` is the packed engine's
-    iteration budget;
+    engine, faces of any screen size), ``"csr"`` (the streaming engine:
+    per-tile CSR runs, any face count) or ``"auto"`` (csr when
+    ``streaming`` is True, else packed for >= PACKED_MIN_FACES faces, dense
+    below). ``streaming`` True makes the dense engine stream too; None
+    means "above STREAMING_FACES faces" (the clipping API pins it from the
+    face count before the clip). ``bin_cap`` caps the faces per tile of the
+    dense and streaming engines (None: a multiple of the mean density,
+    ``resolve_bin_cap``); ``expand_cap`` caps the subtiles (packed) or
+    tiles (streaming) one face may overlap; ``budget`` is the packed
+    engine's iteration budget;
     ``clip_cap`` the near-plane clip's secondary slots; ``pool_cap`` the
     packed binning's candidate pool; ``work_cap`` its live-prefix cap.
     None means auto. Auto caps are overflow-flagged, never silent;
@@ -102,25 +100,41 @@ def resolve_engine(config: RasterConfig, num_faces: int) -> str:
     return "dense"
 
 
+def streams(config: RasterConfig, num_faces: int) -> bool:
+    """Whether the streaming (CSR) engine runs for this (config, face
+    count): ``engine="csr"``, or a non-packed engine that streams.
+
+    The one decision forward and backward share: what the forward keeps
+    for the backward is the CSR bins exactly when this is true.
+    """
+    engine = resolve_engine(config, num_faces)
+    return engine == "csr" or (engine != "packed"
+                               and use_streaming(config, num_faces))
+
+
 def _pad_to(value: int, multiple: int) -> int:
     return -(-value // multiple) * multiple
 
 
-def resolve_bin_cap(config: RasterConfig, num_faces: int,
-                    num_tiles: int) -> int:
-    """Per-tile face cap of the dense engine: explicit, or a multiple of
-    the mean density.
+def resolve_bin_cap(config: RasterConfig, num_faces: int, num_tiles: int,
+                    streaming: bool = False) -> int:
+    """Per-tile face cap: explicit, or a multiple of the mean density.
 
     Mean binned faces per tile is about F * overlap / T; hot tiles (mesh
-    silhouettes, dense regions) run several times the mean, so the cap
-    takes an 8x margin. Overflow is reported, never silent. The cap never
-    exceeds the face count.
+    silhouettes, dense regions) run several times the mean, so the dense
+    engine's cap takes an 8x margin and the streaming engine's a 4x one
+    over a floor of 2048 (as ``dirt_tpu``, whose streaming grids pay for
+    every chunk of the cap). Overflow is reported, never silent. The cap
+    never exceeds the face count.
     """
     if config.bin_cap is not None:
         cap = config.bin_cap
     else:
         mean = -(-2 * num_faces // max(num_tiles, 1))
-        cap = max(cfg.DEFAULT_BIN_CAP, 8 * mean)
+        if streaming:
+            cap = max(2048, 4 * mean)
+        else:
+            cap = max(cfg.DEFAULT_BIN_CAP, 8 * mean)
     return max(min(cap, max(num_faces, 1)), 1)
 
 
@@ -162,18 +176,18 @@ def prepare_dense(face_verts_screen, face_attrs, background, config):
 
     Triangle setup, whole-tile binning and the face table. Returns (table
     [Fp, 17 + 3C], DenseBins, background [C, Hp, Wp] padded to whole tiles,
-    the concrete config). More faces than ``STREAMING_FACES`` belong to the
-    streaming engine, as in ``dirt_tpu``.
+    the concrete config). A config that streams (more faces than
+    ``STREAMING_FACES``, or ``streaming=True``) belongs to
+    :func:`prepare_csr`, as in ``dirt_tpu``.
     """
     height, width, _ = background.shape
     config = config.concrete(height)
     tile_h, tile_w = config.tile_h, config.tile_w
     num_faces = face_verts_screen.shape[0]
-    if resolve_engine(config, num_faces) != "dense":
-        raise ValueError(f"prepare_dense needs the dense engine, got "
-                         f"{config} for {num_faces} faces")
-    if use_streaming(config, num_faces):
-        raise NotImplementedError(_CSR_NOT_PORTED)
+    if (resolve_engine(config, num_faces) != "dense"
+            or streams(config, num_faces)):
+        raise ValueError(f"prepare_dense needs the dense engine, not "
+                         f"streaming, got {config} for {num_faces} faces")
 
     geo, att, valid = setup_planes(face_verts_screen, face_attrs)
     bbox = face_bboxes(face_verts_screen, valid, height, width).contiguous()
@@ -186,6 +200,49 @@ def prepare_dense(face_verts_screen, face_attrs, background, config):
     dense = DenseBins(bins.bins.contiguous(), bins.counts.contiguous(),
                       bins.overflow, bbox)
     return table, dense, bg_chw, config
+
+
+class StreamBins(NamedTuple):
+    """What the streaming forward leaves for its backward:
+    ``binning.bin_faces_csr``' result and the boxes it was made from."""
+
+    entry_face: torch.Tensor   # [n_pad] int32 CSR runs, sentinel F
+    start_block: torch.Tensor  # [T] int32, in CHUNK-row blocks
+    counts: torch.Tensor       # [T] int32
+    overflow: torch.Tensor     # [] bool: a tile cut at cap or a face at
+                               # expand_cap
+    bbox: torch.Tensor         # [F, 4] int32 (xmin, xmax, ymin, ymax)
+
+
+def prepare_csr(face_verts_screen, face_attrs, background, config):
+    """The streaming forward up to the raster kernel.
+
+    Triangle setup, CSR binning and the face table. Returns (table
+    [Fp, 17 + 3C], StreamBins, background [C, Hp, Wp] padded to whole
+    tiles, the concrete config). The per-tile cap is
+    ``resolve_bin_cap(streaming=True)`` rounded up to ``binning.CHUNK``;
+    ``expand_cap`` None means ``binning.auto_expand_cap``.
+    """
+    height, width, _ = background.shape
+    config = config.concrete(height)
+    tile_h, tile_w = config.tile_h, config.tile_w
+    num_faces = face_verts_screen.shape[0]
+    if not streams(config, num_faces):
+        raise ValueError(f"prepare_csr needs a streaming config, got "
+                         f"{config} for {num_faces} faces")
+
+    geo, att, valid = setup_planes(face_verts_screen, face_attrs)
+    bbox = face_bboxes(face_verts_screen, valid, height, width).contiguous()
+    bg_chw = _padded_background(background, tile_h, tile_w)
+    hp, wp = bg_chw.shape[1:]
+    total = (hp // tile_h) * (wp // tile_w)
+    cap = _pad_to(resolve_bin_cap(config, num_faces, total, streaming=True),
+                  binning.CHUNK)
+    expand = config.expand_cap or binning.auto_expand_cap(num_faces, total)
+    bins = binning.bin_faces_csr(bbox, height, width, tile_h, tile_w, cap,
+                                 expand)
+    table = raster_fwd.pack_face_table(geo, att)
+    return table, StreamBins(*bins, bbox), bg_chw, config
 
 
 def prepare_packed(face_verts_screen, face_attrs, background, config):
@@ -228,11 +285,15 @@ def prepare_packed(face_verts_screen, face_attrs, background, config):
 def _forward_impl(face_verts_screen, face_attrs, background, config):
     """(pixels, fid, zbuf, bins, concrete config) of the forward.
 
-    ``bins`` is the engine's own record (PackedBins or DenseBins); both
-    carry ``overflow`` flags (packed: 0-dim, dense: per tile).
+    ``bins`` is the engine's own record (PackedBins, DenseBins or
+    StreamBins); all carry ``overflow`` flags (dense: per tile, the others
+    0-dim).
     """
     height, width, _ = background.shape
-    engine = resolve_engine(config, face_verts_screen.shape[0])
+    num_faces = face_verts_screen.shape[0]
+    engine = resolve_engine(config, num_faces)
+    if engine not in ("packed", "dense", "csr"):
+        raise ValueError(f"unknown engine {engine!r}")
     if engine == "packed":
         table2, bins, bg_chw, config = prepare_packed(
             face_verts_screen, face_attrs, background, config
@@ -241,7 +302,15 @@ def _forward_impl(face_verts_screen, face_attrs, background, config):
             table2, bins, bg_chw, tile_h=config.tile_h, tile_w=config.tile_w,
             rows=bins.rows,
         )
-    elif engine == "dense":
+    elif streams(config, num_faces):
+        table, bins, bg_chw, config = prepare_csr(
+            face_verts_screen, face_attrs, background, config
+        )
+        pixels_chw, fid, zbuf = raster_fwd.raster_forward_csr(
+            table, bins.entry_face, bins.start_block, bins.counts, bg_chw,
+            tile_h=config.tile_h, tile_w=config.tile_w,
+        )
+    else:
         table, bins, bg_chw, config = prepare_dense(
             face_verts_screen, face_attrs, background, config
         )
@@ -249,10 +318,6 @@ def _forward_impl(face_verts_screen, face_attrs, background, config):
             table, bins.bins, bins.counts, bg_chw, tile_h=config.tile_h,
             tile_w=config.tile_w,
         )
-    elif engine == "csr":
-        raise NotImplementedError(_CSR_NOT_PORTED)
-    else:
-        raise ValueError(f"unknown engine {engine!r}")
     pixels = pixels_chw.permute(1, 2, 0)[:height, :width]
     return pixels, fid[:height, :width], zbuf[:height, :width], bins, config
 
@@ -263,9 +328,10 @@ class _RasterizeScreen(torch.autograd.Function):
     Counterpart of ``dirt_tpu.ops.raster``'s custom VJP (``_fwd`` and
     ``_bwd``). The forward keeps the screen-space faces, the outputs and
     the engine's bins (packed: with the gathered entry rows and the pool
-    backpointers; dense: the per-tile lists and the boxes) for the
-    backward, which recomputes the plane coefficients under autograd and
-    chains the engine's plane cotangents through them.
+    backpointers; dense and streaming: the per-tile lists and the boxes)
+    for the backward, which picks the engine by the kind of bins it finds,
+    recomputes the plane coefficients under autograd and chains the
+    engine's plane cotangents through them.
     """
 
     @staticmethod
@@ -303,6 +369,12 @@ class _RasterizeScreen(torch.autograd.Function):
                 geo.detach(), att.detach(), fid, zbuf, pixels,
                 grad_pixels.contiguous(), bins.bins, bins.counts,
                 config.tile_h, config.tile_w, bbox=bins.bbox,
+            )
+        elif isinstance(bins, StreamBins):
+            d_geo, d_att, _ = raster_bwd.backward_fused_csr(
+                geo.detach(), att.detach(), fid, zbuf, pixels,
+                grad_pixels.contiguous(), bins.entry_face, bins.start_block,
+                bins.counts, config.tile_h, config.tile_w, bbox=bins.bbox,
             )
         else:
             expand, _ = _packed_caps(config, num_faces,
@@ -350,13 +422,14 @@ def rasterize_screen(face_verts_screen, face_attrs, background, config):
 
 
 def check_bin_overflow(face_verts_screen, face_attrs, background, config):
-    """Per-tile overflow flags of the dense engine's binning for a scene
-    (diagnostics): True where a tile's list was cut at ``bin_cap``."""
-    return prepare_dense(
-        torch.as_tensor(face_verts_screen, dtype=torch.float32).detach(),
-        torch.as_tensor(face_attrs, dtype=torch.float32).detach(),
-        background, config,
-    )[1].overflow
+    """Overflow flags of a scene's binning (diagnostics). Dense engine: per
+    tile, True where the tile's list was cut at ``bin_cap``; streaming
+    engine: one flag, True if a tile's run was cut at ``bin_cap`` or a face
+    at ``expand_cap``."""
+    fv = torch.as_tensor(face_verts_screen, dtype=torch.float32).detach()
+    fa = torch.as_tensor(face_attrs, dtype=torch.float32).detach()
+    prepare = prepare_csr if streams(config, fv.shape[0]) else prepare_dense
+    return prepare(fv, fa, background, config)[1].overflow
 
 
 def count_bins_exact(bbox, height, width, tile_h, tile_w):

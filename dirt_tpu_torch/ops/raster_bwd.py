@@ -1,8 +1,8 @@
 """Backward pass: exact interior gradients + occlusion-aware edge gradients.
 
-Counterpart of the part of ``dirt_tpu/ops/raster_bwd.py`` that the packed
-and dense engines' backwards need; see that module's docstring for the
-semantics:
+Counterpart of the part of ``dirt_tpu/ops/raster_bwd.py`` that the
+packed, dense and streaming engines' backwards need; see that module's
+docstring for the semantics:
 
 * interior: the gradient of ``num_plane / den_plane`` with respect to the
   plane coefficients at fixed coverage (exact; chained to the screen
@@ -19,9 +19,10 @@ reduction, from ``c_global = c0 - a*ax - b*ay`` (``anchor_cotangents``).
 cotangents reduced onto faces, and the in-package oracle that the packed
 backward (``ops.packed_bwd``) and the dense one are tested against.
 :func:`backward_fused` is the dense engine's backward (kernel
-``csrc/fused_bwd.cu`` through ``ops.fused_bwd``). The CSR and sharded
-engines (``backward_fused_csr``, ``backward_scatter*``,
-``pack_cotangent_tiles``) come with their paths.
+``csrc/fused_bwd.cu`` through ``ops.fused_bwd``) and
+:func:`backward_fused_csr` the streaming engine's (``csrc/fused_bwd_csr.cu``).
+The sharded engines (``backward_scatter*``, ``pack_cotangent_tiles``) come
+with their path.
 """
 
 from __future__ import annotations
@@ -319,28 +320,16 @@ def backward_torch(geo, att, fid, zbuf, pixels, grad_pixels, own_mask=None):
     return d_geo, d_att, d_background
 
 
-def backward_fused(geo, att, fid, zbuf, pixels, grad_pixels, bins, counts,
-                   tile_h: int, tile_w: int, bbox=None):
-    """Dense-path backward: neighbor prologue + the fused kernel.
+def _padded_fields(fid, zbuf, pixels, grad_pixels, tile_h, tile_w):
+    """The image-space inputs of a fused backward, padded to whole tiles:
+    (fid_p, bits, sval, pix_cf, grad_cf).
 
-    Same semantics and returns as :func:`backward_torch`. The image-space
-    fields are padded to whole tiles with fid -2 / BIG_Z / 0, so padding
-    neither owns cotangents nor pairs with true image-border pixels; the
-    boundary-pair bits and ``sval`` come from
-    ``packed_bwd.fused_neighbor_prologue`` on the padded arrays, and
-    ``fused_bwd.fused_backward_rows`` sums the per-pixel cotangents onto
-    the owning faces. ``bins`` / ``counts`` are the forward's
-    (``binning.bin_faces``), at any cap; ``bbox`` [F, 4] are the boxes they
-    were made from, which the kernel needs on CUDA tensors (see
-    ``fused_bwd``).
+    Padding is fid -2 / BIG_Z / 0, so it neither owns cotangents nor pairs
+    with true image-border pixels; the boundary-pair bits and ``sval`` come
+    from ``packed_bwd.fused_neighbor_prologue`` on the padded arrays.
     """
-    from dirt_tpu_torch.ops.fused_bwd import fused_backward_rows
     from dirt_tpu_torch.ops.packed_bwd import fused_neighbor_prologue
 
-    geo = torch.as_tensor(geo, dtype=torch.float32)
-    att = torch.as_tensor(att, dtype=torch.float32)
-    num_faces = geo.shape[0]
-    channels = pixels.shape[-1]
     height, width = fid.shape
     hp = -(-height // tile_h) * tile_h
     wp = -(-width // tile_w) * tile_w
@@ -352,10 +341,59 @@ def backward_fused(geo, att, fid, zbuf, pixels, grad_pixels, bins, counts,
     grad_cf = pad(grad_pixels.to(torch.float32).permute(2, 0, 1),
                   pad2).contiguous()
     bits, sval = fused_neighbor_prologue(fid_p, zbuf_p, pix_cf, grad_cf)
+    return fid_p, bits, sval, pix_cf, grad_cf
+
+
+def backward_fused(geo, att, fid, zbuf, pixels, grad_pixels, bins, counts,
+                   tile_h: int, tile_w: int, bbox=None):
+    """Dense-path backward: neighbor prologue + the fused kernel.
+
+    Same semantics and returns as :func:`backward_torch`. The image-space
+    fields are padded to whole tiles (:func:`_padded_fields`), and
+    ``fused_bwd.fused_backward_rows`` sums the per-pixel cotangents onto
+    the owning faces. ``bins`` / ``counts`` are the forward's
+    (``binning.bin_faces``), at any cap; ``bbox`` [F, 4] are the boxes they
+    were made from, which the kernel needs on CUDA tensors (see
+    ``fused_bwd``).
+    """
+    from dirt_tpu_torch.ops.fused_bwd import fused_backward_rows
+
+    geo = torch.as_tensor(geo, dtype=torch.float32)
+    att = torch.as_tensor(att, dtype=torch.float32)
+    num_faces = geo.shape[0]
+    fid_p, bits, sval, pix_cf, grad_cf = _padded_fields(
+        fid, zbuf, pixels, grad_pixels, tile_h, tile_w)
     rows = fused_backward_rows(
         geo.contiguous(), bins, counts, fid_p, bits, sval, pix_cf, grad_cf,
         num_faces + 1, tile_h=tile_h, tile_w=tile_w, bbox=bbox,
     )[:num_faces]
-    d_geo, d_att = assemble_face_gradients(geo, att, rows, channels)
+    d_geo, d_att = assemble_face_gradients(geo, att, rows, pixels.shape[-1])
+    d_background = torch.where((fid >= 0)[..., None], 0.0, grad_pixels)
+    return d_geo, d_att, d_background
+
+
+def backward_fused_csr(geo, att, fid, zbuf, pixels, grad_pixels, entry_face,
+                       start_block, counts, tile_h: int, tile_w: int,
+                       bbox=None):
+    """Streaming-path backward: neighbor prologue + the fused CSR kernel.
+
+    :func:`backward_fused` over the forward's CSR bins
+    (``binning.bin_faces_csr``) through
+    ``fused_bwd.fused_backward_rows_csr``. ``dirt_tpu``'s function also
+    takes the face count and a static chunk bound; here the first is
+    ``geo``'s and the kernel needs no second.
+    """
+    from dirt_tpu_torch.ops.fused_bwd import fused_backward_rows_csr
+
+    geo = torch.as_tensor(geo, dtype=torch.float32)
+    att = torch.as_tensor(att, dtype=torch.float32)
+    fid_p, bits, sval, pix_cf, grad_cf = _padded_fields(
+        fid, zbuf, pixels, grad_pixels, tile_h, tile_w)
+    rows = fused_backward_rows_csr(
+        geo.contiguous(), entry_face, start_block, counts, fid_p, bits, sval,
+        pix_cf, grad_cf, geo.shape[0], tile_h=tile_h, tile_w=tile_w,
+        bbox=bbox,
+    )
+    d_geo, d_att = assemble_face_gradients(geo, att, rows, pixels.shape[-1])
     d_background = torch.where((fid >= 0)[..., None], 0.0, grad_pixels)
     return d_geo, d_att, d_background

@@ -1,11 +1,13 @@
-"""Raster forward, packed and dense engines: face tables, CUDA kernel
-wrappers, plain versions.
+"""Raster forward, packed, dense and streaming engines: face tables, CUDA
+kernel wrappers, plain versions.
 
-Counterpart of ``dirt_tpu/ops/raster_fwd.py`` (the CSR kernel comes with
-its engine). The dense whole-tile engine is at the end of the module:
+Counterpart of ``dirt_tpu/ops/raster_fwd.py``. The dense whole-tile engine
+and the streaming (CSR) engine are at the end of the module:
 ``pack_face_table``, ``raster_forward`` (kernel
 ``csrc/raster_fwd_dense.cu`` for CUDA tensors, replacing ``_fwd_kernel``)
-and ``raster_forward_plain`` (CPU tensors).
+and ``raster_forward_plain`` (CPU tensors); ``raster_forward_csr`` (kernel
+``csrc/raster_fwd_csr.cu``, replacing ``_fwd_csr_kernel``) and
+``raster_forward_csr_plain``.
 
 ``raster_forward_packed`` returns what the JAX function of that name
 returns — pixels [C, Hp, Wp], fid [Hp, Wp] and zbuf [Hp, Wp] in image
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 
 from dirt_tpu_torch.ops import _build
 from dirt_tpu_torch.ops.binning import (
+    CHUNK,
     GROUPS,
     PACK_ITERS,
     SUB_H,
@@ -51,9 +54,11 @@ COL_ATT = GEO_USED + 2     # 3 columns per channel
 # the main path went through the kernel).
 LAUNCHES = 0
 LAUNCHES_DENSE = 0
+LAUNCHES_CSR = 0
 
 _KERNEL = "raster_fwd_packed"
 _DENSE = "raster_fwd_dense"
+_CSR = "raster_fwd_csr"
 
 
 def packed_table_width(channels: int) -> int:
@@ -348,6 +353,14 @@ def _check_dense(table, bins, counts, background_chw, tile_h, tile_w):
     return channels, hp, wp, total
 
 
+def _check_dense_tile(kernel, tile_h, tile_w):
+    """The tile shapes the whole-tile kernels' strip walk takes."""
+    if tile_h % 8 or (tile_w > 128 and tile_w % 128) or tile_w < 1:
+        raise ValueError(
+            f"{kernel} kernel needs tile_h a multiple of 8 and "
+            f"tile_w <= 128 or a multiple of 128, got {tile_h}x{tile_w}")
+
+
 def raster_forward(table, bins, counts, background_chw, *, tile_h: int,
                    tile_w: int):
     """Dense forward: every tile scan-converts its binned faces.
@@ -390,10 +403,7 @@ def _launch_dense(table, bins, counts, background_chw, tile_h, tile_w):
     global LAUNCHES_DENSE
     channels, hp, wp, total = _check_dense(table, bins, counts,
                                            background_chw, tile_h, tile_w)
-    if tile_h % 8 or (tile_w > 128 and tile_w % 128) or tile_w < 1:
-        raise ValueError(
-            f"raster_fwd_dense kernel needs tile_h a multiple of 8 and "
-            f"tile_w <= 128 or a multiple of 128, got {tile_h}x{tile_w}")
+    _check_dense_tile(_DENSE, tile_h, tile_w)
     device = background_chw.device
     cap = bins.shape[1]
     check_tensor("table", table, torch.float32, table.shape, device)
@@ -448,10 +458,22 @@ def raster_forward_plain(table, bins, counts, background_chw, *,
     attribute planes are evaluated once, from the winner's row, afterwards:
     the same expressions in the same order.
     """
-    channels, hp, wp, total = _check_dense(table, bins, counts,
-                                           background_chw, tile_h, tile_w)
+    _check_dense(table, bins, counts, background_chw, tile_h, tile_w)
+    ids = bins.long()
+    return _scan_lists_plain(table, lambda k: ids[:, k], counts,
+                             background_chw, tile_h, tile_w)
+
+
+def _scan_lists_plain(table, face_at, counts, background_chw, tile_h, tile_w):
+    """The z-buffered scan of per-tile face lists, vectorised over tiles.
+
+    ``face_at(k)`` is the [T] int64 face id at slot k of every tile's list
+    (any valid table row where ``k >= counts[t]``: those steps are masked).
+    """
+    channels, hp, wp = background_chw.shape
     device = background_chw.device
     tiles_y, tiles_x = hp // tile_h, wp // tile_w
+    total = tiles_y * tiles_x
 
     def arange(n):
         return torch.arange(n, dtype=torch.int64, device=device)
@@ -465,10 +487,9 @@ def raster_forward_plain(table, bins, counts, background_chw, *,
     zb = torch.full(shape, BIG_Z, dtype=torch.float32, device=device)
     best = torch.full(shape, -1, dtype=torch.int64, device=device)
     n_steps = int(counts.max()) if total else 0
-    ids = bins.long()
     for k in range(n_steps):
         live = (k < counts)[:, None, None]                   # [T, 1, 1]
-        face = ids[:, k]                                     # [T]
+        face = face_at(k)                                    # [T]
         m = table[face][:, :GEO_USED, None, None]            # [T, 17, 1, 1]
 
         def cf(q):
@@ -507,3 +528,119 @@ def raster_forward_plain(table, bins, counts, background_chw, *,
         _from_tiles(fid, tiles_y, tiles_x, tile_h, tile_w),
         _from_tiles(zb, tiles_y, tiles_x, tile_h, tile_w),
     )
+
+
+# --- streaming (CSR) engine --------------------------------------------------
+
+
+def _check_csr(table, entry_face, start_block, counts, background_chw,
+               tile_h, tile_w):
+    channels, hp, wp = background_chw.shape
+    if hp % tile_h or wp % tile_w:
+        raise ValueError(f"image {hp}x{wp} is not padded to {tile_h}x"
+                         f"{tile_w} tiles")
+    total = (hp // tile_h) * (wp // tile_w)
+    if (entry_face.ndim != 1 or entry_face.shape[0] % CHUNK
+            or start_block.shape != (total,) or counts.shape != (total,)):
+        raise ValueError(
+            f"entry_face {tuple(entry_face.shape)} / start_block "
+            f"{tuple(start_block.shape)} / counts {tuple(counts.shape)} are "
+            f"not CSR bins of {total} tiles")
+    if table.ndim != 2 or table.shape[1] != GEO_USED + 3 * channels:
+        raise ValueError(f"table: want [Fp, {GEO_USED + 3 * channels}], got "
+                         f"{tuple(table.shape)}")
+    return channels, hp, wp, total
+
+
+def raster_forward_csr(table, entry_face, start_block, counts,
+                       background_chw, *, tile_h: int, tile_w: int):
+    """Streaming forward: every tile scan-converts its CSR run.
+
+    Where ``dirt_tpu``'s function takes the pre-gathered rows
+    ``table[entry_face]`` and a static chunk bound, this one takes the face
+    table itself: the kernel gathers the rows it stages and loops to
+    ``counts[t]``.
+
+    Args:
+        table: [Fp, GEO_USED + 3C] f32 from :func:`pack_face_table`.
+        entry_face: [n_pad] int32 (``binning.bin_faces_csr``): tile t's faces
+            are ``entry_face[start_block[t] * CHUNK + i]``, ``i < counts[t]``,
+            ascending; slots past a run's count are not read.
+        start_block, counts: [T] int32.
+        background_chw: [C, Hp, Wp] f32 padded to tile multiples.
+    Returns:
+        pixels [C, Hp, Wp] f32, fid [Hp, Wp] int32 (-1 background), zbuf
+        [Hp, Wp] f32 (BIG_Z background). A depth tie goes to the lower
+        face id.
+    """
+    device = background_chw.device
+    if device.type == "cpu":
+        return raster_forward_csr_plain(
+            table, entry_face, start_block, counts, background_chw,
+            tile_h=tile_h, tile_w=tile_w)
+    if device.type != "cuda":
+        raise ValueError(f"raster_forward_csr: no kernel for device {device}")
+    return _launch_csr(table, entry_face, start_block, counts,
+                       background_chw, tile_h, tile_w)
+
+
+def raster_forward_csr_plain(table, entry_face, start_block, counts,
+                             background_chw, *, tile_h: int, tile_w: int):
+    """Plain PyTorch version of the streaming kernel (any device): the
+    dense plain version's step loop over each tile's CSR run. It takes
+    ``counts.max()`` Python steps."""
+    _check_csr(table, entry_face, start_block, counts, background_chw,
+               tile_h, tile_w)
+    ids = entry_face.long()
+    base = start_block.long() * CHUNK
+    last = ids.shape[0] - 1
+    return _scan_lists_plain(
+        table, lambda k: ids[torch.clamp(base + k, max=last)], counts,
+        background_chw, tile_h, tile_w)
+
+
+@functools.cache
+def _csr_fn():
+    fn = _build.load(_CSR).dirt_raster_fwd_csr
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 7
+        + [ctypes.c_int] * 5
+        + [ctypes.c_void_p]
+    )
+    return fn
+
+
+def _launch_csr(table, entry_face, start_block, counts, background_chw,
+                tile_h, tile_w):
+    global LAUNCHES_CSR
+    channels, hp, wp, total = _check_csr(
+        table, entry_face, start_block, counts, background_chw, tile_h,
+        tile_w)
+    _check_dense_tile(_CSR, tile_h, tile_w)
+    device = background_chw.device
+    check_tensor("table", table, torch.float32, table.shape, device)
+    check_tensor("entry_face", entry_face, torch.int32, entry_face.shape,
+                 device)
+    check_tensor("start_block", start_block, torch.int32, (total,), device)
+    check_tensor("counts", counts, torch.int32, (total,), device)
+    check_tensor("background", background_chw, torch.float32,
+                 (channels, hp, wp), device)
+
+    pix = torch.empty((channels, hp, wp), dtype=torch.float32, device=device)
+    fid = torch.empty((hp, wp), dtype=torch.int32, device=device)
+    zbuf = torch.empty((hp, wp), dtype=torch.float32, device=device)
+    fn = _csr_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            table.data_ptr(), table.shape[1], entry_face.data_ptr(),
+            start_block.data_ptr(), counts.data_ptr(),
+            background_chw.data_ptr(), pix.data_ptr(), fid.data_ptr(),
+            zbuf.data_ptr(), channels, hp, wp, tile_h, tile_w, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{_CSR} launch failed: CUDA error {err}")
+    LAUNCHES_CSR += 1
+    return pix, fid, zbuf

@@ -41,3 +41,20 @@ def screen_soup(num_faces, height, width, seed, channels=3, spread=25.0):
     fv = np.concatenate([xy, z, np.ones((num_faces, 3, 1))], axis=-1)
     attrs = rng.rand(num_faces, 3, channels)
     return fv.astype(np.float32), attrs.astype(np.float32)
+
+
+def clip_soup(num_faces, size, seed, channels=3):
+    """Random unconnected triangles in clip space (w = 1), many of them
+    larger than a tile, as ``tests/test_streaming.py`` makes them.
+
+    Returns numpy (vertices [3F, 4] f32, colors [3F, C] f32, faces [F, 3]
+    int32, background [size, size, C] f32).
+    """
+    rng = np.random.RandomState(seed)
+    verts = rng.uniform(-1.2, 1.2, (3 * num_faces, 4)).astype(np.float32)
+    verts[:, 2] = rng.uniform(-0.9, 0.9, 3 * num_faces)
+    verts[:, 3] = 1.0
+    faces = np.arange(3 * num_faces, dtype=np.int32).reshape(num_faces, 3)
+    colors = rng.rand(3 * num_faces, channels).astype(np.float32)
+    bg = rng.rand(size, size, channels).astype(np.float32)
+    return verts, colors, faces, bg

@@ -1,6 +1,7 @@
 """dirt_tpu_torch's CUDA kernels on the card (``cuda`` marker).
 
-Every test here needs a CUDA device and nvcc; without one it skips. This
+Every test marked ``cuda`` needs a CUDA device and nvcc; without one it
+skips (the one unmarked test checks the streaming scenes on the CPU). This
 file imports torch and the port only (no jax), so on the machine with the
 card it runs without the JAX package's conftest:
 
@@ -26,6 +27,10 @@ rows within 1e-5 of the column's largest magnitude plus 1e-6 of its plain
 version (the kernel sums float32 in its own fixed order, the plain version
 in float64) and equal on two runs; gradients and the flagship loss on the
 card against the CPU as above.
+
+The streaming (CSR) engine: the same checks and tolerances as the dense
+engine's (the two forward kernels share their strip walk, the two backward
+kernels their passes), at small and odd shapes.
 """
 
 import numpy as np
@@ -36,7 +41,11 @@ import dirt_tpu_torch
 from _torch_port_scene import screen_soup, sphere_scene
 from dirt_tpu_torch import convert, entry
 from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster, raster_fwd
-from dirt_tpu_torch.ops.triangle_setup import screen_from_clip, setup_planes
+from dirt_tpu_torch.ops.triangle_setup import (
+    face_bboxes,
+    screen_from_clip,
+    setup_planes,
+)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 TOL_BWD = dict(rtol=1e-5, atol=1e-6)
@@ -366,3 +375,155 @@ def test_entry_step_on_card_matches_cpu(cuda):
     (loss_c, dv_c, dp_c), (loss_g, dv_g, dp_g) = results
     assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
     assert _rel_err(dv_g, dv_c) <= 1e-4 and _rel_err(dp_g, dp_c) <= 1e-4
+
+
+# --- the streaming (CSR) engine -----------------------------------------------
+
+# name: (faces, height, width, channels, tile_h, tile_w, bin_cap, expand_cap,
+# largest run, overflow). One tile; a run of exactly 128 entries (one full
+# chunk) and of 129 (one entry into the second chunk); a tile whose run the
+# cap cuts; nine channels on an image that is no multiple of the tile; small
+# tiles.
+_CSR_CASES = {
+    "one-tile": (60, 32, 128, 1, 32, 128, None, None, 60, False),
+    "run-128": (128, 32, 128, 3, 32, 128, None, None, 128, False),
+    "run-129": (129, 32, 128, 3, 32, 128, None, None, 129, False),
+    "cap-cut": (300, 32, 128, 2, 32, 128, 128, None, 128, True),
+    "ragged-c9": (150, 100, 130, 9, 32, 128, None, None, None, False),
+    "small-tiles": (150, 64, 80, 2, 8, 32, None, 64, None, False),
+}
+
+
+def _csr_forward(device, case):
+    """(fv, fa, table, StreamBins, bg_chw, cfg, height, width) of one
+    _CSR_CASES scene on ``device``."""
+    (num_faces, height, width, channels, tile_h, tile_w, bin_cap, expand,
+     largest, overflow) = _CSR_CASES[case]
+    fv, fa = screen_soup(2 * num_faces, height, width, seed=9,
+                         channels=channels, spread=30.0)
+    # The first ``num_faces`` faces that binning lists (setup drops
+    # back-facing ones), so a one-tile scene's run has that length.
+    fv_t, fa_t = torch.tensor(fv), torch.tensor(fa)
+    box = face_bboxes(fv_t, setup_planes(fv_t, fa_t)[2], height, width)
+    live = torch.nonzero((box[:, 1] >= box[:, 0]) & (box[:, 3] >= box[:, 2]))
+    keep = live[:num_faces, 0]
+    assert keep.shape[0] == num_faces
+    fv = fv_t[keep].to(device)
+    fa = fa_t[keep].to(device)
+    bg = torch.rand(height, width, channels, device=device)
+    config = raster.RasterConfig(streaming=True, tile_h=tile_h, tile_w=tile_w,
+                                 bin_cap=bin_cap, expand_cap=expand)
+    table, bins, bg_chw, cfg = raster.prepare_csr(fv, fa, bg, config)
+    assert bool(bins.overflow) is overflow
+    if largest is not None:
+        assert int(bins.counts.max()) == largest
+    return fv, fa, table, bins, bg_chw, cfg, height, width
+
+
+@pytest.mark.parametrize("case", list(_CSR_CASES))
+def test_csr_cases_have_the_runs_they_name(case):
+    """The scenes above on the CPU: the runs have the lengths the card
+    tests rely on (this one needs no card)."""
+    _csr_forward("cpu", case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_CSR_CASES))
+def test_csr_kernel_matches_plain_on_card(cuda, case):
+    _, _, table, bins, bg_chw, cfg, _, _ = _csr_forward(cuda, case)
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    args = (bins.start_block, bins.counts, bg_chw)
+    before = raster_fwd.LAUNCHES_CSR
+    pix_k, fid_k, z_k = raster_fwd.raster_forward_csr(
+        table, bins.entry_face, *args, **geom)
+    torch.cuda.synchronize()
+    assert raster_fwd.LAUNCHES_CSR == before + 1
+    pix_p, fid_p, z_p = raster_fwd.raster_forward_csr_plain(
+        table, bins.entry_face, *args, **geom)
+    assert torch.equal(fid_k, fid_p)
+    assert torch.equal(z_k, z_p)
+    torch.testing.assert_close(pix_k, pix_p, **TOL)
+    assert (fid_k >= 0).any()
+    # Slots past a run's count are never read.
+    sentinel = int(bins.entry_face.max())           # F, on padding slots
+    dirty = torch.where(bins.entry_face == sentinel,
+                        torch.full_like(bins.entry_face, 1 << 30),
+                        bins.entry_face)
+    again = raster_fwd.raster_forward_csr(table, dirty, *args, **geom)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(again, (pix_k, fid_k, z_k)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_CSR_CASES))
+def test_fused_bwd_csr_kernel_matches_plain_on_card(cuda, case):
+    fv, fa, table, bins, bg_chw, cfg, height, width = _csr_forward(cuda, case)
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    pix_cf, fid, zbuf = raster_fwd.raster_forward_csr_plain(
+        table, bins.entry_face, bins.start_block, bins.counts, bg_chw, **geom)
+    hp, wp = fid.shape
+    # Padding as backward_fused_csr makes it: fid -2, depth BIG_Z, values 0.
+    inside = torch.zeros((hp, wp), dtype=torch.bool, device=cuda)
+    inside[:height, :width] = True
+    fid = torch.where(inside, fid, -2).contiguous()
+    zbuf = torch.where(inside, zbuf, raster_fwd.BIG_Z).contiguous()
+    pix_cf = torch.where(inside, pix_cf, 0.0).contiguous()
+    grad_cf = torch.where(inside, torch.randn_like(pix_cf), 0.0).contiguous()
+    bits, sval = packed_bwd.fused_neighbor_prologue_plain(fid, zbuf, pix_cf,
+                                                          grad_cf)
+    geo, _, _ = setup_planes(fv, fa)
+    num_faces = fv.shape[0]
+    args = (geo.contiguous(), bins.entry_face, bins.start_block, bins.counts,
+            fid, bits, sval, pix_cf, grad_cf, num_faces)
+    before = fused_bwd.LAUNCHES_CSR
+    rows_k = fused_bwd.fused_backward_rows_csr(*args, bbox=bins.bbox, **geom)
+    torch.cuda.synchronize()
+    assert fused_bwd.LAUNCHES_CSR == before + 1
+    rows_p = fused_bwd.fused_backward_rows_csr_plain(
+        geo, fid, bits, sval, pix_cf, grad_cf, num_faces)
+    assert rows_k.shape == rows_p.shape == (num_faces,
+                                            12 + 3 * pix_cf.shape[0])
+    scale = rows_p.abs().amax(dim=0, keepdim=True)
+    assert ((rows_k - rows_p).abs() <= 1e-5 * scale + 1e-6).all()
+    assert (rows_k != 0).any()
+    # Deterministic: a second run is equal. Without the boxes it raises.
+    assert torch.equal(rows_k, fused_bwd.fused_backward_rows_csr(
+        *args, bbox=bins.bbox, **geom))
+    with pytest.raises(ValueError, match="bbox"):
+        fused_bwd.fused_backward_rows_csr(*args, **geom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("distance,clip,fields", [
+    (3.0, False, dict(streaming=True)),
+    (3.0, True, dict(engine="csr", tile_h=16, bin_cap=300)),
+    (0.9, True, dict(engine="dense", streaming=True)),
+])
+def test_streaming_gradients_on_card_match_cpu(cuda, distance, clip, fields):
+    verts, colors, faces = sphere_scene(24, 32, distance=distance,
+                                        channels=9)
+    bg = np.random.RandomState(6).rand(192, 256, 9).astype(np.float32)
+    w = np.random.RandomState(7).randn(192, 256, 9).astype(np.float32)
+    config = dirt_tpu_torch.RasterConfig(**fields)
+    outs, grads = [], []
+    for device in ("cpu", cuda):
+        bg_t, v_t, c_t, f_t = convert.scene_from_numpy(bg, verts, colors,
+                                                       faces, device)
+        leaves = [t.clone().requires_grad_() for t in (v_t, c_t, bg_t)]
+        before = (raster_fwd.LAUNCHES_CSR, fused_bwd.LAUNCHES_CSR)
+        pix, fid, zbuf, ovf = dirt_tpu_torch.rasterise_with_aux(
+            leaves[2], leaves[0], leaves[1], f_t, config=config, clip=clip)
+        (pix * torch.tensor(w, device=device)).sum().backward()
+        launched = (raster_fwd.LAUNCHES_CSR - before[0],
+                    fused_bwd.LAUNCHES_CSR - before[1])
+        assert launched == ((0, 0) if device == "cpu" else (1, 1))
+        outs.append((pix.detach().cpu(), fid.cpu(), zbuf.cpu(), bool(ovf)))
+        grads.append([t.grad.cpu() for t in leaves])
+    (pix_c, fid_c, z_c, ovf_c), (pix_g, fid_g, z_g, ovf_g) = outs
+    assert ovf_g is ovf_c is False
+    assert torch.equal(fid_g, fid_c)
+    torch.testing.assert_close(pix_g, pix_c, **TOL)
+    torch.testing.assert_close(z_g, z_c, **TOL)
+    for g_cpu, g_card in zip(*grads):
+        assert torch.isfinite(g_card).all()
+        assert _rel_err(g_card, g_cpu) <= 1e-4

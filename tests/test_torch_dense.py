@@ -452,7 +452,7 @@ def test_finite_differences_interior():
             (np.abs(got - num).max(), np.abs(num).max())
 
 
-# --- what still raises, and the build's hash -----------------------------------
+# --- the streaming configs, other devices, and the build's hash ---------------
 
 
 @pytest.mark.parametrize("config", [
@@ -461,10 +461,25 @@ def test_finite_differences_interior():
     tr.RasterConfig(engine="dense", streaming=True),
 ])
 def test_streaming_engine_raises(config):
+    """These configs used to raise; the streaming engine now renders them,
+    equal to ``dirt_tpu``'s render under the end-to-end tolerance above
+    (its own tests are in tests/test_torch_csr.py)."""
     bg, verts, colors, faces, _ = _scene("sphere")
-    with pytest.raises(NotImplementedError, match="later PR"):
-        dirt_tpu_torch.rasterise_with_aux(bg, verts, colors, faces,
-                                          config=config, clip=False)
+    pix_j, fid_j, z_j, ovf_j = (np.asarray(o) for o in (
+        dirt_tpu.rasterise_with_aux(
+            bg, verts, colors, faces, config=jr.RasterConfig(
+                **config._asdict()), clip=False)))
+    pix_t, fid_t, z_t, ovf_t = (o.numpy() for o in (
+        dirt_tpu_torch.rasterise_with_aux(
+            *convert.scene_from_numpy(bg, verts, colors, faces, "cpu"),
+            config=config, clip=False)))
+    assert bool(ovf_t) is bool(ovf_j) is False
+    differ = fid_t != fid_j
+    assert differ.mean() <= RAZOR, f"{differ.mean():.4%} fids differ"
+    agree = ~differ
+    np.testing.assert_allclose(pix_t[agree], pix_j[agree], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(z_t[agree], z_j[agree], rtol=0, atol=1e-5)
+    assert (fid_t >= 0).mean() > 0.2
 
 
 def test_other_devices_raise():
@@ -483,17 +498,24 @@ def test_other_devices_raise():
 
 def test_header_edit_rebuilds_both_backward_kernels(monkeypatch, tmp_path):
     """The library's name hashes the source and the csrc headers it
-    includes: an edited ``cotangent_core.cuh`` renames both backward
-    libraries and leaves the others."""
+    includes, directly or through another header: an edited header renames
+    the libraries of the kernels that include it and leaves the others."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     names = ("raster_fwd_packed", "packed_prologue", "packed_bwd",
-             "raster_fwd_dense", "fused_bwd")
-    before = {n: _build.library_path(n) for n in names}
-    header = csrc / "cotangent_core.cuh"
-    assert header in _build.source_files("packed_bwd")
-    assert header in _build.source_files("fused_bwd")
-    header.write_text(header.read_text() + "\n// edited\n")
-    changed = {n for n in names if _build.library_path(n) != before[n]}
-    assert changed == {"packed_bwd", "fused_bwd"}
+             "raster_fwd_dense", "fused_bwd", "raster_fwd_csr",
+             "fused_bwd_csr")
+    users = {
+        "cotangent_core.cuh": {"packed_bwd", "fused_bwd", "fused_bwd_csr"},
+        "fused_rows.cuh": {"fused_bwd", "fused_bwd_csr"},
+        "raster_tile.cuh": {"raster_fwd_dense", "raster_fwd_csr"},
+    }
+    for header_name, want in users.items():
+        header = csrc / header_name
+        assert {n for n in names
+                if header in _build.source_files(n)} == want
+        before = {n: _build.library_path(n) for n in names}
+        header.write_text(header.read_text() + "\n// edited\n")
+        changed = {n for n in names if _build.library_path(n) != before[n]}
+        assert changed == want

@@ -115,7 +115,15 @@ def test_rasterise_matches_aux_and_default_background():
     RasterConfig(streaming=True),
 ])
 def test_unported_engines_raise(config):
-    bg, verts, colors, faces = _scene("sphere")
-    with pytest.raises(NotImplementedError, match="later PR"):
-        dirt_tpu_torch.rasterise_with_aux(bg, verts, colors, faces,
-                                          config=config, clip=False)
+    """These configs used to raise; the streaming engine now renders them,
+    equal to ``dirt_tpu``'s render under the same tolerance as above
+    (its own tests are in tests/test_torch_csr.py)."""
+    (pix_j, fid_j, z_j, ovf_j), (pix_t, fid_t, z_t, ovf_t) = _render_both(
+        "sphere", False, JaxConfig(**config._asdict()), config)
+    assert bool(ovf_t) is bool(ovf_j) is False
+    differ = fid_t != fid_j
+    assert differ.mean() <= RAZOR, f"{differ.mean():.4%} fids differ"
+    agree = ~differ
+    np.testing.assert_allclose(pix_t[agree], pix_j[agree], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(z_t[agree], z_j[agree], rtol=0, atol=ATOL)
+    assert (fid_t >= 0).mean() > 0.2

@@ -3,15 +3,17 @@
 
     python3 tools/prof_torch_steps.py
 
-Takes a ``torch.profiler`` window of a few fwd+bwd steps of three paths of
+Takes a ``torch.profiler`` window of a few fwd+bwd steps of four paths of
 the port on one CUDA card and prints, for each: device kernels per step,
 device busy time per step, the span of the window per step, the busy share
 (busy / span), the hand-written kernels' device time, and the five largest
 items by device time. The paths are the flagship step
 (``dirt_tpu_torch.entry.entry()``: 2,208 faces, 256 x 256, dense engine,
 9-channel G-buffer), config 5 of ``bench_configs.py`` (10,224 faces,
-1024 x 1024, packed engine, 9-channel G-buffer, texture + Phong) and
-config 4's lit sphere (2,208 faces, 512 x 512, dense engine, 3 channels).
+1024 x 1024, packed engine, 9-channel G-buffer, texture + Phong), config
+4's lit sphere (2,208 faces, 512 x 512, dense engine, 3 channels) and the
+default API on the 99,904-face sphere (1024 x 1024, 3 channels, which runs
+the streaming csr engine).
 The profiler's own host cost stretches the span, so the busy shares are
 lower bounds of the unprofiled ones. Prints the card's name and power
 limit beside the numbers; exits non-zero without a CUDA device.
@@ -26,7 +28,9 @@ import torch
 STEPS = 5
 OURS = ("raster_fwd_packed_kernel", "packed_prologue_kernel",
         "packed_bwd_kernel", "raster_fwd_dense_kernel",
-        "fused_bwd_partial_kernel", "fused_bwd_reduce_kernel")
+        "fused_bwd_partial_kernel", "fused_bwd_reduce_kernel",
+        "raster_fwd_csr_kernel", "fused_bwd_csr_partial_kernel",
+        "fused_bwd_csr_reduce_kernel")
 
 
 def _profile(label, step, card):
@@ -98,6 +102,10 @@ def main():
 
     _profile("config4 512^2 dense",
              grad_step(*chip_smoke.config4_loss(device)), card)
+
+    big_loss, big_leaves, _ = chip_smoke.big_sphere_step(device)
+    _profile("default API 99,904 faces 1024^2 csr",
+             grad_step(big_loss, big_leaves), card)
 
 
 if __name__ == "__main__":
