@@ -42,7 +42,9 @@ raises and exits non-zero; nothing is caught):
    captured from one run of it: fid and zbuf equal, pixels allclose(rtol=1e-6,
    atol=1e-6); cotangent rows within 1e-5 of the column's largest
    magnitude + 1e-6 (the kernel sums float32 in a fixed order, the plain
-   version float64), and equal on a second run;
+   version float64), and equal on a second run; the line carries a SHA-256
+   prefix of the kernel's rows, so two trees can be compared bit for bit
+   from their logs;
 8. the deferred pipeline at full width, forward and ``loss.backward()`` to
    vertices and pose: config 5 of ``bench_configs.py`` (10,224 faces,
    1024x1024, 9-channel G-buffer, packed engine, texture + Phong) and the
@@ -68,17 +70,58 @@ raises and exits non-zero; nothing is caught):
     the mesh and 0 on it; against the packed engine on the same scene:
     differing fid pixels at most 1e-4 of the covered ones, gradients within
     1e-4 of max |gradient|; times of both engines; and a two-triangle quad
-    over a 64x256 image under ``RasterConfig(streaming=True)``.
+    over a 64x256 image under ``RasterConfig(streaming=True)``;
+12. the scatter kernels, scatter_faces and scatter_faces_csr, against their
+    plain versions on what the row-sharded path's own backward hands them
+    (captured from one run of it: the cotangents, owners, bins and boxes of
+    ``rasterise_sharded`` with one slab): the bench sphere at 1024x1024
+    under ``RasterConfig(engine="dense")`` with 3 channels (21 cotangent
+    columns) and 9 (39), the same under ``streaming=True``, and the
+    99,904-face sphere on its CSR bins: rows within 1e-5 of the column's
+    largest magnitude + 1e-6 and, value by value, within 1e-5 of the sum of
+    the magnitudes that value adds up (so one dropped pixel of any face
+    shows), equal on a second run; beside the kernel's and the plain
+    version's time that of one float32 ``index_add_`` of the owned pixels'
+    rows, gathered contiguous outside the timing (PyTorch's own scatter,
+    which sums with atomics; it is timed here and used nowhere in the
+    package); the packed backward at 16 channels (60 columns, two launches'
+    worth) against its plain version; and the layout swap, subtile_swap,
+    on the five per-pixel fields the packed slab's halo backward hands it
+    (12 planes at 3 channels): equal to its plain version bit for bit, its
+    own inverse, with the time of one strided ``contiguous()`` copy of the
+    stacked planes beside it, and the packed backward on the swapped fields
+    bit-equal to the same kernel on image-layout fields, both timed;
+13. the row-sharded renderer at full width, all slabs on the one card
+    (``parallel.group.LocalGroup``), with 1 and with 4 slabs:
+    ``rasterise_sharded`` of the bench sphere under the dense, the streaming
+    and the packed engine and of the 99,904-face sphere under the streaming
+    engine, each under ``suggest_raster_config``'s caps: overflow clear, fid
+    equal to the single-device ``rasterise_with_aux``'s and pixels within
+    3e-5 (slabs evaluate the planes at slab-local rows); ``loss = sum(pixels
+    * w)`` backward to vertices, colors and background: finite, nonzero,
+    within 1e-4 of max |gradient| of the single-device gradients and, with 4
+    slabs, within 1e-5 of the same path with every kernel replaced by its
+    plain version; launch counts: the engine's forward kernel once per slab,
+    and scatter_faces / scatter_faces_csr / subtile_swap + packed_bwd once
+    per slab, no other engine's; times of forward and fwd+bwd. Then
+    ``entry.dryrun_multichip(4)`` (five Adam steps of the data x tiles
+    training step, whose loss must fall, and the two-level render), and one
+    step through a ``torch.distributed`` group of one rank (NCCL, a
+    ``file://`` store in a temporary directory), which must equal the
+    one-slab local step.
 
-The line before the last is the kernels' JSON record, the last line
+Phase 9 runs each config once and phases 12 and 13 take medians of 10, to
+keep the whole run near a minute and a half. The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
+import hashlib
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -109,7 +152,8 @@ TOL_ROWS = 1e-5
 # scatter-adds (vertex normals, texture and vertex gathers) sum with atomics.
 TOL_DEFERRED = 1e-4
 KERNELS = ("raster_fwd_packed", "packed_prologue", "packed_bwd",
-           "raster_fwd_dense", "fused_bwd", "raster_fwd_csr", "fused_bwd_csr")
+           "raster_fwd_dense", "fused_bwd", "raster_fwd_csr", "fused_bwd_csr",
+           "scatter_faces", "scatter_faces_csr", "subtile_swap")
 CSR_PATH = ("raster_fwd_csr", "packed_prologue", "fused_bwd_csr")
 REPLACES = {
     "raster_fwd_packed": "dirt_tpu/ops/raster_fwd.py:413",
@@ -119,7 +163,21 @@ REPLACES = {
     "fused_bwd": "dirt_tpu/ops/fused_bwd.py:44",
     "raster_fwd_csr": "dirt_tpu/ops/raster_fwd.py:197",
     "fused_bwd_csr": "dirt_tpu/ops/fused_bwd.py:233",
+    "scatter_faces": "dirt_tpu/ops/scatter.py:33",
+    "scatter_faces_csr": "dirt_tpu/ops/scatter.py:150",
+    "subtile_swap": "dirt_tpu/ops/raster_fwd.py:660",
 }
+# The kernels one slab of the row-sharded renderer launches, by engine: the
+# forward, and the reduction of its halo backward (for the packed engine the
+# layout swap of its per-pixel fields before it).
+SHARDED_PATH = {
+    "dense": ("raster_fwd_dense", "scatter_faces"),
+    "csr": ("raster_fwd_csr", "scatter_faces_csr"),
+    "packed": ("raster_fwd_packed", "subtile_swap", "packed_bwd"),
+}
+# The sharded render against the single-device one: slabs evaluate the
+# planes at slab-local row offsets (tests/test_sharding.py's tolerance).
+TOL_SLAB_PIXELS = 3e-5
 # The streaming engine against the packed engine on one scene: gradients as
 # max |diff| over max |gradient| (one forward arithmetic, two reductions in
 # other orders), and differing face ids as a share of the covered pixels.
@@ -237,9 +295,11 @@ def _grads(rasterise, background, clip, colors, faces, weights, config, c):
 
 def _launch_counts():
     """{kernel: launches so far} from the wrappers' counters."""
-    from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster_fwd
+    from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster_fwd, scatter
 
     return {
+        "scatter_faces": scatter.LAUNCHES,
+        "scatter_faces_csr": scatter.LAUNCHES_CSR,
         "raster_fwd_packed": raster_fwd.LAUNCHES,
         "packed_prologue": packed_bwd.LAUNCHES_PROLOGUE,
         "packed_bwd": packed_bwd.LAUNCHES_BWD,
@@ -247,14 +307,16 @@ def _launch_counts():
         "fused_bwd": fused_bwd.LAUNCHES,
         "raster_fwd_csr": raster_fwd.LAUNCHES_CSR,
         "fused_bwd_csr": fused_bwd.LAUNCHES_CSR,
+        "subtile_swap": raster_fwd.LAUNCHES_SWAP,
     }
 
 
 def _reset_launch_counts():
-    from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster_fwd
+    from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster_fwd, scatter
 
+    scatter.LAUNCHES = scatter.LAUNCHES_CSR = 0
     raster_fwd.LAUNCHES = raster_fwd.LAUNCHES_DENSE = 0
-    raster_fwd.LAUNCHES_CSR = 0
+    raster_fwd.LAUNCHES_CSR = raster_fwd.LAUNCHES_SWAP = 0
     packed_bwd.LAUNCHES_PROLOGUE = packed_bwd.LAUNCHES_BWD = 0
     fused_bwd.LAUNCHES = fused_bwd.LAUNCHES_CSR = 0
 
@@ -268,7 +330,15 @@ def _need_launches(path, counts, kernels):
 def _plain_patches():
     """Patches that put each kernel wrapper's plain version in its place
     (``start()`` / ``stop()`` them): the same path with no kernel."""
-    from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster_fwd
+    from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster_fwd, scatter
+
+    def plain_scatter(cot_cf, fid, bins, counts, num_rows, *, tile_h, tile_w,
+                      bbox=None):
+        return scatter.scatter_to_faces_plain(cot_cf, fid, num_rows)
+
+    def plain_scatter_csr(cot_cf, fid, entry_face, start_block, counts,
+                          num_faces, *, tile_h, tile_w, bbox=None):
+        return scatter.scatter_to_faces_csr_plain(cot_cf, fid, num_faces)
 
     def plain_forward(table2, bins, background_chw, *, tile_h, tile_w,
                       rows=None):
@@ -292,6 +362,8 @@ def _plain_patches():
             geo, fid, bits, sval, pix_cf, grad_cf, num_faces)
 
     return (
+        mock.patch.object(scatter, "scatter_to_faces", plain_scatter),
+        mock.patch.object(scatter, "scatter_to_faces_csr", plain_scatter_csr),
         mock.patch.object(raster_fwd, "raster_forward_csr",
                           raster_fwd.raster_forward_csr_plain),
         mock.patch.object(fused_bwd, "fused_backward_rows_csr",
@@ -303,6 +375,10 @@ def _plain_patches():
         mock.patch.object(raster_fwd, "raster_forward",
                           raster_fwd.raster_forward_plain),
         mock.patch.object(fused_bwd, "fused_backward_rows", plain_fused),
+        mock.patch.object(
+            raster_fwd, "flat_subtile_swap",
+            lambda arrays: [raster_fwd.flat_subtile_swap_plain(a)
+                            for a in arrays]),
     )
 
 
@@ -544,6 +620,7 @@ def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
     rows_bad = int(((rows_k - rows_p).abs() > TOL_ROWS * scale + 1e-6).sum())
     err = float((rows_k - rows_p).abs().max())
     same = torch.equal(rows_k, fused())
+    digest = hashlib.sha256(rows_k.cpu().numpy().tobytes()).hexdigest()[:16]
     record[bwd_name] = dict(
         max_abs_err=err, ms=_median_ms(fused, runs),
         plain_ms=_median_ms(fused_plain, plain_runs, warmup=1),
@@ -553,7 +630,8 @@ def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
     print(f"[{tag}] {bwd_name} rows {tuple(rows_k.shape)}: values outside "
           f"{TOL_ROWS:g} * max |column| + 1e-6: {rows_bad}, max |diff| "
           f"{err:.3g}, max |row| {float(rows_p.abs().max()):.4g}, nonzero "
-          f"rows {int((rows_p != 0).any(1).sum())}, second run equal {same}; "
+          f"rows {int((rows_p != 0).any(1).sum())}, second run equal {same}, "
+          f"sha256 of the rows {digest}; "
           f"kernel {record[bwd_name]['ms']:.4f} ms, plain "
           f"{record[bwd_name]['plain_ms']:.4f} ms, bound "
           f"{record[bwd_name]['bound_ms']:.4f} ms by "
@@ -598,6 +676,317 @@ def _honest(clip, faces, size):
     if bool(overflow):
         raise RuntimeError(f"suggested caps overflow: {config}")
     return config
+
+
+def _scatter_call(fn, name):
+    """Run ``fn()`` and return what its one call of ``ops.scatter.<name>``
+    was handed: (args, kwargs). These are the cotangent planes, owners, bins
+    and boxes the row-sharded backward gives the scatter kernel."""
+    from dirt_tpu_torch.ops import scatter
+
+    seen = []
+    inner = getattr(scatter, name)
+
+    def record(*args, **kwargs):
+        seen.append((args, kwargs))
+        return inner(*args, **kwargs)
+
+    with mock.patch.object(scatter, name, record):
+        fn()
+    (call,) = seen
+    return call
+
+
+def _check_scatter_kernel(tag, name, sharded_step, card, runs=10):
+    """scatter_faces or scatter_faces_csr (``name``) against its plain
+    version and against one float32 ``index_add_``, on the inputs one run of
+    ``sharded_step()`` hands it. Returns {name: max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by}; raises on a mismatch."""
+    from dirt_tpu_torch.ops import scatter
+
+    wrapper = {"scatter_faces": "scatter_to_faces",
+               "scatter_faces_csr": "scatter_to_faces_csr"}[name]
+    args, kwargs = _scatter_call(sharded_step, wrapper)
+    cot, fid_p, *lists, n_out = args
+    kernel_fn = getattr(scatter, wrapper)
+    plain_fn = getattr(scatter, wrapper + "_plain")
+    k_cols = cot.shape[0]
+
+    def kernel():
+        return kernel_fn(*args, **kwargs)
+
+    def plain():
+        return plain_fn(cot, fid_p, n_out)
+
+    rows_k = kernel()
+    rows_p = plain()
+    # PyTorch's own scatter, in float32, of the owned pixels' rows: the
+    # owners and the contiguous [owned, K] rows are gathered here, outside
+    # the timing, as the plain version gathers them inside its own.
+    own_px = (fid_p.reshape(-1) >= 0).nonzero().squeeze(1)
+    owner = fid_p.reshape(-1)[own_px].long()
+    pixel_rows = cot.reshape(k_cols, -1).T[own_px].contiguous()
+
+    def library():
+        return torch.zeros(rows_p.shape, device=cot.device
+                           ).index_add_(0, owner, pixel_rows)
+
+    rows_l = library()
+    # What each value adds up, as magnitudes: a float32 sum in any order
+    # stays within a few ulps of this, and one dropped pixel does not.
+    mass = plain_fn(cot.abs(), fid_p, n_out)
+    _sync()
+    scale = rows_p.abs().amax(dim=0, keepdim=True)
+    diff = (rows_k - rows_p).abs()
+    rows_bad = int((diff > TOL_ROWS * scale + 1e-6).sum())
+    value_bad = int((diff > TOL_ROWS * mass + 1e-9).sum())
+    worst = float((diff / mass.clamp(min=1e-30)).max())
+    err = float(diff.max())
+    lib_err = float((rows_l - rows_p).abs().max())
+    same = torch.equal(rows_k, kernel())
+    counts = lists[-1]
+    listed = int(counts.sum())
+    owned = int(own_px.numel())
+    num_faces = kwargs["bbox"].shape[0]
+    # The function needs the cotangents of owned pixels only (the kernel
+    # reads no other), every owner, the lists and boxes, and writes the rows.
+    nbytes = (4 * owned * k_cols + 4 * fid_p.numel() + 4 * rows_k.numel()
+              + 4 * (listed + (len(lists) - 1) * counts.numel())
+              + 16 * num_faces)
+    record = dict(max_abs_err=err, ms=_median_ms(kernel, runs),
+                  plain_ms=_median_ms(plain, runs, warmup=1),
+                  library_ms=_median_ms(library, runs, warmup=1),
+                  **_bound(nbytes, owned * k_cols))
+    print(f"[{tag}] {name} cot {tuple(cot.shape)} lists "
+          f"{tuple(lists[0].shape)} (listed {listed}) owned {owned} px -> rows "
+          f"{tuple(rows_k.shape)}: values outside {TOL_ROWS:g} * max |column| "
+          f"+ 1e-6: {rows_bad}, outside {TOL_ROWS:g} * sum of the value's "
+          f"|terms| + 1e-9: {value_bad} (largest |diff| / sum |terms| "
+          f"{worst:.3g}), max |diff| {err:.3g}, max |row| "
+          f"{float(rows_p.abs().max()):.4g}, nonzero rows "
+          f"{int((rows_p != 0).any(1).sum())}, second run equal {same}; "
+          f"float32 index_add_ of the {owned} owned rows max |diff| from "
+          f"plain {lib_err:.3g}; kernel "
+          f"{record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, "
+          f"index_add_ {record['library_ms']:.4f} ms, bound "
+          f"{record['bound_ms']:.4f} ms by {record['bound_by']} (medians of "
+          f"{runs}, {card})")
+    if rows_bad or value_bad or not same or not bool((rows_k != 0).any()):
+        raise RuntimeError(f"[{tag}] {name} disagrees with its plain version "
+                           "or with itself")
+    return {name: record}
+
+
+def _check_swap_kernel(tag, sharded_step, card, runs=10):
+    """subtile_swap against its plain version on the arrays one run of
+    ``sharded_step()`` (a packed slab's halo backward) hands it, and the
+    packed backward on those flat-subtile fields against the same kernel on
+    image-layout fields. Returns {"subtile_swap": max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by}; raises on a mismatch."""
+    from dirt_tpu_torch.ops import packed_bwd, raster_fwd
+
+    seen = []
+    swap = raster_fwd.flat_subtile_swap
+    rows_fn = packed_bwd.packed_entry_rows
+
+    def record_swap(arrays):
+        seen.append(list(arrays))
+        return swap(arrays)
+
+    def record_rows(prep, *args):
+        seen.append(prep)
+        return rows_fn(prep, *args)
+
+    with mock.patch.object(raster_fwd, "flat_subtile_swap", record_swap), \
+            mock.patch.object(packed_bwd, "packed_entry_rows", record_rows):
+        sharded_step()
+    arrays, prep = seen
+
+    def bits(x):
+        return x.view(torch.int32)
+
+    def kernel():
+        return swap(arrays)
+
+    def plain():
+        return [raster_fwd.flat_subtile_swap_plain(a).contiguous()
+                for a in arrays]
+
+    # One PyTorch call of the same function: a strided copy of the planes,
+    # stacked beforehand, with the row and group axes exchanged.
+    hp, wp = arrays[0].shape[-2:]
+    stacked = torch.cat([bits(a).reshape(-1, hp, wp) for a in arrays])
+    view = stacked.reshape(-1, hp // 8, 8, wp // 128, 8, 16).transpose(-4, -2)
+
+    def library():
+        return view.contiguous()
+
+    got, want = kernel(), plain()
+    back = swap(got)
+    _sync()
+    planes = stacked.shape[0]
+    bad = sum(int((bits(g) != bits(w)).sum()) for g, w in zip(got, want))
+    moved = sum(int((bits(g) != bits(a)).sum()) for g, a in zip(got, arrays))
+    undone = all(torch.equal(bits(b), bits(a)) for b, a in zip(back, arrays))
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    record = dict(max_abs_err=err, ms=_median_ms(kernel, runs),
+                  plain_ms=_median_ms(plain, runs, warmup=1),
+                  library_ms=_median_ms(library, runs, warmup=1),
+                  **_bound(2 * 4 * stacked.numel(), 0))
+
+    # The packed backward on these fields (as the halo path runs it)
+    # against the same kernel on the fields in image layout.
+    if not (prep.flat and torch.equal(prep.fid_p, got[0])):
+        raise RuntimeError(f"[{tag}] the halo path did not hand the backward "
+                           "kernel the swapped fields")
+    image = packed_bwd._PackedBwdPrep(
+        arrays[0], arrays[1], arrays[4], arrays[2], arrays[3], prep.bins,
+        prep.geo, prep.att, prep.channels, prep.k_cols, prep.tile_h,
+        prep.tile_w)
+    rows_flat = rows_fn(prep)
+    rows_image = rows_fn(image)
+    _sync()
+    rows_same = torch.equal(rows_flat, rows_image)
+    flat_ms = _median_ms(lambda: rows_fn(prep), runs)
+    image_ms = _median_ms(lambda: rows_fn(image), runs)
+    print(f"[{tag}] subtile_swap {len(arrays)} arrays, {planes} planes of "
+          f"{hp}x{wp}: words differing from the plain version {bad} (of "
+          f"{stacked.numel()}, {moved} moved), swapped twice equal {undone}; "
+          f"kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, "
+          f"one strided copy {record['library_ms']:.4f} ms, bound "
+          f"{record['bound_ms']:.4f} ms by {record['bound_by']}; packed_bwd "
+          f"on the flat fields equal to itself on image fields {rows_same} "
+          f"(nonzero rows {int((rows_flat != 0).any(1).sum())}), flat "
+          f"{flat_ms:.4f} ms, image {image_ms:.4f} ms (medians of {runs}, "
+          f"{card})")
+    if bad or not moved or not undone or not rows_same \
+            or not bool((rows_flat != 0).any()):
+        raise RuntimeError(f"[{tag}] subtile_swap disagrees with its plain "
+                           "version, or packed_bwd with itself")
+    return {"subtile_swap": record}
+
+
+def _sharded_check(tag, engine, scene, config, weights, card, runs=10):
+    """``rasterise_sharded`` with 1 and 4 local slabs against the
+    single-device render, and with 4 against its plain path; launch counts
+    and times. ``scene`` is (background, clip vertices, colors, faces).
+    Returns the launch counts of the 4-slab step."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.parallel.group import LocalGroup
+    from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+
+    background, clip, colors, faces = scene
+
+    def single(bg, verts, cols, faces, config, clip):
+        return dirt_tpu_torch.rasterise_with_aux(bg, verts, cols, faces,
+                                                 config=config, clip=False)
+
+    def sharded(n):
+        def render(bg, verts, cols, faces, config, clip):
+            return rasterise_sharded(bg, verts, cols, faces, LocalGroup(n),
+                                     config=config, with_aux=True)
+        return render
+
+    def step(render):
+        return _grads(render, background, clip, colors, faces, weights,
+                      config, False)
+
+    (pix_1, fid_1, _, ovf_1), grads_1 = step(single)
+    if bool(ovf_1) or not bool((fid_1 >= 0).any()):
+        raise RuntimeError(f"[{tag}] bad single-device render under {config}")
+    times = {"single": (_median_ms(lambda: single(*scene, config, False),
+                                   runs),
+                        _median_ms(lambda: step(single), runs))}
+    errs = {}
+    for n in (1, 4):
+        _reset_launch_counts()
+        (pix_n, fid_n, _, ovf_n), grads_n = step(sharded(n))
+        _sync()
+        counts = _launch_counts()
+        wrong = {k: v for k, v in counts.items()
+                 if v != (n if k in SHARDED_PATH[engine] else 0)}
+        if wrong:
+            raise RuntimeError(f"[{tag}] {n} slabs: want {n} launches of "
+                               f"{SHARDED_PATH[engine]} and no other, got "
+                               f"{counts}")
+        pix_err = float((pix_n - pix_1).detach().abs().max())
+        if (bool(ovf_n) or not torch.equal(fid_n, fid_1)
+                or pix_err > TOL_SLAB_PIXELS):
+            raise RuntimeError(f"[{tag}] {n} slabs: overflow {bool(ovf_n)}, "
+                               f"{int((fid_n != fid_1).sum())} fids differ, "
+                               f"max |pixel diff| {pix_err:.3g}")
+        for g in grads_n:
+            if g is None or not bool(torch.isfinite(g).all()):
+                raise RuntimeError(f"[{tag}] {n} slabs: gradient missing or "
+                                   "not finite")
+        if not all(bool(g.abs().sum() > 0) for g in grads_n[:2]):
+            raise RuntimeError(f"[{tag}] {n} slabs: zero gradient")
+        errs[n] = [_rel_err(g_n, g_1) for g_n, g_1 in zip(grads_n, grads_1)]
+        if not all(e <= TOL_ENGINES for e in errs[n]):
+            raise RuntimeError(f"[{tag}] {n} slabs: gradients differ from the "
+                               f"single-device ones: {errs[n]}")
+        with torch.no_grad():
+            fwd_ms = _median_ms(lambda: sharded(n)(*scene, config, False),
+                                runs)
+        times[n] = (fwd_ms, _median_ms(lambda: step(sharded(n)), runs))
+    # The 4-slab step again with every kernel replaced by its plain version.
+    patches = _plain_patches()
+    for patch in patches:
+        patch.start()
+    before = _launch_counts()
+    start = time.perf_counter()
+    (pix_p, fid_p, _, _), grads_p = step(sharded(4))
+    _sync()
+    plain_s = time.perf_counter() - start
+    if before != _launch_counts():
+        raise RuntimeError(f"[{tag}] plain path launched a kernel")
+    for patch in patches:
+        patch.stop()
+    err_plain = [_rel_err(g_n, g_p) for g_n, g_p in zip(grads_n, grads_p)]
+    if (not torch.equal(fid_p, fid_n) or not torch.allclose(pix_p, pix_n,
+                                                             **TOL)
+            or not all(e <= TOL_GRAD for e in err_plain)):
+        raise RuntimeError(f"[{tag}] kernel and plain path disagree: "
+                           f"gradients {err_plain}")
+    print(f"[{tag}] {faces.shape[0]} faces, caps tile_h={config.tile_h} "
+          f"bin_cap={config.bin_cap} expand_cap={config.expand_cap} "
+          f"budget={config.budget}: overflow False, fid equal to the "
+          f"single-device render with 1 and 4 slabs; max |grad diff| / max "
+          f"|grad| (vertices colors background) vs single device: 1 slab "
+          f"{' '.join(f'{e:.3g}' for e in errs[1])}, 4 slabs "
+          f"{' '.join(f'{e:.3g}' for e in errs[4])} (limit {TOL_ENGINES:g}); "
+          f"4 slabs vs plain path {' '.join(f'{e:.3g}' for e in err_plain)} "
+          f"(limit {TOL_GRAD:g}; plain fwd+bwd {plain_s:.2f} s, one run); "
+          f"launches with 4 slabs {counts}")
+    print(f"[{tag}] forward / fwd+bwd: single device "
+          f"{times['single'][0]:.4f} / {times['single'][1]:.4f} ms, 1 slab "
+          f"{times[1][0]:.4f} / {times[1][1]:.4f} ms, 4 slabs "
+          f"{times[4][0]:.4f} / {times[4][1]:.4f} ms (medians of {runs}) "
+          f"({card})")
+    return counts
+
+
+def sharded_dense_step(device, slabs=4):
+    """(loss_fn, leaves) of the row-sharded renderer on the bench sphere at
+    1024 x 1024 under ``RasterConfig(engine="dense")`` with
+    ``suggest_raster_config``'s caps, ``slabs`` local slabs on the one card;
+    ``loss_fn(background, vertices, colors)`` is ``sum(image * w)`` with
+    ``w = RandomState(1).rand(1024, 1024, 3)``."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.parallel.group import LocalGroup
+    from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+
+    _, clip, colors, faces, background, weights = _bench_scene(device)
+    config = dirt_tpu_torch.suggest_raster_config(
+        clip, faces, SIZE, SIZE,
+        config=dirt_tpu_torch.RasterConfig(engine="dense"), clip=False)
+
+    def loss_fn(bg, verts, cols):
+        return (rasterise_sharded(bg, verts, cols, faces, LocalGroup(slabs),
+                                  config=config) * weights).sum()
+
+    return loss_fn, (background, clip, colors)
 
 
 def card_line():
@@ -1287,6 +1676,107 @@ def main():
     if not float(quad.min()) > 0.99:
         raise RuntimeError("[11] the all-tiles quad is not fully covered")
 
+    # --- 12. the scatter kernels vs plain versions -----------------------------
+    from dirt_tpu_torch.parallel.group import DistGroup, LocalGroup
+    from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+
+    def one_slab_step(scene, config, w):
+        return lambda: _grads(
+            lambda bg, v, c, f, config, clip: rasterise_sharded(
+                bg, v, c, f, LocalGroup(1), config=config, with_aux=True),
+            scene[0], scene[1], scene[2], scene[3], w, config, False)
+
+    bench3 = (background, clip, colors, faces)
+    bench9 = (torch.zeros((SIZE, SIZE, 9), device=device), clip, colors9,
+              faces)
+    weights9 = _rand(4, SIZE, SIZE, 9, device=device)
+    big_stream_cfg = dirt_tpu_torch.suggest_raster_config(
+        big_clip, big_faces, SIZE, SIZE,
+        config=dirt_tpu_torch.RasterConfig(streaming=True), clip=False)
+    big3 = (big_bg, big_clip, big_colors, big_faces)
+    record.update(_check_scatter_kernel(
+        "12 scatter bench sphere 1024^2 dense C=3", "scatter_faces",
+        one_slab_step(bench3, dense_big, weights), card))
+    _check_scatter_kernel(
+        "12 scatter bench sphere 1024^2 dense C=9", "scatter_faces",
+        one_slab_step(bench9, dense_big, weights9), card)
+    _check_scatter_kernel(
+        "12 scatter bench sphere 1024^2 streaming=True C=3",
+        "scatter_faces_csr", one_slab_step(bench3, stream_cfg, weights), card)
+    _check_scatter_kernel(
+        "12 scatter bench sphere 1024^2 streaming=True C=9",
+        "scatter_faces_csr", one_slab_step(bench9, stream_cfg, weights9),
+        card)
+    record.update(_check_scatter_kernel(
+        f"12 scatter {n_big}-face sphere 1024^2 csr C=3", "scatter_faces_csr",
+        one_slab_step(big3, big_stream_cfg, weights), card))
+    colors16 = _rand(5, clip.shape[0], 16, device=device)
+    _check_packed_kernels(
+        "12 packed kernels C=16", face_verts, colors16[faces],
+        torch.zeros((SIZE, SIZE, 16), device=device),
+        _rand(6, SIZE, SIZE, 16, device=device), configs[False], card,
+        runs=10, plain_runs=1)
+    record.update(_check_swap_kernel(
+        "12 layout swap bench sphere 1024^2 packed C=3",
+        one_slab_step(bench3, configs[False], weights), card))
+    _check_swap_kernel(
+        "12 layout swap bench sphere 1024^2 packed C=9",
+        one_slab_step(bench9, configs[False], weights9), card)
+
+    # --- 13. the row-sharded renderer at full width -----------------------------
+    counts = _sharded_check("13 sharded bench sphere dense", "dense", bench3,
+                            dense_big, weights, card)
+    launches["scatter_faces"] = counts["scatter_faces"]
+    _sharded_check("13 sharded bench sphere streaming=True", "csr", bench3,
+                   stream_cfg, weights, card)
+    counts = _sharded_check("13 sharded bench sphere packed", "packed",
+                            bench3, configs[False], weights, card)
+    launches["subtile_swap"] = counts["subtile_swap"]
+    counts = _sharded_check(f"13 sharded {n_big}-face sphere csr", "csr", big3,
+                            big_stream_cfg, weights, card)
+    launches["scatter_faces_csr"] = counts["scatter_faces_csr"]
+
+    _reset_launch_counts()
+    start = time.perf_counter()
+    dry = entry.dryrun_multichip(4, device, steps=5)
+    _sync()
+    counts = _launch_counts()
+    print(f"[13 dryrun_multichip(4)] data=2 x tiles=2 training step, 5 Adam "
+          f"steps: loss {' '.join(f'{v:.6g}' for v in dry['losses'])}; "
+          f"two-level render loss {dry['loss_two_level']:.6g}, max |d verts| "
+          f"{dry['grad_two_level']:.4g}; launches {counts}; "
+          f"{time.perf_counter() - start:.2f} s ({card})")
+    if (not dry["losses"][-1] < dry["losses"][0]
+            or not np.isfinite(dry["losses"]).all()
+            or not dry["grad_two_level"] > 0):
+        raise RuntimeError("[13] dryrun_multichip: the loss did not fall")
+    _need_launches("dryrun_multichip", counts,
+                   ("raster_fwd_packed", "subtile_swap", "packed_bwd",
+                    "raster_fwd_dense", "scatter_faces"))
+
+    # One step through a torch.distributed group of one rank (NCCL).
+    def grads_of(group):
+        return _grads(
+            lambda bg, v, c, f, config, clip: rasterise_sharded(
+                bg, v, c, f, group, config=config, with_aux=True),
+            background, clip, colors, faces, weights, dense_big, False)[1]
+
+    want = grads_of(LocalGroup(1))
+    with tempfile.TemporaryDirectory() as store:
+        torch.distributed.init_process_group(
+            "nccl", init_method=f"file://{store}/store", rank=0, world_size=1,
+            device_id=device)
+        got = grads_of(DistGroup())
+        _sync()
+        torch.distributed.destroy_process_group()
+    nccl_err = [_rel_err(g, w) for g, w in zip(got, want)]
+    if not all(e <= TOL_GRAD for e in nccl_err):
+        raise RuntimeError(f"[13] the one-rank NCCL group's step differs from "
+                           f"the one-slab local step: {nccl_err}")
+    print(f"[13 torch.distributed] one rank over NCCL: max |grad diff| / max "
+          f"|grad| from the one-slab local step "
+          f"{' '.join(f'{e:.3g}' for e in nccl_err)} (limit {TOL_GRAD:g})")
+
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": k,
@@ -1294,8 +1784,8 @@ def main():
         "source": f"dirt_tpu_torch/csrc/{k}.cu",
         "replaces": REPLACES[k],
         "launches": launches[k],
-        **record[k],
         "library_ms": None,
+        **record[k],
     } for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

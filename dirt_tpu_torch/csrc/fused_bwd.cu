@@ -50,7 +50,7 @@ fused_bwd_partial_kernel(
   const int t = (int)(entry / cap);
   const int slot = (int)(entry - (long long)t * cap);
   if (slot >= counts[t]) return;
-  dirt::warp_partial_row(geo, geo_width, bins[entry], t, bbox, fid, bits,
+  dirt::fused_partial_row(geo, geo_width, bins[entry], t, bbox, fid, bits,
                          sval, pix, grad, partial + entry * k_cols,
                          acc_all + warp * k_cols * 32, lane, channels, hp, wp,
                          tile_h, tile_w);
@@ -95,7 +95,7 @@ extern "C" int dirt_fused_bwd(
   const int k_cols = 12 + 3 * channels;
   const int tiles_y = hp / tile_h, tiles_x = wp / tile_w;
   const long long entries = (long long)tiles_y * tiles_x * cap;
-  const int smem = dirt::partial_smem_bytes(channels);
+  const int smem = dirt::partial_smem_bytes(k_cols);
   cudaError_t err = cudaFuncSetAttribute(
       fused_bwd_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);

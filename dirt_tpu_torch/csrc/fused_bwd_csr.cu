@@ -68,7 +68,7 @@ fused_bwd_csr_partial_kernel(
   const int t = lo - 1;                       // start_block[0] == 0, so >= 0
   const long long slot = row - (long long)start_block[t] * CHUNK;
   if (slot >= counts[t]) return;
-  dirt::warp_partial_row(geo, geo_width, entry_face[row], t, bbox, fid, bits,
+  dirt::fused_partial_row(geo, geo_width, entry_face[row], t, bbox, fid, bits,
                          sval, pix, grad, partial + row * k_cols,
                          acc_all + warp * k_cols * 32, lane, channels, hp, wp,
                          tile_h, tile_w);
@@ -115,7 +115,7 @@ extern "C" int dirt_fused_bwd_csr(
   const int k_cols = 12 + 3 * channels;
   const int tiles_x = wp / tile_w;
   const int tiles = (hp / tile_h) * tiles_x;
-  const int smem = dirt::partial_smem_bytes(channels);
+  const int smem = dirt::partial_smem_bytes(k_cols);
   cudaError_t err = cudaFuncSetAttribute(
       fused_bwd_csr_partial_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -1,19 +1,22 @@
-// The two passes shared by the fused backward kernels (fused_bwd.cu over
-// dense [T, cap] bins, fused_bwd_csr.cu over CSR runs): per-face cotangent
-// rows [9 edge | 3 den | 3C attribute], summed over the pixels each face
-// owns, without atomics.
+// The two passes shared by the kernels that sum per-pixel rows onto faces
+// without atomics: the fused backwards (fused_bwd.cu over dense [T, cap]
+// bins, fused_bwd_csr.cu over CSR runs), which evaluate the cotangent core
+// per pixel, and the face scatters (scatter_faces.cu, scatter_faces_csr.cu),
+// which read per-pixel rows already made. A row is [9 edge | 3 den | 3C
+// attribute] floats; a face's row sums the pixels the face owns.
 //
 //   pass 1 (warp_partial_row): one warp per listed (tile, face) entry. The
 //           warp scans the pixels of its tile inside the face's bounding box
 //           (grown by one pixel), 32 consecutive pixels of a row at a time;
-//           a lane whose pixel the face owns evaluates the cotangent core
-//           (cotangent_core.cuh) and adds the 12 + 3C values to its own
-//           accumulators in shared memory, in scan order. A fixed xor
-//           butterfly then sums the 32 lanes, and the warp writes the
-//           entry's partial row. A pixel's owner is always in its tile's
-//           list, since the forward draws only listed faces, and a face is
-//           listed at most once per tile, so every covered pixel is summed
-//           exactly once.
+//           a lane whose pixel the face owns calls the per-pixel body, which
+//           adds the pixel's 12 + 3C values to the lane's own accumulators
+//           in shared memory, in scan order. The body is a template
+//           argument: fused_partial_row evaluates cotangent_core.cuh,
+//           scatter_partial_row reads cot[k, y, x]. A fixed xor butterfly
+//           then sums the 32 lanes, and the warp writes the entry's partial
+//           row. A pixel's owner is always in its tile's list, since the
+//           forward draws only listed faces, and a face is listed at most
+//           once per tile, so every covered pixel is summed exactly once.
 //   pass 2 (reduce_face_column): one thread per (face, column) walks the
 //           tiles the face's box touches in ascending order, finds the
 //           face's slot in each tile's ascending list by binary search, and
@@ -34,21 +37,30 @@ constexpr int ROW_WARPS = 4;                  // list entries per block
 constexpr int REDUCE_THREADS = 256;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// Dynamic shared memory of a pass-1 block: [ROW_WARPS][12 + 3C][32] floats.
-inline int partial_smem_bytes(int channels) {
-  return ROW_WARPS * (12 + 3 * channels) * 32 * (int)sizeof(float);
+// Dynamic shared memory of a pass-1 block: [ROW_WARPS][k_cols][32] floats.
+inline int partial_smem_bytes(int k_cols) {
+  return ROW_WARPS * k_cols * 32 * (int)sizeof(float);
 }
 
+// What a per-pixel body is handed to add its values with: put(k, v) adds v
+// to column k of the lane's accumulators ([k_cols][32] floats per warp).
+struct LaneAdd {
+  float* acc;
+  int lane;
+  __device__ __forceinline__ void operator()(int k, float v) const {
+    acc[k * 32 + lane] = acc[k * 32 + lane] + v;
+  }
+};
+
 // Pass 1 for one warp: the partial row of `face` in tile `t`, written to
-// dst[0 .. 12 + 3C). `acc` is the warp's [12 + 3C][32] shared accumulator.
+// dst[0 .. k_cols). `acc` is the warp's [k_cols][32] shared accumulator.
+// body(x, y, p, put) is called for every pixel (x, y), flat index p, that
+// `face` owns, in scan order, and calls put(k, value) for its columns.
+template <class Body>
 __device__ __forceinline__ void warp_partial_row(
-    const float* __restrict__ geo, int geo_width, int face, int t,
-    const int* __restrict__ bbox, const int* __restrict__ fid,
-    const int* __restrict__ bits, const float* __restrict__ sval,
-    const float* __restrict__ pix, const float* __restrict__ grad,
-    float* __restrict__ dst, float* acc, int lane, int channels, int hp,
-    int wp, int tile_h, int tile_w) {
-  const int k_cols = 12 + 3 * channels;
+    int face, int t, const int* __restrict__ bbox,
+    const int* __restrict__ fid, float* __restrict__ dst, float* acc,
+    int lane, int k_cols, int wp, int tile_h, int tile_w, Body body) {
   for (int k = 0; k < k_cols; ++k) acc[k * 32 + lane] = 0.0f;
 
   const int tiles_x = wp / tile_w;
@@ -57,10 +69,7 @@ __device__ __forceinline__ void warp_partial_row(
   const int x0 = max(tx, bb[0] - 1), x1 = min(tx + tile_w - 1, bb[1] + 1);
   const int y0 = max(ty, bb[2] - 1), y1 = min(ty + tile_h - 1, bb[3] + 1);
   if (x0 <= x1 && y0 <= y1) {
-    float m[17];
-#pragma unroll
-    for (int k = 0; k < 17; ++k) m[k] = geo[(long long)face * geo_width + k];
-    const long long plane = (long long)hp * wp;
+    const LaneAdd put{acc, lane};
     const int w = x1 - x0 + 1;
     const int n = w * (y1 - y0 + 1);
     for (int idx = lane; idx < n; idx += 32) {
@@ -69,13 +78,7 @@ __device__ __forceinline__ void warp_partial_row(
       const int y = y0 + yy;
       const long long p = (long long)y * wp + x;
       if (fid[p] != face) continue;
-      const float dx = ((float)x + 0.5f) - m[0];
-      const float dy = ((float)y + 0.5f) - m[1];
-      pixel_cotangents(
-          m, dx, dy, channels, grad, pix, plane, p, bits[p], sval,
-          [acc, lane](int k, float v) {
-            acc[k * 32 + lane] = acc[k * 32 + lane] + v;
-          });
+      body(x, y, p, put);
     }
   }
   __syncwarp();
@@ -87,6 +90,45 @@ __device__ __forceinline__ void warp_partial_row(
     }
     if (lane == 0) dst[k] = v;
   }
+}
+
+// Pass 1 of the fused backwards: the body evaluates the cotangent core from
+// the owner's geometry row.
+__device__ __forceinline__ void fused_partial_row(
+    const float* __restrict__ geo, int geo_width, int face, int t,
+    const int* __restrict__ bbox, const int* __restrict__ fid,
+    const int* __restrict__ bits, const float* __restrict__ sval,
+    const float* __restrict__ pix, const float* __restrict__ grad,
+    float* __restrict__ dst, float* acc, int lane, int channels, int hp,
+    int wp, int tile_h, int tile_w) {
+  float m[17];
+#pragma unroll
+  for (int k = 0; k < 17; ++k) m[k] = geo[(long long)face * geo_width + k];
+  const long long plane = (long long)hp * wp;
+  warp_partial_row(
+      face, t, bbox, fid, dst, acc, lane, 12 + 3 * channels, wp, tile_h,
+      tile_w, [&](int x, int y, long long p, LaneAdd put) {
+        const float dx = ((float)x + 0.5f) - m[0];
+        const float dy = ((float)y + 0.5f) - m[1];
+        pixel_cotangents(m, dx, dy, channels, grad, pix, plane, p, bits[p],
+                         sval, put);
+      });
+}
+
+// Pass 1 of the face scatters: the body reads the pixel's row from the
+// channels-first planes cot [k_cols, hp, wp]. The 32 lanes of a step lie on
+// one image row (or two, at a box's edge), so each plane's read coalesces.
+__device__ __forceinline__ void scatter_partial_row(
+    const float* __restrict__ cot, int face, int t,
+    const int* __restrict__ bbox, const int* __restrict__ fid,
+    float* __restrict__ dst, float* acc, int lane, int k_cols, int hp, int wp,
+    int tile_h, int tile_w) {
+  const long long plane = (long long)hp * wp;
+  warp_partial_row(
+      face, t, bbox, fid, dst, acc, lane, k_cols, wp, tile_h, tile_w,
+      [&](int, int, long long p, LaneAdd put) {
+        for (int k = 0; k < k_cols; ++k) put(k, cot[k * plane + p]);
+      });
 }
 
 // Pass 2 for one thread: column `k` of `face`, summed over the tiles of the

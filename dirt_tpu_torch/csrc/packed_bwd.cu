@@ -24,13 +24,23 @@
 //           (cotangent_core.cuh: the expressions of
 //           raster_bwd.pixel_cotangents_core, in the same order) and stages
 //           its 12 + 3C values and its owner in dynamic shared memory
-//           (1024 * (13 + 3C) floats: 88 KB at C = 3, 160 KB at C = 9; the
-//           card's opt-in shared memory per block caps C, see
-//           packed_bwd.max_channels);
+//           (1024 * (13 + 3C) floats: 88 KB at C = 3, 160 KB at C = 9);
 //   pass 2: one thread per (live row, column) sums that column over the
 //           row's group pixels it owns, in the subtile's row-major pixel
 //           order, and writes it. The fixed order makes the kernel
 //           deterministic and equal to the plain version's ordered sums.
+// Column groups. The card's opt-in shared memory per block holds the
+// staging of only so many columns (54 on an H100, which is C = 14). The
+// entry point therefore runs one launch per group of at most
+// `cols_per_pass` columns [k_lo, k_lo + k_n) over the same owners: each
+// launch finds the owners and evaluates the core again, stages only its
+// group's columns and writes only them, so every column is summed exactly as
+// in a single launch and any channel count runs.
+// Layouts. With `flat` 0 the per-pixel fields (fid, bits, sval, pix, grad)
+// are in image layout, as the neighbour prologue writes them. With `flat` 1
+// they are in flat-subtile layout (subtile_swap.cu: pixel (r, 16 g + c) of a
+// strip lies at row g, column 16 r + c), as the sharded halo backward hands
+// them over; only the address a thread reads its pixel at differs.
 // Every row is written by the one block whose run holds it; rows no run
 // reaches (padding, rows past n_iters, empty chunks) keep the zeros the
 // wrapper allocated, since the reduce gathers rows by backpointer.
@@ -67,12 +77,12 @@ packed_bwd_kernel(
     const float* __restrict__ sval, const float* __restrict__ pix,
     const float* __restrict__ grad, float* __restrict__ out,
     int channels, int hp, int wp, int tile_h, int tiles_x, int c_lo,
-    int c_hi) {
+    int c_hi, int k_lo, int k_n, int flat) {
   extern __shared__ float smem[];
   __shared__ float ids[STAGE * GROUPS];
   const int k_cols = 12 + 3 * channels;
   int* owner = reinterpret_cast<int*>(smem);  // [THREADS] local row or -1
-  float* cot = smem + THREADS;                // [THREADS][k_cols]
+  float* cot = smem + THREADS;                // [THREADS][k_n]
 
   const int strips = tile_h / SUB_H;
   const int ts = blockIdx.x;                  // t * strips + s
@@ -89,10 +99,14 @@ packed_bwd_kernel(
   const int r = tid / TILE_W;
   const int c = tid - r * TILE_W;
   const int g = c / SUB_W;
-  const int x = (t % tiles_x) * TILE_W + c;
-  const int y = (t / tiles_x) * tile_h + s * SUB_H + r;
+  const int x0 = (t % tiles_x) * TILE_W;
+  const int y0 = (t / tiles_x) * tile_h + s * SUB_H;
+  const int x = x0 + c;
+  const int y = y0 + r;
   const long long plane = (long long)hp * wp;
-  const long long p = (long long)y * wp + x;
+  const long long p =
+      flat ? (long long)(y0 + g) * wp + x0 + r * SUB_W + (c - g * SUB_W)
+           : (long long)y * wp + x;
 
   // ---- pass 1a: the owning row (first match in ascending order) ----------
   const float f = (float)fid[p];
@@ -119,29 +133,32 @@ packed_bwd_kernel(
   // ---- pass 1b: the pixel's cotangents (pixel_cotangents_core) ----------
   if (own >= 0) {
     const float* m = rows + (row0 + own) * width;
-    float* my = cot + tid * k_cols;
+    float* my = cot + tid * k_n;
     const float dx = ((float)x + 0.5f) - m[0];
     const float dy = ((float)y + 0.5f) - m[1];
     dirt::pixel_cotangents(m, dx, dy, channels, grad, pix, plane, p, bits[p],
-                           sval, [my](int k, float v) { my[k] = v; });
+                           sval, [my, k_lo, k_n](int k, float v) {
+                             const int kk = k - k_lo;
+                             if (kk >= 0 && kk < k_n) my[kk] = v;
+                           });
   }
   __syncthreads();
 
   // ---- pass 2: each live row sums its owned pixels, in pixel order -------
   const int n_rows = (hi - lo) * GROUPS;
   float* dst = out + (row0 - (long long)c_lo * PACK_CHUNK) * k_cols;
-  for (int task = tid; task < n_rows * k_cols; task += THREADS) {
-    const int row = task / k_cols;
-    const int k = task - row * k_cols;
+  for (int task = tid; task < n_rows * k_n; task += THREADS) {
+    const int row = task / k_n;
+    const int k = task - row * k_n;
     const int base = (row % GROUPS) * SUB_W;
     float sum = 0.0f;
     for (int pr = 0; pr < SUB_H; ++pr) {
       for (int pc = 0; pc < SUB_W; ++pc) {
         const int q = pr * TILE_W + base + pc;
-        if (owner[q] == row) sum = sum + cot[q * k_cols + k];
+        if (owner[q] == row) sum = sum + cot[q * k_n + k];
       }
     }
-    dst[(long long)row * k_cols + k] = sum;
+    dst[(long long)row * k_cols + k_lo + k] = sum;
   }
 }
 
@@ -149,26 +166,41 @@ packed_bwd_kernel(
 
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers; `out` holds (c_hi - c_lo) * 512 zeroed rows of 12 + 3C floats.
-// The launch goes on `stream` and does not synchronise. Returns the
-// cudaGetLastError() code (0 on success).
+// `cols_per_pass` >= 1 is the most columns one launch may stage (what the
+// card's shared memory per block holds); the 12 + 3C columns run in
+// ceil((12 + 3C) / cols_per_pass) launches. `flat` says which layout the
+// per-pixel fields are in (0 image, 1 flat-subtile). The launches go on `stream` and
+// do not synchronise. Returns the first CUDA error code (0 on success).
 extern "C" int dirt_packed_bwd(
     const float* rows, int width,
     const int* start_block, const int* n_iters,
     const int* iter_off, const int* strip_iters,
     const int* fid, const int* bits, const float* sval, const float* pix,
     const float* grad, float* out, int channels, int hp, int wp,
-    int tile_h, int c_lo, int c_hi, void* stream) {
+    int tile_h, int c_lo, int c_hi, int cols_per_pass, int flat,
+    void* stream) {
   const int tiles_x = wp / TILE_W;
   const int blocks = (hp / tile_h) * tiles_x * (tile_h / SUB_H);
-  const int smem = THREADS * (1 + 12 + 3 * channels) * (int)sizeof(float);
+  const int k_cols = 12 + 3 * channels;
+  if (cols_per_pass < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int widest = k_cols < cols_per_pass ? k_cols : cols_per_pass;
+  const int smem = THREADS * (1 + widest) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       packed_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks > 0 && c_hi > c_lo) {
-    packed_bwd_kernel<<<blocks, THREADS, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        rows, width, start_block, n_iters, iter_off, strip_iters, fid, bits,
-        sval, pix, grad, out, channels, hp, wp, tile_h, tiles_x, c_lo, c_hi);
+    for (int k_lo = 0; k_lo < k_cols; k_lo += cols_per_pass) {
+      const int k_n =
+          cols_per_pass < k_cols - k_lo ? cols_per_pass : k_cols - k_lo;
+      packed_bwd_kernel<<<blocks, THREADS,
+                          THREADS * (1 + k_n) * (int)sizeof(float),
+                          static_cast<cudaStream_t>(stream)>>>(
+          rows, width, start_block, n_iters, iter_off, strip_iters, fid, bits,
+          sval, pix, grad, out, channels, hp, wp, tile_h, tiles_x, c_lo, c_hi,
+          k_lo, k_n, flat);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

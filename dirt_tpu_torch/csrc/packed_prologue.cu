@@ -15,8 +15,9 @@
 // previous/next strip views for the vertical halo and then swaps every
 // plane into the flat-subtile layout. Here one thread owns one pixel and
 // reads its four neighbors directly in image layout (the vertical halo is
-// just the next row), and the backward kernel reads image layout too, so
-// no swap runs.
+// just the next row), and the backward kernel reads image layout after it,
+// so no swap runs on this path (the sharded halo path, which does not come
+// through here, swaps: subtile_swap.cu).
 //
 // What bounds it: memory traffic. It reads 2 + 2C planes (fid, z, pix,
 // grad; the neighbors' reads hit L1/L2) and writes 5 (bits, 4 sval): at

@@ -5,10 +5,14 @@ single-device half): a textured, Phong-lit UV sphere rendered through
 ``render_gbuffer`` (9 channels: position, normal, uv, mask) and
 ``shade_deferred``, and the mean squared error against a black target.
 The loss is differentiable w.r.t. the object-space vertices and the pose.
+:func:`dryrun_multichip` is the counterpart of its multi-device half: one
+training step over a data x rows layout and a render over a two-level row
+group.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dirt_tpu_torch.core import lighting, matrices, mesh
@@ -88,3 +92,124 @@ def entry(device="cuda", size: int = 256, n_lat: int = 24, n_lon: int = 48):
 
     pose = torch.tensor([0.4, 0.3, 0.0], device=verts_obj.device)
     return forward_step, (verts_obj, pose)
+
+
+def dryrun_multichip(n_devices: int, device="cuda", steps: int = 1):
+    """Sharded training steps over ``n_devices`` slabs (tiny shapes).
+
+    Counterpart of ``__graft_entry__.dryrun_multichip``'s first two
+    variants. The layout is ``parallel.multihost.make_render_mesh``'s: the
+    ranks of ``torch.distributed`` where it is initialised (``n_devices``
+    must then be its world size), else local groups that play all
+    ``n_devices`` slabs in this process on ``device``.
+
+    1. A data x tiles training step: each scene of the batch (data axis)
+       renders a 6-channel G-buffer (normal | uv | mask) of a 64-face sphere
+       at 64 x 64 through ``slab_render`` on the packed engine, rows sharded
+       over the tiles axis with halo-exchanged silhouette gradients;
+       ``shade_deferred``; the squared error summed over both axes; one Adam
+       update of the per-vertex bump field (``steps`` of them; the JAX
+       dry run takes one).
+    2. For ``n_devices >= 4`` and even: ``rasterise_sharded`` of a 24-face
+       random scene at 64 x 128 on the dense engine over a two-level (dcn=2
+       x tiles) row group, value and vertex gradient.
+
+    Prints one line per variant and returns their numbers:
+    ``{"loss", "losses", "step", "loss_two_level", "grad_two_level"}``:
+    the first step's loss, every step's, the largest bump after the last
+    step, and variant 2's value and largest vertex gradient (None when it
+    does not run). Runs on the card unless ``device`` says otherwise.
+    """
+    from dirt_tpu_torch.parallel.multihost import make_render_mesh
+    from dirt_tpu_torch.parallel.sharding import rasterise_sharded, slab_render
+
+    device = torch.device(device)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    data = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
+    tiles = n_devices // data
+    layout = make_render_mesh(tiles_per_host=tiles, data=data,
+                              local_size=n_devices)
+
+    size = 64
+    # Explicit caps: the dense-mesh auto heuristics assume bigger scenes.
+    config = RasterConfig(tile_h=8, tile_w=128, engine="packed",
+                          expand_cap=16, budget=1024)
+    verts_np, faces_np, uvs_np = mesh.uv_sphere(n_lat=6, n_lon=8)
+    verts_obj, uvs = f32(verts_np), f32(uvs_np)
+    faces = torch.as_tensor(faces_np.astype(np.int64), device=device)
+    texture = f32(mesh.checkerboard_texture(16, 4, 3))
+    projection = matrices.perspective_projection(0.1, 20.0, 0.045,
+                                                 1.0).to(device)
+    light_dir = f32([0.35, 0.75, 0.56])
+    light_dir = light_dir / torch.linalg.norm(light_dir)
+    poses = f32([[0.4, 0.3, 0.0], [0.1, 0.6, 0.2]][:data])
+    held = len(layout.rows.local) * (size // tiles)
+
+    def scene_error(bump, pose):
+        """Squared error of one scene over the rows this process holds."""
+        verts = verts_obj * (1.0 + bump[:, None])
+        model = matrices.compose(
+            matrices.rodrigues(pose),
+            matrices.translation(f32([0.0, 0.0, -3.0])),
+        )
+        world = matrices.transform_homogeneous(verts, model)[..., :3]
+        normals = lighting.vertex_normals(world, faces)
+        ones = torch.ones_like(world[:, :1])
+        clip = torch.cat([world, ones], dim=-1) @ projection
+        # G-buffer channels: normal(3) | uv(2) | mask(1), slab-sharded.
+        attrs = torch.cat([normals, uvs, ones], dim=-1)
+        gbuf = slab_render(torch.zeros((held, size, 6), device=device), clip,
+                           attrs, faces, size, size, layout.rows, config)
+        gb = {"normal": gbuf[..., 0:3], "uv": gbuf[..., 3:5],
+              "mask": gbuf[..., 5:6]}
+        img = shade_deferred(gb, light_dir, torch.ones(3, device=device),
+                             ambient=0.12, texture=texture)
+        return torch.sum(img ** 2)                  # the target is black
+
+    params = torch.zeros(verts_obj.shape[0], device=device,
+                         requires_grad=True)        # per-vertex bump field
+    opt = torch.optim.Adam([params], lr=1e-2)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        bump = layout.data.replicated(params)
+        total = sum(scene_error(bump, poses[d]) for d in layout.data.local)
+        total = layout.data.all_reduce_sum(layout.rows.all_reduce_sum(total))
+        loss = total / (data * size * size * 3)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    out = {"loss": losses[0], "losses": losses,
+           "step": float(params.detach().abs().max()),
+           "loss_two_level": None, "grad_two_level": None}
+    print(f"dryrun_multichip OK: {n_devices} devices (data={data} x "
+          f"tiles={tiles}), loss={out['loss']:.5f}, "
+          f"|grad step|={out['step']:.2e}")
+
+    if n_devices >= 4 and n_devices % 2 == 0:
+        # Two-level variant: rows shard dcn-major over the flattened (dcn,
+        # tiles) group, so each host owns a contiguous band.
+        rng = np.random.RandomState(0)
+        verts2 = f32(np.concatenate(
+            [rng.uniform(-0.8, 0.8, (30, 2)),
+             rng.uniform(-0.5, 0.5, (30, 1)), np.ones((30, 1))], axis=1))
+        faces2 = torch.as_tensor(rng.randint(0, 30, (24, 3)), device=device)
+        colors2 = f32(rng.rand(30, 3))
+        bg2 = torch.zeros((64, 128, 3), device=device)
+        cfg2 = RasterConfig(tile_h=8, tile_w=128, bin_cap=64)
+        layout2 = make_render_mesh(tiles_per_host=n_devices // 2, data=1,
+                                   local_size=n_devices)
+        verts2.requires_grad_()
+        img = rasterise_sharded(bg2, verts2, colors2, faces2, layout2.rows,
+                                config=cfg2)
+        value = layout2.rows.all_reduce_sum(torch.sum(img * img))
+        value.backward()
+        out["loss_two_level"] = float(value.detach())
+        out["grad_two_level"] = float(verts2.grad.abs().max())
+        print(f"dryrun_multichip two-level mesh OK: data=1 x dcn=2 x "
+              f"tiles={n_devices // 2}, loss={out['loss_two_level']:.4f}, "
+              f"|d verts|={out['grad_two_level']:.2e}")
+    return out

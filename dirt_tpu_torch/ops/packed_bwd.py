@@ -17,10 +17,13 @@ face rows the forward gathered (``bins.rows``):
    an ``index_add_`` over ``entries // 8``) and adds the anchor terms.
 
 Both kernels are hand-written CUDA (``csrc/packed_prologue.cu``,
-``csrc/packed_bwd.cu``) and read and write image layout, so none of the
-TPU path's flat-subtile swaps (``flat_subtile_swap_pallas``) runs, and
-the 3-pass bf16 one-hot matmuls that moved values through the TPU's matrix
-unit become direct reads of the owning row. Each kernel has a plain
+``csrc/packed_bwd.cu``). The prologue writes image layout and the backward
+kernel reads it; on the halo path (``nbrs`` given) the five per-pixel
+fields go through the layout swap (``raster_fwd.flat_subtile_swap``, kernel
+``csrc/subtile_swap.cu``) and the backward kernel reads flat-subtile
+layout, as the reference's halo path does. The 3-pass bf16 one-hot matmuls
+that moved values through the TPU's matrix unit become direct reads of the
+owning row. Each kernel has a plain
 PyTorch version in this module with the same operations in the same
 order; a CPU tensor takes it, a CUDA tensor launches the kernel or
 raises, any other device raises.
@@ -33,7 +36,7 @@ import functools
 
 import torch
 
-from dirt_tpu_torch.ops import _build
+from dirt_tpu_torch.ops import _build, raster_fwd
 from dirt_tpu_torch.ops.binning import (
     GROUPS,
     PACK_CHUNK,
@@ -78,14 +81,15 @@ _PROLOGUE = "packed_prologue"
 _BWD = "packed_bwd"
 
 
-def max_channels(device=None) -> int:
-    """Channels the backward kernel takes on ``device`` (default: the
-    current CUDA device): what the card's opt-in shared memory per block
-    holds of its staging, 14 on an H100 (227 KB)."""
+def columns_per_pass(device=None) -> int:
+    """Cotangent columns one launch of the backward kernel stages on
+    ``device`` (default: the current CUDA device): what the card's opt-in
+    shared memory per block holds beside the owner index, 54 on an H100
+    (227 KB), which is 14 channels. More columns run as further launches
+    over the same owners, one per group of this many columns."""
     smem = torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin
-    floats = (smem - _BWD_STATIC_SMEM) // (4 * _BWD_THREADS)
-    return (floats - 13) // 3
+    return (smem - _BWD_STATIC_SMEM) // (4 * _BWD_THREADS) - 1
 
 
 # --- K3: the neighbor prologue ------------------------------------------
@@ -181,15 +185,17 @@ def _launch_prologue(fid_p, zbuf_p, pix_cf, grad_cf):
 class _PackedBwdPrep:
     """Prepared inputs for :func:`packed_entry_rows` (plain container).
 
-    Image-space fields are tile-padded and in image layout: ``fid_p``
-    [Hp, Wp] int32, ``bits`` [Hp, Wp] int32, ``sval`` [4, Hp, Wp],
-    ``pix_cf`` / ``grad_cf`` [C, Hp, Wp].
+    Image-space fields are tile-padded: ``fid_p`` [Hp, Wp] int32, ``bits``
+    [Hp, Wp] int32, ``sval`` [4, Hp, Wp], ``pix_cf`` / ``grad_cf``
+    [C, Hp, Wp]; all five in image layout, or with ``flat`` all five in
+    flat-subtile layout (``raster_fwd.flat_subtile_swap``).
     """
 
     def __init__(self, fid_p, bits, sval, pix_cf, grad_cf, bins, geo, att,
-                 channels, k_cols, tile_h, tile_w):
+                 channels, k_cols, tile_h, tile_w, flat=False):
         self.fid_p, self.bits, self.sval = fid_p, bits, sval
         self.pix_cf, self.grad_cf = pix_cf, grad_cf
+        self.flat = flat
         self.bins = bins
         self.geo, self.att = geo, att
         self.channels, self.k_cols = channels, k_cols
@@ -209,8 +215,9 @@ def prepare_backward_packed(geo, att, fid, zbuf, pixels, grad_pixels, bins,
     prologue kernel computes the bit plane and sval; otherwise ``nbrs`` is
     a precomputed ``(nfid4, nz4, sval4)`` of shape [4, Hp, Wp] each (in
     ``boundary_cases`` order, at the padded shape; the sharded halo path
-    splices neighbor rows into it) and is combined into bits here. Either
-    way the fields stay in image layout: no layout swap runs.
+    splices neighbor rows into it) and is combined into bits here; the five
+    fields then go to flat-subtile layout in one pass of the swap kernel
+    (``prep.flat``), as in the reference's halo path.
     """
     geo = torch.as_tensor(geo, dtype=torch.float32)
     att = torch.as_tensor(att, dtype=torch.float32)
@@ -230,10 +237,12 @@ def prepare_backward_packed(geo, att, fid, zbuf, pixels, grad_pixels, bins,
     else:
         nfid4, nz4, sval4 = nbrs
         bits = combine_bits(fid_p, zbuf_p, nfid4.to(torch.int32), nz4)
-        sval = torch.as_tensor(sval4, dtype=torch.float32).contiguous()
+        sval = torch.as_tensor(sval4, dtype=torch.float32)
+        fid_p, bits, pix_cf, grad_cf, sval = raster_fwd.flat_subtile_swap(
+            [fid_p, bits, pix_cf, grad_cf, sval])
     return _PackedBwdPrep(
         fid_p, bits, sval, pix_cf, grad_cf, bins, geo, att,
-        channels, 12 + 3 * channels, tile_h, tile_w,
+        channels, 12 + 3 * channels, tile_h, tile_w, flat=nbrs is not None,
     )
 
 
@@ -288,11 +297,16 @@ def packed_entry_rows_plain(prep: _PackedBwdPrep, rows, c_lo: int,
     cotangents through ``pixel_cotangents_core``; (3) each row sums its
     pixels in the subtile's pixel order (row-major over 8 x 16), one pixel
     position per ``index_add_`` step, so every sum is accumulated in the
-    kernel's order.
+    kernel's order. Fields in flat-subtile layout are first brought back
+    to image layout (the swap is its own inverse).
     """
     tile_h, tile_w = prep.tile_h, prep.tile_w
     _, hp, wp = _check_geometry(prep.pix_cf, tile_h, tile_w)
     device = prep.fid_p.device
+    fields = (prep.fid_p, prep.bits, prep.sval, prep.pix_cf, prep.grad_cf)
+    if prep.flat:
+        fields = [raster_fwd.flat_subtile_swap_plain(x) for x in fields]
+    fid_p, bits_p, sval_p, pix_cf, grad_cf = fields
     tiles_y, tiles_x = hp // tile_h, wp // tile_w
     strips = tile_h // SUB_H
     total = tiles_y * tiles_x
@@ -316,7 +330,7 @@ def packed_entry_rows_plain(prep: _PackedBwdPrep, rows, c_lo: int,
     hi = torch.minimum(hi, (c_hi - sb) * PACK_ITERS)
     row0 = sb * PACK_ITERS
     g = arange(GROUPS)
-    fid = jobs(prep.fid_p).to(torch.float32)             # [T, S, G, 8, 16]
+    fid = jobs(fid_p).to(torch.float32)                  # [T, S, G, 8, 16]
     owner = torch.full(fid.shape, -1, dtype=torch.int64, device=device)
     ids = rows[:, COL_ID]
     n_steps = int(torch.clamp(hi - lo, min=0).max()) if total else 0
@@ -337,12 +351,12 @@ def packed_entry_rows_plain(prep: _PackedBwdPrep, rows, c_lo: int,
     yg = ((t // tiles_x) * tile_h + s * SUB_H
           + arange(SUB_H)[:, None]).to(torch.float32) + 0.5
     xg, yg = torch.broadcast_tensors(xg, yg, fid)[:2]
-    bits = jobs(prep.bits)
-    sval = jobs(prep.sval)
+    bits = jobs(bits_p)
+    sval = jobs(sval_p)
     nbrs = [(((bits >> n) & 1) > 0, sval[n]) for n in range(4)]
     d_geo, d_att = pixel_cotangents_core(
         [geo[..., q] for q in range(GEO_USED)], covered, None, None,
-        jobs(prep.pix_cf), jobs(prep.grad_cf), nbrs, xg, yg,
+        jobs(pix_cf), jobs(grad_cf), nbrs, xg, yg,
     )
     cot = torch.stack(
         [d_geo[GEO_EDGE + q] for q in range(9)]
@@ -367,7 +381,7 @@ def _bwd_fn():
     fn.argtypes = (
         [ctypes.c_void_p, ctypes.c_int]
         + [ctypes.c_void_p] * 10
-        + [ctypes.c_int] * 6
+        + [ctypes.c_int] * 8
         + [ctypes.c_void_p]
     )
     return fn
@@ -378,11 +392,9 @@ def _launch_bwd(prep, rows, c_lo, c_hi):
     channels, tile_h = prep.channels, prep.tile_h
     _, hp, wp = _check_geometry(prep.pix_cf, tile_h, prep.tile_w)
     device = prep.fid_p.device
-    cap = max_channels(device)
-    if not 1 <= channels <= cap:
-        raise ValueError(f"packed_bwd kernel takes 1..{cap} channels on "
-                         f"this card (shared memory per block), got "
-                         f"{channels}")
+    if channels < 1:
+        raise ValueError(f"packed_bwd kernel needs at least one channel, "
+                         f"got {channels}")
     bins = prep.bins
     check_meta(bins, (hp // tile_h) * (wp // prep.tile_w), tile_h // SUB_H,
                device)
@@ -409,7 +421,8 @@ def _launch_bwd(prep, rows, c_lo, c_hi):
             prep.fid_p.data_ptr(), prep.bits.data_ptr(),
             prep.sval.data_ptr(), prep.pix_cf.data_ptr(),
             prep.grad_cf.data_ptr(), out.data_ptr(),
-            channels, hp, wp, tile_h, c_lo, c_hi, stream,
+            channels, hp, wp, tile_h, c_lo, c_hi, columns_per_pass(device),
+            int(prep.flat), stream,
         )
     if err != 0:
         raise RuntimeError(f"{_BWD} launch failed: CUDA error {err}")

@@ -24,7 +24,13 @@ from typing import NamedTuple
 import torch
 
 from dirt_tpu_torch import config as cfg
-from dirt_tpu_torch.ops import binning, packed_bwd, raster_bwd, raster_fwd
+from dirt_tpu_torch.ops import (
+    binning,
+    packed_bwd,
+    raster_bwd,
+    raster_fwd,
+    scatter,
+)
 from dirt_tpu_torch.ops.triangle_setup import (
     edge_filter_cols,
     face_bbox_cols,
@@ -322,6 +328,64 @@ def _forward_impl(face_verts_screen, face_attrs, background, config):
     return pixels, fid[:height, :width], zbuf[:height, :width], bins, config
 
 
+def chain_through_setup(face_verts, face_attrs, need_fv: bool, need_fa: bool,
+                        plane_cotangents, row_shift: float = 0.0):
+    """Chain an engine's plane cotangents to the screen-space faces.
+
+    Recomputes ``setup_planes`` under autograd (on the faces moved
+    ``row_shift`` rows down, a translation with unit Jacobian),
+    hands the detached planes to ``plane_cotangents(geo, att) -> (d_geo,
+    d_att, d_background)`` and pulls ``d_geo`` / ``d_att`` back through the
+    setup. Returns (d_face_verts or None, d_face_attrs or None,
+    d_background).
+    """
+    with torch.enable_grad():
+        fv = face_verts.detach().requires_grad_(need_fv)
+        fa = face_attrs.detach().requires_grad_(need_fa)
+        moved = fv + fv.new_tensor([0.0, row_shift, 0.0, 0.0]) \
+            if row_shift else fv
+        geo, att, _ = setup_planes(moved, fa)
+    d_geo, d_att, d_bg = plane_cotangents(geo.detach(), att.detach())
+    outs = [(o, d) for o, d in ((geo, d_geo), (att, d_att))
+            if o.requires_grad]
+    wanted = [x for x, need in ((fv, need_fv), (fa, need_fa)) if need]
+    grads = iter(torch.autograd.grad(
+        [o for o, _ in outs], wanted, [d for _, d in outs],
+        allow_unused=True,
+    ))
+    d_fv = next(grads) if need_fv else None
+    d_fa = next(grads) if need_fa else None
+    return d_fv, d_fa, d_bg
+
+
+def make_scatter_fn(config, bins, num_faces: int):
+    """Bind the forward's bins to the matching per-face scatter kernel.
+
+    ``bins`` is what ``_forward_impl`` returned, ``DenseBins`` or
+    ``StreamBins``; its kind picks the kernel, as it picks the backward in
+    ``_RasterizeScreen``. Returns a callable (cot [K, Hp, Wp], fid [Hp, Wp])
+    -> [F, K] for ``raster_bwd.backward_scatter`` /
+    ``backward_scatter_halo``. (``dirt_tpu``'s function also takes the image
+    size, for the streaming kernel's static chunk bound, which has no
+    counterpart here.)
+    """
+    if not isinstance(bins, (DenseBins, StreamBins)):
+        raise TypeError(f"make_scatter_fn needs DenseBins or StreamBins, got "
+                        f"{type(bins).__name__}")
+    geom = dict(tile_h=config.tile_h, tile_w=config.tile_w, bbox=bins.bbox)
+    if isinstance(bins, StreamBins):
+        def scatter_fn(cot_p, fid_p):
+            return scatter.scatter_to_faces_csr(
+                cot_p, fid_p, bins.entry_face, bins.start_block, bins.counts,
+                num_faces, **geom)
+    else:
+        def scatter_fn(cot_p, fid_p):
+            return scatter.scatter_to_faces(
+                cot_p, fid_p, bins.bins, bins.counts, num_faces + 1,
+                **geom)[:num_faces]
+    return scatter_fn
+
+
 class _RasterizeScreen(torch.autograd.Function):
     """The raster op: forward and backward of the resolved engine.
 
@@ -359,41 +423,33 @@ class _RasterizeScreen(torch.autograd.Function):
         config = ctx.config
         height, width = fid.shape
         num_faces = fv.shape[0]
-        with torch.enable_grad():
-            fv = fv.detach().requires_grad_(need_fv)
-            fa = fa.detach().requires_grad_(need_fa)
-            geo, att, _ = setup_planes(fv, fa)
         bins = ctx.bins
-        if isinstance(bins, DenseBins):
-            d_geo, d_att, _ = raster_bwd.backward_fused(
-                geo.detach(), att.detach(), fid, zbuf, pixels,
-                grad_pixels.contiguous(), bins.bins, bins.counts,
-                config.tile_h, config.tile_w, bbox=bins.bbox,
-            )
-        elif isinstance(bins, StreamBins):
-            d_geo, d_att, _ = raster_bwd.backward_fused_csr(
-                geo.detach(), att.detach(), fid, zbuf, pixels,
-                grad_pixels.contiguous(), bins.entry_face, bins.start_block,
-                bins.counts, config.tile_h, config.tile_w, bbox=bins.bbox,
-            )
-        else:
+        grad_pixels = grad_pixels.contiguous()
+
+        def plane_cotangents(geo, att):
+            if isinstance(bins, DenseBins):
+                return raster_bwd.backward_fused(
+                    geo, att, fid, zbuf, pixels, grad_pixels, bins.bins,
+                    bins.counts, config.tile_h, config.tile_w,
+                    bbox=bins.bbox,
+                )
+            if isinstance(bins, StreamBins):
+                return raster_bwd.backward_fused_csr(
+                    geo, att, fid, zbuf, pixels, grad_pixels,
+                    bins.entry_face, bins.start_block, bins.counts,
+                    config.tile_h, config.tile_w, bbox=bins.bbox,
+                )
             expand, _ = _packed_caps(config, num_faces,
                                      _pad_to(height, config.tile_h),
                                      _pad_to(width, config.tile_w))
-            d_geo, d_att, _ = packed_bwd.backward_packed(
-                geo.detach(), att.detach(), fid, zbuf, pixels,
-                grad_pixels.contiguous(), bins, num_faces, config.tile_h,
-                config.tile_w, bmax=-(-expand // binning.POOL_ALIGN),
+            return packed_bwd.backward_packed(
+                geo, att, fid, zbuf, pixels, grad_pixels, bins, num_faces,
+                config.tile_h, config.tile_w,
+                bmax=-(-expand // binning.POOL_ALIGN),
             )
-        outs = [(o, d) for o, d in ((geo, d_geo), (att, d_att))
-                if o.requires_grad]
-        wanted = [x for x, need in ((fv, need_fv), (fa, need_fa)) if need]
-        grads = iter(torch.autograd.grad(
-            [o for o, _ in outs], wanted, [d for _, d in outs],
-            allow_unused=True,
-        ))
-        d_fv = next(grads) if need_fv else None
-        d_fa = next(grads) if need_fa else None
+
+        d_fv, d_fa, _ = chain_through_setup(fv, fa, need_fv, need_fa,
+                                            plane_cotangents)
         return d_fv, d_fa, d_bg, None
 
 

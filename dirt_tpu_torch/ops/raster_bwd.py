@@ -21,8 +21,11 @@ backward (``ops.packed_bwd``) and the dense one are tested against.
 :func:`backward_fused` is the dense engine's backward (kernel
 ``csrc/fused_bwd.cu`` through ``ops.fused_bwd``) and
 :func:`backward_fused_csr` the streaming engine's (``csrc/fused_bwd_csr.cu``).
-The sharded engines (``backward_scatter*``, ``pack_cotangent_tiles``) come
-with their path.
+:func:`backward_scatter` and :func:`backward_scatter_halo` are the scatter
+engine: per-pixel cotangents over whole arrays (plain tensor ops, as in
+``dirt_tpu``), packed by :func:`pack_cotangent_tiles` and reduced onto faces
+by ``ops.scatter``'s kernels; the halo form is the row-sharded renderer's
+(``parallel.sharding``).
 """
 
 from __future__ import annotations
@@ -263,6 +266,93 @@ def assemble_face_gradients(geo, att, rows, channels: int):
     d_geo[:, GEO_DEN:GEO_USED_END] = rows[:, 9:12]
     d_att = rows[:, 12:12 + 3 * channels]
     return anchor_cotangents(geo, att, d_geo, d_att), d_att
+
+
+def pack_cotangent_tiles(d_geo_cols, d_att_cols, covered, fid,
+                         tile_h: int, tile_w: int):
+    """Stack the scatterable cotangent columns and pad to whole tiles.
+
+    Column order (the contract with the scatter kernels and
+    :func:`assemble_face_gradients`): 9 edge, 3 denominator, 3C attribute.
+    Returns (cot [K, Hp, Wp] f32, zero off ``covered``; fid_p [Hp, Wp] int32,
+    -1 off ``covered`` and on the padding), both contiguous.
+    """
+    height, width = fid.shape
+    cot = torch.stack(
+        [d_geo_cols[GEO_EDGE + k] for k in range(9)]
+        + [d_geo_cols[GEO_DEN + k] for k in range(3)]
+        + list(d_att_cols), dim=0
+    )
+    cot = torch.where(covered[None], cot, 0.0)
+    hp = -(-height // tile_h) * tile_h
+    wp = -(-width // tile_w) * tile_w
+    pad2 = (0, wp - width, 0, hp - height)
+    pad = torch.nn.functional.pad
+    fid_p = pad(torch.where(covered, fid, -1).to(torch.int32), pad2,
+                value=-1)
+    return pad(cot, pad2).contiguous(), fid_p.contiguous()
+
+
+def backward_scatter(geo, att, fid, zbuf, pixels, grad_pixels, scatter_fn,
+                     tile_h: int, tile_w: int, own_mask=None):
+    """Gradients w.r.t. plane coefficients via a per-face scatter kernel.
+
+    Same semantics and returns as :func:`backward_torch`, but the reduction
+    of the per-pixel cotangents onto faces is ``scatter_fn``'s.
+
+    Args:
+        scatter_fn: callable (cot [K, Hp, Wp], fid [Hp, Wp]) -> [F, K]
+            summing each pixel's cotangent row onto its owning face
+            (``raster.make_scatter_fn`` over the forward's bins).
+    """
+    geo = torch.as_tensor(geo, dtype=torch.float32)
+    att = torch.as_tensor(att, dtype=torch.float32)
+    covered = fid >= 0
+    if own_mask is not None:
+        covered = covered & own_mask
+    safe_fid = torch.where(covered, fid, 0).long()
+    d_geo_cols, d_att_cols = pixel_cotangents(
+        geo[safe_fid].permute(2, 0, 1), covered, fid, zbuf,
+        pixels.permute(2, 0, 1), grad_pixels.permute(2, 0, 1)
+    )
+    cot, fid_p = pack_cotangent_tiles(d_geo_cols, d_att_cols, covered, fid,
+                                      tile_h, tile_w)
+    rows = scatter_fn(cot, fid_p)                        # [F, 12 + 3C]
+    d_geo, d_att = assemble_face_gradients(geo, att, rows, pixels.shape[-1])
+    d_background = torch.where(covered[..., None], 0.0, grad_pixels)
+    return d_geo, d_att, d_background
+
+
+def backward_scatter_halo(geo, att, fid_e, zbuf_e, pixels_e, grad_e,
+                          own_mask, scatter_fn, tile_h: int, tile_w: int):
+    """Scatter-engine backward over row-halo-extended slab arrays.
+
+    For the row-sharded renderer (``parallel.sharding``): the inputs carry
+    one halo row on each side ([H + 2, W, ...]). The per-pixel cotangents
+    are computed on the extended arrays, so a boundary pair that crosses
+    the slab's edge sees the neighbour's row, and are then cut back to the
+    slab's own rows before the per-face scatter; ``own_mask`` is False on
+    the halo rows, which therefore own nothing. ``geo`` / ``att`` must be
+    expressed in the extended (y + 1) coordinates; ``scatter_fn`` takes the
+    slab's own rows. Returns (d_geo, d_att, d_background_e [H + 2, W, C]).
+    """
+    geo = torch.as_tensor(geo, dtype=torch.float32)
+    att = torch.as_tensor(att, dtype=torch.float32)
+    covered_e = (fid_e >= 0) & own_mask
+    safe_fid = torch.where(covered_e, fid_e, 0).long()
+    d_geo_cols, d_att_cols = pixel_cotangents(
+        geo[safe_fid].permute(2, 0, 1), covered_e, fid_e, zbuf_e,
+        pixels_e.permute(2, 0, 1), grad_e.permute(2, 0, 1)
+    )
+    cot, fid_p = pack_cotangent_tiles(
+        [c[1:-1] for c in d_geo_cols], [c[1:-1] for c in d_att_cols],
+        covered_e[1:-1], fid_e[1:-1], tile_h, tile_w
+    )
+    rows = scatter_fn(cot, fid_p)
+    d_geo, d_att = assemble_face_gradients(geo, att, rows,
+                                           pixels_e.shape[-1])
+    d_background_e = torch.where(covered_e[..., None], 0.0, grad_e)
+    return d_geo, d_att, d_background_e
 
 
 def backward_torch(geo, att, fid, zbuf, pixels, grad_pixels, own_mask=None):

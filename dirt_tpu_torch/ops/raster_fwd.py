@@ -15,10 +15,15 @@ layout — through one of two implementations of the same function:
 
 * for CUDA tensors, the hand-written kernel
   ``dirt_tpu_torch/csrc/raster_fwd_packed.cu``, which replaces
-  ``_fwd_packed_kernel`` and, on this path, both ``flat_subtile_swap_pallas``
-  passes (it reads and writes image layout directly);
+  ``_fwd_packed_kernel`` and reads and writes image layout directly;
 * for CPU tensors, :func:`raster_forward_packed_plain`, vectorised PyTorch
   with the kernel's arithmetic in the same order.
+
+:func:`flat_subtile_swap` is the image <-> flat-subtile layout permutation
+(kernel ``csrc/subtile_swap.cu``, replacing ``flat_subtile_swap_pallas``;
+:func:`flat_subtile_swap_plain` for CPU tensors). The sharded halo backward
+of the packed engine hands its per-pixel fields to the backward kernel in
+that layout (``packed_bwd.prepare_backward_packed(nbrs=...)``).
 
 There is no fallback: a tensor on any other device raises, and a kernel
 that does not build or launch raises.
@@ -55,8 +60,10 @@ COL_ATT = GEO_USED + 2     # 3 columns per channel
 LAUNCHES = 0
 LAUNCHES_DENSE = 0
 LAUNCHES_CSR = 0
+LAUNCHES_SWAP = 0
 
 _KERNEL = "raster_fwd_packed"
+_SWAP = "subtile_swap"
 _DENSE = "raster_fwd_dense"
 _CSR = "raster_fwd_csr"
 
@@ -220,6 +227,93 @@ def _to_image(x, tiles_y, tiles_x, strips):
     x = x.permute(*range(n), n, n + 2, n + 4, n + 1, n + 3, n + 5)
     return x.reshape(*lead, tiles_y * strips * SUB_H,
                      tiles_x * GROUPS * SUB_W)
+
+
+# --- the layout swap ------------------------------------------------------
+
+_SWAP_MAX_ARRAYS = 8   # arrays one launch of subtile_swap.cu takes
+
+
+def flat_subtile_swap(arrays):
+    """Image <-> flat-subtile layout, for a list of arrays of one image size.
+
+    ``flat[8*S + k, 128*tx + 16*r + c] == image[8*S + r, 128*tx + 16*k + c]``
+    (k = 16-column group, r = row within the 8-row strip, c = column within
+    the group): the 128 pixels of each 8x16 subtile become one 128-element
+    row. Swapping r and k is its own inverse, so the same call converts
+    both ways.
+
+    Args:
+        arrays: list of [Hp, Wp] or [K, Hp, Wp] tensors, any mix of float32
+            and int32, on one device; Hp % 8 == 0 and Wp % 128 == 0.
+    Returns:
+        list of new tensors of the same shapes and dtypes.
+    """
+    arrays = list(arrays)
+    if not arrays:
+        return []
+    hp, wp = arrays[0].shape[-2:]
+    device = arrays[0].device
+    for i, a in enumerate(arrays):
+        if (a.ndim not in (2, 3) or tuple(a.shape[-2:]) != (hp, wp)
+                or a.dtype not in (torch.float32, torch.int32)
+                or a.device != device):
+            raise ValueError(
+                f"flat_subtile_swap: array {i} is {a.dtype} "
+                f"{tuple(a.shape)} on {a.device}; want float32 or int32 "
+                f"[{hp}, {wp}] or [K, {hp}, {wp}] on {device}")
+    if hp % SUB_H or wp % (GROUPS * SUB_W):
+        raise ValueError(f"flat_subtile_swap: image {hp}x{wp} is not a "
+                         f"multiple of {SUB_H}x{GROUPS * SUB_W}")
+    if device.type == "cpu":
+        return [flat_subtile_swap_plain(a) for a in arrays]
+    if device.type != "cuda":
+        raise ValueError(f"flat_subtile_swap: no kernel for device {device}")
+    out = []
+    for i in range(0, len(arrays), _SWAP_MAX_ARRAYS):
+        out += _launch_swap(arrays[i:i + _SWAP_MAX_ARRAYS], hp, wp, device)
+    return out
+
+
+def flat_subtile_swap_plain(x):
+    """Plain PyTorch version of the layout swap for one array (any
+    device): the strip's row axis and its 16-column-group axis trade
+    places."""
+    *lead, hp, wp = x.shape
+    y = x.reshape(*lead, hp // SUB_H, SUB_H, wp // (GROUPS * SUB_W), GROUPS,
+                  SUB_W)
+    return y.transpose(-4, -2).reshape(*lead, hp, wp)
+
+
+@functools.cache
+def _swap_fn():
+    fn = _build.load(_SWAP).dirt_subtile_swap
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    return fn
+
+
+def _launch_swap(arrays, hp, wp, device):
+    global LAUNCHES_SWAP
+    n = len(arrays)
+    # The kernel moves 16-byte vectors: a contiguous view at an odd offset
+    # of its storage is copied to an allocation of its own.
+    arrays = [a.contiguous() for a in arrays]
+    arrays = [a.clone() if a.data_ptr() % 16 else a for a in arrays]
+    outs = [torch.empty_like(a) for a in arrays]
+    srcs = (ctypes.c_void_p * n)(*(a.data_ptr() for a in arrays))
+    dsts = (ctypes.c_void_p * n)(*(o.data_ptr() for o in outs))
+    planes = (ctypes.c_int * n)(
+        *(a.shape[0] if a.ndim == 3 else 1 for a in arrays))
+    fn = _swap_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(srcs, dsts, planes, n, hp, wp, stream)
+    if err != 0:
+        raise RuntimeError(f"{_SWAP} launch failed: CUDA error {err}")
+    LAUNCHES_SWAP += 1
+    return outs
 
 
 def raster_forward_packed_plain(

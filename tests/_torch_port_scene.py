@@ -58,3 +58,30 @@ def clip_soup(num_faces, size, seed, channels=3):
     colors = rng.rand(3 * num_faces, channels).astype(np.float32)
     bg = rng.rand(size, size, channels).astype(np.float32)
     return verts, colors, faces, bg
+
+
+def sharding_scene(seed=0, num_faces=24, num_verts=30, height=128, width=128):
+    """The scene of ``tests/test_sharding.py``: random clip-space triangles
+    (w = 1) over a random background. Returns numpy (vertices [V, 4] f32,
+    colors [V, 3] f32, faces [F, 3] int32, background [H, W, 3] f32)."""
+    rng = np.random.RandomState(seed)
+    verts = np.zeros((num_verts, 4), np.float32)
+    verts[:, :2] = rng.uniform(-0.9, 0.9, (num_verts, 2))
+    verts[:, 2] = rng.uniform(-0.5, 0.5, num_verts)
+    verts[:, 3] = 1.0
+    faces = rng.randint(0, num_verts, (num_faces, 3)).astype(np.int32)
+    colors = rng.uniform(0, 1, (num_verts, 3)).astype(np.float32)
+    bg = rng.uniform(0, 1, (height, width, 3)).astype(np.float32)
+    return verts, colors, faces, bg
+
+
+# The caps of tests/test_sharding.py (CFG, CFG_PACKED) and the same dense
+# caps under streaming=True, as keyword dicts for either package's
+# RasterConfig. The scene's triangles are huge next to the 8 x 16 subtile
+# grid, so the packed engine gets explicit caps.
+SHARDING_CAPS = {
+    "dense": dict(tile_h=8, tile_w=128, bin_cap=64),
+    "csr": dict(tile_h=8, tile_w=128, bin_cap=64, streaming=True),
+    "packed": dict(tile_h=8, tile_w=128, engine="packed", expand_cap=128,
+                   budget=2048),
+}

@@ -31,6 +31,18 @@ card against the CPU as above.
 The streaming (CSR) engine: the same checks and tolerances as the dense
 engine's (the two forward kernels share their strip walk, the two backward
 kernels their passes), at small and odd shapes.
+
+The scatter kernels (the row-sharded renderer's reduction onto faces): rows
+within 1e-5 of the column's largest magnitude plus 1e-6 of their plain
+versions (float64 ``index_add_``) on the dense and the streaming cases'
+bins, cut lists included, and equal on two runs. The sharded renderer with
+four local slabs on the card against the same on the CPU as above, with
+each slab's kernels counted. The packed backward above one launch's column
+count (16, 32 and 33 channels) like the packed backward below it.
+
+The layout swap kernel against its plain version (a permutation: equal bit
+for bit, float32 and int32 alike), and the packed backward kernel on
+flat-subtile fields bit-equal to itself on image-layout fields.
 """
 
 import numpy as np
@@ -40,7 +52,15 @@ import torch
 import dirt_tpu_torch
 from _torch_port_scene import screen_soup, sphere_scene
 from dirt_tpu_torch import convert, entry
-from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster, raster_fwd
+from dirt_tpu_torch.ops import (
+    fused_bwd,
+    packed_bwd,
+    raster,
+    raster_fwd,
+    scatter,
+)
+from dirt_tpu_torch.parallel.group import LocalGroup
+from dirt_tpu_torch.parallel.sharding import rasterise_sharded
 from dirt_tpu_torch.ops.triangle_setup import (
     face_bboxes,
     screen_from_clip,
@@ -194,14 +214,107 @@ def test_backward_kernel_matches_plain_on_card(cuda, kind, height, width,
 
 
 @pytest.mark.cuda
-def test_backward_kernel_rejects_too_many_channels(cuda):
-    prep = _backward_inputs(cuda, "soup", 64, 128, 1, 32)
-    wide = packed_bwd.max_channels(cuda) + 1
-    prep.channels = wide
-    prep.pix_cf = prep.pix_cf.expand(wide, -1, -1).contiguous()
-    prep.grad_cf = prep.grad_cf.expand(wide, -1, -1).contiguous()
-    with pytest.raises(ValueError, match="channels"):
-        packed_bwd.packed_entry_rows(prep)
+@pytest.mark.parametrize("hp,wp,planes", [(8, 128, (1, 1)),
+                                          (104, 256, (1, 1, 5, 5, 4)),
+                                          (64, 384, (3,) * 10)])
+def test_swap_kernel_matches_plain_on_card(cuda, hp, wp, planes):
+    """Mixed int32 and float32 arrays in one call (ten arrays take two
+    launches); NaN and -0.0 bit patterns move untouched; an array at an
+    odd offset of its storage is taken too."""
+    gen = torch.Generator(device=cuda).manual_seed(hp + wp)
+    arrays = []
+    for i, k in enumerate(planes):
+        shape = (hp, wp) if k == 1 else (k, hp, wp)
+        if i % 2:
+            arrays.append(torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                                        device=cuda, dtype=torch.int32))
+        else:
+            arrays.append(torch.randn(shape, generator=gen, device=cuda))
+    arrays[0].view(-1)[:2] = torch.tensor([float("nan"), -0.0], device=cuda)
+    # A contiguous view one word into its storage: not 16-byte aligned.
+    last = arrays[-1]
+    odd = torch.empty(last.numel() + 1, dtype=last.dtype, device=cuda)[1:]
+    arrays[-1] = odd.view(last.shape).copy_(last)
+    assert arrays[-1].is_contiguous() and arrays[-1].data_ptr() % 16
+    before = raster_fwd.LAUNCHES_SWAP
+    got = raster_fwd.flat_subtile_swap(arrays)
+    torch.cuda.synchronize()
+    assert raster_fwd.LAUNCHES_SWAP == before + -(-len(planes) // 8)
+    for a, g in zip(arrays, got):
+        want = raster_fwd.flat_subtile_swap_plain(a)
+        assert g.dtype == a.dtype and g.shape == a.shape
+        assert torch.equal(g.view(torch.int32), want.view(torch.int32))
+    for a, b in zip(arrays, raster_fwd.flat_subtile_swap(got)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,height,width,channels,tile_h",
+                         _KERNEL_CASES + [("soup", 100, 130, 16, 32)])
+def test_backward_kernel_on_flat_fields_equals_image_fields(
+        cuda, kind, height, width, channels, tile_h):
+    """The halo path's layout: the same prepared inputs with the five
+    per-pixel fields swapped give the same entry rows, bit for bit."""
+    prep = _backward_inputs(cuda, kind, height, width, channels, tile_h)
+    fid_f, bits_f, sval_f, pix_f, grad_f = raster_fwd.flat_subtile_swap(
+        [prep.fid_p, prep.bits, prep.sval, prep.pix_cf, prep.grad_cf])
+    flat = packed_bwd._PackedBwdPrep(
+        fid_f, bits_f, sval_f, pix_f, grad_f, prep.bins, prep.geo, prep.att,
+        prep.channels, prep.k_cols, prep.tile_h, prep.tile_w, flat=True)
+    rows = packed_bwd.packed_entry_rows(prep)
+    assert torch.equal(packed_bwd.packed_entry_rows(flat), rows)
+    torch.testing.assert_close(
+        packed_bwd.packed_entry_rows_plain(flat, prep.bins.rows, 0,
+                                           prep.budget_chunks),
+        rows, **TOL_BWD)
+    assert (rows != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [16, 32, 33])
+def test_backward_kernel_takes_channels_beyond_one_pass(cuda, channels):
+    """More cotangent columns than one launch stages (54 on an H100, which
+    is 14 channels) run as further launches over the same owners: 16
+    channels are 60 columns (two passes), 32 are 108 (two full ones), 33 are
+    111 (three)."""
+    assert 12 + 3 * channels > packed_bwd.columns_per_pass(cuda)
+    prep = _backward_inputs(cuda, "soup", 100, 130, channels, 32)
+    before = packed_bwd.LAUNCHES_BWD
+    rows_k = packed_bwd.packed_entry_rows(prep)
+    torch.cuda.synchronize()
+    assert packed_bwd.LAUNCHES_BWD == before + 1
+    rows_p = packed_bwd.packed_entry_rows_plain(
+        prep, prep.bins.rows, 0, prep.budget_chunks)
+    torch.testing.assert_close(rows_k, rows_p, **TOL_BWD)
+    assert (rows_k != 0).any(dim=0).all()           # every column is written
+    assert torch.equal(rows_k, packed_bwd.packed_entry_rows(prep))
+    mid = prep.budget_chunks // 2
+    halves = torch.cat([packed_bwd.packed_entry_rows(prep, 0, mid),
+                        packed_bwd.packed_entry_rows(prep, mid)])
+    assert torch.equal(halves, rows_k)
+
+
+@pytest.mark.cuda
+def test_packed_gradients_with_16_channels_on_card_match_cpu(cuda):
+    verts, colors, faces = sphere_scene(24, 32, channels=16)
+    bg = np.random.RandomState(6).rand(192, 256, 16).astype(np.float32)
+    w = np.random.RandomState(7).randn(192, 256, 16).astype(np.float32)
+    grads = []
+    for device in ("cpu", cuda):
+        bg_t, v_t, c_t, f_t = convert.scene_from_numpy(bg, verts, colors,
+                                                       faces, device)
+        config = dirt_tpu_torch.suggest_raster_config(
+            v_t, f_t, 192, 256,
+            config=dirt_tpu_torch.RasterConfig(engine="packed"))
+        leaves = [t.clone().requires_grad_() for t in (v_t, c_t, bg_t)]
+        pix, _, _, ovf = dirt_tpu_torch.rasterise_with_aux(
+            leaves[2], leaves[0], leaves[1], f_t, config=config)
+        assert not bool(ovf)
+        (pix * torch.tensor(w, device=device)).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for g_cpu, g_card in zip(*grads):
+        assert torch.isfinite(g_card).all()
+        assert _rel_err(g_card, g_cpu) <= 1e-4
 
 
 def _rel_err(got, want):
@@ -517,6 +630,126 @@ def test_streaming_gradients_on_card_match_cpu(cuda, distance, clip, fields):
         launched = (raster_fwd.LAUNCHES_CSR - before[0],
                     fused_bwd.LAUNCHES_CSR - before[1])
         assert launched == ((0, 0) if device == "cpu" else (1, 1))
+        outs.append((pix.detach().cpu(), fid.cpu(), zbuf.cpu(), bool(ovf)))
+        grads.append([t.grad.cpu() for t in leaves])
+    (pix_c, fid_c, z_c, ovf_c), (pix_g, fid_g, z_g, ovf_g) = outs
+    assert ovf_g is ovf_c is False
+    assert torch.equal(fid_g, fid_c)
+    torch.testing.assert_close(pix_g, pix_c, **TOL)
+    torch.testing.assert_close(z_g, z_c, **TOL)
+    for g_cpu, g_card in zip(*grads):
+        assert torch.isfinite(g_card).all()
+        assert _rel_err(g_card, g_cpu) <= 1e-4
+
+
+# --- the scatter kernels and the row-sharded renderer ---------------------------
+
+
+def _scatter_inputs(fid, channels, height, width):
+    """(cot [K, Hp, Wp], fid_p): random rows on the pixels a face owns,
+    minus a band of rows as an ``own_mask`` takes them out, zero and -1
+    elsewhere (``raster_bwd.pack_cotangent_tiles``' contract)."""
+    hp, wp = fid.shape
+    owned = fid >= 0
+    owned[height:] = False
+    owned[:, width:] = False
+    owned[height // 3: height // 3 + 5] = False
+    k_cols = 12 + 3 * channels
+    cot = torch.randn(k_cols, hp, wp, device=fid.device) * owned
+    return cot.contiguous(), torch.where(owned, fid, -1).contiguous()
+
+
+def _check_scatter_rows(rows_k, rows_p, launch_again):
+    assert rows_k.shape == rows_p.shape
+    scale = rows_p.abs().amax(dim=0, keepdim=True)
+    assert ((rows_k - rows_p).abs() <= 1e-5 * scale + 1e-6).all()
+    assert (rows_k != 0).any()
+    assert torch.equal(rows_k, launch_again())      # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,height,width,channels,tile_h,tile_w",
+                         _DENSE_CASES)
+def test_scatter_kernel_matches_plain_on_card(cuda, kind, height, width,
+                                              channels, tile_h, tile_w):
+    fv, _, table, bins, bg_chw, cfg = _dense_forward(
+        cuda, kind, height, width, channels, tile_h, tile_w)
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    _, fid, _ = raster_fwd.raster_forward_plain(
+        table, bins.bins, bins.counts, bg_chw, **geom)
+    cot, fid_p = _scatter_inputs(fid, channels, height, width)
+    num_faces = fv.shape[0]
+    args = (cot, fid_p, bins.bins, bins.counts, num_faces + 1)
+    before = scatter.LAUNCHES
+    rows_k = scatter.scatter_to_faces(*args, bbox=bins.bbox, **geom)
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES == before + 1
+    _check_scatter_rows(
+        rows_k, scatter.scatter_to_faces_plain(cot, fid_p, num_faces + 1),
+        lambda: scatter.scatter_to_faces(*args, bbox=bins.bbox, **geom))
+    assert rows_k.shape[0] % 8 == 0 and not rows_k[num_faces:].any()
+    with pytest.raises(ValueError, match="bbox"):
+        scatter.scatter_to_faces(*args, **geom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_CSR_CASES))
+def test_scatter_csr_kernel_matches_plain_on_card(cuda, case):
+    fv, _, table, bins, bg_chw, cfg, height, width = _csr_forward(cuda, case)
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    _, fid, _ = raster_fwd.raster_forward_csr_plain(
+        table, bins.entry_face, bins.start_block, bins.counts, bg_chw, **geom)
+    cot, fid_p = _scatter_inputs(fid, bg_chw.shape[0], height, width)
+    num_faces = fv.shape[0]
+    args = (cot, fid_p, bins.entry_face, bins.start_block, bins.counts,
+            num_faces)
+    before = scatter.LAUNCHES_CSR
+    rows_k = scatter.scatter_to_faces_csr(*args, bbox=bins.bbox, **geom)
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES_CSR == before + 1
+    _check_scatter_rows(
+        rows_k, scatter.scatter_to_faces_csr_plain(cot, fid_p, num_faces),
+        lambda: scatter.scatter_to_faces_csr(*args, bbox=bins.bbox, **geom))
+    assert rows_k.shape == (num_faces, cot.shape[0])
+    with pytest.raises(ValueError, match="bbox"):
+        scatter.scatter_to_faces_csr(*args, **geom)
+
+
+def _sharded_counts():
+    return {"packed": (raster_fwd.LAUNCHES, packed_bwd.LAUNCHES_BWD,
+                       raster_fwd.LAUNCHES_SWAP),
+            "dense": (raster_fwd.LAUNCHES_DENSE, scatter.LAUNCHES),
+            "csr": (raster_fwd.LAUNCHES_CSR, scatter.LAUNCHES_CSR)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["dense", "csr", "packed"])
+def test_sharded_renderer_on_card_matches_cpu(cuda, engine):
+    """Four local slabs of a sphere at 256 x 256: the engine's forward
+    kernel and its sharded backward's reduction (the scatter kernels, or
+    the layout swap and the packed backward on halo-spliced neighbour maps)
+    run once per slab,
+    and no other engine's; image and gradients as on the CPU."""
+    verts, colors, faces = sphere_scene(24, 32)
+    bg = np.random.RandomState(6).rand(256, 256, 3).astype(np.float32)
+    w = np.random.RandomState(7).randn(256, 256, 3).astype(np.float32)
+    config = {"dense": dirt_tpu_torch.RasterConfig(engine="dense"),
+              "csr": dirt_tpu_torch.RasterConfig(streaming=True),
+              "packed": dirt_tpu_torch.RasterConfig(engine="packed")}[engine]
+    outs, grads = [], []
+    for device in ("cpu", cuda):
+        bg_t, v_t, c_t, f_t = convert.scene_from_numpy(bg, verts, colors,
+                                                       faces, device)
+        leaves = [t.clone().requires_grad_() for t in (v_t, c_t, bg_t)]
+        before = _sharded_counts()
+        pix, fid, zbuf, ovf = rasterise_sharded(
+            leaves[2], leaves[0], leaves[1], f_t, LocalGroup(4),
+            config=config, with_aux=True)
+        (pix * torch.tensor(w, device=device)).sum().backward()
+        after = _sharded_counts()
+        for name in after:
+            n = 4 if (name == engine and device != "cpu") else 0
+            assert after[name] == tuple(c + n for c in before[name])
         outs.append((pix.detach().cpu(), fid.cpu(), zbuf.cpu(), bool(ovf)))
         grads.append([t.grad.cpu() for t in leaves])
     (pix_c, fid_c, z_c, ovf_c), (pix_g, fid_g, z_g, ovf_g) = outs

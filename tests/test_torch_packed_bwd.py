@@ -39,6 +39,7 @@ from dirt_tpu_torch.ops import binning as tbin
 from dirt_tpu_torch.ops import packed_bwd as tp
 from dirt_tpu_torch.ops import raster as tr
 from dirt_tpu_torch.ops import raster_bwd as trb
+from dirt_tpu_torch.ops import raster_fwd as tf
 from dirt_tpu_torch.ops.raster_fwd import BIG_Z
 
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -276,15 +277,21 @@ def test_backward_packed_reduces_without_pair_rows():
 
 def test_halo_neighbor_maps_path_matches():
     """``nbrs`` precomputed by neighbor_maps (the sharded halo path's
-    input) gives the prologue's result, and JAX's, with no layout swap."""
+    input) gives the prologue's result, and JAX's; its fields are in
+    flat-subtile layout, as JAX's halo path hands them to its kernel."""
     b = _both()
     stacks = tuple(_t(s) for s in b["stacks"])
     halo = _port_backward(bmax=b["bmax"], nbrs=stacks)
     plain = _port_backward(bmax=b["bmax"])
     prep_h = _port_prep(nbrs=stacks)
     prep_p = _port_prep()
-    assert torch.equal(prep_h.bits, prep_p.bits)
-    torch.testing.assert_close(prep_h.sval, prep_p.sval, **TOL)
+    assert prep_h.flat and not prep_p.flat
+    swap = tf.flat_subtile_swap_plain
+    assert torch.equal(swap(prep_h.bits), prep_p.bits)
+    assert torch.equal(swap(prep_h.fid_p), prep_p.fid_p)
+    assert torch.equal(swap(prep_h.pix_cf), prep_p.pix_cf)
+    assert torch.equal(swap(prep_h.grad_cf), prep_p.grad_cf)
+    torch.testing.assert_close(swap(prep_h.sval), prep_p.sval, **TOL)
     for g_h, g_p, w in zip(halo, plain, b["grads_halo"]):
         _close_scaled(g_h.numpy(), g_p.numpy(), rtol=1e-5)
         _close_scaled(g_h.numpy(), w)
@@ -320,3 +327,45 @@ def test_autograd_matches_jax_vjp_on_soup():
     np.testing.assert_allclose(d_fa, d_fa_j, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(d_fv, d_fv_j, rtol=1e-3, atol=1e-3)
     assert np.abs(d_fv).max() > 0
+
+
+def test_sixteen_channels_through_the_api_match_jax():
+    """More channels than one launch of the backward kernel stages on an
+    H100 (14): ``rasterise_with_aux`` on the packed engine gives dirt_tpu's
+    image and gradients at C = 16 (on the CPU through the plain version;
+    the card test holds the kernel's column groups against it). The scene
+    and caps are tests/test_sharding.py's; tolerances as above."""
+    import dirt_tpu
+    import dirt_tpu_torch
+    from _torch_port_scene import SHARDING_CAPS, sharding_scene
+
+    verts, _, faces, _ = sharding_scene(3)
+    rng = np.random.RandomState(4)
+    colors = rng.rand(verts.shape[0], 16).astype(np.float32)
+    bg = rng.rand(128, 128, 16).astype(np.float32)
+    weights = rng.randn(128, 128, 16).astype(np.float32)
+
+    def jax_loss(v, c, b):
+        pixels, fid, _, overflow = dirt_tpu.rasterise_with_aux(
+            b, v, c, jnp.asarray(faces),
+            config=jr.RasterConfig(**SHARDING_CAPS["packed"]), clip=False)
+        return jnp.sum(pixels * weights), (pixels, fid, overflow)
+
+    (_, (pix_j, fid_j, ovf_j)), grads_j = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2), has_aux=True)(
+            jnp.asarray(verts), jnp.asarray(colors), jnp.asarray(bg))
+    leaves = [torch.tensor(a, requires_grad=True)
+              for a in (verts, colors, bg)]
+    pixels, fid, _, overflow = dirt_tpu_torch.rasterise_with_aux(
+        leaves[2], leaves[0], leaves[1], torch.tensor(faces),
+        config=tr.RasterConfig(**SHARDING_CAPS["packed"]), clip=False)
+    (pixels * torch.tensor(weights)).sum().backward()
+    assert not bool(overflow) and not bool(ovf_j)
+    np.testing.assert_array_equal(fid.numpy(), np.asarray(fid_j))
+    # Pixels as tests/test_torch_pipeline.py holds the API's: 1e-5 (the
+    # scene's faces span the image, far from their anchors).
+    np.testing.assert_allclose(pixels.detach().numpy(), np.asarray(pix_j),
+                               atol=1e-5)
+    for leaf, want in zip(leaves, grads_j):
+        _close_scaled(leaf.grad.numpy(), want)
+    assert np.abs(np.asarray(grads_j[0])).max() > 0

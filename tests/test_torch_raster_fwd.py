@@ -8,8 +8,11 @@ pixels and zbuf within 1e-5 absolute (identical expressions, ~2e-6 seen:
 XLA may fuse a multiply into an add where PyTorch rounds each step).
 
 Also here: the no-fallback rules (a tensor on another device raises, a
-missing CUDA toolchain raises, the engine that is not ported raises). The kernel itself is checked against its plain version in
-tests/test_torch_cuda.py.
+missing CUDA toolchain raises, the engine that is not ported raises), and
+the image <-> flat-subtile layout swap against ``flat_subtile_swap`` and
+``flat_subtile_swap_pallas`` (interpret mode): a permutation, so equal bit
+for bit. The kernels themselves are checked against their plain versions
+in tests/test_torch_cuda.py.
 """
 
 import functools
@@ -153,3 +156,57 @@ def test_backward_raises_not_implemented():
             *args, tr.RasterConfig(engine=engine))
         pixels.sum().backward()
         assert torch.isfinite(fv.grad).all() and fv.grad.abs().max() > 0
+
+
+# --- the layout swap ------------------------------------------------------------
+
+
+def _swap_arrays(hp, wp, seed=3):
+    """The halo path's five fields: fid, bits (int32), pix, grad, sval."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(-2, 50, (hp, wp)).astype(np.int32),
+            rng.randint(0, 16, (hp, wp)).astype(np.int32),
+            rng.randn(3, hp, wp).astype(np.float32),
+            rng.randn(3, hp, wp).astype(np.float32),
+            rng.randn(4, hp, wp).astype(np.float32)]
+
+
+@pytest.mark.parametrize("hp,wp", [(8, 128), (24, 256), (64, 384)])
+def test_flat_subtile_swap_matches_jax(hp, wp):
+    arrays = _swap_arrays(hp, wp)
+    got = tf.flat_subtile_swap([torch.tensor(a) for a in arrays])
+    pallas = jf.flat_subtile_swap_pallas([jnp.asarray(a) for a in arrays])
+    assert len(got) == len(arrays)
+    for a, g, p in zip(arrays, got, pallas):
+        assert g.shape == a.shape and g.numpy().dtype == a.dtype
+        np.testing.assert_array_equal(
+            g.numpy(), np.asarray(jf.flat_subtile_swap(jnp.asarray(a))))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(p))
+        assert not np.array_equal(g.numpy(), a)
+    back = tf.flat_subtile_swap(got)
+    for a, b in zip(arrays, back):
+        np.testing.assert_array_equal(b.numpy(), a)
+
+
+def test_flat_subtile_swap_moves_a_subtile_to_a_row():
+    """Pixel (r, 16 k + c) of a strip lands at (k, 16 r + c)."""
+    image = torch.arange(16 * 256, dtype=torch.int32).reshape(16, 256)
+    (flat,) = tf.flat_subtile_swap([image])
+    for s, tx, r, k, c in [(0, 0, 3, 5, 7), (1, 1, 7, 0, 15), (1, 0, 0, 7, 0)]:
+        assert flat[8 * s + k, 128 * tx + 16 * r + c] == \
+            image[8 * s + r, 128 * tx + 16 * k + c]
+    subtile = image[8:16, 128 + 32:128 + 48]            # strip 1, tile 1, k=2
+    assert torch.equal(flat[8 + 2, 128:256], subtile.reshape(-1))
+
+
+def test_flat_subtile_swap_rejects_bad_inputs():
+    ok = torch.zeros(8, 128)
+    assert tf.flat_subtile_swap([]) == []
+    with pytest.raises(ValueError, match="not a multiple of 8x128"):
+        tf.flat_subtile_swap([torch.zeros(8, 64)])
+    with pytest.raises(ValueError, match="array 1 is"):
+        tf.flat_subtile_swap([ok, torch.zeros(16, 128)])
+    with pytest.raises(ValueError, match="array 0 is torch.float64"):
+        tf.flat_subtile_swap([ok.double()])
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tf.flat_subtile_swap([ok.to("meta")])

@@ -3,7 +3,7 @@
 
     python3 tools/prof_torch_steps.py
 
-Takes a ``torch.profiler`` window of a few fwd+bwd steps of four paths of
+Takes a ``torch.profiler`` window of a few fwd+bwd steps of five paths of
 the port on one CUDA card and prints, for each: device kernels per step,
 device busy time per step, the span of the window per step, the busy share
 (busy / span), the hand-written kernels' device time, and the five largest
@@ -11,9 +11,10 @@ items by device time. The paths are the flagship step
 (``dirt_tpu_torch.entry.entry()``: 2,208 faces, 256 x 256, dense engine,
 9-channel G-buffer), config 5 of ``bench_configs.py`` (10,224 faces,
 1024 x 1024, packed engine, 9-channel G-buffer, texture + Phong), config
-4's lit sphere (2,208 faces, 512 x 512, dense engine, 3 channels) and the
+4's lit sphere (2,208 faces, 512 x 512, dense engine, 3 channels), the
 default API on the 99,904-face sphere (1024 x 1024, 3 channels, which runs
-the streaming csr engine).
+the streaming csr engine) and the row-sharded renderer on the bench sphere
+(10,224 faces, 1024 x 1024, dense engine, four slabs on the one card).
 The profiler's own host cost stretches the span, so the busy shares are
 lower bounds of the unprofiled ones. Prints the card's name and power
 limit beside the numbers; exits non-zero without a CUDA device.
@@ -30,7 +31,9 @@ OURS = ("raster_fwd_packed_kernel", "packed_prologue_kernel",
         "packed_bwd_kernel", "raster_fwd_dense_kernel",
         "fused_bwd_partial_kernel", "fused_bwd_reduce_kernel",
         "raster_fwd_csr_kernel", "fused_bwd_csr_partial_kernel",
-        "fused_bwd_csr_reduce_kernel")
+        "fused_bwd_csr_reduce_kernel", "scatter_faces_partial_kernel",
+        "scatter_faces_reduce_kernel", "scatter_faces_csr_partial_kernel",
+        "scatter_faces_csr_reduce_kernel", "subtile_swap_kernel")
 
 
 def _profile(label, step, card):
@@ -106,6 +109,9 @@ def main():
     big_loss, big_leaves, _ = chip_smoke.big_sphere_step(device)
     _profile("default API 99,904 faces 1024^2 csr",
              grad_step(big_loss, big_leaves), card)
+
+    _profile("sharded 4 slabs 1024^2 dense",
+             grad_step(*chip_smoke.sharded_dense_step(device)), card)
 
 
 if __name__ == "__main__":
