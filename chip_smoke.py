@@ -76,7 +76,7 @@ raises and exits non-zero; nothing is caught):
     (captured from one run of it: the cotangents, owners, bins and boxes of
     ``rasterise_sharded`` with one slab): the bench sphere at 1024x1024
     under ``RasterConfig(engine="dense")`` with 3 channels (21 cotangent
-    columns) and 9 (39), the same under ``streaming=True``, and the
+    columns), 9 (39) and 16 (60), the same under ``streaming=True``, and the
     99,904-face sphere on its CSR bins: rows within 1e-5 of the column's
     largest magnitude + 1e-6 and, value by value, within 1e-5 of the sum of
     the magnitudes that value adds up (so one dropped pixel of any face
@@ -84,7 +84,10 @@ raises and exits non-zero; nothing is caught):
     version's time that of one float32 ``index_add_`` of the owned pixels'
     rows, gathered contiguous outside the timing (PyTorch's own scatter,
     which sums with atomics; it is timed here and used nowhere in the
-    package); the packed backward at 16 channels (60 columns, two launches'
+    package), and beside these single-call times the device time alone of
+    the kernel's two passes and of ``index_add_`` (a ``torch.profiler``
+    window) and the host's time to queue the wrapper's call; the packed
+    backward at 16 channels (60 columns, two launches'
     worth) against its plain version; and the layout swap, subtile_swap,
     on the five per-pixel fields the packed slab's halo backward hands it
     (12 planes at 3 channels): equal to its plain version bit for bit, its
@@ -227,6 +230,50 @@ def _median_ms(fn, runs=RUNS, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(fn, runs=RUNS, warmup=3):
+    """{device kernel name: ms per call} of ``fn`` from a ``torch.profiler``
+    window of ``runs`` calls: the card's own time, without the host's. A
+    window that comes back without device records (the tracer now and then
+    drops one) is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):
+        _sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            _sync()
+        by_name = {}
+        for event in prof.events():
+            if event.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[event.name] = (by_name.get(event.name, 0.0)
+                                       + event.device_time / 1e3 / runs)
+        if by_name:
+            return by_name
+    raise RuntimeError("the profiler recorded no device activity")
+
+
+def _queued_ms(fn, runs=RUNS, warmup=3):
+    """(ms per call of ``runs`` calls queued back to back with no
+    synchronise between them, the host's ms to queue one of them)."""
+    for _ in range(warmup):
+        fn()
+    _sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / runs
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs, host
 
 
 def _clip_verts(verts_obj, rot, device):
@@ -757,6 +804,14 @@ def _check_scatter_kernel(tag, name, sharded_step, card, runs=10):
                   plain_ms=_median_ms(plain, runs, warmup=1),
                   library_ms=_median_ms(library, runs, warmup=1),
                   **_bound(nbytes, owned * k_cols))
+    # The card's time apart from the host's: the device kernels of one call
+    # (both passes; the library call's fill and scatter), and what the host
+    # takes to queue a call of the wrapper.
+    by_name = _device_ms(lambda: (kernel(), library()), runs)
+    device_k = sum(ms for n, ms in by_name.items() if "scatter_faces" in n)
+    device_l = sum(ms for n, ms in by_name.items()
+                   if "scatter_faces" not in n)
+    host_k = _queued_ms(kernel, runs)[1]
     print(f"[{tag}] {name} cot {tuple(cot.shape)} lists "
           f"{tuple(lists[0].shape)} (listed {listed}) owned {owned} px -> rows "
           f"{tuple(rows_k.shape)}: values outside {TOL_ROWS:g} * max |column| "
@@ -768,9 +823,11 @@ def _check_scatter_kernel(tag, name, sharded_step, card, runs=10):
           f"float32 index_add_ of the {owned} owned rows max |diff| from "
           f"plain {lib_err:.3g}; kernel "
           f"{record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, "
-          f"index_add_ {record['library_ms']:.4f} ms, bound "
-          f"{record['bound_ms']:.4f} ms by {record['bound_by']} (medians of "
-          f"{runs}, {card})")
+          f"index_add_ {record['library_ms']:.4f} ms (single calls, medians "
+          f"of {runs}); device time alone: kernel {device_k:.4f} ms, "
+          f"index_add_ {device_l:.4f} ms (profiler window of {runs} calls), "
+          f"host {host_k:.4f} ms to queue the kernel's call; bound "
+          f"{record['bound_ms']:.4f} ms by {record['bound_by']} ({card})")
     if rows_bad or value_bad or not same or not bool((rows_k != 0).any()):
         raise RuntimeError(f"[{tag}] {name} disagrees with its plain version "
                            "or with itself")
@@ -1711,11 +1768,19 @@ def main():
         f"12 scatter {n_big}-face sphere 1024^2 csr C=3", "scatter_faces_csr",
         one_slab_step(big3, big_stream_cfg, weights), card))
     colors16 = _rand(5, clip.shape[0], 16, device=device)
+    background16 = torch.zeros((SIZE, SIZE, 16), device=device)
+    weights16 = _rand(6, SIZE, SIZE, 16, device=device)
+    bench16 = (background16, clip, colors16, faces)
+    _check_scatter_kernel(
+        "12 scatter bench sphere 1024^2 dense C=16", "scatter_faces",
+        one_slab_step(bench16, dense_big, weights16), card)
+    _check_scatter_kernel(
+        "12 scatter bench sphere 1024^2 streaming=True C=16",
+        "scatter_faces_csr", one_slab_step(bench16, stream_cfg, weights16),
+        card)
     _check_packed_kernels(
-        "12 packed kernels C=16", face_verts, colors16[faces],
-        torch.zeros((SIZE, SIZE, 16), device=device),
-        _rand(6, SIZE, SIZE, 16, device=device), configs[False], card,
-        runs=10, plain_runs=1)
+        "12 packed kernels C=16", face_verts, colors16[faces], background16,
+        weights16, configs[False], card, runs=10, plain_runs=1)
     record.update(_check_swap_kernel(
         "12 layout swap bench sphere 1024^2 packed C=3",
         one_slab_step(bench3, configs[False], weights), card))

@@ -7,12 +7,13 @@ reference the port's tests hold it to. The package imports torch and
 numpy, never jax.
 
 Ported so far: the packed, the dense and the streaming (CSR) engine,
-forward and backward (clipping, triangle setup, binning, and nine CUDA
+forward and backward (clipping, triangle setup, binning, and ten CUDA
 kernels for sm_90a: the packed raster, the backward's neighbor prologue,
-the fused packed backward, the dense whole-tile raster, the fused dense
-backward, the streaming raster, the fused streaming backward and the two
-per-face scatters of the row-sharded backward, each with a plain PyTorch
-version for CPU tensors), count-then-allocate caps, the render stack above
+the fused packed backward, the image <-> flat-subtile layout swap, the
+dense whole-tile raster, the fused dense backward, the streaming raster,
+the fused streaming backward and the two per-face scatters of the
+row-sharded backward, each with a plain PyTorch version for CPU tensors),
+count-then-allocate caps, the render stack above
 them (``core.lighting``, ``core.texture``, ``render.gbuffer``,
 ``render.deferred``) and the row-sharded renderer (``parallel.sharding``,
 ``parallel.group``, ``parallel.multihost``).

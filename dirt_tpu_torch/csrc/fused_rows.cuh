@@ -1,9 +1,9 @@
-// The two passes shared by the kernels that sum per-pixel rows onto faces
-// without atomics: the fused backwards (fused_bwd.cu over dense [T, cap]
+// The two passes of the fused backwards (fused_bwd.cu over dense [T, cap]
 // bins, fused_bwd_csr.cu over CSR runs), which evaluate the cotangent core
-// per pixel, and the face scatters (scatter_faces.cu, scatter_faces_csr.cu),
-// which read per-pixel rows already made. A row is [9 edge | 3 den | 3C
-// attribute] floats; a face's row sums the pixels the face owns.
+// per pixel and sum the per-pixel rows onto faces without atomics. A row is
+// [9 edge | 3 den | 3C attribute] floats; a face's row sums the pixels the
+// face owns. (The face scatters, which read per-pixel rows already made,
+// have passes of their own in scatter_rows.cuh.)
 //
 //   pass 1 (warp_partial_row): one warp per listed (tile, face) entry. The
 //           warp scans the pixels of its tile inside the face's bounding box
@@ -11,12 +11,12 @@
 //           a lane whose pixel the face owns calls the per-pixel body, which
 //           adds the pixel's 12 + 3C values to the lane's own accumulators
 //           in shared memory, in scan order. The body is a template
-//           argument: fused_partial_row evaluates cotangent_core.cuh,
-//           scatter_partial_row reads cot[k, y, x]. A fixed xor butterfly
-//           then sums the 32 lanes, and the warp writes the entry's partial
-//           row. A pixel's owner is always in its tile's list, since the
-//           forward draws only listed faces, and a face is listed at most
-//           once per tile, so every covered pixel is summed exactly once.
+//           argument: fused_partial_row evaluates cotangent_core.cuh. A
+//           fixed xor butterfly then sums the 32 lanes, and the warp writes
+//           the entry's partial row. A pixel's owner is always in its tile's
+//           list, since the forward draws only listed faces, and a face is
+//           listed at most once per tile, so every covered pixel is summed
+//           exactly once.
 //   pass 2 (reduce_face_column): one thread per (face, column) walks the
 //           tiles the face's box touches in ascending order, finds the
 //           face's slot in each tile's ascending list by binary search, and
@@ -112,22 +112,6 @@ __device__ __forceinline__ void fused_partial_row(
         const float dy = ((float)y + 0.5f) - m[1];
         pixel_cotangents(m, dx, dy, channels, grad, pix, plane, p, bits[p],
                          sval, put);
-      });
-}
-
-// Pass 1 of the face scatters: the body reads the pixel's row from the
-// channels-first planes cot [k_cols, hp, wp]. The 32 lanes of a step lie on
-// one image row (or two, at a box's edge), so each plane's read coalesces.
-__device__ __forceinline__ void scatter_partial_row(
-    const float* __restrict__ cot, int face, int t,
-    const int* __restrict__ bbox, const int* __restrict__ fid,
-    float* __restrict__ dst, float* acc, int lane, int k_cols, int hp, int wp,
-    int tile_h, int tile_w) {
-  const long long plane = (long long)hp * wp;
-  warp_partial_row(
-      face, t, bbox, fid, dst, acc, lane, k_cols, wp, tile_h, tile_w,
-      [&](int, int, long long p, LaneAdd put) {
-        for (int k = 0; k < k_cols; ++k) put(k, cot[k * plane + p]);
       });
 }
 

@@ -15,68 +15,69 @@
 // resident in its fast memory by a scalar loop. On Hopper blocks run in
 // parallel and nothing carries over between them, and a thread can compare
 // fid[p] with its face directly: the product and the resident table have no
-// counterpart.
+// counterpart. What is kept is its grid: one block per (tile, 128-slot
+// chunk), which leaves at once when the chunk starts past the tile's count.
 //
-// The reduction, without atomics (deterministic), is fused_rows.cuh's two
-// passes, shared with the fused backwards: pass 1 gives one warp to each
-// (tile, slot) of the forward's bins (slot < counts[t]); the warp scans the
-// face's box inside the tile, adds the K values of each pixel the face owns
-// and writes partial[t * cap + slot]; pass 2 gives one thread to each (face,
-// column) and sums the face's partial rows in tile order. Like the TPU
-// kernel, a pixel whose owner its tile's list lacks is dropped; the forward
-// lists every owner. The plain PyTorch version sums in another order (an
-// index_add_ in float64), so kernel and plain agree to rounding, not bit for
-// bit.
+// The reduction, without atomics (deterministic), is scatter_rows.cuh's two
+// passes: pass 1 gives the warps of a (tile, chunk) block the chunk's live
+// slots only (most of a [T, cap] array is empty: the cap is the fullest
+// tile's count); a warp scans its face's box inside the tile with a batch of
+// columns in flight per pixel and writes partial[t * cap + slot]; pass 2
+// gives a block to 32 faces, finds each face's slots once (not once per
+// column), sums its partial rows in tile order and writes every output row,
+// the zero rows too, so the caller clears nothing.
+// Like the TPU kernel, a pixel whose owner its tile's list lacks is dropped;
+// the forward lists every owner. The plain PyTorch version sums in another
+// order (an index_add_ in float64), so kernel and plain agree to rounding,
+// not bit for bit; the first version of this kernel summed in yet another
+// order, so its bits differ from this one's too. Two runs of this one agree
+// bit for bit.
 //
-// What bounds it: bytes. Every covered pixel's K floats are read once (K
-// planes at stride hp * wp; the lanes of a step lie along an image row), the
-// fid plane about once per listed face's box, and no arithmetic but the
-// sums.
+// What bounds it: by count, bytes (every covered pixel's K floats read once,
+// K planes at stride hp * wp with the lanes of a step along an image row,
+// the fid plane about once per listed face's box); in practice the latency
+// of dependent loads and the sectors a gather by face touches, which the
+// passes answer with loads in flight and no work for dead slots: see
+// scatter_rows.cuh.
 
 #include <cuda_runtime.h>
 
-#include "fused_rows.cuh"
+#include "scatter_rows.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(dirt::ROW_WARPS * 32)
+__global__ void __launch_bounds__(dirt::SCATTER_THREADS)
 scatter_faces_partial_kernel(
     const int* __restrict__ bins, const int* __restrict__ counts,
     const int* __restrict__ bbox, const int* __restrict__ fid,
     const float* __restrict__ cot, float* __restrict__ partial, int k_cols,
-    int hp, int wp, int tile_h, int tile_w, int cap, long long entries) {
-  extern __shared__ float acc_all[];          // [ROW_WARPS][k_cols][32]
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x - warp * 32;
-  const long long entry = (long long)blockIdx.x * dirt::ROW_WARPS + warp;
-  if (entry >= entries) return;               // warp-uniform; no block sync
-  const int t = (int)(entry / cap);
-  const int slot = (int)(entry - (long long)t * cap);
-  if (slot >= counts[t]) return;
-  dirt::scatter_partial_row(cot, bins[entry], t, bbox, fid,
-                            partial + entry * k_cols,
-                            acc_all + warp * k_cols * 32, lane, k_cols, hp,
-                            wp, tile_h, tile_w);
+    int hp, int wp, int tile_h, int tile_w, int cap, int chunks) {
+  const int t = blockIdx.x / chunks;
+  const int base = (blockIdx.x - t * chunks) * dirt::SCATTER_CHUNK;
+  const int live = counts[t] - base;
+  if (live <= 0) return;                      // block-uniform: an empty chunk
+  const long long row0 = (long long)t * cap + base;
+  dirt::scatter_block_rows(bins + row0, min(live, dirt::SCATTER_CHUNK), t,
+                           row0, bbox, fid, cot, partial, k_cols, hp, wp,
+                           tile_h, tile_w);
 }
 
-__global__ void __launch_bounds__(dirt::REDUCE_THREADS)
+__global__ void __launch_bounds__(dirt::SCATTER_REDUCE_THREADS)
 scatter_faces_reduce_kernel(
     const int* __restrict__ bins, const int* __restrict__ counts,
     const int* __restrict__ bbox, const float* __restrict__ partial,
-    float* __restrict__ out, int num_faces, int k_cols, int cap, int tiles_x,
-    int tile_h, int tile_w) {
-  const long long task =
-      (long long)blockIdx.x * dirt::REDUCE_THREADS + threadIdx.x;
-  if (task >= (long long)num_faces * k_cols) return;
-  const int face = (int)(task / k_cols);
-  const int k = (int)(task - (long long)face * k_cols);
-  out[task] = dirt::reduce_face_column(
+    float* __restrict__ out, int num_faces, int out_rows, int k_cols, int cap,
+    int tiles_x, int tile_h, int tile_w) {
+  const long long first_row =
+      (long long)blockIdx.x * dirt::SCATTER_REDUCE_FACES;
+  dirt::reduce_face_rows(
       [bins, counts, cap](int t, const int** list, int* n) {
         *list = bins + (long long)t * cap;
         *n = counts[t];
         return (long long)t * cap;
       },
-      bbox, partial, face, k, k_cols, tiles_x, tile_h, tile_w);
+      bbox, partial, out, first_row, num_faces, out_rows, k_cols, tiles_x,
+      tile_h, tile_w);
 }
 
 }  // namespace
@@ -84,38 +85,36 @@ scatter_faces_reduce_kernel(
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers: bins [tiles, cap] int32 ascending per tile; counts [tiles] int32
 // (<= cap); bbox [num_faces, 4] int32 (xmin, xmax, ymin, ymax; the boxes the
-// bins were made from); fid [hp, wp] int32 (negative = no owner); cot
-// [k_cols, hp, wp] f32; partial [tiles * cap, k_cols] scratch; out
-// [>= num_faces, k_cols], whose first num_faces rows are written. Both
-// launches go on `stream` and do not synchronise. Returns the first CUDA
-// error code (0 on success).
+// bins were made from, 16-byte aligned); fid [hp, wp] int32 (negative = no
+// owner); cot [k_cols, hp, wp] f32; partial [tiles * cap, k_cols] scratch;
+// out [out_rows, k_cols], every row of which is written (rows from num_faces
+// on with zeros). Both launches go on `stream` and do not synchronise.
+// Returns the first CUDA error code (0 on success).
 extern "C" int dirt_scatter_faces(
     const int* bins, const int* counts, const int* bbox, const int* fid,
     const float* cot, float* partial, float* out, int k_cols, int hp, int wp,
-    int tile_h, int tile_w, int cap, int num_faces, void* stream) {
-  const int tiles_y = hp / tile_h, tiles_x = wp / tile_w;
-  const long long entries = (long long)tiles_y * tiles_x * cap;
-  const int smem = dirt::partial_smem_bytes(k_cols);
-  cudaError_t err = cudaFuncSetAttribute(
-      scatter_faces_partial_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+    int tile_h, int tile_w, int cap, int num_faces, int out_rows,
+    void* stream) {
+  const int tiles_x = wp / tile_w;
+  const int tiles = (hp / tile_h) * tiles_x;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (entries > 0 && num_faces > 0) {
-    const long long blocks =
-        (entries + dirt::ROW_WARPS - 1) / dirt::ROW_WARPS;
-    scatter_faces_partial_kernel<<<(unsigned)blocks, dirt::ROW_WARPS * 32,
-                                   smem, st>>>(
+  if (out_rows <= 0 || k_cols <= 0) return 0;
+  const int chunks = (cap + dirt::SCATTER_CHUNK - 1) / dirt::SCATTER_CHUNK;
+  const bool listed = tiles > 0 && chunks > 0;
+  if (listed && num_faces > 0) {
+    scatter_faces_partial_kernel<<<(unsigned)((long long)tiles * chunks),
+                                   dirt::SCATTER_THREADS, 0, st>>>(
         bins, counts, bbox, fid, cot, partial, k_cols, hp, wp, tile_h, tile_w,
-        cap, entries);
-    err = cudaGetLastError();
+        cap, chunks);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const long long tasks = (long long)num_faces * k_cols;
-    scatter_faces_reduce_kernel<<<
-        (unsigned)((tasks + dirt::REDUCE_THREADS - 1) / dirt::REDUCE_THREADS),
-        dirt::REDUCE_THREADS, 0, st>>>(
-        bins, counts, bbox, partial, out, num_faces, k_cols, cap, tiles_x,
-        tile_h, tile_w);
   }
+  // With no list to read, pass 2 finds no face and writes zeros.
+  scatter_faces_reduce_kernel<<<
+      (unsigned)(((long long)out_rows + dirt::SCATTER_REDUCE_FACES - 1) /
+                 dirt::SCATTER_REDUCE_FACES),
+      dirt::SCATTER_REDUCE_THREADS, 0, st>>>(
+      bins, counts, bbox, partial, out, listed ? num_faces : 0, out_rows,
+      k_cols, cap, tiles_x, tile_h, tile_w);
   return static_cast<int>(cudaGetLastError());
 }

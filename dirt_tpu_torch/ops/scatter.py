@@ -12,20 +12,24 @@ arrays extended by the neighbour slabs' halo rows, so the reduction onto
 faces is a step of its own.
 
 * CUDA tensors launch the hand-written kernels ``csrc/scatter_faces.cu``
-  and ``csrc/scatter_faces_csr.cu``. They are ``csrc/fused_rows.cuh``'s two
-  passes (a warp per listed (tile, face) entry sums the pixels the face owns
-  in the tile; a thread per (face, column) sums the tiles' partial rows in
-  order), with a read of ``cot`` where the fused backwards evaluate the
-  cotangent core: no atomics, so two runs give equal bits. The TPU kernels'
-  one-hot matrix products and resident face table have no counterpart. Like
-  the TPU kernels, they drop a pixel whose owner its tile's list lacks; the
-  forward lists every owner.
+  and ``csrc/scatter_faces_csr.cu``, which are ``csrc/scatter_rows.cuh``'s
+  two passes. Pass 1: one block per 128 slots of one tile's list, none for a
+  chunk or CSR block that holds no live entry; a warp sums the pixels its
+  face owns inside the tile with a batch of columns in registers and all of
+  a pixel's plane loads in flight at once. Pass 2: a block per 32 faces sums
+  each face's partial rows in tile order and writes every row of the
+  output, zeros included, so the wrappers allocate it with ``torch.empty``
+  and clear nothing. No atomics, so two runs give equal bits. The TPU
+  kernels' one-hot matrix products and resident face table have no
+  counterpart. Like the TPU kernels, they drop a pixel whose owner its
+  tile's list lacks; the forward lists every owner.
 * CPU tensors take :func:`scatter_to_faces_plain` /
   :func:`scatter_to_faces_csr_plain`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -59,8 +63,9 @@ def scatter_to_faces(cot_cf, fid, bins, counts, num_rows: int, *,
         num_rows: rows of the output, F + 1 (the sentinel row included).
         bbox: [F, 4] int32 (xmin, xmax, ymin, ymax), the boxes the bins
             were made from (``raster.DenseBins.bbox``): the kernel scans a
-            face's box, not its whole tiles. CUDA tensors need it; the
-            plain version does not read it.
+            face's box, not its whole tiles, and every pixel a face owns
+            lies inside its box. CUDA tensors need it; the plain version
+            does not read it.
     Returns:
         [num_rows rounded up to 8, K] f32; callers slice [:num_faces].
     """
@@ -93,6 +98,14 @@ def scatter_to_faces_plain(cot_cf, fid, num_rows: int):
     return out.to(torch.float32)
 
 
+def _on(device):
+    """Context that makes ``device`` the current CUDA device for a launch;
+    nothing to enter (the common case) when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _check_image(cot_cf, fid, bbox, num_faces, tile_h, tile_w):
     """The image-space tensors and boxes both scatter kernels read; returns
     (K, Hp, Wp, tiles)."""
@@ -114,7 +127,7 @@ def _check_image(cot_cf, fid, bbox, num_faces, tile_h, tile_w):
 def _kernel_fn():
     fn = _build.load(_KERNEL).dirt_scatter_faces
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     return fn
 
@@ -133,21 +146,21 @@ def _launch(cot_cf, fid, bins, counts, num_rows, tile_h, tile_w, bbox):
     check_tensor("counts", counts, torch.int32, (total,), device)
 
     rows_padded = -(-num_rows // 8) * 8
-    # The kernel writes the first num_faces rows; the sentinel and padding
-    # rows stay zero. ``partial`` needs no clearing: pass 2 reads only the
-    # (tile, slot) rows pass 1 wrote.
-    out = torch.zeros((rows_padded, k_cols), dtype=torch.float32,
+    # Pass 2 writes every row of ``out`` (the sentinel and padding rows with
+    # zeros), and reads only the rows of ``partial`` that pass 1 wrote: no
+    # clearing of either.
+    out = torch.empty((rows_padded, k_cols), dtype=torch.float32,
                       device=device)
     partial = torch.empty((total * cap, k_cols), dtype=torch.float32,
                           device=device)
     fn = _kernel_fn()
-    with torch.cuda.device(device):
+    with _on(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             bins.data_ptr(), counts.data_ptr(), bbox.data_ptr(),
             fid.data_ptr(), cot_cf.data_ptr(), partial.data_ptr(),
             out.data_ptr(), k_cols, hp, wp, tile_h, tile_w, cap, num_faces,
-            stream,
+            rows_padded, stream,
         )
     if err != 0:
         raise RuntimeError(f"{_KERNEL} launch failed: CUDA error {err}")
@@ -194,7 +207,7 @@ def scatter_to_faces_csr_plain(cot_cf, fid, num_faces: int):
 def _csr_fn():
     fn = _build.load(_CSR).dirt_scatter_faces_csr
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     return fn
 
@@ -213,20 +226,20 @@ def _launch_csr(cot_cf, fid, entry_face, start_block, counts, num_faces,
     check_tensor("start_block", start_block, torch.int32, (total,), device)
     check_tensor("counts", counts, torch.int32, (total,), device)
 
-    # ``partial`` holds one row per CSR slot and needs no clearing: pass 2
-    # reads only the rows of live entries, which pass 1 wrote.
-    out = torch.zeros((num_faces, k_cols), dtype=torch.float32,
+    # Pass 2 writes every row of ``out``; ``partial`` holds one row per CSR
+    # slot, of which pass 2 reads only the live entries', which pass 1 wrote.
+    out = torch.empty((num_faces, k_cols), dtype=torch.float32,
                       device=device)
     partial = torch.empty((n_pad, k_cols), dtype=torch.float32,
                           device=device)
     fn = _csr_fn()
-    with torch.cuda.device(device):
+    with _on(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             entry_face.data_ptr(), start_block.data_ptr(),
             counts.data_ptr(), bbox.data_ptr(), fid.data_ptr(),
             cot_cf.data_ptr(), partial.data_ptr(), out.data_ptr(), k_cols,
-            hp, wp, tile_h, tile_w, n_pad, num_faces, stream,
+            hp, wp, tile_h, tile_w, n_pad, num_faces, num_faces, stream,
         )
     if err != 0:
         raise RuntimeError(f"{_CSR} launch failed: CUDA error {err}")

@@ -35,7 +35,11 @@ kernels their passes), at small and odd shapes.
 The scatter kernels (the row-sharded renderer's reduction onto faces): rows
 within 1e-5 of the column's largest magnitude plus 1e-6 of their plain
 versions (float64 ``index_add_``) on the dense and the streaming cases'
-bins, cut lists included, and equal on two runs. The sharded renderer with
+bins, cut lists included, and equal on two runs; also on scenes made for
+what their enumeration of live list entries can get wrong (boxes placed
+directly, so a tile lists exactly 0, 1, 128 or 129 faces; see
+``_SCATTER_SCENES``), there also value by value within 1e-5 of the sum of
+the magnitudes the value adds up, so one dropped pixel shows. The sharded renderer with
 four local slabs on the card against the same on the CPU as above, with
 each slab's kernels counted. The packed backward above one launch's column
 count (16, 32 and 33 channels) like the packed backward below it.
@@ -53,6 +57,7 @@ import dirt_tpu_torch
 from _torch_port_scene import screen_soup, sphere_scene
 from dirt_tpu_torch import convert, entry
 from dirt_tpu_torch.ops import (
+    binning,
     fused_bwd,
     packed_bwd,
     raster,
@@ -659,57 +664,208 @@ def _scatter_inputs(fid, channels, height, width):
     return cot.contiguous(), torch.where(owned, fid, -1).contiguous()
 
 
-def _check_scatter_rows(rows_k, rows_p, launch_again):
+def _check_scatter_rows(rows_k, rows_p, launch_again, mass=None):
     assert rows_k.shape == rows_p.shape
     scale = rows_p.abs().amax(dim=0, keepdim=True)
     assert ((rows_k - rows_p).abs() <= 1e-5 * scale + 1e-6).all()
+    if mass is not None:
+        # Value by value against the sum of its terms' magnitudes: one
+        # dropped or doubled pixel of any face shows.
+        assert ((rows_k - rows_p).abs() <= 1e-5 * mass + 1e-9).all()
     assert (rows_k != 0).any()
     assert torch.equal(rows_k, launch_again())      # deterministic
 
 
+def _boxes_in(rng, n, x0, x1, y0, y1, size=7):
+    """``n`` random boxes (xmin, xmax, ymin, ymax) of up to ``size`` pixels a
+    side inside the inclusive region."""
+    w = rng.randint(1, size + 1, n)
+    h = rng.randint(1, size + 1, n)
+    xmin = x0 + (rng.rand(n) * (x1 - x0 + 2 - w)).astype(np.int64)
+    ymin = y0 + (rng.rand(n) * (y1 - y0 + 2 - h)).astype(np.int64)
+    return np.stack([xmin, xmin + w - 1, ymin, ymin + h - 1], axis=1)
+
+
+def _scene_counts(rng):
+    """Four 32 x 128 tiles listing 0, 1, 128 and 129 faces."""
+    return np.concatenate([
+        _boxes_in(rng, n, 128 * t, 128 * t + 127, 0, 31)
+        for t, n in ((1, 1), (2, 128), (3, 129))])
+
+
+def _scene_spans(rng):
+    """2 x 2 tiles of 32 x 128: face 0's box is the whole of tile 1, face
+    1's spans all four tiles, 40 small ones lie anywhere (some across a
+    tile edge)."""
+    return np.concatenate([
+        np.array([[128, 255, 0, 31], [100, 160, 20, 40]]),
+        _boxes_in(rng, 40, 0, 255, 0, 63, size=12)])
+
+
+# name: (height, width, tile_h, tile_w, cap, expand_cap, cot channels, boxes,
+# faces the caps cut). What the kernels' enumeration of live entries can get
+# wrong: tiles listing 0, 1, 128 and 129 faces (an empty tile, one entry, a
+# full chunk, one entry into the second chunk); CSR arrays whose last blocks
+# are all padding; a face whose box is a whole tile and one across four
+# tiles; lists cut by a cap; 12, 21, 39 and 60 columns (one batch, a ragged
+# last batch, several batches); an image of one tile.
+_SCATTER_SCENES = {
+    "counts-0-1-128-129": (32, 512, 32, 128, 160, 4, 3, _scene_counts, False),
+    "padding-blocks": (32, 256, 32, 128, 128, 16, 3,
+                       lambda rng: _boxes_in(rng, 10, 0, 255, 0, 31), False),
+    "whole-tile-four-tiles": (64, 256, 32, 128, 64, 4, 9, _scene_spans,
+                              False),
+    "soup-over-cap": (32, 128, 32, 128, 128, 1, 16,
+                      lambda rng: _boxes_in(rng, 300, 0, 127, 0, 31), True),
+    "one-tile-k12": (32, 128, 32, 128, 64, 1, 0,
+                     lambda rng: _boxes_in(rng, 60, 0, 127, 0, 31), False),
+}
+
+
+def _scatter_scene(device, name, streaming):
+    """(cot, fid, lists, bbox, num_faces, geom) of one _SCATTER_SCENES case:
+    boxes made directly, binned by the package's own binning, and owners
+    painted inside the boxes (a random 60% of each box, later faces over
+    earlier ones), minus the pixels of faces their tile's list lacks, as the
+    forward, which draws listed faces only, leaves them."""
+    (height, width, tile_h, tile_w, cap, expand, channels, make_boxes,
+     cut) = _SCATTER_SCENES[name]
+    rng = np.random.RandomState(11)
+    boxes = make_boxes(rng)
+    num_faces = boxes.shape[0]
+    owner = np.full((height, width), -1, np.int64)
+    for face, (x0, x1, y0, y1) in enumerate(boxes):
+        region = owner[y0:y1 + 1, x0:x1 + 1]
+        region[rng.rand(*region.shape) < 0.6] = face
+    bbox = torch.tensor(boxes, dtype=torch.int32, device=device)
+    tiles_x = width // tile_w
+    total = (height // tile_h) * tiles_x
+    listed = torch.zeros((total, num_faces + 1), dtype=torch.bool,
+                         device=device)
+    if streaming:
+        bins = binning.bin_faces_csr(bbox, height, width, tile_h, tile_w,
+                                     cap, expand)
+        assert bool(bins.overflow) is cut
+        lists = (bins.entry_face, bins.start_block, bins.counts)
+        for t in range(total):
+            row0 = int(bins.start_block[t]) * binning.CHUNK
+            run = bins.entry_face[row0:row0 + int(bins.counts[t])]
+            listed[t, run.long()] = True
+        used = int(bins.start_block[-1]) + -(-int(bins.counts[-1])
+                                             // binning.CHUNK)
+        assert bins.entry_face.shape[0] // binning.CHUNK > used
+    else:
+        cap = min(cap, num_faces)               # bin_faces takes no more
+        bins = binning.bin_faces(bbox, height, width, tile_h, tile_w, cap)
+        assert bool(bins.overflow.any()) is cut
+        lists = (bins.bins, bins.counts)
+        slot = torch.arange(cap, device=device)[None, :]
+        ids = torch.where(slot < bins.counts[:, None], bins.bins.long(),
+                          num_faces)
+        listed.scatter_(1, ids, True)
+    owner = torch.tensor(owner, device=device)
+    ys, xs = torch.meshgrid(torch.arange(height, device=device),
+                            torch.arange(width, device=device), indexing="ij")
+    tile = (ys // tile_h) * tiles_x + xs // tile_w
+    keep = (owner >= 0) & listed[tile, owner.clamp(min=0)]
+    fid = torch.where(keep, owner, -1).to(torch.int32).contiguous()
+    cot = (torch.randn(12 + 3 * channels, height, width, device=device)
+           * keep).contiguous()
+    return (cot, fid, lists, bbox, num_faces,
+            dict(tile_h=tile_h, tile_w=tile_w))
+
+
+@pytest.mark.parametrize("streaming", [False, True], ids=["dense", "csr"])
+@pytest.mark.parametrize("name", list(_SCATTER_SCENES))
+def test_scatter_scenes_have_the_lists_they_name(name, streaming):
+    """The scenes above on the CPU (this one needs no card): the lists have
+    the lengths the card tests rely on, and the wrappers, which take their
+    plain versions there, give a nonzero row to every face that owns a
+    pixel and to no other."""
+    cot, fid, lists, bbox, num_faces, geom = _scatter_scene("cpu", name,
+                                                            streaming)
+    counts = lists[-1].tolist()
+    if name == "counts-0-1-128-129":
+        assert counts == [0, 1, 128, 129]
+    if name == "whole-tile-four-tiles":
+        assert bbox[0].tolist() == [128, 255, 0, 31] and min(counts) >= 2
+    cut = _SCATTER_SCENES[name][-1]
+    assert (max(counts) == 128 and sum(counts) < num_faces) is cut
+    owners = torch.unique(fid[fid >= 0]).long()
+    assert owners.numel() > num_faces // 3
+    if streaming:
+        rows = scatter.scatter_to_faces_csr(cot, fid, *lists, num_faces,
+                                            bbox=bbox, **geom)
+    else:
+        rows = scatter.scatter_to_faces(cot, fid, *lists, num_faces + 1,
+                                        bbox=bbox, **geom)[:num_faces]
+    assert rows.shape == (num_faces, cot.shape[0])
+    assert torch.equal(torch.nonzero((rows != 0).any(1))[:, 0], owners)
+
+
+def _case_id(case):
+    return case if isinstance(case, str) else "-".join(map(str, case))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,height,width,channels,tile_h,tile_w",
-                         _DENSE_CASES)
-def test_scatter_kernel_matches_plain_on_card(cuda, kind, height, width,
-                                              channels, tile_h, tile_w):
-    fv, _, table, bins, bg_chw, cfg = _dense_forward(
-        cuda, kind, height, width, channels, tile_h, tile_w)
-    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
-    _, fid, _ = raster_fwd.raster_forward_plain(
-        table, bins.bins, bins.counts, bg_chw, **geom)
-    cot, fid_p = _scatter_inputs(fid, channels, height, width)
-    num_faces = fv.shape[0]
-    args = (cot, fid_p, bins.bins, bins.counts, num_faces + 1)
+@pytest.mark.parametrize("case", _DENSE_CASES + list(_SCATTER_SCENES),
+                         ids=_case_id)
+def test_scatter_kernel_matches_plain_on_card(cuda, case):
+    mass = None
+    if isinstance(case, str):
+        cot, fid_p, lists, bbox, num_faces, geom = _scatter_scene(
+            cuda, case, streaming=False)
+        mass = scatter.scatter_to_faces_plain(cot.abs(), fid_p,
+                                              num_faces + 1)
+    else:
+        kind, height, width, channels, tile_h, tile_w = case
+        fv, _, table, bins, bg_chw, cfg = _dense_forward(
+            cuda, kind, height, width, channels, tile_h, tile_w)
+        geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+        _, fid, _ = raster_fwd.raster_forward_plain(
+            table, bins.bins, bins.counts, bg_chw, **geom)
+        cot, fid_p = _scatter_inputs(fid, channels, height, width)
+        num_faces, lists, bbox = fv.shape[0], (bins.bins, bins.counts), \
+            bins.bbox
+    args = (cot, fid_p, *lists, num_faces + 1)
     before = scatter.LAUNCHES
-    rows_k = scatter.scatter_to_faces(*args, bbox=bins.bbox, **geom)
+    rows_k = scatter.scatter_to_faces(*args, bbox=bbox, **geom)
     torch.cuda.synchronize()
     assert scatter.LAUNCHES == before + 1
     _check_scatter_rows(
         rows_k, scatter.scatter_to_faces_plain(cot, fid_p, num_faces + 1),
-        lambda: scatter.scatter_to_faces(*args, bbox=bins.bbox, **geom))
+        lambda: scatter.scatter_to_faces(*args, bbox=bbox, **geom), mass)
     assert rows_k.shape[0] % 8 == 0 and not rows_k[num_faces:].any()
     with pytest.raises(ValueError, match="bbox"):
         scatter.scatter_to_faces(*args, **geom)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(_CSR_CASES))
+@pytest.mark.parametrize("case", list(_CSR_CASES) + list(_SCATTER_SCENES))
 def test_scatter_csr_kernel_matches_plain_on_card(cuda, case):
-    fv, _, table, bins, bg_chw, cfg, height, width = _csr_forward(cuda, case)
-    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
-    _, fid, _ = raster_fwd.raster_forward_csr_plain(
-        table, bins.entry_face, bins.start_block, bins.counts, bg_chw, **geom)
-    cot, fid_p = _scatter_inputs(fid, bg_chw.shape[0], height, width)
-    num_faces = fv.shape[0]
-    args = (cot, fid_p, bins.entry_face, bins.start_block, bins.counts,
-            num_faces)
+    mass = None
+    if case in _SCATTER_SCENES:
+        cot, fid_p, lists, bbox, num_faces, geom = _scatter_scene(
+            cuda, case, streaming=True)
+        mass = scatter.scatter_to_faces_csr_plain(cot.abs(), fid_p,
+                                                  num_faces)
+    else:
+        fv, _, table, bins, bg_chw, cfg, height, width = _csr_forward(cuda,
+                                                                      case)
+        geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+        lists = (bins.entry_face, bins.start_block, bins.counts)
+        _, fid, _ = raster_fwd.raster_forward_csr_plain(table, *lists, bg_chw,
+                                                        **geom)
+        cot, fid_p = _scatter_inputs(fid, bg_chw.shape[0], height, width)
+        num_faces, bbox = fv.shape[0], bins.bbox
+    args = (cot, fid_p, *lists, num_faces)
     before = scatter.LAUNCHES_CSR
-    rows_k = scatter.scatter_to_faces_csr(*args, bbox=bins.bbox, **geom)
+    rows_k = scatter.scatter_to_faces_csr(*args, bbox=bbox, **geom)
     torch.cuda.synchronize()
     assert scatter.LAUNCHES_CSR == before + 1
     _check_scatter_rows(
         rows_k, scatter.scatter_to_faces_csr_plain(cot, fid_p, num_faces),
-        lambda: scatter.scatter_to_faces_csr(*args, bbox=bins.bbox, **geom))
+        lambda: scatter.scatter_to_faces_csr(*args, bbox=bbox, **geom), mass)
     assert rows_k.shape == (num_faces, cot.shape[0])
     with pytest.raises(ValueError, match="bbox"):
         scatter.scatter_to_faces_csr(*args, **geom)

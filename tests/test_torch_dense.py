@@ -505,10 +505,12 @@ def test_header_edit_rebuilds_both_backward_kernels(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     names = ("raster_fwd_packed", "packed_prologue", "packed_bwd",
              "raster_fwd_dense", "fused_bwd", "raster_fwd_csr",
-             "fused_bwd_csr")
+             "fused_bwd_csr", "scatter_faces", "scatter_faces_csr",
+             "subtile_swap")
     users = {
         "cotangent_core.cuh": {"packed_bwd", "fused_bwd", "fused_bwd_csr"},
         "fused_rows.cuh": {"fused_bwd", "fused_bwd_csr"},
+        "scatter_rows.cuh": {"scatter_faces", "scatter_faces_csr"},
         "raster_tile.cuh": {"raster_fwd_dense", "raster_fwd_csr"},
     }
     for header_name, want in users.items():

@@ -114,10 +114,10 @@ def test_rasterise_matches_aux_and_default_background():
     RasterConfig(engine="csr"),
     RasterConfig(streaming=True),
 ])
-def test_unported_engines_raise(config):
-    """These configs used to raise; the streaming engine now renders them,
-    equal to ``dirt_tpu``'s render under the same tolerance as above
-    (its own tests are in tests/test_torch_csr.py)."""
+def test_streaming_configs_render_like_jax(config):
+    """Configs that pick the streaming engine render equal to ``dirt_tpu``'s
+    render under the same tolerance as above (the engine's own tests are in
+    tests/test_torch_csr.py)."""
     (pix_j, fid_j, z_j, ovf_j), (pix_t, fid_t, z_t, ovf_t) = _render_both(
         "sphere", False, JaxConfig(**config._asdict()), config)
     assert bool(ovf_t) is bool(ovf_j) is False

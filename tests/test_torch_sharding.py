@@ -215,7 +215,8 @@ def test_default_config_resolves_tile_height_from_the_slab():
 
 def _port_sources():
     return sorted((REPO / "dirt_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tools" / "prof_torch_steps.py"]
+        REPO / "chip_smoke.py", REPO / "tools" / "prof_torch_steps.py",
+        REPO / "tools" / "bench_scatter.py"]
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():
