@@ -60,7 +60,12 @@ raises and exits non-zero; nothing is caught):
     (``mesh.uv_sphere(224, 224)``, the camera and colors above) at 1024x1024
     with 3 and with 9 channels, on the faces the default API's own render
     hands the raster op, and the 10,224-face bench sphere under
-    ``RasterConfig(streaming=True)``; same checks and tolerances as phase 7;
+    ``RasterConfig(streaming=True)``; same checks and tolerances as phase 7,
+    raster_fwd_csr (which culls each tile's run by boxes it works out from
+    the face table) against the plain walk that tests every listed face at
+    every pixel, on the whole padded arrays, and those boxes against their
+    plain version; its line gives the faces tested per pixel without the
+    cull and with it;
 11. the default API on the 99,904-face sphere, as a user calls it:
     ``suggest_raster_config(verts, faces, 1024, 1024)`` (which must choose
     the csr engine), ``rasterise_with_aux`` and ``loss.backward()`` to
@@ -92,7 +97,8 @@ raises and exits non-zero; nothing is caught):
     on the five per-pixel fields the packed slab's halo backward hands it
     (12 planes at 3 channels): equal to its plain version bit for bit, its
     own inverse, with the time of one strided ``contiguous()`` copy of the
-    stacked planes beside it, and the packed backward on the swapped fields
+    stacked planes beside it, as single calls and as device time alone (a
+    profiler window), and the packed backward on the swapped fields
     bit-equal to the same kernel on image-layout fields, both timed;
 13. the row-sharded renderer at full width, all slabs on the one card
     (``parallel.group.LocalGroup``), with 1 and with 4 slabs:
@@ -564,6 +570,38 @@ def _check_packed_kernels(tag, face_verts, face_attrs, background, weights,
     return record
 
 
+def csr_tests_per_pixel(bins, boxes, tile_h, tile_w, hp, wp, warp=(4, 8)):
+    """(faces tested per pixel by the walk without the cull, by the culled
+    walk of raster_fwd_csr.cu) on CSR bins over a padded hp x wp image.
+    The culled walk tests a listed face on the 32 pixels of each warp whose
+    span meets the face's cull box (``boxes``, from
+    ``raster_fwd.csr_cull_boxes``); a warp's span is ``warp`` (rows,
+    columns) of the tile, aligned (4 x 8 for tiles a multiple of 8 wide;
+    1 x 32 is the row-order walk on tiles a multiple of 32 wide)."""
+    from dirt_tpu_torch.ops.binning import CHUNK
+
+    counts = bins.counts.long()
+    tiles = torch.arange(counts.numel(), device=counts.device)
+    tile = torch.repeat_interleave(tiles, counts)
+    first = torch.cumsum(counts, 0) - counts
+    slot = bins.start_block.long()[tile] * CHUNK + (
+        torch.arange(tile.numel(), device=tile.device) - first[tile])
+    box = boxes.long()[bins.entry_face.long()[slot]]
+    x0 = (tile % (wp // tile_w)) * tile_w
+    y0 = (tile // (wp // tile_w)) * tile_h
+
+    def spans(lo, hi, step):
+        return torch.where(hi >= lo, hi // step - lo // step + 1, 0)
+
+    rows = spans(torch.maximum(y0, box[:, 2]) - y0,
+                 torch.minimum(y0 + tile_h - 1, box[:, 3]) - y0, warp[0])
+    cols = spans(torch.maximum(x0, box[:, 0]) - x0,
+                 torch.minimum(x0 + tile_w - 1, box[:, 1]) - x0, warp[1])
+    plane = hp * wp
+    return (float((counts * tile_h * tile_w).sum()) / plane,
+            float((32 * rows * cols).sum()) / plane)
+
+
 def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
                         weights, card, runs=RUNS, plain_runs=3):
     """The whole-tile engines' kernels against their plain versions on one
@@ -626,6 +664,17 @@ def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
     box = bins.bbox.long()
     box_px = int((torch.clamp(box[:, 1] - box[:, 0] + 1, min=0)
                   * torch.clamp(box[:, 3] - box[:, 2] + 1, min=0)).sum())
+    tested, boxes_bad = "", False
+    if engine == "csr":
+        # The boxes the kernel culls by, from its own code and from plain
+        # PyTorch.
+        cull = raster_fwd.csr_cull_boxes(table, hp, wp)
+        boxes_bad = not torch.equal(
+            cull, raster_fwd.csr_cull_boxes_plain(table, hp, wp))
+        tested = ("cull boxes equal to their plain version {}; faces tested "
+                  "per pixel: without the cull {:.2f}, culled {:.2f}; ".format(
+                      not boxes_bad, *csr_tests_per_pixel(
+                          bins, cull, cfg.tile_h, cfg.tile_w, hp, wp)))
     record[fwd_name] = dict(
         max_abs_err=err, ms=_median_ms(kernel, runs),
         plain_ms=_median_ms(plain, plain_runs, warmup=1),
@@ -637,13 +686,13 @@ def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
           f"{int(bins.counts.max())}, box pixels {box_px}) tiles {cfg.tile_h}x{cfg.tile_w} bg "
           f"{tuple(bg_chw.shape)}: fid mismatches {fid_bad}, zbuf mismatches "
           f"{z_bad}, pixels outside allclose(rtol=1e-6, atol=1e-6) {pix_bad}, "
-          f"max |pix diff| {err:.3g}, covered {covered} px; kernel "
+          f"max |pix diff| {err:.3g}, covered {covered} px; {tested}kernel "
           f"{record[fwd_name]['ms']:.4f} ms, plain "
           f"{record[fwd_name]['plain_ms']:.4f} ms, bound "
           f"{record[fwd_name]['bound_ms']:.4f} ms by "
           f"{record[fwd_name]['bound_by']} (medians of "
           f"{runs} and {plain_runs}, {card})")
-    if fid_bad or z_bad or pix_bad or not covered:
+    if fid_bad or z_bad or pix_bad or boxes_bad or not covered:
         raise RuntimeError(f"[{tag}] {fwd_name} disagrees with its plain "
                            "version")
 
@@ -891,6 +940,10 @@ def _check_swap_kernel(tag, sharded_step, card, runs=10):
                   plain_ms=_median_ms(plain, runs, warmup=1),
                   library_ms=_median_ms(library, runs, warmup=1),
                   **_bound(2 * 4 * stacked.numel(), 0))
+    # The card's time apart from the host's (a profiler window).
+    by_name = _device_ms(lambda: (kernel(), library()), runs)
+    device_k = sum(ms for n, ms in by_name.items() if "subtile_swap" in n)
+    device_l = sum(ms for n, ms in by_name.items() if "subtile_swap" not in n)
 
     # The packed backward on these fields (as the halo path runs it)
     # against the same kernel on the fields in image layout.
@@ -911,7 +964,9 @@ def _check_swap_kernel(tag, sharded_step, card, runs=10):
           f"{hp}x{wp}: words differing from the plain version {bad} (of "
           f"{stacked.numel()}, {moved} moved), swapped twice equal {undone}; "
           f"kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, "
-          f"one strided copy {record['library_ms']:.4f} ms, bound "
+          f"one strided copy {record['library_ms']:.4f} ms (single calls); "
+          f"device time alone: kernel {device_k:.4f} ms, strided copy "
+          f"{device_l:.4f} ms (profiler window of {runs} calls); bound "
           f"{record['bound_ms']:.4f} ms by {record['bound_by']}; packed_bwd "
           f"on the flat fields equal to itself on image fields {rows_same} "
           f"(nonzero rows {int((rows_flat != 0).any(1).sum())}), flat "

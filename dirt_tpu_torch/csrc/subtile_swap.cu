@@ -18,7 +18,11 @@
 // 512-byte row of the strip and writes eight 64-byte runs (the row's eight
 // groups land on eight destination rows), whole 32-byte sectors both.
 //
-// What bounds it: bytes only. Each word is read once and written once.
+// What bounds it: bytes only. Each word is read once and written once. On
+// the card this runs at ~90% of the copy's byte bound; giving a thread
+// several vectors (all loads before the first store), read-only loads with
+// streaming stores, or a grid of a few waves striding over the strips each
+// measured slower (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 

@@ -31,6 +31,7 @@ that does not build or launch raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -134,6 +135,14 @@ def check_tensor(name, arr, dtype, shape, device):
             f"got {'' if arr.is_contiguous() else 'non-contiguous '}"
             f"{arr.dtype} {tuple(arr.shape)} on {arr.device}"
         )
+
+
+def on_device(device):
+    """Context that makes ``device`` the current CUDA device for a launch;
+    nothing to enter (the common case) when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _check_geometry(background_chw, tile_h: int, tile_w: int):
@@ -307,7 +316,7 @@ def _launch_swap(arrays, hp, wp, device):
     planes = (ctypes.c_int * n)(
         *(a.shape[0] if a.ndim == 3 else 1 for a in arrays))
     fn = _swap_fn()
-    with torch.cuda.device(device):
+    with on_device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(srcs, dsts, planes, n, hp, wp, stream)
     if err != 0:
@@ -666,6 +675,11 @@ def raster_forward_csr(table, entry_face, start_block, counts,
         pixels [C, Hp, Wp] f32, fid [Hp, Wp] int32 (-1 background), zbuf
         [Hp, Wp] f32 (BIG_Z background). A depth tie goes to the lower
         face id.
+
+    The kernel tests a listed face only at pixels that its
+    :func:`csr_cull_boxes` box meets, where alone it can pass the edge
+    tests; the plain version tests it at every pixel of the tile. The
+    result is the same.
     """
     device = background_chw.device
     if device.type == "cpu":
@@ -681,8 +695,9 @@ def raster_forward_csr(table, entry_face, start_block, counts,
 def raster_forward_csr_plain(table, entry_face, start_block, counts,
                              background_chw, *, tile_h: int, tile_w: int):
     """Plain PyTorch version of the streaming kernel (any device): the
-    dense plain version's step loop over each tile's CSR run. It takes
-    ``counts.max()`` Python steps."""
+    dense plain version's step loop over each tile's CSR run, every listed
+    face tested at every pixel of its tile. It takes ``counts.max()``
+    Python steps."""
     _check_csr(table, entry_face, start_block, counts, background_chw,
                tile_h, tile_w)
     ids = entry_face.long()
@@ -698,11 +713,21 @@ def _csr_fn():
     fn = _build.load(_CSR).dirt_raster_fwd_csr
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 7
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 8
         + [ctypes.c_int] * 5
         + [ctypes.c_void_p]
     )
+    return fn
+
+
+@functools.cache
+def _boxes_fn():
+    fn = _build.load(_CSR).dirt_csr_cull_boxes
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
     return fn
 
 
@@ -725,16 +750,97 @@ def _launch_csr(table, entry_face, start_block, counts, background_chw,
     pix = torch.empty((channels, hp, wp), dtype=torch.float32, device=device)
     fid = torch.empty((hp, wp), dtype=torch.int32, device=device)
     zbuf = torch.empty((hp, wp), dtype=torch.float32, device=device)
+    boxes = torch.empty((table.shape[0], 4), dtype=torch.int32,
+                        device=device)
     fn = _csr_fn()
-    with torch.cuda.device(device):
+    with on_device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            table.data_ptr(), table.shape[1], entry_face.data_ptr(),
-            start_block.data_ptr(), counts.data_ptr(),
-            background_chw.data_ptr(), pix.data_ptr(), fid.data_ptr(),
-            zbuf.data_ptr(), channels, hp, wp, tile_h, tile_w, stream,
+            table.data_ptr(), table.shape[1], table.shape[0],
+            entry_face.data_ptr(), start_block.data_ptr(), counts.data_ptr(),
+            boxes.data_ptr(), background_chw.data_ptr(), pix.data_ptr(),
+            fid.data_ptr(), zbuf.data_ptr(), channels, hp, wp, tile_h,
+            tile_w, stream,
         )
     if err != 0:
         raise RuntimeError(f"{_CSR} launch failed: CUDA error {err}")
     LAUNCHES_CSR += 1
     return pix, fid, zbuf
+
+
+# csrc/raster_tile.cuh's CULL_ROUNDING: 4u, u = 2^-24.
+CULL_ROUNDING = 4.0 / 16777216.0
+
+
+def csr_cull_boxes(table, hp: int, wp: int):
+    """The pixels of an ``hp`` x ``wp`` array at which each face of
+    ``table`` can pass the streaming kernel's edge tests, float32 rounding
+    included: [rows, 4] int32 (xmin, xmax, ymin, ymax), inclusive and
+    clamped to the array, (0, -1, 0, -1) for none. The streaming kernel
+    works these out itself (``csrc/raster_tile.cuh::cull_box``) and culls
+    each tile's run by them. A CUDA table runs that code alone (no launch
+    of the kernel is counted); a CPU table takes
+    :func:`csr_cull_boxes_plain`."""
+    device = table.device
+    if device.type == "cpu":
+        return csr_cull_boxes_plain(table, hp, wp)
+    if device.type != "cuda":
+        raise ValueError(f"csr_cull_boxes: no kernel for device {device}")
+    if table.ndim != 2 or table.shape[1] < GEO_USED:
+        raise ValueError(f"csr_cull_boxes: table {tuple(table.shape)} has "
+                         f"fewer than {GEO_USED} columns")
+    check_tensor("table", table, torch.float32, table.shape, device)
+    boxes = torch.empty((table.shape[0], 4), dtype=torch.int32,
+                        device=device)
+    fn = _boxes_fn()
+    with on_device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(table.data_ptr(), table.shape[1], table.shape[0],
+                 boxes.data_ptr(), hp, wp, stream)
+    if err != 0:
+        raise RuntimeError(f"{_CSR} box launch failed: CUDA error {err}")
+    return boxes
+
+
+def csr_cull_boxes_plain(table, hp: int, wp: int):
+    """Plain PyTorch version of ``cull_box`` (any device): the same float64
+    operations in the same order, so the same boxes bit for bit.
+
+    Edge k of a row (``a, b, c`` at columns 2 + 3k.., anchored at columns
+    0, 1) passes at a pixel centre only where ``a X + b Y + c >=
+    -CULL_ROUNDING (|a| MX + |b| MY)``: (X, Y) is the centre less the
+    anchor, MX and MY their largest magnitudes over the array. The box is
+    that of the triangle the three edges so moved out enclose. A row with
+    a non-finite coefficient, or whose edges do not close a triangle, gets
+    the whole array; a row with an edge that excludes every pixel gets
+    none."""
+    m = table[:, :11].double()
+    ax, ay = m[:, 0:1], m[:, 1:2]
+    a, b, c = m[:, 2:11:3], m[:, 3:11:3], m[:, 4:11:3]          # [rows, 3]
+    finite = torch.isfinite(m).all(1)
+    never = ((a == 0.0) & (b == 0.0) & (c < 0.0)).any(1)
+    mx = torch.maximum((0.5 - ax).abs(), ((wp - 0.5) - ax).abs())
+    my = torch.maximum((0.5 - ay).abs(), ((hp - 0.5) - ay).abs())
+    r = -(c + CULL_ROUNDING * (a.abs() * mx + b.abs() * my))
+    nxt = [1, 2, 0]
+    aj, bj, rj = a[:, nxt], b[:, nxt], r[:, nxt]
+    det = a * bj - aj * b
+    closed = (det > 0.0).all(1) | (det < 0.0).all(1)
+    x = (r * bj - rj * b) / det
+    y = (a * rj - aj * r) / det
+    x0 = torch.floor(ax[:, 0] + x.amin(1) - 0.5)
+    x1 = torch.ceil(ax[:, 0] + x.amax(1) - 0.5)
+    y0 = torch.floor(ay[:, 0] + y.amin(1) - 0.5)
+    y1 = torch.ceil(ay[:, 0] + y.amax(1) - 0.5)
+    meets = (x1 >= 0.0) & (x0 <= wp - 1.0) & (y1 >= 0.0) & (y0 <= hp - 1.0)
+    box = torch.stack([x0.clamp(min=0.0), x1.clamp(max=wp - 1.0),
+                       y0.clamp(min=0.0), y1.clamp(max=hp - 1.0)], 1)
+    box = torch.nan_to_num(box).to(torch.int32)
+    none = torch.tensor([0, -1, 0, -1], dtype=torch.int32,
+                        device=table.device)
+    whole = torch.tensor([0, wp - 1, 0, hp - 1], dtype=torch.int32,
+                         device=table.device)
+    box = torch.where(meets[:, None], box, none)
+    box = torch.where(closed[:, None], box, whole)
+    box = torch.where(never[:, None], none, box)
+    return torch.where(finite[:, None], box, whole)

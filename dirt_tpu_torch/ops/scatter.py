@@ -29,7 +29,6 @@ faces is a step of its own.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
@@ -37,7 +36,7 @@ import torch
 
 from dirt_tpu_torch.ops import _build
 from dirt_tpu_torch.ops.binning import CHUNK
-from dirt_tpu_torch.ops.raster_fwd import check_tensor
+from dirt_tpu_torch.ops.raster_fwd import check_tensor, on_device
 
 # Launches of each CUDA kernel in this process: a wrapper adds one where it
 # launches, and nowhere else.
@@ -98,14 +97,6 @@ def scatter_to_faces_plain(cot_cf, fid, num_rows: int):
     return out.to(torch.float32)
 
 
-def _on(device):
-    """Context that makes ``device`` the current CUDA device for a launch;
-    nothing to enter (the common case) when it already is."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def _check_image(cot_cf, fid, bbox, num_faces, tile_h, tile_w):
     """The image-space tensors and boxes both scatter kernels read; returns
     (K, Hp, Wp, tiles)."""
@@ -154,7 +145,7 @@ def _launch(cot_cf, fid, bins, counts, num_rows, tile_h, tile_w, bbox):
     partial = torch.empty((total * cap, k_cols), dtype=torch.float32,
                           device=device)
     fn = _kernel_fn()
-    with _on(device):
+    with on_device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             bins.data_ptr(), counts.data_ptr(), bbox.data_ptr(),
@@ -233,7 +224,7 @@ def _launch_csr(cot_cf, fid, entry_face, start_block, counts, num_faces,
     partial = torch.empty((n_pad, k_cols), dtype=torch.float32,
                           device=device)
     fn = _csr_fn()
-    with _on(device):
+    with on_device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             entry_face.data_ptr(), start_block.data_ptr(),

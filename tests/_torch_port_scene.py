@@ -43,6 +43,33 @@ def screen_soup(num_faces, height, width, seed, channels=3, spread=25.0):
     return fv.astype(np.float32), attrs.astype(np.float32)
 
 
+def needle_soup(num_faces, height, width, seed, log_length, log_width,
+                channels=3):
+    """Needle-thin screen-space faces, as ``screen_soup`` returns them: the
+    tip on a pixel centre inside the image, the base 10**U(log_length)
+    pixels away in a random direction and 10**U(log_width) pixels wide, the
+    three corners in a random order (so the table's anchor, corner 0, is
+    the tip or a far corner)."""
+    rng = np.random.RandomState(seed)
+    tip = np.floor(rng.uniform([8, 8], [width - 8, height - 8],
+                               (num_faces, 2))) + 0.5
+    angle = rng.uniform(0.0, 2.0 * np.pi, num_faces)
+    length = 10.0 ** rng.uniform(*log_length, num_faces)
+    across = 10.0 ** rng.uniform(*log_width, num_faces)
+    along = np.stack([np.cos(angle), np.sin(angle)], 1)
+    normal = np.stack([-along[:, 1], along[:, 0]], 1)
+    base = (tip + length[:, None] * along)[:, None] + (
+        np.array([-0.5, 0.5])[None, :, None] * across[:, None, None]
+        * normal[:, None])
+    xy = np.concatenate([tip[:, None], base], 1)              # [F, 3, 2]
+    order = np.argsort(rng.rand(num_faces, 3), axis=1)
+    xy = np.take_along_axis(xy, order[:, :, None], 1)
+    z = rng.uniform(-0.9, 0.9, (num_faces, 1, 1)) + np.zeros((1, 3, 1))
+    fv = np.concatenate([xy, z, np.ones((num_faces, 3, 1))], axis=-1)
+    attrs = rng.rand(num_faces, 3, channels)
+    return fv.astype(np.float32), attrs.astype(np.float32)
+
+
 def clip_soup(num_faces, size, seed, channels=3):
     """Random unconnected triangles in clip space (w = 1), many of them
     larger than a tile, as ``tests/test_streaming.py`` makes them.

@@ -54,7 +54,7 @@ import pytest
 import torch
 
 import dirt_tpu_torch
-from _torch_port_scene import screen_soup, sphere_scene
+from _torch_port_scene import needle_soup, screen_soup, sphere_scene
 from dirt_tpu_torch import convert, entry
 from dirt_tpu_torch.ops import (
     binning,
@@ -221,11 +221,14 @@ def test_backward_kernel_matches_plain_on_card(cuda, kind, height, width,
 @pytest.mark.cuda
 @pytest.mark.parametrize("hp,wp,planes", [(8, 128, (1, 1)),
                                           (104, 256, (1, 1, 5, 5, 4)),
-                                          (64, 384, (3,) * 10)])
+                                          (64, 384, (3,) * 10),
+                                          (40, 640, (1, 4, 1, 3, 3, 1, 2, 1,
+                                                     5))])
 def test_swap_kernel_matches_plain_on_card(cuda, hp, wp, planes):
     """Mixed int32 and float32 arrays in one call (ten arrays take two
     launches); NaN and -0.0 bit patterns move untouched; an array at an
-    odd offset of its storage is taken too."""
+    odd offset of its storage is taken too. A plane count of 1 is a 2-D
+    array."""
     gen = torch.Generator(device=cuda).manual_seed(hp + wp)
     arrays = []
     for i, k in enumerate(planes):
@@ -248,6 +251,7 @@ def test_swap_kernel_matches_plain_on_card(cuda, hp, wp, planes):
     for a, g in zip(arrays, got):
         want = raster_fwd.flat_subtile_swap_plain(a)
         assert g.dtype == a.dtype and g.shape == a.shape
+        assert g.is_contiguous()
         assert torch.equal(g.view(torch.int32), want.view(torch.int32))
     for a, b in zip(arrays, raster_fwd.flat_subtile_swap(got)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -501,7 +505,9 @@ def test_entry_step_on_card_matches_cpu(cuda):
 # largest run, overflow). One tile; a run of exactly 128 entries (one full
 # chunk) and of 129 (one entry into the second chunk); a tile whose run the
 # cap cuts; nine channels on an image that is no multiple of the tile; small
-# tiles.
+# tiles; tiles 40 wide (the culled walk's warps straddle two rows) and 10
+# wide (80 pixels a strip: its block rounds up to three warps, the last
+# with idle lanes).
 _CSR_CASES = {
     "one-tile": (60, 32, 128, 1, 32, 128, None, None, 60, False),
     "run-128": (128, 32, 128, 3, 32, 128, None, None, 128, False),
@@ -509,6 +515,8 @@ _CSR_CASES = {
     "cap-cut": (300, 32, 128, 2, 32, 128, 128, None, 128, True),
     "ragged-c9": (150, 100, 130, 9, 32, 128, None, None, None, False),
     "small-tiles": (150, 64, 80, 2, 8, 32, None, 64, None, False),
+    "40-wide-tiles": (150, 37, 131, 3, 16, 40, None, None, None, False),
+    "10-wide-tiles": (80, 37, 131, 2, 8, 10, None, 64, None, False),
 }
 
 
@@ -548,6 +556,8 @@ def test_csr_cases_have_the_runs_they_name(case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(_CSR_CASES))
 def test_csr_kernel_matches_plain_on_card(cuda, case):
+    """The culled walk against the plain (un-culled) one: fid and zbuf
+    equal on the whole padded arrays, padding included."""
     _, _, table, bins, bg_chw, cfg, _, _ = _csr_forward(cuda, case)
     geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     args = (bins.start_block, bins.counts, bg_chw)
@@ -570,6 +580,81 @@ def test_csr_kernel_matches_plain_on_card(cuda, case):
     again = raster_fwd.raster_forward_csr(table, dirty, *args, **geom)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(again, (pix_k, fid_k, z_k)))
+
+
+@pytest.mark.cuda
+def test_csr_kernel_gives_depth_ties_to_the_lower_id_on_card(cuda):
+    """Every face twice, the copy after the original in id order and with
+    other colors: equal depths everywhere, so the original wins each pixel
+    of the pair, through the cull as through the plain walk."""
+    height, width, channels = 100, 130, 3
+    fv, fa = screen_soup(60, height, width, seed=4, channels=channels,
+                         spread=30.0)
+    fv = torch.tensor(np.concatenate([fv, fv])).to(cuda)
+    fa = torch.tensor(np.concatenate([fa, 1.0 - fa])).to(cuda)
+    bg = torch.zeros(height, width, channels, device=cuda)
+    config = raster.RasterConfig(streaming=True, tile_h=32, tile_w=128)
+    table, bins, bg_chw, cfg = raster.prepare_csr(fv, fa, bg, config)
+    assert not bool(bins.overflow)
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    args = (table, bins.entry_face, bins.start_block, bins.counts, bg_chw)
+    pix_k, fid_k, z_k = raster_fwd.raster_forward_csr(*args, **geom)
+    pix_p, fid_p, z_p = raster_fwd.raster_forward_csr_plain(*args, **geom)
+    assert torch.equal(fid_k, fid_p) and torch.equal(z_k, z_p)
+    torch.testing.assert_close(pix_k, pix_p, **TOL)
+    covered = fid_k >= 0
+    assert covered.any() and bool((fid_k[covered] < 60).all())
+
+
+def _needle_forward(device, seed):
+    """A CSR scene of needle-thin faces whose far corners lie 1e3 to 1e6
+    pixels off the 128 x 256 image: float32 rounding lets them pass the
+    edge tests well past the boxes of their corners."""
+    fv, fa = needle_soup(200, 128, 256, seed, (3.0, 6.0), (-6.0, 0.0))
+    bg = torch.rand(128, 256, 3, device=device)
+    config = raster.RasterConfig(streaming=True, tile_h=32, tile_w=128,
+                                 bin_cap=2048, expand_cap=64)
+    table, bins, bg_chw, cfg = raster.prepare_csr(
+        torch.tensor(fv).to(device), torch.tensor(fa).to(device), bg, config)
+    assert not bool(bins.overflow)
+    return table, bins, bg_chw, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 5])
+def test_csr_kernel_matches_plain_on_far_needles_on_card(cuda, seed):
+    table, bins, bg_chw, cfg = _needle_forward(cuda, seed)
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    args = (table, bins.entry_face, bins.start_block, bins.counts, bg_chw)
+    pix_k, fid_k, z_k = raster_fwd.raster_forward_csr(*args, **geom)
+    pix_p, fid_p, z_p = raster_fwd.raster_forward_csr_plain(*args, **geom)
+    assert torch.equal(fid_k, fid_p) and torch.equal(z_k, z_p)
+    torch.testing.assert_close(pix_k, pix_p, **TOL)
+    assert (fid_k >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_CSR_CASES) + ["far-needles"])
+def test_csr_cull_boxes_match_plain_on_card(cuda, case):
+    """The kernel's cull boxes equal csr_cull_boxes_plain bit for bit
+    (float64, -fmad=false), rows with NaN, parallel edges and no area
+    among them."""
+    if case == "far-needles":
+        table = _needle_forward(cuda, 0)[0]
+    else:
+        table = _csr_forward(cuda, case)[2]
+    hp, wp = 160, 384
+    special = table[:3].clone()
+    special[0, 5] = float("nan")
+    special[1, [2, 3, 5, 6, 8, 9]] = torch.tensor(
+        [1.0, 0.0, 1.0, 0.0, -1.0, 0.0], device=cuda)
+    special[2, [2, 3, 4]] = torch.tensor([0.0, 0.0, -1.0], device=cuda)
+    table = torch.cat([table, special])
+    got = raster_fwd.csr_cull_boxes(table, hp, wp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, raster_fwd.csr_cull_boxes_plain(table, hp, wp))
+    assert got[-3:].tolist() == [[0, wp - 1, 0, hp - 1],
+                                 [0, wp - 1, 0, hp - 1], [0, -1, 0, -1]]
 
 
 @pytest.mark.cuda

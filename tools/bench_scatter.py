@@ -57,15 +57,16 @@ ENTRY = {"scatter_faces": "dirt_scatter_faces",
              "scatter_faces_csr": "dirt_scatter_faces_csr"}
 
 
-def _short(name):
+def short_name(name):
     name = name.replace("(anonymous namespace)::", "").replace("void ", "")
     return name.split("(")[0].split("<")[0].split("::")[-1][:40]
 
 
-def _build_other(root, name, label, defines=(), n_int=8):
+def build_lib(root, name, label, defines=()):
     """Build ``csrc/<name>.cu`` of the tree at ``root`` with this tree's
-    compiler flags plus ``-D`` for each of ``defines``; returns its C entry
-    point, which takes ``n_int`` ints between the pointers and the stream."""
+    compiler flags plus ``-D`` for each of ``defines`` into this tree's
+    build directory; print its registers and spills and return the loaded
+    library."""
     from dirt_tpu_torch.ops import _build
 
     src = Path(root) / "dirt_tpu_torch" / "csrc" / f"{name}.cu"
@@ -80,7 +81,14 @@ def _build_other(root, name, label, defines=(), n_int=8):
     for line in (done.stdout + done.stderr).splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build {label} {name}] {line.strip()}")
-    fn = getattr(ctypes.CDLL(str(out)), ENTRY[name])
+    return ctypes.CDLL(str(out))
+
+
+def _build_other(root, name, label, defines=(), n_int=8):
+    """A scatter kernel of the tree at ``root`` (``build_lib``); returns its
+    C entry point, which takes ``n_int`` ints between the pointers and the
+    stream."""
+    fn = getattr(build_lib(root, name, label, defines), ENTRY[name])
     fn.restype = ctypes.c_int
     n_ptr = 7 if name == "scatter_faces" else 8
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
@@ -221,7 +229,7 @@ def _bench(tag, name, step, card, runs, old_fns, tuned):
     for label, fn in variants.items():
         with within(label):
             device = chip_smoke._device_ms(fn, runs)
-        parts = ", ".join(f"{_short(n)} {ms:.4f}"
+        parts = ", ".join(f"{short_name(n)} {ms:.4f}"
                           for n, ms in sorted(device.items(),
                                               key=lambda kv: -kv[1]))
         print(f"[{tag}] {label}: single call "
