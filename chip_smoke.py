@@ -39,12 +39,18 @@ raises and exits non-zero; nothing is caught):
    with ``engine="dense"``, and the flagship step's G-buffer (2,208 faces,
    256x256, 9 channels); config 4's and the flagship's faces are the ones
    the path's own render hands the raster op (after the near-plane clip),
-   captured from one run of it: fid and zbuf equal, pixels allclose(rtol=1e-6,
-   atol=1e-6); cotangent rows within 1e-5 of the column's largest
+   captured from one run of it: raster_fwd_dense (which culls each tile's
+   list by boxes it works out from the face table, as raster_fwd_csr does)
+   against the plain walk that tests every listed face at every pixel, on
+   the whole padded arrays: fid and zbuf equal, pixels allclose(rtol=1e-6,
+   atol=1e-6), and its boxes equal to their plain version; its line gives
+   the faces tested per pixel without the cull and with it; fused_bwd on
+   those boxes: cotangent rows within 1e-5 of the column's largest
    magnitude + 1e-6 (the kernel sums float32 in a fixed order, the plain
-   version float64), and equal on a second run; the line carries a SHA-256
-   prefix of the kernel's rows, so two trees can be compared bit for bit
-   from their logs;
+   version float64), and equal on a second run; each line carries a
+   SHA-256 prefix of the kernel's inputs (the backward's also of the
+   upstream gradient alone) and the backward's of its rows, so two trees
+   and two runs can be compared bit for bit from their logs;
 8. the deferred pipeline at full width, forward and ``loss.backward()`` to
    vertices and pose: config 5 of ``bench_configs.py`` (10,224 faces,
    1024x1024, 9-channel G-buffer, packed engine, texture + Phong) and the
@@ -61,11 +67,10 @@ raises and exits non-zero; nothing is caught):
     with 3 and with 9 channels, on the faces the default API's own render
     hands the raster op, and the 10,224-face bench sphere under
     ``RasterConfig(streaming=True)``; same checks and tolerances as phase 7,
-    raster_fwd_csr (which culls each tile's run by boxes it works out from
-    the face table) against the plain walk that tests every listed face at
-    every pixel, on the whole padded arrays, and those boxes against their
-    plain version; its line gives the faces tested per pixel without the
-    cull and with it;
+    raster_fwd_csr against the plain walk on the whole padded arrays, and
+    its boxes against their plain version; its line gives the faces tested
+    per pixel without the cull and with it; fused_bwd_csr's line gives the
+    device time of each of its two launches (a profiler window);
 11. the default API on the 99,904-face sphere, as a user calls it:
     ``suggest_raster_config(verts, faces, 1024, 1024)`` (which must choose
     the csr engine), ``rasterise_with_aux`` and ``loss.backward()`` to
@@ -120,8 +125,10 @@ raises and exits non-zero; nothing is caught):
     one-slab local step.
 
 Phase 9 runs each config once and phases 12 and 13 take medians of 10, to
-keep the whole run near a minute and a half. The line before the last is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+keep the whole run near a minute and a half. The line before the last is
+the kernels' JSON record (``library_ms`` where phase 12 times one PyTorch
+call of the same function: ``index_add_`` for the scatters, a strided copy
+for the swap), the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
@@ -386,12 +393,25 @@ def _plain_patches():
     from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster_fwd, scatter
 
     def plain_scatter(cot_cf, fid, bins, counts, num_rows, *, tile_h, tile_w,
-                      bbox=None):
+                      bbox=None, cull=None):
         return scatter.scatter_to_faces_plain(cot_cf, fid, num_rows)
 
     def plain_scatter_csr(cot_cf, fid, entry_face, start_block, counts,
-                          num_faces, *, tile_h, tile_w, bbox=None):
+                          num_faces, *, tile_h, tile_w, bbox=None, cull=None):
         return scatter.scatter_to_faces_csr_plain(cot_cf, fid, num_faces)
+
+    def plain_dense(table, bins, counts, background_chw, *, tile_h, tile_w):
+        return (*raster_fwd.raster_forward_plain(
+            table, bins, counts, background_chw, tile_h=tile_h,
+            tile_w=tile_w), raster_fwd.csr_cull_boxes_plain(
+                table, *background_chw.shape[1:]))
+
+    def plain_csr(table, entry_face, start_block, counts, background_chw, *,
+                  tile_h, tile_w):
+        return (*raster_fwd.raster_forward_csr_plain(
+            table, entry_face, start_block, counts, background_chw,
+            tile_h=tile_h, tile_w=tile_w), raster_fwd.csr_cull_boxes_plain(
+                table, *background_chw.shape[1:]))
 
     def plain_forward(table2, bins, background_chw, *, tile_h, tile_w,
                       rows=None):
@@ -404,29 +424,27 @@ def _plain_patches():
             prep.budget_chunks if c_hi is None else c_hi)
 
     def plain_fused(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf,
-                    num_rows, *, tile_h, tile_w, bbox=None):
+                    num_rows, *, tile_h, tile_w, bbox=None, cull=None):
         return fused_bwd.fused_backward_rows_plain(
             geo, fid, bits, sval, pix_cf, grad_cf, num_rows)
 
     def plain_fused_csr(geo, entry_face, start_block, counts, fid, bits,
                         sval, pix_cf, grad_cf, num_faces, *, tile_h, tile_w,
-                        bbox=None):
+                        bbox=None, cull=None):
         return fused_bwd.fused_backward_rows_csr_plain(
             geo, fid, bits, sval, pix_cf, grad_cf, num_faces)
 
     return (
         mock.patch.object(scatter, "scatter_to_faces", plain_scatter),
         mock.patch.object(scatter, "scatter_to_faces_csr", plain_scatter_csr),
-        mock.patch.object(raster_fwd, "raster_forward_csr",
-                          raster_fwd.raster_forward_csr_plain),
+        mock.patch.object(raster_fwd, "raster_forward_csr", plain_csr),
         mock.patch.object(fused_bwd, "fused_backward_rows_csr",
                           plain_fused_csr),
         mock.patch.object(raster_fwd, "raster_forward_packed", plain_forward),
         mock.patch.object(packed_bwd, "fused_neighbor_prologue",
                           packed_bwd.fused_neighbor_prologue_plain),
         mock.patch.object(packed_bwd, "packed_entry_rows", plain_rows),
-        mock.patch.object(raster_fwd, "raster_forward",
-                          raster_fwd.raster_forward_plain),
+        mock.patch.object(raster_fwd, "raster_forward", plain_dense),
         mock.patch.object(fused_bwd, "fused_backward_rows", plain_fused),
         mock.patch.object(
             raster_fwd, "flat_subtile_swap",
@@ -570,23 +588,34 @@ def _check_packed_kernels(tag, face_verts, face_attrs, background, weights,
     return record
 
 
-def csr_tests_per_pixel(bins, boxes, tile_h, tile_w, hp, wp, warp=(4, 8)):
-    """(faces tested per pixel by the walk without the cull, by the culled
-    walk of raster_fwd_csr.cu) on CSR bins over a padded hp x wp image.
-    The culled walk tests a listed face on the 32 pixels of each warp whose
-    span meets the face's cull box (``boxes``, from
-    ``raster_fwd.csr_cull_boxes``); a warp's span is ``warp`` (rows,
-    columns) of the tile, aligned (4 x 8 for tiles a multiple of 8 wide;
-    1 x 32 is the row-order walk on tiles a multiple of 32 wide)."""
+def listed_pairs(bins):
+    """(tile, face) int64 of every live list entry of DenseBins or
+    StreamBins, in list order."""
     from dirt_tpu_torch.ops.binning import CHUNK
 
     counts = bins.counts.long()
     tiles = torch.arange(counts.numel(), device=counts.device)
     tile = torch.repeat_interleave(tiles, counts)
-    first = torch.cumsum(counts, 0) - counts
-    slot = bins.start_block.long()[tile] * CHUNK + (
-        torch.arange(tile.numel(), device=tile.device) - first[tile])
-    box = boxes.long()[bins.entry_face.long()[slot]]
+    slot = (torch.arange(tile.numel(), device=tile.device)
+            - (torch.cumsum(counts, 0) - counts)[tile])
+    if hasattr(bins, "entry_face"):
+        face = bins.entry_face.long()[bins.start_block.long()[tile] * CHUNK
+                                      + slot]
+    else:
+        face = bins.bins.long()[tile, slot]
+    return tile, face
+
+
+def tests_per_pixel(bins, boxes, tile_h, tile_w, hp, wp, warp=(4, 8)):
+    """(faces tested per pixel by the walk without the cull, by the culled
+    walk of raster_tile.cuh) on DenseBins or StreamBins over a padded
+    hp x wp image. The culled walk tests a listed face on the 32 pixels of
+    each warp whose span meets the face's cull box (``boxes``, from
+    ``raster_fwd.csr_cull_boxes``); a warp's span is ``warp`` (rows,
+    columns) of the tile, aligned (4 x 8 for tiles a multiple of 8 wide;
+    1 x 32 is the row-order walk on tiles a multiple of 32 wide)."""
+    tile, face = listed_pairs(bins)
+    box = boxes.long()[face]
     x0 = (tile % (wp // tile_w)) * tile_w
     y0 = (tile // (wp // tile_w)) * tile_h
 
@@ -598,8 +627,22 @@ def csr_tests_per_pixel(bins, boxes, tile_h, tile_w, hp, wp, warp=(4, 8)):
     cols = spans(torch.maximum(x0, box[:, 0]) - x0,
                  torch.minimum(x0 + tile_w - 1, box[:, 1]) - x0, warp[1])
     plane = hp * wp
-    return (float((counts * tile_h * tile_w).sum()) / plane,
+    return (float(tile.numel()) * tile_h * tile_w / plane,
             float((32 * rows * cols).sum()) / plane)
+
+
+def _kernel_label(name):
+    """A device kernel's bare name, from the profiler's signature."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1]
+
+
+def _digest(*tensors):
+    """SHA-256 prefix of the tensors' bytes, in order."""
+    sha = hashlib.sha256()
+    for tensor in tensors:
+        sha.update(tensor.detach().contiguous().cpu().numpy().tobytes())
+    return sha.hexdigest()[:16]
 
 
 def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
@@ -649,7 +692,7 @@ def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
     def plain():
         return forward_plain(table, *lists, bg_chw, **geom)
 
-    pix_k, fid_k, z_k = kernel()
+    pix_k, fid_k, z_k, cull = kernel()
     pix_p, fid_p, z_p = plain()
     _sync()
     fid_bad = int((fid_k != fid_p).sum())
@@ -664,30 +707,29 @@ def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
     box = bins.bbox.long()
     box_px = int((torch.clamp(box[:, 1] - box[:, 0] + 1, min=0)
                   * torch.clamp(box[:, 3] - box[:, 2] + 1, min=0)).sum())
-    tested, boxes_bad = "", False
-    if engine == "csr":
-        # The boxes the kernel culls by, from its own code and from plain
-        # PyTorch.
-        cull = raster_fwd.csr_cull_boxes(table, hp, wp)
-        boxes_bad = not torch.equal(
-            cull, raster_fwd.csr_cull_boxes_plain(table, hp, wp))
-        tested = ("cull boxes equal to their plain version {}; faces tested "
-                  "per pixel: without the cull {:.2f}, culled {:.2f}; ".format(
-                      not boxes_bad, *csr_tests_per_pixel(
-                          bins, cull, cfg.tile_h, cfg.tile_w, hp, wp)))
+    # The boxes the kernel culls by and hands the backward, from its own
+    # code and from plain PyTorch.
+    boxes_bad = not torch.equal(
+        cull, raster_fwd.csr_cull_boxes_plain(table, hp, wp))
+    before, after = tests_per_pixel(bins, cull, cfg.tile_h, cfg.tile_w, hp,
+                                    wp)
+    in_digest = _digest(table, *lists, bg_chw)
     record[fwd_name] = dict(
         max_abs_err=err, ms=_median_ms(kernel, runs),
         plain_ms=_median_ms(plain, plain_runs, warmup=1),
-        **_bound(4 * table.numel() + list_bytes
+        **_bound(4 * table.numel() + list_bytes + 16 * table.shape[0]
                  + 4 * plane * (2 * channels + 2),
                  box_px * TEST_FLOPS + covered * _attr_flops(channels)))
     print(f"[{tag}] {fwd_name} table {tuple(table.shape)} lists "
           f"{tuple(lists[0].shape)} (listed {listed}, largest tile "
-          f"{int(bins.counts.max())}, box pixels {box_px}) tiles {cfg.tile_h}x{cfg.tile_w} bg "
-          f"{tuple(bg_chw.shape)}: fid mismatches {fid_bad}, zbuf mismatches "
-          f"{z_bad}, pixels outside allclose(rtol=1e-6, atol=1e-6) {pix_bad}, "
-          f"max |pix diff| {err:.3g}, covered {covered} px; {tested}kernel "
-          f"{record[fwd_name]['ms']:.4f} ms, plain "
+          f"{int(bins.counts.max())}, box pixels {box_px}) tiles "
+          f"{cfg.tile_h}x{cfg.tile_w} bg {tuple(bg_chw.shape)}: fid "
+          f"mismatches {fid_bad}, zbuf mismatches {z_bad}, pixels outside "
+          f"allclose(rtol=1e-6, atol=1e-6) {pix_bad}, max |pix diff| "
+          f"{err:.3g}, covered {covered} px; cull boxes equal to their plain "
+          f"version {not boxes_bad}; faces tested per pixel: without the "
+          f"cull {before:.2f}, culled {after:.2f}; sha256 of the inputs "
+          f"{in_digest}; kernel {record[fwd_name]['ms']:.4f} ms, plain "
           f"{record[fwd_name]['plain_ms']:.4f} ms, bound "
           f"{record[fwd_name]['bound_ms']:.4f} ms by "
           f"{record[fwd_name]['bound_by']} (medians of "
@@ -702,9 +744,10 @@ def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
     geo, _, _ = setup_planes(face_verts, face_attrs)
     geo = geo.contiguous()
     fields = (fid_k, bits, sval, pix_k, grad_cf, n_rows)
+    boxes = dict(bbox=bins.bbox, cull=cull)
 
     def fused():
-        return rows_fn(geo, *lists, *fields, bbox=bins.bbox, **geom)
+        return rows_fn(geo, *lists, *fields, **boxes, **geom)
 
     def fused_plain():
         return rows_plain_fn(geo, *fields)
@@ -716,23 +759,37 @@ def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
     rows_bad = int(((rows_k - rows_p).abs() > TOL_ROWS * scale + 1e-6).sum())
     err = float((rows_k - rows_p).abs().max())
     same = torch.equal(rows_k, fused())
-    digest = hashlib.sha256(rows_k.cpu().numpy().tobytes()).hexdigest()[:16]
+    digest = _digest(rows_k)
+    # What the kernel reads: the geometry, the lists and both boxes, the
+    # forward's outputs, the prologue's planes and the upstream gradient.
+    in_digest = _digest(geo, *lists, bins.bbox, cull, *fields[:5])
+    grad_digest = _digest(grad_cf)
+    # The bound counts no box: the function needs none (the plain version
+    # and dirt_tpu's whole-tile kernels read none).
     record[bwd_name] = dict(
         max_abs_err=err, ms=_median_ms(fused, runs),
         plain_ms=_median_ms(fused_plain, plain_runs, warmup=1),
-        **_bound(4 * 17 * num_faces + list_bytes + 16 * num_faces
+        **_bound(4 * 17 * num_faces + list_bytes
                  + 4 * plane * (6 + 2 * channels) + 4 * rows_k.numel(),
                  covered * _core_flops(channels)))
+    # The card's time apart from the host's, pass by pass (a profiler
+    # window).
+    passes = "; ".join(
+        f"{_kernel_label(name)} {ms:.4f}"
+        for name, ms in sorted(_device_ms(fused, runs).items())
+        if "fused_bwd" in name)
     print(f"[{tag}] {bwd_name} rows {tuple(rows_k.shape)}: values outside "
           f"{TOL_ROWS:g} * max |column| + 1e-6: {rows_bad}, max |diff| "
           f"{err:.3g}, max |row| {float(rows_p.abs().max()):.4g}, nonzero "
           f"rows {int((rows_p != 0).any(1).sum())}, second run equal {same}, "
-          f"sha256 of the rows {digest}; "
+          f"sha256 of the rows {digest}, of the inputs {in_digest} (of the "
+          f"upstream gradient alone {grad_digest}); "
           f"kernel {record[bwd_name]['ms']:.4f} ms, plain "
           f"{record[bwd_name]['plain_ms']:.4f} ms, bound "
           f"{record[bwd_name]['bound_ms']:.4f} ms by "
           f"{record[bwd_name]['bound_by']} (medians of {runs} and "
-          f"{plain_runs}, {card})")
+          f"{plain_runs}); device time alone per pass: {passes} ms "
+          f"(profiler window of {runs} calls) ({card})")
     if rows_bad or not same or not bool((rows_k != 0).any()):
         raise RuntimeError(f"[{tag}] {bwd_name} disagrees with its plain "
                            "version or with itself")
@@ -843,12 +900,11 @@ def _check_scatter_kernel(tag, name, sharded_step, card, runs=10):
     counts = lists[-1]
     listed = int(counts.sum())
     owned = int(own_px.numel())
-    num_faces = kwargs["bbox"].shape[0]
     # The function needs the cotangents of owned pixels only (the kernel
-    # reads no other), every owner, the lists and boxes, and writes the rows.
+    # reads no other), every owner and the lists, and writes the rows. It
+    # needs no box: the plain version and dirt_tpu's kernels read none.
     nbytes = (4 * owned * k_cols + 4 * fid_p.numel() + 4 * rows_k.numel()
-              + 4 * (listed + (len(lists) - 1) * counts.numel())
-              + 16 * num_faces)
+              + 4 * (listed + (len(lists) - 1) * counts.numel()))
     record = dict(max_abs_err=err, ms=_median_ms(kernel, runs),
                   plain_ms=_median_ms(plain, runs, warmup=1),
                   library_ms=_median_ms(library, runs, warmup=1),
@@ -1166,10 +1222,11 @@ def config4_loss(device):
     return loss_fn, (torch.tensor([0.3, 0.8, 0.52], device=device), pose)
 
 
-def big_sphere_step(device):
+def big_sphere_step(device, n=224):
     """(loss_fn, leaves, scene) of the default API on a mesh above the
-    streaming threshold: ``mesh.uv_sphere(224, 224)`` (99,904 faces, the
-    sphere of ``bench.py``'s 100k cell) under the bench camera at 1024 x 1024,
+    streaming threshold: ``mesh.uv_sphere(n, n)`` (2 n (n - 1) faces; 224
+    gives 99,904, the sphere of ``bench.py``'s 100k cell) under the bench
+    camera at 1024 x 1024,
     colors ``RandomState(0)``, under ``suggest_raster_config``'s caps with the
     default ``clip=True``, which pins ``streaming`` and so picks the csr
     engine. ``loss_fn(background, vertices, colors)`` is ``sum(image * w)``
@@ -1179,7 +1236,7 @@ def big_sphere_step(device):
     from dirt_tpu_torch.core import mesh
     from dirt_tpu_torch.ops import raster
 
-    verts_obj, faces, _ = mesh.uv_sphere(n_lat=224, n_lon=224)
+    verts_obj, faces, _ = mesh.uv_sphere(n_lat=n, n_lon=n)
     verts_obj = torch.as_tensor(verts_obj, device=device)
     clip = _clip_verts(verts_obj, torch.tensor([0.4, 0.3, 0.0], device=device),
                        device)
@@ -1904,8 +1961,10 @@ def main():
         "source": f"dirt_tpu_torch/csrc/{k}.cu",
         "replaces": REPLACES[k],
         "launches": launches[k],
-        "library_ms": None,
         **record[k],
+        # One PyTorch call of the same function, where phase 12 times one
+        # (index_add_ for the scatters, a strided copy for the swap).
+        "library_ms": record[k].get("library_ms"),
     } for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -15,11 +15,18 @@
 // nfid4 / nz4 / sval4 maps, which saves reading eight planes.
 //
 // The reduction onto faces, without atomics (deterministic), is
-// fused_rows.cuh's two passes, shared with the streaming kernel: pass 1 gives
+// fused_rows.cuh's two passes (the streaming kernel, fused_bwd_csr.cu, has
+// passes of its own): pass 1 gives
 // one warp to each (tile, slot) of the forward's bins (slot < counts[t]) and
 // writes partial[t * cap + slot]; pass 2 gives one thread to each (face,
 // column). The plain PyTorch version sums in another order (an index_add_ in
 // float64), so kernel and plain agree to rounding, not bit for bit.
+//
+// A warp scans its face's cull box (the forward's raster_tile.cuh::cull_box,
+// clipped to the tile): every pixel the face can own lies inside it, which
+// the binning box of the face's corners does not bound for a needle whose
+// far corners lie far off the image. Pass 2 walks the tiles of the binning
+// box, the only ones whose lists name the face.
 //
 // What bounds it: the scan. Each (tile, slot) warp reads the fid plane over
 // its box, so the fid reads are about the summed box areas (a few times the
@@ -36,7 +43,7 @@ __global__ void __launch_bounds__(dirt::ROW_WARPS * 32)
 fused_bwd_partial_kernel(
     const float* __restrict__ geo, int geo_width,
     const int* __restrict__ bins, const int* __restrict__ counts,
-    const int* __restrict__ bbox, const int* __restrict__ fid,
+    const int* __restrict__ cull, const int* __restrict__ fid,
     const int* __restrict__ bits, const float* __restrict__ sval,
     const float* __restrict__ pix, const float* __restrict__ grad,
     float* __restrict__ partial, int channels, int hp, int wp, int tile_h,
@@ -50,10 +57,13 @@ fused_bwd_partial_kernel(
   const int t = (int)(entry / cap);
   const int slot = (int)(entry - (long long)t * cap);
   if (slot >= counts[t]) return;
-  dirt::fused_partial_row(geo, geo_width, bins[entry], t, bbox, fid, bits,
-                         sval, pix, grad, partial + entry * k_cols,
-                         acc_all + warp * k_cols * 32, lane, channels, hp, wp,
-                         tile_h, tile_w);
+  const int face = bins[entry];
+  const int4 box = dirt::tile_scan_box(
+      reinterpret_cast<const int4*>(cull)[face], t, wp, tile_h, tile_w);
+  dirt::fused_partial_row(geo + (long long)face * geo_width, face, box, fid,
+                          bits, sval, pix, grad, partial + entry * k_cols,
+                          acc_all + warp * k_cols * 32, lane, channels, hp,
+                          wp);
 }
 
 __global__ void __launch_bounds__(dirt::REDUCE_THREADS)
@@ -81,17 +91,19 @@ fused_bwd_reduce_kernel(
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers: geo [>= num_faces, geo_width] f32; bins [tiles, cap] int32
 // ascending per tile; counts [tiles] int32 (<= cap); bbox [num_faces, 4]
-// int32 (xmin, xmax, ymin, ymax; the boxes the bins were made from); fid,
+// int32 (xmin, xmax, ymin, ymax; the boxes the bins were made from: pass 2
+// walks their tiles); cull [>= num_faces, 4] int32, 16-byte aligned (the
+// forward's cull boxes: pass 1 scans them, clipped to the tile); fid,
 // bits [hp, wp] int32; sval [4, hp, wp]; pix, grad [C, hp, wp];
 // partial [tiles * cap, 12 + 3C] scratch; out [>= num_faces, 12 + 3C],
 // whose first num_faces rows are written. Both launches go on `stream` and
 // do not synchronise. Returns the first CUDA error code (0 on success).
 extern "C" int dirt_fused_bwd(
     const float* geo, int geo_width, const int* bins, const int* counts,
-    const int* bbox, const int* fid, const int* bits, const float* sval,
-    const float* pix, const float* grad, float* partial, float* out,
-    int channels, int hp, int wp, int tile_h, int tile_w, int cap,
-    int num_faces, void* stream) {
+    const int* bbox, const int* cull, const int* fid, const int* bits,
+    const float* sval, const float* pix, const float* grad, float* partial,
+    float* out, int channels, int hp, int wp, int tile_h, int tile_w,
+    int cap, int num_faces, void* stream) {
   const int k_cols = 12 + 3 * channels;
   const int tiles_y = hp / tile_h, tiles_x = wp / tile_w;
   const long long entries = (long long)tiles_y * tiles_x * cap;
@@ -106,7 +118,7 @@ extern "C" int dirt_fused_bwd(
         (entries + dirt::ROW_WARPS - 1) / dirt::ROW_WARPS;
     fused_bwd_partial_kernel<<<(unsigned)blocks, dirt::ROW_WARPS * 32, smem,
                                st>>>(
-        geo, geo_width, bins, counts, bbox, fid, bits, sval, pix, grad,
+        geo, geo_width, bins, counts, cull, fid, bits, sval, pix, grad,
         partial, channels, hp, wp, tile_h, tile_w, cap, entries);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -17,10 +17,11 @@
 // no pre-gathered copy, no revisited outputs, no static chunk bound, and the
 // sentinel slots behind a run are never read.
 //
-// Work decomposition: two launches. First one thread per face table row
-// works out the row's cull_box (raster_tile.cuh): the pixels where the
-// face can pass the edge tests, rounding included. Then raster_tile.cuh's
-// culled strip walk: one block of 512 threads per 4-row strip of a tile,
+// Work decomposition: raster_tile.cuh's two launches, shared with the dense
+// kernel. First one thread per face table row works out the row's cull_box:
+// the pixels where the face can pass the edge tests, rounding included;
+// the boxes go back to the caller, for the backward. Then the culled strip
+// walk: one block of 512 threads per 4-row strip of a tile,
 // one thread per pixel; the run is read 512 entries at a time with each
 // face's box, only the faces whose boxes meet the strip are kept (in run
 // order) and gathered, and a warp (4 rows x 8 columns) tests only the kept
@@ -44,16 +45,6 @@
 namespace {
 
 constexpr int CHUNK = 128;                    // rows per CSR block
-constexpr int BOX_THREADS = 256;
-
-__global__ void __launch_bounds__(BOX_THREADS)
-cull_boxes_kernel(const float* __restrict__ table, int width, int rows,
-                  int4* __restrict__ boxes, int hp, int wp) {
-  const int f = blockIdx.x * BOX_THREADS + threadIdx.x;
-  if (f < rows) {
-    boxes[f] = dirt::cull_box(table + (long long)f * width, hp, wp);
-  }
-}
 
 __global__ void __launch_bounds__(dirt::CULL_ROWS * dirt::SEG_W)
 raster_fwd_csr_kernel(
@@ -70,15 +61,6 @@ raster_fwd_csr_kernel(
                             hp, wp, tile_h, tile_w, t);
 }
 
-void launch_boxes(const float* table, int width, int rows, int* boxes,
-                  int hp, int wp, cudaStream_t stream) {
-  if (rows > 0) {
-    cull_boxes_kernel<<<(rows + BOX_THREADS - 1) / BOX_THREADS, BOX_THREADS,
-                        0, stream>>>(table, width, rows,
-                                     reinterpret_cast<int4*>(boxes), hp, wp);
-  }
-}
-
 }  // namespace
 
 // Plain C entry points (bound with ctypes). All pointers are device
@@ -90,22 +72,23 @@ void launch_boxes(const float* table, int width, int rows, int* boxes,
 extern "C" int dirt_csr_cull_boxes(const float* table, int width, int rows,
                                    int* boxes, int hp, int wp,
                                    void* stream) {
-  launch_boxes(table, width, rows, boxes, hp, wp,
-               static_cast<cudaStream_t>(stream));
+  dirt::launch_cull_boxes(table, width, rows, boxes, hp, wp,
+                          static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
 // The forward: `entry_face` [n_pad] int32, `start_block` (in 128-row
-// blocks) and `counts` [tiles] int32; `boxes` is the walk's scratch, filled
-// by the first launch. tile_h is a multiple of 8 and tile_w at most 128 or
-// a multiple of 128 (the wrapper checks).
+// blocks) and `counts` [tiles] int32; `boxes` is written by the first
+// launch (the cull_box of every table row) and read by the walk. tile_h is
+// a multiple of 8 and tile_w at most 128 or a multiple of 128 (the wrapper
+// checks).
 extern "C" int dirt_raster_fwd_csr(
     const float* table, int width, int rows, const int* entry_face,
     const int* start_block, const int* counts, int* boxes, const float* bg,
     float* pix, int* fid, float* zbuf, int channels, int hp, int wp,
     int tile_h, int tile_w, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  launch_boxes(table, width, rows, boxes, hp, wp, s);
+  dirt::launch_cull_boxes(table, width, rows, boxes, hp, wp, s);
   const int blocks = dirt::culled_blocks(hp, wp, tile_h, tile_w);
   if (blocks > 0) {
     raster_fwd_csr_kernel<<<blocks, dirt::culled_threads(tile_w), 0, s>>>(

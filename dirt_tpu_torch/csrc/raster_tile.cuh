@@ -1,26 +1,27 @@
-// The whole-tile strip walks of the forward kernels that scan a tile's face
-// list (raster_fwd_dense.cu, raster_fwd_csr.cu).
+// The culled whole-tile strip walk of the forward kernels that scan a tile's
+// face list (raster_fwd_dense.cu over [T, cap] bins, raster_fwd_csr.cu over
+// CSR runs), and the per-row cull boxes it culls by.
 //
-// One block takes a strip of one tile (8 rows for raster_strip, 4 for
-// raster_strip_culled; a 128-column segment of it when the tile is wider),
-// one thread per pixel. The block stages the list
-// in batches into shared memory; every thread then walks the same staged
-// list, so each read in the loop is a shared-memory broadcast. The loop
-// runs to `count` and never reads the slots behind it. Ascending order plus
-// the strict z < zbuf test keeps the rule that a depth tie goes to the
+// A call is two launches. First cull_boxes_kernel, one thread per face
+// table row, works out the row's cull_box: the pixels where the face can
+// pass the edge tests, float32 rounding included. The boxes go back to the
+// caller too, since the backward kernels scan them (every pixel a face can
+// own lies inside its box). Then one block takes a CULL_ROWS-row strip of
+// one tile (a 128-column segment of it when the tile is wider), one thread
+// per pixel: raster_strip_culled reads the list in batches with each
+// face's box, keeps only the faces whose boxes meet the block's strip,
+// compacted in list order, stages their coefficients in shared memory, and
+// a warp tests only the kept faces whose boxes meet its own pixels. The
+// loop runs to `count` and never reads the slots behind it. Ascending order
+// plus the strict z < zbuf test keeps the rule that a depth tie goes to the
 // lower face id.
-//
-// raster_strip (the dense kernel's) stages every listed face and tests it
-// on every pixel of the strip. raster_strip_culled (the streaming
-// kernel's) reads each listed face's box too: a batch keeps only the faces
-// whose boxes meet the block's strip, compacted in list order, and a warp
-// tests only the kept faces whose boxes meet its own pixels.
 //
 // The loop only remembers the winning face; the reciprocal and the attribute
 // planes are evaluated once per pixel from the winner's row afterwards (the
 // same expressions as the TPU kernels' loop body, raster_fwd.py:58-77, in
 // the same order). Built with -fmad=false and IEEE division, so a kernel
-// matches its plain PyTorch version.
+// matches its plain PyTorch version, which tests every listed face at every
+// pixel of its tile.
 
 #pragma once
 
@@ -28,28 +29,15 @@
 
 namespace dirt {
 
-constexpr int STRIP_H = 8;
 constexpr int SEG_W = 128;                    // widest segment per block
 constexpr int NCOEF = 14;                     // geo columns 0..13
 constexpr int COL_ATT = 17;
-constexpr int STAGE = 64;                     // faces per smem stage
 constexpr int CULL_BATCH = 512;               // list entries culled at once
 constexpr float BIG_Z = 3.0e38f;
 
-// Threads of a block: STRIP_H rows of a segment.
+// Columns of a block's segment: the tile's width, at most SEG_W.
 __host__ __device__ inline int segment_width(int tile_w) {
   return tile_w < SEG_W ? tile_w : SEG_W;
-}
-
-// Blocks of a launch: one per (tile, strip, segment).
-inline int strip_blocks(int hp, int wp, int tile_h, int tile_w) {
-  return (hp / tile_h) * (wp / tile_w) * (tile_h / STRIP_H) *
-         (tile_w / segment_width(tile_w));
-}
-
-// The tile of block `b` = (t * strips + s) * segs + q.
-__device__ __forceinline__ int strip_tile(int b, int tile_h, int tile_w) {
-  return b / ((tile_h / STRIP_H) * (tile_w / segment_width(tile_w)));
 }
 
 // Depth, face id and the C pixel values of pixel (x, y) from the winning
@@ -101,57 +89,6 @@ __device__ __forceinline__ void test_face(const float* m, const int* id,
   }
 }
 
-// Scan-convert list[0 .. count) over the block's strip of tile `t` and write
-// the strip's pixels, face ids and depths. Every thread of the block calls
-// it with the same list and count (it synchronises the block).
-//   table: [rows, width] f32 face table (17 geometry columns, then 3 per
-//          channel); bg, pix: [channels, hp, wp]; fid, zbuf: [hp, wp].
-__device__ __forceinline__ void raster_strip(
-    const float* __restrict__ table, int width, const int* __restrict__ list,
-    int count, const float* __restrict__ bg, float* __restrict__ pix,
-    int* __restrict__ fid, float* __restrict__ zbuf, int channels, int hp,
-    int wp, int tile_h, int tile_w) {
-  __shared__ int ids[STAGE];
-  __shared__ float coef[STAGE * NCOEF];
-
-  const int seg_w = segment_width(tile_w);
-  const int strips = tile_h / STRIP_H;
-  const int segs = tile_w / seg_w;
-  const int tiles_x = wp / tile_w;
-  int b = blockIdx.x;                         // (t * strips + s) * segs + q
-  const int q = b % segs;
-  b /= segs;
-  const int s = b % strips;
-  const int t = b / strips;
-  const int tid = threadIdx.x;
-  const int threads = blockDim.x;             // STRIP_H * seg_w
-  const int r = tid / seg_w;
-  const int c = tid - r * seg_w;
-  const int x = (t % tiles_x) * tile_w + q * seg_w + c;
-  const int y = (t / tiles_x) * tile_h + s * STRIP_H + r;
-  const float xf = (float)x + 0.5f;
-  const float yf = (float)y + 0.5f;
-
-  float zb = BIG_Z;
-  int best = -1;                              // winning face id
-  for (int i0 = 0; i0 < count; i0 += STAGE) {
-    const int n = min(STAGE, count - i0);
-    __syncthreads();                          // previous stage consumed
-    for (int k = tid; k < n; k += threads) ids[k] = list[i0 + k];
-    __syncthreads();
-    for (int k = tid; k < n * NCOEF; k += threads) {
-      const int j = k / NCOEF;
-      coef[k] = table[(long long)ids[j] * width + (k - j * NCOEF)];
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      test_face(coef + j * NCOEF, ids + j, xf, yf, zb, best);
-    }
-  }
-  write_winner(table, width, best, zb, xf, yf, x, y, bg, pix, fid, zbuf,
-               channels, hp, wp);
-}
-
 // Whether box (xmin, xmax, ymin, ymax) meets columns [x0, x1] and rows
 // [y0, y1].
 __device__ __forceinline__ bool box_meets(int4 box, int x0, int x1, int y0,
@@ -186,6 +123,36 @@ __device__ __forceinline__ int culled_tile(int b, int tile_h, int tile_w) {
 // 4u leaves room for cull_box's own float64 rounding.
 constexpr double CULL_ROUNDING = 4.0 / 16777216.0;
 
+// The pixels whose centres lie in the triangle of edges k = 0..2 (a_k X +
+// b_k Y + c_k = 0, X, Y relative to the anchor (ax, ay); det[i] the turn of
+// edges i and i + 1) each moved out by CULL_ROUNDING (|a_k| mx + |b_k| my):
+// (x0, x1, y0, y1) in s, neither clamped nor checked (empty when x0 > x1 or
+// y0 > y1).
+__device__ __forceinline__ void centre_span(
+    const double (&a)[3], const double (&b)[3], const double (&c)[3],
+    const double (&det)[3], double ax, double ay, double mx, double my,
+    double (&s)[4]) {
+  double r[3];                                // edge k moved out: aX + bY = r
+  for (int k = 0; k < 3; ++k) {
+    r[k] = -(c[k] + CULL_ROUNDING * (fabs(a[k]) * mx + fabs(b[k]) * my));
+  }
+  double xlo = 0.0, xhi = 0.0, ylo = 0.0, yhi = 0.0;
+  for (int i = 0; i < 3; ++i) {
+    const int j = (i + 1) % 3;
+    const double x = (r[i] * b[j] - r[j] * b[i]) / det[i];
+    const double y = (a[i] * r[j] - a[j] * r[i]) / det[i];
+    xlo = i == 0 ? x : fmin(xlo, x);
+    xhi = i == 0 ? x : fmax(xhi, x);
+    ylo = i == 0 ? y : fmin(ylo, y);
+    yhi = i == 0 ? y : fmax(yhi, y);
+  }
+  // Pixel x's centre is x + 0.5.
+  s[0] = ceil(ax + xlo - 0.5);
+  s[1] = floor(ax + xhi - 0.5);
+  s[2] = ceil(ay + ylo - 0.5);
+  s[3] = floor(ay + yhi - 0.5);
+}
+
 // The pixels of an hp x wp array at which the face of table row `m` can
 // pass test_face's three edge tests, as an inclusive box (xmin, xmax, ymin,
 // ymax), clamped to the array; (0, -1, 0, -1) when there are none. It is
@@ -194,13 +161,18 @@ constexpr double CULL_ROUNDING = 4.0 / 16777216.0;
 // image passes at pixels tens of pixels past the box of its vertices
 // (tests/test_torch_cull.py). Edge k passes at pixel centre p only where
 // a_k X + b_k Y + c_k >= -CULL_ROUNDING (|a_k| MX + |b_k| MY) (X, Y =
-// p - anchor exactly, MX, MY their largest magnitudes over the array's
-// pixel centres): the triangle of the three edges each moved out by that
-// much, whose corners are solved for in float64. A row with a non-finite
-// coefficient, or whose edges do not close a triangle, gets the whole
-// array; a row with an edge that excludes every pixel (a = b = 0, c < 0:
-// an invalid face) gets none. Computed in float64 with -fmad=false, it
-// equals raster_fwd.py's csr_cull_boxes_plain bit for bit.
+// p - anchor exactly, MX, MY bounds of their magnitudes over the pixels
+// that can pass): the box of the pixel centres inside the triangle of the
+// three edges each moved out by that much, whose corners are solved for in
+// float64. Two rounds: the first takes MX, MY over the whole array; every
+// pixel that passes lies in its box, so the second takes them over that
+// box. The second matters for a sliver (edges a few millionths of a radian
+// apart), whose corners move by the allowance over the angle: from the
+// whole array's MX a face of 8 x 5 pixels gets a box of 113 x 49. A row
+// with a non-finite coefficient, or whose edges do not close a triangle,
+// gets the whole array; a row with an edge that excludes every pixel (a =
+// b = 0, c < 0: an invalid face) gets none. Computed in float64 with
+// -fmad=false, it equals raster_fwd.py's csr_cull_boxes_plain bit for bit.
 __device__ __forceinline__ int4 cull_box(const float* __restrict__ m,
                                          int hp, int wp) {
   const int4 none = make_int4(0, -1, 0, -1);
@@ -218,46 +190,47 @@ __device__ __forceinline__ int4 cull_box(const float* __restrict__ m,
   }
   if (!finite) return make_int4(0, wp - 1, 0, hp - 1);
   if (never) return none;
-  const double mx = fmax(fabs(0.5 - ax), fabs((wp - 0.5) - ax));
-  const double my = fmax(fabs(0.5 - ay), fabs((hp - 0.5) - ay));
-  double r[3];                                // edge k moved out: aX + bY = r
-  for (int k = 0; k < 3; ++k) {
-    r[k] = -(c[k] + CULL_ROUNDING * (fabs(a[k]) * mx + fabs(b[k]) * my));
-  }
-  double xlo = 0.0, xhi = 0.0, ylo = 0.0, yhi = 0.0;
+  double det[3];
   int sign = 0;
   for (int i = 0; i < 3; ++i) {
     const int j = (i + 1) % 3;
-    const double det = a[i] * b[j] - a[j] * b[i];
-    const int s = det > 0.0 ? 1 : (det < 0.0 ? -1 : 0);
+    det[i] = a[i] * b[j] - a[j] * b[i];
+    const int s = det[i] > 0.0 ? 1 : (det[i] < 0.0 ? -1 : 0);
     // The edges close a triangle when all three turns agree.
     if (s == 0 || (i > 0 && s != sign)) {
       return make_int4(0, wp - 1, 0, hp - 1);
     }
     sign = s;
-    const double x = (r[i] * b[j] - r[j] * b[i]) / det;
-    const double y = (a[i] * r[j] - a[j] * r[i]) / det;
-    xlo = i == 0 ? x : fmin(xlo, x);
-    xhi = i == 0 ? x : fmax(xhi, x);
-    ylo = i == 0 ? y : fmin(ylo, y);
-    yhi = i == 0 ? y : fmax(yhi, y);
   }
-  // Pixel x's centre is x + 0.5; floor and ceil keep up to a pixel more.
-  const double x0 = floor(ax + xlo - 0.5);
-  const double x1 = ceil(ax + xhi - 0.5);
-  const double y0 = floor(ay + ylo - 0.5);
-  const double y1 = ceil(ay + yhi - 0.5);
-  if (!(x1 >= 0.0 && x0 <= wp - 1.0 && y1 >= 0.0 && y0 <= hp - 1.0)) {
-    return none;
+  double mx = fmax(fabs(0.5 - ax), fabs((wp - 0.5) - ax));
+  double my = fmax(fabs(0.5 - ay), fabs((hp - 0.5) - ay));
+  double box[4];
+  for (int round = 0; round < 2; ++round) {
+    centre_span(a, b, c, det, ax, ay, mx, my, box);
+    if (!(box[0] <= box[1] && box[2] <= box[3] && box[1] >= 0.0 &&
+          box[0] <= wp - 1.0 && box[3] >= 0.0 && box[2] <= hp - 1.0)) {
+      return none;
+    }
+    box[0] = fmax(box[0], 0.0);
+    box[1] = fmin(box[1], wp - 1.0);
+    box[2] = fmax(box[2], 0.0);
+    box[3] = fmin(box[3], hp - 1.0);
+    mx = fmax(fabs((box[0] + 0.5) - ax), fabs((box[1] + 0.5) - ax));
+    my = fmax(fabs((box[2] + 0.5) - ay), fabs((box[3] + 0.5) - ay));
   }
-  return make_int4((int)fmax(x0, 0.0), (int)fmin(x1, wp - 1.0),
-                   (int)fmax(y0, 0.0), (int)fmin(y1, hp - 1.0));
+  return make_int4((int)box[0], (int)box[1], (int)box[2], (int)box[3]);
 }
 
-// raster_strip with the list culled by the faces' cull_box, for a block of
-// culled_threads(tile_w) threads over a CULL_ROWS-row strip of tile `t`.
-// Same result, bit for bit, because a face cannot pass test_face at a
-// pixel outside its cull_box: the faces left out could not have won there.
+// Scan-convert list[0 .. count) over a CULL_ROWS-row strip of tile `t`, for
+// a block of culled_threads(tile_w) threads, and write the strip's pixels,
+// face ids and depths. Every thread of the block calls it with the same
+// list and count (it synchronises the block).
+//   table: [rows, width] f32 face table (17 geometry columns, then 3 per
+//          channel); bg, pix: [channels, hp, wp]; fid, zbuf: [hp, wp].
+// The list is culled by the faces' cull_box: the result is that of testing
+// every listed face at every pixel, bit for bit, because a face cannot pass
+// test_face at a pixel outside its cull_box, so the faces left out could
+// not have won there.
 //   boxes: [rows, 4] int32, cull_box of every table row.
 // A batch: each of its threads reads one list entry and that face's box,
 // and keeps it if the box meets the strip; warp votes and per-warp counts
@@ -368,6 +341,30 @@ __device__ __forceinline__ void raster_strip_culled(
   if (tid < pixels) {
     write_winner(table, width, best, zb, xf, yf, x, y, bg, pix, fid, zbuf,
                  channels, hp, wp);
+  }
+}
+
+constexpr int BOX_THREADS = 256;
+
+// cull_box of every table row: boxes[f] for f < rows.
+__global__ void __launch_bounds__(BOX_THREADS)
+cull_boxes_kernel(const float* __restrict__ table, int width, int rows,
+                  int4* __restrict__ boxes, int hp, int wp) {
+  const int f = blockIdx.x * BOX_THREADS + threadIdx.x;
+  if (f < rows) {
+    boxes[f] = cull_box(table + (long long)f * width, hp, wp);
+  }
+}
+
+// Launches cull_boxes_kernel on `stream` (nothing for rows == 0); `boxes`
+// is [rows, 4] int32, 16-byte aligned.
+inline void launch_cull_boxes(const float* table, int width, int rows,
+                              int* boxes, int hp, int wp,
+                              cudaStream_t stream) {
+  if (rows > 0) {
+    cull_boxes_kernel<<<(rows + BOX_THREADS - 1) / BOX_THREADS, BOX_THREADS,
+                        0, stream>>>(table, width, rows,
+                                     reinterpret_cast<int4*>(boxes), hp, wp);
   }
 }
 

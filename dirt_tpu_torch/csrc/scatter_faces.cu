@@ -21,7 +21,8 @@
 // The reduction, without atomics (deterministic), is scatter_rows.cuh's two
 // passes: pass 1 gives the warps of a (tile, chunk) block the chunk's live
 // slots only (most of a [T, cap] array is empty: the cap is the fullest
-// tile's count); a warp scans its face's box inside the tile with a batch of
+// tile's count); a warp scans its face's cull box (the forward's
+// raster_tile.cuh::cull_box) inside the tile with a batch of
 // columns in flight per pixel and writes partial[t * cap + slot]; pass 2
 // gives a block to 32 faces, finds each face's slots once (not once per
 // column), sums its partial rows in tile order and writes every output row,
@@ -49,7 +50,7 @@ namespace {
 __global__ void __launch_bounds__(dirt::SCATTER_THREADS)
 scatter_faces_partial_kernel(
     const int* __restrict__ bins, const int* __restrict__ counts,
-    const int* __restrict__ bbox, const int* __restrict__ fid,
+    const int* __restrict__ cull, const int* __restrict__ fid,
     const float* __restrict__ cot, float* __restrict__ partial, int k_cols,
     int hp, int wp, int tile_h, int tile_w, int cap, int chunks) {
   const int t = blockIdx.x / chunks;
@@ -58,7 +59,7 @@ scatter_faces_partial_kernel(
   if (live <= 0) return;                      // block-uniform: an empty chunk
   const long long row0 = (long long)t * cap + base;
   dirt::scatter_block_rows(bins + row0, min(live, dirt::SCATTER_CHUNK), t,
-                           row0, bbox, fid, cot, partial, k_cols, hp, wp,
+                           row0, cull, fid, cot, partial, k_cols, hp, wp,
                            tile_h, tile_w);
 }
 
@@ -85,16 +86,18 @@ scatter_faces_reduce_kernel(
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers: bins [tiles, cap] int32 ascending per tile; counts [tiles] int32
 // (<= cap); bbox [num_faces, 4] int32 (xmin, xmax, ymin, ymax; the boxes the
-// bins were made from, 16-byte aligned); fid [hp, wp] int32 (negative = no
+// bins were made from: pass 2 walks their tiles); cull [>= num_faces, 4]
+// int32 (the forward's cull boxes: pass 1 scans them), both 16-byte
+// aligned; fid [hp, wp] int32 (negative = no
 // owner); cot [k_cols, hp, wp] f32; partial [tiles * cap, k_cols] scratch;
 // out [out_rows, k_cols], every row of which is written (rows from num_faces
 // on with zeros). Both launches go on `stream` and do not synchronise.
 // Returns the first CUDA error code (0 on success).
 extern "C" int dirt_scatter_faces(
-    const int* bins, const int* counts, const int* bbox, const int* fid,
-    const float* cot, float* partial, float* out, int k_cols, int hp, int wp,
-    int tile_h, int tile_w, int cap, int num_faces, int out_rows,
-    void* stream) {
+    const int* bins, const int* counts, const int* bbox, const int* cull,
+    const int* fid, const float* cot, float* partial, float* out, int k_cols,
+    int hp, int wp, int tile_h, int tile_w, int cap, int num_faces,
+    int out_rows, void* stream) {
   const int tiles_x = wp / tile_w;
   const int tiles = (hp / tile_h) * tiles_x;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -104,7 +107,7 @@ extern "C" int dirt_scatter_faces(
   if (listed && num_faces > 0) {
     scatter_faces_partial_kernel<<<(unsigned)((long long)tiles * chunks),
                                    dirt::SCATTER_THREADS, 0, st>>>(
-        bins, counts, bbox, fid, cot, partial, k_cols, hp, wp, tile_h, tile_w,
+        bins, counts, cull, fid, cot, partial, k_cols, hp, wp, tile_h, tile_w,
         cap, chunks);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -21,11 +21,12 @@
 // The reduction, without atomics (deterministic), is scatter_rows.cuh's two
 // passes. Pass 1 writes the same per-entry rows: one block per 128-row block
 // of the CSR array. All rows of a block belong to one tile, so the block
-// finds its tile once (every thread tests one start_block entry, a block-wide
-// count gives the last tile that starts at or before the block; two rounds
-// of one load each, no serial search), leaves if the block holds only
-// padding, and else gives its warps the block's live rows only: three
-// quarters of the rows of a padded array are padding and get no warp. Pass 2
+// finds its tile once (csr_block_tile: every thread tests one start_block
+// entry, a block-wide count gives the last tile that starts at or before
+// the block; two rounds of one load each, no serial search), leaves if the
+// block holds only padding, and else gives its warps the block's live rows
+// only: three quarters of the rows of a padded array are padding and get no
+// warp. A warp scans its face's cull box clipped to the tile. Pass 2
 // takes segment_sum's place: a block per 32 faces finds each face's slot in
 // the runs of the tiles its box touches, once per face and not once per
 // column, and writes every output row, so the caller clears nothing. Rows
@@ -51,34 +52,19 @@ namespace {
 __global__ void __launch_bounds__(dirt::SCATTER_THREADS)
 scatter_faces_csr_partial_kernel(
     const int* __restrict__ entry_face, const int* __restrict__ start_block,
-    const int* __restrict__ counts, const int* __restrict__ bbox,
+    const int* __restrict__ counts, const int* __restrict__ cull,
     const int* __restrict__ fid, const float* __restrict__ cot,
     float* __restrict__ partial, int k_cols, int hp, int wp, int tile_h,
     int tile_w, int tiles) {
   const int block = blockIdx.x;
-  // t = (tiles that start at or before this block) - 1: start_block is
-  // non-decreasing with start_block[0] == 0. A coarse round over every
-  // stride-th tile, then a fine round inside the stride it found.
-  const int stride = (tiles + dirt::SCATTER_THREADS - 1) / dirt::SCATTER_THREADS;
-  const long long coarse = (long long)threadIdx.x * stride;
-  int t = __syncthreads_count(coarse < tiles &&
-                              start_block[coarse] <= block) - 1;
-  if (stride > 1) {
-    const int base = t * stride;
-    int inside = 0;
-    for (int off = 0; off < stride; off += dirt::SCATTER_THREADS) {
-      const int i = off + threadIdx.x;
-      inside += __syncthreads_count(i < stride && base + i < tiles &&
-                                    start_block[base + i] <= block);
-    }
-    t = base + inside - 1;
-  }
+  const int t = dirt::csr_block_tile<dirt::SCATTER_THREADS>(start_block,
+                                                            block, tiles);
   const int live =
       counts[t] - (block - start_block[t]) * dirt::SCATTER_CHUNK;
   if (live <= 0) return;                      // block-uniform: only padding
   const long long row0 = (long long)block * dirt::SCATTER_CHUNK;
   dirt::scatter_block_rows(entry_face + row0,
-                           min(live, dirt::SCATTER_CHUNK), t, row0, bbox, fid,
+                           min(live, dirt::SCATTER_CHUNK), t, row0, cull, fid,
                            cot, partial, k_cols, hp, wp, tile_h, tile_w);
 }
 
@@ -109,16 +95,18 @@ scatter_faces_csr_reduce_kernel(
 // pointers: entry_face [n_pad] int32, start_block (in 128-row blocks,
 // start_block[0] == 0, non-decreasing) and counts [tiles] int32, the
 // forward's CSR bins; bbox [num_faces, 4] int32 (xmin, xmax, ymin, ymax; the
-// boxes the bins were made from, 16-byte aligned); fid [hp, wp] int32
+// boxes the bins were made from: pass 2 walks their tiles); cull [>=
+// num_faces, 4] int32 (the forward's cull boxes: pass 1 scans them), both
+// 16-byte aligned; fid [hp, wp] int32
 // (negative = no owner); cot [k_cols, hp, wp] f32; partial [n_pad, k_cols]
 // scratch; out [out_rows, k_cols], every row of which is written (rows from
 // num_faces on with zeros). Both launches go on `stream` and do not
 // synchronise. Returns the first CUDA error code (0 on success).
 extern "C" int dirt_scatter_faces_csr(
     const int* entry_face, const int* start_block, const int* counts,
-    const int* bbox, const int* fid, const float* cot, float* partial,
-    float* out, int k_cols, int hp, int wp, int tile_h, int tile_w,
-    int n_pad, int num_faces, int out_rows, void* stream) {
+    const int* bbox, const int* cull, const int* fid, const float* cot,
+    float* partial, float* out, int k_cols, int hp, int wp, int tile_h,
+    int tile_w, int n_pad, int num_faces, int out_rows, void* stream) {
   const int tiles_x = wp / tile_w;
   const int tiles = (hp / tile_h) * tiles_x;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -126,7 +114,7 @@ extern "C" int dirt_scatter_faces_csr(
   if (n_pad > 0 && tiles > 0 && num_faces > 0) {
     scatter_faces_csr_partial_kernel<<<
         (unsigned)(n_pad / dirt::SCATTER_CHUNK), dirt::SCATTER_THREADS, 0,
-        st>>>(entry_face, start_block, counts, bbox, fid, cot, partial,
+        st>>>(entry_face, start_block, counts, cull, fid, cot, partial,
               k_cols, hp, wp, tile_h, tile_w, tiles);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

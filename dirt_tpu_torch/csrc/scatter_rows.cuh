@@ -1,8 +1,11 @@
 // The two passes of the face scatters (scatter_faces.cu over dense [T, cap]
 // bins, scatter_faces_csr.cu over CSR runs): per-pixel rows cot[:, y, x]
 // (channels-first planes [K, hp, wp]) summed onto the face that owns the
-// pixel, without atomics. The fused backwards keep fused_rows.cuh's passes;
-// these are the scatter's own, shaped by what bounds a scatter on Hopper.
+// pixel, without atomics. The fused CSR backward (fused_bwd_csr.cu) takes
+// the block structure of pass 1 (csr_block_tile, stage_entries,
+// walk_entries, fold_step) with a body of its own, and pass 2 as it is; the
+// fused dense backward keeps fused_rows.cuh's passes. These passes are
+// shaped by what bounds a scatter on Hopper.
 // By count that is bytes, but the card could move the bytes the function
 // needs in a sixth of the time it takes: what it waits for is the chain of
 // dependent loads (list -> box -> owner -> planes) and the 32-byte sectors
@@ -13,10 +16,13 @@
 //
 //   pass 1 (scatter_block_rows): one block per 128 consecutive slots of one
 //           tile's list; the caller has already left if none of them is
-//           live. The block stages the live entries' face ids and boxes
-//           (clipped to the tile: every owned pixel lies inside its face's
-//           box, so no margin is scanned) in shared memory, and its warps
-//           stride over the entries. A warp scans an entry's clipped box 32
+//           live. The block stages the live entries' face ids and scan boxes
+//           (stage_entries: each face's cull box, the forward's
+//           raster_tile.cuh::cull_box, clipped to the tile; every pixel a
+//           face can own lies inside its cull box, which the binning box of
+//           its corners does not bound for a needle whose far corners lie
+//           far off the image) in shared memory, and its warps stride over
+//           the entries (walk_entries). A warp scans an entry's box 32
 //           pixels at a time, lanes along image rows; a trip in which the
 //           face owns no pixel costs one load of the owners and no more. A
 //           lane whose pixel the face owns loads a batch of 8, 16, 24 or 32
@@ -32,14 +38,15 @@
 //           store.
 //   pass 2 (reduce_face_rows): one block of 128 threads per 32 consecutive
 //           faces. Four threads a face each find the face's slot in one of
-//           the tiles its box touches (ascending tiles; a search probes
-//           seven pivots a round; a face in more than four tiles takes
-//           further rounds), so the searches run once per face and tile, not
-//           once per column, and side by side. The block then writes the 32
-//           output rows as one contiguous range, each value the sum of its
-//           face's partial rows in tile order. It writes every row of the
-//           output, zeros included (faces no list names, the sentinel row,
-//           padding rows), so the caller clears nothing.
+//           the tiles its binning box touches (a face is listed in those
+//           tiles only; ascending tiles; a search probes seven pivots a
+//           round; a face in more than four tiles takes further rounds), so
+//           the searches run once per face and tile, not once per column,
+//           and side by side. The block then writes the 32 output rows as
+//           one contiguous range, each value the sum of its face's partial
+//           rows in tile order. It writes every row of the output, zeros
+//           included (faces no list names, the sentinel row, padding rows),
+//           so the caller clears nothing.
 // Both orders are fixed (scan order per lane, the butterfly, tile order), so
 // two runs give equal bits. Built with -fmad=false.
 
@@ -222,33 +229,71 @@ __device__ __forceinline__ void scatter_entry(
   }
 }
 
-// Pass 1 for one block: the entries list[0 .. live), live <= SCATTER_CHUNK,
-// of tile t; entry i's partial row goes to partial[(row0 + i) * k_cols ..].
-// Every thread of the block calls it (it synchronises the block).
-__device__ __forceinline__ void scatter_block_rows(
-    const int* __restrict__ list, int live, int t, long long row0,
-    const int* __restrict__ bbox, const int* __restrict__ fid,
-    const float* __restrict__ cot, float* __restrict__ partial, int k_cols,
-    int hp, int wp, int tile_h, int tile_w) {
-  __shared__ int s_face[SCATTER_CHUNK];
-  __shared__ int4 s_box[SCATTER_CHUNK];
+// The box `cb` (xmin, xmax, ymin, ymax) clipped to tile t, as the scan box of
+// a list entry: (x0, y0, width >= 1, pixel count; 0 when they do not meet).
+__device__ __forceinline__ int4 tile_scan_box(const int4& cb, int t, int wp,
+                                              int tile_h, int tile_w) {
   const int tiles_x = wp / tile_w;
   const int tx = (t % tiles_x) * tile_w, ty = (t / tiles_x) * tile_h;
-  for (int i = threadIdx.x; i < live; i += SCATTER_THREADS) {
+  const int x0 = max(tx, cb.x), x1 = min(tx + tile_w - 1, cb.y);
+  const int y0 = max(ty, cb.z), y1 = min(ty + tile_h - 1, cb.w);
+  const int w = max(x1 - x0 + 1, 0), h = max(y1 - y0 + 1, 0);
+  return make_int4(x0, y0, max(w, 1), w * h);
+}
+
+// The tile of CSR block `block` (start_block in blocks, non-decreasing,
+// start_block[0] == 0): the last tile that starts at or before it, for a
+// block of THREADS threads. A coarse round over every stride-th tile, then
+// a fine round inside the stride it found; every thread tests one entry a
+// round and a block-wide count gives the answer, so there is no serial
+// search. Every thread of the block calls it (it synchronises the block).
+template <int THREADS>
+__device__ __forceinline__ int csr_block_tile(
+    const int* __restrict__ start_block, int block, int tiles) {
+  const int stride = (tiles + THREADS - 1) / THREADS;
+  const long long coarse = (long long)threadIdx.x * stride;
+  int t = __syncthreads_count(coarse < tiles &&
+                              start_block[coarse] <= block) - 1;
+  if (stride > 1) {
+    const int base = t * stride;
+    int inside = 0;
+    for (int off = 0; off < stride; off += THREADS) {
+      const int i = off + threadIdx.x;
+      inside += __syncthreads_count(i < stride && base + i < tiles &&
+                                    start_block[base + i] <= block);
+    }
+    t = base + inside - 1;
+  }
+  return t;
+}
+
+// Pass 1's staging, for a block of THREADS threads: the faces of list[0 ..
+// live) of tile t and their scan boxes (each face's cull box clipped to the
+// tile) into s_face / s_box. Every thread of the block calls it (it
+// synchronises the block).
+template <int THREADS>
+__device__ __forceinline__ void stage_entries(
+    const int* __restrict__ list, int live, int t,
+    const int* __restrict__ cull, int wp, int tile_h, int tile_w,
+    int* s_face, int4* s_box) {
+  for (int i = threadIdx.x; i < live; i += THREADS) {
     const int face = list[i];
     // xmin, xmax, ymin, ymax: 16 bytes a thread.
-    const int4 bb = reinterpret_cast<const int4*>(bbox)[face];
-    const int x0 = max(tx, bb.x), x1 = min(tx + tile_w - 1, bb.y);
-    const int y0 = max(ty, bb.z), y1 = min(ty + tile_h - 1, bb.w);
-    const int w = max(x1 - x0 + 1, 0), h = max(y1 - y0 + 1, 0);
     s_face[i] = face;
-    s_box[i] = make_int4(x0, y0, max(w, 1), w * h);
+    s_box[i] = tile_scan_box(reinterpret_cast<const int4*>(cull)[face], t,
+                             wp, tile_h, tile_w);
   }
   __syncthreads();
+}
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x - warp * 32;
-  const long long plane = (long long)hp * wp;
+// Pass 1's walk, for warp `warp` of a block of WARPS warps: the staged
+// entries warp, warp + WARPS, ... below live, each handed to entry(e, face,
+// box, owner0), owner0 being the owner of the lane's pixel among the
+// entry's first 32, loaded while the warp's previous entry ran.
+template <int WARPS, class Entry>
+__device__ __forceinline__ void walk_entries(
+    const int* s_face, const int4* s_box, int live,
+    const int* __restrict__ fid, int wp, int warp, int lane, Entry entry) {
   int e = warp;
   int face = 0, owner0 = -1;
   int4 box = make_int4(0, 0, 1, 0);
@@ -259,7 +304,7 @@ __device__ __forceinline__ void scatter_block_rows(
   }
   while (e < live) {
     // The next entry's first owner test, in flight during this entry.
-    const int e_next = e + SCATTER_WARPS;
+    const int e_next = e + WARPS;
     int face_next = 0, owner_next = -1;
     int4 box_next = make_int4(0, 0, 1, 0);
     if (e_next < live) {
@@ -267,13 +312,35 @@ __device__ __forceinline__ void scatter_block_rows(
       box_next = s_box[e_next];
       owner_next = first_owner(fid, box_next, wp, lane);
     }
-    scatter_entry(cot, fid, face, box, owner0, k_cols, wp, plane, lane,
-                  partial + (row0 + e) * k_cols);
+    entry(e, face, box, owner0);
     e = e_next;
     face = face_next;
     box = box_next;
     owner0 = owner_next;
   }
+}
+
+// Pass 1 for one block: the entries list[0 .. live), live <= SCATTER_CHUNK,
+// of tile t; entry i's partial row goes to partial[(row0 + i) * k_cols ..].
+// Every thread of the block calls it (it synchronises the block).
+__device__ __forceinline__ void scatter_block_rows(
+    const int* __restrict__ list, int live, int t, long long row0,
+    const int* __restrict__ cull, const int* __restrict__ fid,
+    const float* __restrict__ cot, float* __restrict__ partial, int k_cols,
+    int hp, int wp, int tile_h, int tile_w) {
+  __shared__ int s_face[SCATTER_CHUNK];
+  __shared__ int4 s_box[SCATTER_CHUNK];
+  stage_entries<SCATTER_THREADS>(list, live, t, cull, wp, tile_h, tile_w,
+                                 s_face, s_box);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x - warp * 32;
+  const long long plane = (long long)hp * wp;
+  walk_entries<SCATTER_WARPS>(
+      s_face, s_box, live, fid, wp, warp, lane,
+      [&](int e, int face, const int4& box, int owner0) {
+        scatter_entry(cot, fid, face, box, owner0, k_cols, wp, plane, lane,
+                      partial + (row0 + e) * k_cols);
+      });
 }
 
 // Pass 2 for one block of SCATTER_REDUCE_THREADS threads: output rows

@@ -8,12 +8,17 @@ gradient into per-face cotangent rows ``[12 + 3C]`` (9 edge, 3 denominator,
 3C attribute columns): ``raster_bwd.pixel_cotangents_core`` on every covered
 pixel, summed over the pixels each face owns.
 
-* CUDA tensors launch the hand-written kernels ``csrc/fused_bwd.cu`` and
-  ``csrc/fused_bwd_csr.cu`` (the passes are ``csrc/fused_rows.cuh``'s): they
+* CUDA tensors launch the hand-written kernels ``csrc/fused_bwd.cu`` (its
+  passes are ``csrc/fused_rows.cuh``'s) and ``csrc/fused_bwd_csr.cu`` (a
+  block per 128 CSR rows that gives warps to live rows only and sums in
+  registers, then ``csrc/scatter_rows.cuh``'s reduction onto faces): they
   read each owner's geometry row directly (the TPU kernels' ``binned17``
   pre-gather and one-hot matrix products have no counterpart) and reduce
   without atomics, in a fixed order, through per-list-entry partial rows,
-  so two runs give equal bits.
+  so two runs give equal bits. A list entry's row sums the pixels of the
+  face's cull box (the forward's, ``raster.DenseBins.cull``) inside the
+  tile; the tiles of a face's binning box (``bbox``) are the ones whose
+  lists name it.
 * CPU tensors take :func:`fused_backward_rows_plain` /
   :func:`fused_backward_rows_csr_plain`.
 
@@ -38,7 +43,7 @@ from dirt_tpu_torch.ops.raster_bwd import (
     pixel_cotangents_core,
     pixel_grid,
 )
-from dirt_tpu_torch.ops.raster_fwd import check_tensor
+from dirt_tpu_torch.ops.raster_fwd import check_boxes, check_tensor, need_boxes
 from dirt_tpu_torch.ops.triangle_setup import GEO_USED
 
 # Launches of the CUDA kernel in this process: the wrapper adds one where it
@@ -52,7 +57,7 @@ _CSR = "fused_bwd_csr"
 
 def fused_backward_rows(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf,
                         num_rows: int, *, tile_h: int, tile_w: int,
-                        bbox=None):
+                        bbox=None, cull=None):
     """Per-face cotangent rows [12 + 3C columns] for the dense path.
 
     Args:
@@ -67,9 +72,13 @@ def fused_backward_rows(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf,
         pix_cf, grad_cf: [C, Hp, Wp] f32.
         num_rows: F + 1 (sentinel row included).
         bbox: [F, 4] int32 (xmin, xmax, ymin, ymax), the boxes the bins
-            were made from (``raster.DenseBins.bbox``): the kernel scans a
-            face's box, not its whole tiles. CUDA tensors need it; the
-            plain version does not read it.
+            were made from (``raster.DenseBins.bbox``): the kernel sums a
+            face's rows over the tiles of its box.
+        cull: [>= F, 4] int32, the forward's cull boxes of the faces
+            (``raster.DenseBins.cull``): the kernel scans a face's cull
+            box, not its whole tiles; every pixel the face can own lies
+            inside it. CUDA tensors need both; the plain version reads
+            neither.
     Returns:
         [num_rows padded to 8, 12 + 3C] f32; callers slice [:num_faces].
     """
@@ -79,11 +88,9 @@ def fused_backward_rows(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf,
                                          grad_cf, num_rows)
     if device.type != "cuda":
         raise ValueError(f"fused_backward_rows: no kernel for device {device}")
-    if bbox is None:
-        raise ValueError("fused_backward_rows: the kernel needs the faces' "
-                         "bbox")
+    need_boxes("fused_backward_rows", bbox, cull)
     return _launch(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf,
-                   num_rows, tile_h, tile_w, bbox)
+                   num_rows, tile_h, tile_w, bbox, cull)
 
 
 def fused_backward_rows_plain(geo, fid, bits, sval, pix_cf, grad_cf,
@@ -91,10 +98,23 @@ def fused_backward_rows_plain(geo, fid, bits, sval, pix_cf, grad_cf,
     """Plain PyTorch version of the fused kernel (any device).
 
     The owner's geometry row per pixel by direct indexing, the cotangent
-    core over the whole image, and one ``index_add_`` onto the owning faces,
-    accumulated in float64 and rounded once (the kernel sums float32 in its
-    own fixed order, so the two agree to rounding).
+    core over the whole image (:func:`pixel_rows_plain`), and one
+    ``index_add_`` onto the owning faces, accumulated in float64 and rounded
+    once (the kernel sums float32 in its own fixed order, so the two agree
+    to rounding).
     """
+    cot = pixel_rows_plain(geo, fid, bits, sval, pix_cf, grad_cf)
+    rows_padded = -(-num_rows // 8) * 8
+    out = torch.zeros((rows_padded, cot.shape[1]), dtype=torch.float64,
+                      device=fid.device)
+    out.index_add_(0, torch.clamp(fid, min=0).long().reshape(-1),
+                   cot.to(torch.float64))
+    return out.to(torch.float32)
+
+
+def pixel_rows_plain(geo, fid, bits, sval, pix_cf, grad_cf):
+    """The per-pixel cotangent rows the fused kernels sum onto faces: [Hp *
+    Wp, 12 + 3C] f32, zero where no face owns the pixel."""
     channels, hp, wp = pix_cf.shape
     covered = fid >= 0
     owner = torch.clamp(fid, min=0).long()
@@ -110,16 +130,11 @@ def fused_backward_rows_plain(geo, fid, bits, sval, pix_cf, grad_cf,
         + [d_geo[GEO_DEN + q] for q in range(3)] + d_att, dim=-1
     )                                                        # [Hp, Wp, K]
     cot = torch.where(covered[..., None], cot, 0.0)
-    k_cols = 12 + 3 * channels
-    rows_padded = -(-num_rows // 8) * 8
-    out = torch.zeros((rows_padded, k_cols), dtype=torch.float64,
-                      device=fid.device)
-    out.index_add_(0, owner.reshape(-1),
-                   cot.reshape(-1, k_cols).to(torch.float64))
-    return out.to(torch.float32)
+    return cot.reshape(-1, 12 + 3 * channels)
 
 
-def _check_fields(geo, bbox, fid, bits, sval, pix_cf, grad_cf, num_faces):
+def _check_fields(geo, bbox, cull, fid, bits, sval, pix_cf, grad_cf,
+                  num_faces):
     """The per-face and image-space tensors both fused kernels read."""
     device = fid.device
     channels, hp, wp = pix_cf.shape
@@ -127,7 +142,7 @@ def _check_fields(geo, bbox, fid, bits, sval, pix_cf, grad_cf, num_faces):
         raise ValueError(f"geo: want [>= {num_faces}, >= {GEO_USED}], got "
                          f"{tuple(geo.shape)}")
     check_tensor("geo", geo, torch.float32, geo.shape, device)
-    check_tensor("bbox", bbox, torch.int32, (num_faces, 4), device)
+    check_boxes(bbox, cull, num_faces, device)
     for name, arr, dtype, lead in (
         ("fid", fid, torch.int32, ()),
         ("bits", bits, torch.int32, ()),
@@ -144,7 +159,7 @@ def _kernel_fn():
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 10
+        + [ctypes.c_void_p] * 11
         + [ctypes.c_int] * 7
         + [ctypes.c_void_p]
     )
@@ -152,7 +167,7 @@ def _kernel_fn():
 
 
 def _launch(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf, num_rows,
-            tile_h, tile_w, bbox):
+            tile_h, tile_w, bbox, cull):
     global LAUNCHES
     device = fid.device
     channels, hp, wp = pix_cf.shape
@@ -168,7 +183,8 @@ def _launch(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf, num_rows,
     cap = bins.shape[1]
     check_tensor("bins", bins, torch.int32, (total, cap), device)
     check_tensor("counts", counts, torch.int32, (total,), device)
-    _check_fields(geo, bbox, fid, bits, sval, pix_cf, grad_cf, num_faces)
+    _check_fields(geo, bbox, cull, fid, bits, sval, pix_cf, grad_cf,
+                  num_faces)
 
     rows_padded = -(-num_rows // 8) * 8
     # The kernel writes the first num_faces rows; the sentinel and padding
@@ -183,7 +199,7 @@ def _launch(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf, num_rows,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             geo.data_ptr(), geo.shape[1], bins.data_ptr(), counts.data_ptr(),
-            bbox.data_ptr(), fid.data_ptr(), bits.data_ptr(),
+            bbox.data_ptr(), cull.data_ptr(), fid.data_ptr(), bits.data_ptr(),
             sval.data_ptr(), pix_cf.data_ptr(), grad_cf.data_ptr(),
             partial.data_ptr(), out.data_ptr(),
             channels, hp, wp, tile_h, tile_w, cap, num_faces, stream,
@@ -199,7 +215,7 @@ def _launch(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf, num_rows,
 
 def fused_backward_rows_csr(geo, entry_face, start_block, counts, fid, bits,
                             sval, pix_cf, grad_cf, num_faces: int, *,
-                            tile_h: int, tile_w: int, bbox=None):
+                            tile_h: int, tile_w: int, bbox=None, cull=None):
     """Per-face cotangent rows [12 + 3C columns] for the streaming path.
 
     Where ``dirt_tpu``'s function takes the pre-gathered ``binned17`` rows,
@@ -217,8 +233,9 @@ def fused_backward_rows_csr(geo, entry_face, start_block, counts, fid, bits,
             ``packed_bwd.fused_neighbor_prologue`` on the padded arrays.
         pix_cf, grad_cf: [C, Hp, Wp] f32.
         bbox: [F, 4] int32 (xmin, xmax, ymin, ymax), the boxes the bins
-            were made from. CUDA tensors need it; the plain version does
-            not read it.
+            were made from, and cull: [>= F, 4] int32, the forward's cull
+            boxes (``raster.StreamBins``), as :func:`fused_backward_rows`.
+            CUDA tensors need both; the plain version reads neither.
     Returns:
         [num_faces, 12 + 3C] f32.
     """
@@ -229,11 +246,9 @@ def fused_backward_rows_csr(geo, entry_face, start_block, counts, fid, bits,
     if device.type != "cuda":
         raise ValueError(
             f"fused_backward_rows_csr: no kernel for device {device}")
-    if bbox is None:
-        raise ValueError("fused_backward_rows_csr: the kernel needs the "
-                         "faces' bbox")
+    need_boxes("fused_backward_rows_csr", bbox, cull)
     return _launch_csr(geo, entry_face, start_block, counts, fid, bits, sval,
-                       pix_cf, grad_cf, num_faces, tile_h, tile_w, bbox)
+                       pix_cf, grad_cf, num_faces, tile_h, tile_w, bbox, cull)
 
 
 def fused_backward_rows_csr_plain(geo, fid, bits, sval, pix_cf, grad_cf,
@@ -253,7 +268,7 @@ def _csr_fn():
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 11
+        + [ctypes.c_void_p] * 12
         + [ctypes.c_int] * 7
         + [ctypes.c_void_p]
     )
@@ -261,7 +276,7 @@ def _csr_fn():
 
 
 def _launch_csr(geo, entry_face, start_block, counts, fid, bits, sval,
-                pix_cf, grad_cf, num_faces, tile_h, tile_w, bbox):
+                pix_cf, grad_cf, num_faces, tile_h, tile_w, bbox, cull):
     global LAUNCHES_CSR
     device = fid.device
     channels, hp, wp = pix_cf.shape
@@ -277,11 +292,13 @@ def _launch_csr(geo, entry_face, start_block, counts, fid, bits, sval,
     check_tensor("entry_face", entry_face, torch.int32, (n_pad,), device)
     check_tensor("start_block", start_block, torch.int32, (total,), device)
     check_tensor("counts", counts, torch.int32, (total,), device)
-    _check_fields(geo, bbox, fid, bits, sval, pix_cf, grad_cf, num_faces)
+    _check_fields(geo, bbox, cull, fid, bits, sval, pix_cf, grad_cf,
+                  num_faces)
 
-    # ``partial`` holds one row per CSR slot and needs no clearing: pass 2
-    # reads only the rows of live entries, which pass 1 wrote.
-    out = torch.zeros((num_faces, k_cols), dtype=torch.float32,
+    # The kernel writes every row of ``out``. ``partial`` holds one row per
+    # CSR slot and needs no clearing: pass 2 reads only the rows of live
+    # entries, which pass 1 wrote.
+    out = torch.empty((num_faces, k_cols), dtype=torch.float32,
                       device=device)
     partial = torch.empty((n_pad, k_cols), dtype=torch.float32,
                           device=device)
@@ -291,7 +308,7 @@ def _launch_csr(geo, entry_face, start_block, counts, fid, bits, sval,
         err = fn(
             geo.data_ptr(), geo.shape[1], entry_face.data_ptr(),
             start_block.data_ptr(), counts.data_ptr(), bbox.data_ptr(),
-            fid.data_ptr(), bits.data_ptr(), sval.data_ptr(),
+            cull.data_ptr(), fid.data_ptr(), bits.data_ptr(), sval.data_ptr(),
             pix_cf.data_ptr(), grad_cf.data_ptr(), partial.data_ptr(),
             out.data_ptr(), channels, hp, wp, tile_h, tile_w, n_pad,
             num_faces, stream,

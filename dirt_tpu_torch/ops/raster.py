@@ -167,9 +167,9 @@ def _padded_background(background, tile_h: int, tile_w: int):
     ).contiguous()
 
 
-class DenseBins(NamedTuple):
-    """What the dense forward leaves for its backward: ``binning.bin_faces``'
-    result and the boxes it was made from."""
+class DenseLists(NamedTuple):
+    """What :func:`prepare_dense` bins: ``binning.bin_faces``' result and
+    the boxes it was made from."""
 
     bins: torch.Tensor      # [T, cap] int32 ascending ids, sentinel F
     counts: torch.Tensor    # [T] int32
@@ -177,12 +177,28 @@ class DenseBins(NamedTuple):
     bbox: torch.Tensor      # [F, 4] int32 (xmin, xmax, ymin, ymax)
 
 
+class DenseBins(NamedTuple):
+    """What the dense forward leaves for its backward: its
+    :class:`DenseLists` and the cull boxes the forward returned."""
+
+    bins: torch.Tensor      # [T, cap] int32 ascending ids, sentinel F
+    counts: torch.Tensor    # [T] int32
+    overflow: torch.Tensor  # [T] bool: the tile's list was cut at cap
+    bbox: torch.Tensor      # [F, 4] int32 (xmin, xmax, ymin, ymax)
+    # [Fp, 4] int32 ``raster_fwd.csr_cull_boxes`` of the table rows over the
+    # padded image: every pixel a face can own lies inside its box, which
+    # ``bbox`` does not bound for a needle whose far corners lie far off the
+    # image. The backward kernels scan these.
+    cull: torch.Tensor
+
+
 def prepare_dense(face_verts_screen, face_attrs, background, config):
     """The dense forward up to the raster kernel.
 
     Triangle setup, whole-tile binning and the face table. Returns (table
-    [Fp, 17 + 3C], DenseBins, background [C, Hp, Wp] padded to whole tiles,
-    the concrete config). A config that streams (more faces than
+    [Fp, 17 + 3C], DenseLists, background [C, Hp, Wp] padded to whole tiles,
+    the concrete config); the forward adds its cull boxes to make the
+    DenseBins. A config that streams (more faces than
     ``STREAMING_FACES``, or ``streaming=True``) belongs to
     :func:`prepare_csr`, as in ``dirt_tpu``.
     """
@@ -203,14 +219,14 @@ def prepare_dense(face_verts_screen, face_attrs, background, config):
                           (hp // tile_h) * (wp // tile_w))
     bins = binning.bin_faces(bbox, height, width, tile_h, tile_w, cap)
     table = raster_fwd.pack_face_table(geo, att)
-    dense = DenseBins(bins.bins.contiguous(), bins.counts.contiguous(),
-                      bins.overflow, bbox)
+    dense = DenseLists(bins.bins.contiguous(), bins.counts.contiguous(),
+                       bins.overflow, bbox)
     return table, dense, bg_chw, config
 
 
-class StreamBins(NamedTuple):
-    """What the streaming forward leaves for its backward:
-    ``binning.bin_faces_csr``' result and the boxes it was made from."""
+class StreamLists(NamedTuple):
+    """What :func:`prepare_csr` bins: ``binning.bin_faces_csr``' result and
+    the boxes it was made from."""
 
     entry_face: torch.Tensor   # [n_pad] int32 CSR runs, sentinel F
     start_block: torch.Tensor  # [T] int32, in CHUNK-row blocks
@@ -220,12 +236,26 @@ class StreamBins(NamedTuple):
     bbox: torch.Tensor         # [F, 4] int32 (xmin, xmax, ymin, ymax)
 
 
+class StreamBins(NamedTuple):
+    """What the streaming forward leaves for its backward: its
+    :class:`StreamLists` and the cull boxes the forward returned."""
+
+    entry_face: torch.Tensor   # [n_pad] int32 CSR runs, sentinel F
+    start_block: torch.Tensor  # [T] int32, in CHUNK-row blocks
+    counts: torch.Tensor       # [T] int32
+    overflow: torch.Tensor     # [] bool: a tile cut at cap or a face at
+                               # expand_cap
+    bbox: torch.Tensor         # [F, 4] int32 (xmin, xmax, ymin, ymax)
+    cull: torch.Tensor         # [Fp, 4] int32, as DenseBins.cull
+
+
 def prepare_csr(face_verts_screen, face_attrs, background, config):
     """The streaming forward up to the raster kernel.
 
     Triangle setup, CSR binning and the face table. Returns (table
-    [Fp, 17 + 3C], StreamBins, background [C, Hp, Wp] padded to whole
-    tiles, the concrete config). The per-tile cap is
+    [Fp, 17 + 3C], StreamLists, background [C, Hp, Wp] padded to whole
+    tiles, the concrete config; the forward adds its cull boxes to make the
+    StreamBins). The per-tile cap is
     ``resolve_bin_cap(streaming=True)`` rounded up to ``binning.CHUNK``;
     ``expand_cap`` None means ``binning.auto_expand_cap``.
     """
@@ -248,7 +278,7 @@ def prepare_csr(face_verts_screen, face_attrs, background, config):
     bins = binning.bin_faces_csr(bbox, height, width, tile_h, tile_w, cap,
                                  expand)
     table = raster_fwd.pack_face_table(geo, att)
-    return table, StreamBins(*bins, bbox), bg_chw, config
+    return table, StreamLists(*bins, bbox), bg_chw, config
 
 
 def prepare_packed(face_verts_screen, face_attrs, background, config):
@@ -293,7 +323,8 @@ def _forward_impl(face_verts_screen, face_attrs, background, config):
 
     ``bins`` is the engine's own record (PackedBins, DenseBins or
     StreamBins); all carry ``overflow`` flags (dense: per tile, the others
-    0-dim).
+    0-dim); DenseBins and StreamBins also the forward's cull boxes
+    (``cull``).
     """
     height, width, _ = background.shape
     num_faces = face_verts_screen.shape[0]
@@ -309,21 +340,23 @@ def _forward_impl(face_verts_screen, face_attrs, background, config):
             rows=bins.rows,
         )
     elif streams(config, num_faces):
-        table, bins, bg_chw, config = prepare_csr(
+        table, lists, bg_chw, config = prepare_csr(
             face_verts_screen, face_attrs, background, config
         )
-        pixels_chw, fid, zbuf = raster_fwd.raster_forward_csr(
-            table, bins.entry_face, bins.start_block, bins.counts, bg_chw,
+        pixels_chw, fid, zbuf, cull = raster_fwd.raster_forward_csr(
+            table, lists.entry_face, lists.start_block, lists.counts, bg_chw,
             tile_h=config.tile_h, tile_w=config.tile_w,
         )
+        bins = StreamBins(*lists, cull)
     else:
-        table, bins, bg_chw, config = prepare_dense(
+        table, lists, bg_chw, config = prepare_dense(
             face_verts_screen, face_attrs, background, config
         )
-        pixels_chw, fid, zbuf = raster_fwd.raster_forward(
-            table, bins.bins, bins.counts, bg_chw, tile_h=config.tile_h,
+        pixels_chw, fid, zbuf, cull = raster_fwd.raster_forward(
+            table, lists.bins, lists.counts, bg_chw, tile_h=config.tile_h,
             tile_w=config.tile_w,
         )
+        bins = DenseBins(*lists, cull)
     pixels = pixels_chw.permute(1, 2, 0)[:height, :width]
     return pixels, fid[:height, :width], zbuf[:height, :width], bins, config
 
@@ -372,7 +405,8 @@ def make_scatter_fn(config, bins, num_faces: int):
     if not isinstance(bins, (DenseBins, StreamBins)):
         raise TypeError(f"make_scatter_fn needs DenseBins or StreamBins, got "
                         f"{type(bins).__name__}")
-    geom = dict(tile_h=config.tile_h, tile_w=config.tile_w, bbox=bins.bbox)
+    geom = dict(tile_h=config.tile_h, tile_w=config.tile_w, bbox=bins.bbox,
+                cull=bins.cull)
     if isinstance(bins, StreamBins):
         def scatter_fn(cot_p, fid_p):
             return scatter.scatter_to_faces_csr(
@@ -431,13 +465,14 @@ class _RasterizeScreen(torch.autograd.Function):
                 return raster_bwd.backward_fused(
                     geo, att, fid, zbuf, pixels, grad_pixels, bins.bins,
                     bins.counts, config.tile_h, config.tile_w,
-                    bbox=bins.bbox,
+                    bbox=bins.bbox, cull=bins.cull,
                 )
             if isinstance(bins, StreamBins):
                 return raster_bwd.backward_fused_csr(
                     geo, att, fid, zbuf, pixels, grad_pixels,
                     bins.entry_face, bins.start_block, bins.counts,
                     config.tile_h, config.tile_w, bbox=bins.bbox,
+                    cull=bins.cull,
                 )
             expand, _ = _packed_caps(config, num_faces,
                                      _pad_to(height, config.tile_h),

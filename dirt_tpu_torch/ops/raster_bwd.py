@@ -435,7 +435,7 @@ def _padded_fields(fid, zbuf, pixels, grad_pixels, tile_h, tile_w):
 
 
 def backward_fused(geo, att, fid, zbuf, pixels, grad_pixels, bins, counts,
-                   tile_h: int, tile_w: int, bbox=None):
+                   tile_h: int, tile_w: int, bbox=None, cull=None):
     """Dense-path backward: neighbor prologue + the fused kernel.
 
     Same semantics and returns as :func:`backward_torch`. The image-space
@@ -443,8 +443,9 @@ def backward_fused(geo, att, fid, zbuf, pixels, grad_pixels, bins, counts,
     ``fused_bwd.fused_backward_rows`` sums the per-pixel cotangents onto
     the owning faces. ``bins`` / ``counts`` are the forward's
     (``binning.bin_faces``), at any cap; ``bbox`` [F, 4] are the boxes they
-    were made from, which the kernel needs on CUDA tensors (see
-    ``fused_bwd``).
+    were made from and ``cull`` [Fp, 4] the forward's cull boxes
+    (``raster.DenseBins.cull``), which the kernel needs on CUDA tensors
+    (see ``fused_bwd``).
     """
     from dirt_tpu_torch.ops.fused_bwd import fused_backward_rows
 
@@ -455,7 +456,7 @@ def backward_fused(geo, att, fid, zbuf, pixels, grad_pixels, bins, counts,
         fid, zbuf, pixels, grad_pixels, tile_h, tile_w)
     rows = fused_backward_rows(
         geo.contiguous(), bins, counts, fid_p, bits, sval, pix_cf, grad_cf,
-        num_faces + 1, tile_h=tile_h, tile_w=tile_w, bbox=bbox,
+        num_faces + 1, tile_h=tile_h, tile_w=tile_w, bbox=bbox, cull=cull,
     )[:num_faces]
     d_geo, d_att = assemble_face_gradients(geo, att, rows, pixels.shape[-1])
     d_background = torch.where((fid >= 0)[..., None], 0.0, grad_pixels)
@@ -464,7 +465,7 @@ def backward_fused(geo, att, fid, zbuf, pixels, grad_pixels, bins, counts,
 
 def backward_fused_csr(geo, att, fid, zbuf, pixels, grad_pixels, entry_face,
                        start_block, counts, tile_h: int, tile_w: int,
-                       bbox=None):
+                       bbox=None, cull=None):
     """Streaming-path backward: neighbor prologue + the fused CSR kernel.
 
     :func:`backward_fused` over the forward's CSR bins
@@ -482,7 +483,7 @@ def backward_fused_csr(geo, att, fid, zbuf, pixels, grad_pixels, entry_face,
     rows = fused_backward_rows_csr(
         geo.contiguous(), entry_face, start_block, counts, fid_p, bits, sval,
         pix_cf, grad_cf, geo.shape[0], tile_h=tile_h, tile_w=tile_w,
-        bbox=bbox,
+        bbox=bbox, cull=cull,
     )
     d_geo, d_att = assemble_face_gradients(geo, att, rows, pixels.shape[-1])
     d_background = torch.where((fid >= 0)[..., None], 0.0, grad_pixels)

@@ -137,6 +137,23 @@ def check_tensor(name, arr, dtype, shape, device):
         )
 
 
+def need_boxes(name, bbox, cull):
+    """A kernel needs both kinds of boxes (``raster.DenseBins`` /
+    ``StreamBins``' ``bbox`` and ``cull``)."""
+    if bbox is None or cull is None:
+        raise ValueError(f"{name}: the kernel needs the faces' bbox and "
+                         "cull boxes")
+
+
+def check_boxes(bbox, cull, num_faces, device):
+    """``bbox`` [num_faces, 4] and ``cull`` [>= num_faces, 4] int32."""
+    check_tensor("bbox", bbox, torch.int32, (num_faces, 4), device)
+    if cull.ndim != 2 or cull.shape[0] < num_faces:
+        raise ValueError(f"cull: want [>= {num_faces}, 4], got "
+                         f"{tuple(cull.shape)}")
+    check_tensor("cull", cull, torch.int32, (cull.shape[0], 4), device)
+
+
 def on_device(device):
     """Context that makes ``device`` the current CUDA device for a launch;
     nothing to enter (the common case) when it already is."""
@@ -476,13 +493,22 @@ def raster_forward(table, bins, counts, background_chw, *, tile_h: int,
         background_chw: [C, Hp, Wp] f32 padded to tile multiples.
     Returns:
         pixels [C, Hp, Wp] f32, fid [Hp, Wp] int32 (-1 background), zbuf
-        [Hp, Wp] f32 (BIG_Z background). A depth tie goes to the lower
-        face id.
+        [Hp, Wp] f32 (BIG_Z background), and the [Fp, 4] int32
+        :func:`csr_cull_boxes` of the table's rows over the padded image,
+        which the kernel works out and culls by (the plain version computes
+        them with :func:`csr_cull_boxes_plain`): the backward kernels scan
+        them. A depth tie goes to the lower face id.
+
+    The kernel tests a listed face only at pixels that its box meets, where
+    alone it can pass the edge tests; the plain version tests it at every
+    pixel of the tile. The result is the same.
     """
     device = background_chw.device
     if device.type == "cpu":
-        return raster_forward_plain(table, bins, counts, background_chw,
-                                    tile_h=tile_h, tile_w=tile_w)
+        _, hp, wp = background_chw.shape
+        return (*raster_forward_plain(table, bins, counts, background_chw,
+                                      tile_h=tile_h, tile_w=tile_w),
+                csr_cull_boxes_plain(table, hp, wp))
     if device.type != "cuda":
         raise ValueError(f"raster_forward: no kernel for device {device}")
     return _launch_dense(table, bins, counts, background_chw, tile_h, tile_w)
@@ -493,9 +519,9 @@ def _dense_fn():
     fn = _build.load(_DENSE).dirt_raster_fwd_dense
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int]
-        + [ctypes.c_void_p] * 4
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 5
         + [ctypes.c_void_p]
     )
@@ -518,19 +544,21 @@ def _launch_dense(table, bins, counts, background_chw, tile_h, tile_w):
     pix = torch.empty((channels, hp, wp), dtype=torch.float32, device=device)
     fid = torch.empty((hp, wp), dtype=torch.int32, device=device)
     zbuf = torch.empty((hp, wp), dtype=torch.float32, device=device)
+    boxes = torch.empty((table.shape[0], 4), dtype=torch.int32,
+                        device=device)
     fn = _dense_fn()
-    with torch.cuda.device(device):
+    with on_device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            table.data_ptr(), table.shape[1], bins.data_ptr(),
-            counts.data_ptr(), cap, background_chw.data_ptr(),
-            pix.data_ptr(), fid.data_ptr(), zbuf.data_ptr(),
-            channels, hp, wp, tile_h, tile_w, stream,
+            table.data_ptr(), table.shape[1], table.shape[0],
+            bins.data_ptr(), counts.data_ptr(), cap, boxes.data_ptr(),
+            background_chw.data_ptr(), pix.data_ptr(), fid.data_ptr(),
+            zbuf.data_ptr(), channels, hp, wp, tile_h, tile_w, stream,
         )
     if err != 0:
         raise RuntimeError(f"{_DENSE} launch failed: CUDA error {err}")
     LAUNCHES_DENSE += 1
-    return pix, fid, zbuf
+    return pix, fid, zbuf, boxes
 
 
 def _to_tiles(x, tiles_y, tiles_x, tile_h, tile_w):
@@ -673,8 +701,8 @@ def raster_forward_csr(table, entry_face, start_block, counts,
         background_chw: [C, Hp, Wp] f32 padded to tile multiples.
     Returns:
         pixels [C, Hp, Wp] f32, fid [Hp, Wp] int32 (-1 background), zbuf
-        [Hp, Wp] f32 (BIG_Z background). A depth tie goes to the lower
-        face id.
+        [Hp, Wp] f32 (BIG_Z background) and the [Fp, 4] int32 cull boxes,
+        as :func:`raster_forward`. A depth tie goes to the lower face id.
 
     The kernel tests a listed face only at pixels that its
     :func:`csr_cull_boxes` box meets, where alone it can pass the edge
@@ -683,9 +711,10 @@ def raster_forward_csr(table, entry_face, start_block, counts,
     """
     device = background_chw.device
     if device.type == "cpu":
-        return raster_forward_csr_plain(
+        _, hp, wp = background_chw.shape
+        return (*raster_forward_csr_plain(
             table, entry_face, start_block, counts, background_chw,
-            tile_h=tile_h, tile_w=tile_w)
+            tile_h=tile_h, tile_w=tile_w), csr_cull_boxes_plain(table, hp, wp))
     if device.type != "cuda":
         raise ValueError(f"raster_forward_csr: no kernel for device {device}")
     return _launch_csr(table, entry_face, start_block, counts,
@@ -765,7 +794,7 @@ def _launch_csr(table, entry_face, start_block, counts, background_chw,
     if err != 0:
         raise RuntimeError(f"{_CSR} launch failed: CUDA error {err}")
     LAUNCHES_CSR += 1
-    return pix, fid, zbuf
+    return pix, fid, zbuf, boxes
 
 
 # csrc/raster_tile.cuh's CULL_ROUNDING: 4u, u = 2^-24.
@@ -774,13 +803,14 @@ CULL_ROUNDING = 4.0 / 16777216.0
 
 def csr_cull_boxes(table, hp: int, wp: int):
     """The pixels of an ``hp`` x ``wp`` array at which each face of
-    ``table`` can pass the streaming kernel's edge tests, float32 rounding
+    ``table`` can pass the forward kernels' edge tests, float32 rounding
     included: [rows, 4] int32 (xmin, xmax, ymin, ymax), inclusive and
-    clamped to the array, (0, -1, 0, -1) for none. The streaming kernel
-    works these out itself (``csrc/raster_tile.cuh::cull_box``) and culls
-    each tile's run by them. A CUDA table runs that code alone (no launch
-    of the kernel is counted); a CPU table takes
-    :func:`csr_cull_boxes_plain`."""
+    clamped to the array, (0, -1, 0, -1) for none. The dense and the
+    streaming kernel work these out themselves
+    (``csrc/raster_tile.cuh::cull_box``), cull each tile's list by them and
+    hand them back; the backward kernels scan them. A CUDA
+    table runs that code alone (no launch of a kernel is counted); a CPU
+    table takes :func:`csr_cull_boxes_plain`."""
     device = table.device
     if device.type == "cpu":
         return csr_cull_boxes_plain(table, hp, wp)
@@ -809,33 +839,43 @@ def csr_cull_boxes_plain(table, hp: int, wp: int):
     Edge k of a row (``a, b, c`` at columns 2 + 3k.., anchored at columns
     0, 1) passes at a pixel centre only where ``a X + b Y + c >=
     -CULL_ROUNDING (|a| MX + |b| MY)``: (X, Y) is the centre less the
-    anchor, MX and MY their largest magnitudes over the array. The box is
-    that of the triangle the three edges so moved out enclose. A row with
-    a non-finite coefficient, or whose edges do not close a triangle, gets
-    the whole array; a row with an edge that excludes every pixel gets
-    none."""
+    anchor, MX and MY bounds of their magnitudes over the pixels that can
+    pass. The box is that of the pixel centres inside the triangle the
+    three edges so moved out enclose, in two rounds: MX, MY over the whole
+    array, then over the first round's box, which holds every pixel that
+    passes (a sliver's corners move by the allowance over the edges'
+    angle). A row with a non-finite coefficient, or whose edges do not
+    close a triangle, gets the whole array; a row with an edge that
+    excludes every pixel, or whose box holds no pixel centre, gets none."""
     m = table[:, :11].double()
-    ax, ay = m[:, 0:1], m[:, 1:2]
+    ax, ay = m[:, 0], m[:, 1]
     a, b, c = m[:, 2:11:3], m[:, 3:11:3], m[:, 4:11:3]          # [rows, 3]
     finite = torch.isfinite(m).all(1)
     never = ((a == 0.0) & (b == 0.0) & (c < 0.0)).any(1)
-    mx = torch.maximum((0.5 - ax).abs(), ((wp - 0.5) - ax).abs())
-    my = torch.maximum((0.5 - ay).abs(), ((hp - 0.5) - ay).abs())
-    r = -(c + CULL_ROUNDING * (a.abs() * mx + b.abs() * my))
     nxt = [1, 2, 0]
-    aj, bj, rj = a[:, nxt], b[:, nxt], r[:, nxt]
+    aj, bj = a[:, nxt], b[:, nxt]
     det = a * bj - aj * b
     closed = (det > 0.0).all(1) | (det < 0.0).all(1)
-    x = (r * bj - rj * b) / det
-    y = (a * rj - aj * r) / det
-    x0 = torch.floor(ax[:, 0] + x.amin(1) - 0.5)
-    x1 = torch.ceil(ax[:, 0] + x.amax(1) - 0.5)
-    y0 = torch.floor(ay[:, 0] + y.amin(1) - 0.5)
-    y1 = torch.ceil(ay[:, 0] + y.amax(1) - 0.5)
-    meets = (x1 >= 0.0) & (x0 <= wp - 1.0) & (y1 >= 0.0) & (y0 <= hp - 1.0)
-    box = torch.stack([x0.clamp(min=0.0), x1.clamp(max=wp - 1.0),
-                       y0.clamp(min=0.0), y1.clamp(max=hp - 1.0)], 1)
-    box = torch.nan_to_num(box).to(torch.int32)
+    mx = torch.maximum((0.5 - ax).abs(), ((wp - 0.5) - ax).abs())
+    my = torch.maximum((0.5 - ay).abs(), ((hp - 0.5) - ay).abs())
+    meets = torch.ones_like(finite)
+    for _ in range(2):
+        r = -(c + CULL_ROUNDING * (a.abs() * mx[:, None]
+                                   + b.abs() * my[:, None]))
+        rj = r[:, nxt]
+        x = (r * bj - rj * b) / det
+        y = (a * rj - aj * r) / det
+        x0 = torch.ceil(ax + x.amin(1) - 0.5)
+        x1 = torch.floor(ax + x.amax(1) - 0.5)
+        y0 = torch.ceil(ay + y.amin(1) - 0.5)
+        y1 = torch.floor(ay + y.amax(1) - 0.5)
+        meets &= ((x0 <= x1) & (y0 <= y1) & (x1 >= 0.0) & (x0 <= wp - 1.0)
+                  & (y1 >= 0.0) & (y0 <= hp - 1.0))
+        x0, x1 = x0.clamp(min=0.0), x1.clamp(max=wp - 1.0)
+        y0, y1 = y0.clamp(min=0.0), y1.clamp(max=hp - 1.0)
+        mx = torch.maximum(((x0 + 0.5) - ax).abs(), ((x1 + 0.5) - ax).abs())
+        my = torch.maximum(((y0 + 0.5) - ay).abs(), ((y1 + 0.5) - ay).abs())
+    box = torch.nan_to_num(torch.stack([x0, x1, y0, y1], 1)).to(torch.int32)
     none = torch.tensor([0, -1, 0, -1], dtype=torch.int32,
                         device=table.device)
     whole = torch.tensor([0, wp - 1, 0, hp - 1], dtype=torch.int32,

@@ -15,11 +15,11 @@ faces is a step of its own.
   and ``csrc/scatter_faces_csr.cu``, which are ``csrc/scatter_rows.cuh``'s
   two passes. Pass 1: one block per 128 slots of one tile's list, none for a
   chunk or CSR block that holds no live entry; a warp sums the pixels its
-  face owns inside the tile with a batch of columns in registers and all of
-  a pixel's plane loads in flight at once. Pass 2: a block per 32 faces sums
-  each face's partial rows in tile order and writes every row of the
-  output, zeros included, so the wrappers allocate it with ``torch.empty``
-  and clear nothing. No atomics, so two runs give equal bits. The TPU
+  face owns inside its cull box and the tile with a batch of columns in
+  registers and all of a pixel's plane loads in flight at once. Pass 2: a
+  block per 32 faces sums each face's partial rows in tile order and writes
+  every row of the output, zeros included, so the wrappers allocate it with
+  ``torch.empty`` and clear nothing. No atomics, so two runs give equal bits. The TPU
   kernels' one-hot matrix products and resident face table have no
   counterpart. Like the TPU kernels, they drop a pixel whose owner its
   tile's list lacks; the forward lists every owner.
@@ -36,7 +36,12 @@ import torch
 
 from dirt_tpu_torch.ops import _build
 from dirt_tpu_torch.ops.binning import CHUNK
-from dirt_tpu_torch.ops.raster_fwd import check_tensor, on_device
+from dirt_tpu_torch.ops.raster_fwd import (
+    check_boxes,
+    check_tensor,
+    need_boxes,
+    on_device,
+)
 
 # Launches of each CUDA kernel in this process: a wrapper adds one where it
 # launches, and nowhere else.
@@ -48,7 +53,7 @@ _CSR = "scatter_faces_csr"
 
 
 def scatter_to_faces(cot_cf, fid, bins, counts, num_rows: int, *,
-                     tile_h: int, tile_w: int, bbox=None):
+                     tile_h: int, tile_w: int, bbox=None, cull=None):
     """Sum per-pixel cotangent rows onto their owning face's row.
 
     Args:
@@ -61,10 +66,12 @@ def scatter_to_faces(cot_cf, fid, bins, counts, num_rows: int, *,
             tile's list.
         num_rows: rows of the output, F + 1 (the sentinel row included).
         bbox: [F, 4] int32 (xmin, xmax, ymin, ymax), the boxes the bins
-            were made from (``raster.DenseBins.bbox``): the kernel scans a
-            face's box, not its whole tiles, and every pixel a face owns
-            lies inside its box. CUDA tensors need it; the plain version
-            does not read it.
+            were made from (``raster.DenseBins.bbox``): the kernel sums a
+            face's rows over the tiles of its box.
+        cull: [>= F, 4] int32, boxes that hold every pixel each face owns:
+            the forward's cull boxes (``raster.DenseBins.cull``). The kernel
+            scans a face's cull box, not its whole tiles. CUDA tensors need
+            both; the plain version reads neither.
     Returns:
         [num_rows rounded up to 8, K] f32; callers slice [:num_faces].
     """
@@ -73,9 +80,9 @@ def scatter_to_faces(cot_cf, fid, bins, counts, num_rows: int, *,
         return scatter_to_faces_plain(cot_cf, fid, num_rows)
     if device.type != "cuda":
         raise ValueError(f"scatter_to_faces: no kernel for device {device}")
-    if bbox is None:
-        raise ValueError("scatter_to_faces: the kernel needs the faces' bbox")
-    return _launch(cot_cf, fid, bins, counts, num_rows, tile_h, tile_w, bbox)
+    need_boxes("scatter_to_faces", bbox, cull)
+    return _launch(cot_cf, fid, bins, counts, num_rows, tile_h, tile_w, bbox,
+                   cull)
 
 
 def scatter_to_faces_plain(cot_cf, fid, num_rows: int):
@@ -97,7 +104,7 @@ def scatter_to_faces_plain(cot_cf, fid, num_rows: int):
     return out.to(torch.float32)
 
 
-def _check_image(cot_cf, fid, bbox, num_faces, tile_h, tile_w):
+def _check_image(cot_cf, fid, bbox, cull, num_faces, tile_h, tile_w):
     """The image-space tensors and boxes both scatter kernels read; returns
     (K, Hp, Wp, tiles)."""
     device = fid.device
@@ -110,7 +117,7 @@ def _check_image(cot_cf, fid, bbox, num_faces, tile_h, tile_w):
                          f"{tile_w} tiles")
     check_tensor("cot_cf", cot_cf, torch.float32, (k_cols, hp, wp), device)
     check_tensor("fid", fid, torch.int32, (hp, wp), device)
-    check_tensor("bbox", bbox, torch.int32, (num_faces, 4), device)
+    check_boxes(bbox, cull, num_faces, device)
     return k_cols, hp, wp, (hp // tile_h) * (wp // tile_w)
 
 
@@ -118,16 +125,16 @@ def _check_image(cot_cf, fid, bbox, num_faces, tile_h, tile_w):
 def _kernel_fn():
     fn = _build.load(_KERNEL).dirt_scatter_faces
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     return fn
 
 
-def _launch(cot_cf, fid, bins, counts, num_rows, tile_h, tile_w, bbox):
+def _launch(cot_cf, fid, bins, counts, num_rows, tile_h, tile_w, bbox, cull):
     global LAUNCHES
     device = fid.device
     num_faces = num_rows - 1
-    k_cols, hp, wp, total = _check_image(cot_cf, fid, bbox, num_faces,
+    k_cols, hp, wp, total = _check_image(cot_cf, fid, bbox, cull, num_faces,
                                          tile_h, tile_w)
     if bins.ndim != 2 or bins.shape[0] != total:
         raise ValueError(f"bins {tuple(bins.shape)} do not match {total} "
@@ -149,7 +156,8 @@ def _launch(cot_cf, fid, bins, counts, num_rows, tile_h, tile_w, bbox):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             bins.data_ptr(), counts.data_ptr(), bbox.data_ptr(),
-            fid.data_ptr(), cot_cf.data_ptr(), partial.data_ptr(),
+            cull.data_ptr(), fid.data_ptr(), cot_cf.data_ptr(),
+            partial.data_ptr(),
             out.data_ptr(), k_cols, hp, wp, tile_h, tile_w, cap, num_faces,
             rows_padded, stream,
         )
@@ -164,7 +172,7 @@ def _launch(cot_cf, fid, bins, counts, num_rows, tile_h, tile_w, bbox):
 
 def scatter_to_faces_csr(cot_cf, fid, entry_face, start_block, counts,
                          num_faces: int, *, tile_h: int, tile_w: int,
-                         bbox=None):
+                         bbox=None, cull=None):
     """:func:`scatter_to_faces` over the streaming forward's CSR runs.
 
     ``entry_face`` [n_pad] int32, ``start_block`` and ``counts`` [T] int32
@@ -178,11 +186,9 @@ def scatter_to_faces_csr(cot_cf, fid, entry_face, start_block, counts,
     if device.type != "cuda":
         raise ValueError(
             f"scatter_to_faces_csr: no kernel for device {device}")
-    if bbox is None:
-        raise ValueError("scatter_to_faces_csr: the kernel needs the faces' "
-                         "bbox")
+    need_boxes("scatter_to_faces_csr", bbox, cull)
     return _launch_csr(cot_cf, fid, entry_face, start_block, counts,
-                       num_faces, tile_h, tile_w, bbox)
+                       num_faces, tile_h, tile_w, bbox, cull)
 
 
 def scatter_to_faces_csr_plain(cot_cf, fid, num_faces: int):
@@ -198,16 +204,16 @@ def scatter_to_faces_csr_plain(cot_cf, fid, num_faces: int):
 def _csr_fn():
     fn = _build.load(_CSR).dirt_scatter_faces_csr
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     return fn
 
 
 def _launch_csr(cot_cf, fid, entry_face, start_block, counts, num_faces,
-                tile_h, tile_w, bbox):
+                tile_h, tile_w, bbox, cull):
     global LAUNCHES_CSR
     device = fid.device
-    k_cols, hp, wp, total = _check_image(cot_cf, fid, bbox, num_faces,
+    k_cols, hp, wp, total = _check_image(cot_cf, fid, bbox, cull, num_faces,
                                          tile_h, tile_w)
     if entry_face.ndim != 1 or entry_face.shape[0] % CHUNK:
         raise ValueError(f"entry_face {tuple(entry_face.shape)} is not a "
@@ -228,8 +234,9 @@ def _launch_csr(cot_cf, fid, entry_face, start_block, counts, num_faces,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             entry_face.data_ptr(), start_block.data_ptr(),
-            counts.data_ptr(), bbox.data_ptr(), fid.data_ptr(),
-            cot_cf.data_ptr(), partial.data_ptr(), out.data_ptr(), k_cols,
+            counts.data_ptr(), bbox.data_ptr(), cull.data_ptr(),
+            fid.data_ptr(), cot_cf.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), k_cols,
             hp, wp, tile_h, tile_w, n_pad, num_faces, num_faces, stream,
         )
     if err != 0:

@@ -209,7 +209,7 @@ def test_raster_forward_csr_plain_matches_jax(channels):
         _t(a["table"]), _t(a["entry_face"]), _t(a["start_block"]),
         _t(a["counts"]), _t(bg_chw), tile_h=tile_h, tile_w=tile_w)
     pix_j, fid_j, z_j = (np.asarray(o) for o in want)
-    pix_t, fid_t, z_t = (o.numpy() for o in got)
+    pix_t, fid_t, z_t, _ = (o.numpy() for o in got)
     assert fid_t.dtype == np.int32
     np.testing.assert_array_equal(fid_t, fid_j)
     np.testing.assert_allclose(z_t, z_j, rtol=0, atol=ATOL_FWD)

@@ -49,6 +49,8 @@ for bit, float32 and int32 alike), and the packed backward kernel on
 flat-subtile fields bit-equal to itself on image-layout fields.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -390,7 +392,7 @@ def test_dense_kernel_matches_plain_on_card(cuda, kind, height, width,
         cuda, kind, height, width, channels, tile_h, tile_w)
     geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     before = raster_fwd.LAUNCHES_DENSE
-    pix_k, fid_k, z_k = raster_fwd.raster_forward(
+    pix_k, fid_k, z_k, boxes = raster_fwd.raster_forward(
         table, bins.bins, bins.counts, bg_chw, **geom)
     torch.cuda.synchronize()
     assert raster_fwd.LAUNCHES_DENSE == before + 1
@@ -399,6 +401,9 @@ def test_dense_kernel_matches_plain_on_card(cuda, kind, height, width,
     assert torch.equal(fid_k, fid_p)
     assert torch.equal(z_k, z_p)
     torch.testing.assert_close(pix_k, pix_p, **TOL)
+    # The boxes it culled by, which it hands the backward.
+    assert torch.equal(boxes, raster_fwd.csr_cull_boxes_plain(
+        table, *bg_chw.shape[1:]))
     assert (fid_k >= 0).any() and (fid_k < 0).any()
     # Slots past a tile's count are never read.
     slot = torch.arange(bins.bins.shape[1], device=cuda)[None, :]
@@ -407,7 +412,8 @@ def test_dense_kernel_matches_plain_on_card(cuda, kind, height, width,
     again = raster_fwd.raster_forward(table, dirty, bins.counts, bg_chw,
                                       **geom)
     torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(again, (pix_k, fid_k, z_k)))
+    assert all(torch.equal(a, b)
+               for a, b in zip(again, (pix_k, fid_k, z_k, boxes)))
 
 
 @pytest.mark.cuda
@@ -435,8 +441,10 @@ def test_fused_bwd_kernel_matches_plain_on_card(cuda, kind, height, width,
     args = (geo.contiguous(), bins.bins, bins.counts, fid, bits, sval,
             pix_cf, grad_cf, num_faces + 1)
     geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    boxes = dict(bbox=bins.bbox,
+                 cull=raster_fwd.csr_cull_boxes(table, hp, wp))
     before = fused_bwd.LAUNCHES
-    rows_k = fused_bwd.fused_backward_rows(*args, bbox=bins.bbox, **geom)
+    rows_k = fused_bwd.fused_backward_rows(*args, **boxes, **geom)
     torch.cuda.synchronize()
     assert fused_bwd.LAUNCHES == before + 1
     rows_p = fused_bwd.fused_backward_rows_plain(
@@ -447,9 +455,11 @@ def test_fused_bwd_kernel_matches_plain_on_card(cuda, kind, height, width,
     assert (rows_k != 0).any() and not rows_k[num_faces:].any()
     # Deterministic: a second run is equal. Without the boxes it raises.
     assert torch.equal(rows_k, fused_bwd.fused_backward_rows(
-        *args, bbox=bins.bbox, **geom))
+        *args, **boxes, **geom))
     with pytest.raises(ValueError, match="bbox"):
         fused_bwd.fused_backward_rows(*args, **geom)
+    with pytest.raises(ValueError, match="cull"):
+        fused_bwd.fused_backward_rows(*args, bbox=bins.bbox, **geom)
 
 
 @pytest.mark.cuda
@@ -517,6 +527,7 @@ _CSR_CASES = {
     "small-tiles": (150, 64, 80, 2, 8, 32, None, 64, None, False),
     "40-wide-tiles": (150, 37, 131, 3, 16, 40, None, None, None, False),
     "10-wide-tiles": (80, 37, 131, 2, 8, 10, None, 64, None, False),
+    "ragged-c16": (150, 100, 130, 16, 32, 128, None, None, None, False),
 }
 
 
@@ -562,10 +573,12 @@ def test_csr_kernel_matches_plain_on_card(cuda, case):
     geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     args = (bins.start_block, bins.counts, bg_chw)
     before = raster_fwd.LAUNCHES_CSR
-    pix_k, fid_k, z_k = raster_fwd.raster_forward_csr(
+    pix_k, fid_k, z_k, boxes = raster_fwd.raster_forward_csr(
         table, bins.entry_face, *args, **geom)
     torch.cuda.synchronize()
     assert raster_fwd.LAUNCHES_CSR == before + 1
+    assert torch.equal(boxes, raster_fwd.csr_cull_boxes_plain(
+        table, *bg_chw.shape[1:]))
     pix_p, fid_p, z_p = raster_fwd.raster_forward_csr_plain(
         table, bins.entry_face, *args, **geom)
     assert torch.equal(fid_k, fid_p)
@@ -579,7 +592,8 @@ def test_csr_kernel_matches_plain_on_card(cuda, case):
                         bins.entry_face)
     again = raster_fwd.raster_forward_csr(table, dirty, *args, **geom)
     torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(again, (pix_k, fid_k, z_k)))
+    assert all(torch.equal(a, b)
+               for a, b in zip(again, (pix_k, fid_k, z_k, boxes)))
 
 
 @pytest.mark.cuda
@@ -598,7 +612,7 @@ def test_csr_kernel_gives_depth_ties_to_the_lower_id_on_card(cuda):
     assert not bool(bins.overflow)
     geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     args = (table, bins.entry_face, bins.start_block, bins.counts, bg_chw)
-    pix_k, fid_k, z_k = raster_fwd.raster_forward_csr(*args, **geom)
+    pix_k, fid_k, z_k, _ = raster_fwd.raster_forward_csr(*args, **geom)
     pix_p, fid_p, z_p = raster_fwd.raster_forward_csr_plain(*args, **geom)
     assert torch.equal(fid_k, fid_p) and torch.equal(z_k, z_p)
     torch.testing.assert_close(pix_k, pix_p, **TOL)
@@ -626,7 +640,7 @@ def test_csr_kernel_matches_plain_on_far_needles_on_card(cuda, seed):
     table, bins, bg_chw, cfg = _needle_forward(cuda, seed)
     geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     args = (table, bins.entry_face, bins.start_block, bins.counts, bg_chw)
-    pix_k, fid_k, z_k = raster_fwd.raster_forward_csr(*args, **geom)
+    pix_k, fid_k, z_k, _ = raster_fwd.raster_forward_csr(*args, **geom)
     pix_p, fid_p, z_p = raster_fwd.raster_forward_csr_plain(*args, **geom)
     assert torch.equal(fid_k, fid_p) and torch.equal(z_k, z_p)
     torch.testing.assert_close(pix_k, pix_p, **TOL)
@@ -657,6 +671,153 @@ def test_csr_cull_boxes_match_plain_on_card(cuda, case):
                                  [0, wp - 1, 0, hp - 1], [0, -1, 0, -1]]
 
 
+# --- far needles: the boxes the backward kernels scan ---------------------------
+
+# The far-needle scenes of _needle_forward through either engine.
+_NEEDLE_ENGINES = {"dense": dict(engine="dense", streaming=False),
+                   "csr": dict(streaming=True)}
+
+
+def _needle_scene(device, seed, engine):
+    """(face_verts, face_attrs, background, upstream gradient, config) of
+    _needle_forward's faces."""
+    fv, fa = needle_soup(200, 128, 256, seed, (3.0, 6.0), (-6.0, 0.0))
+    rng = np.random.RandomState(seed)
+    bg, w = (torch.tensor(a.astype(np.float32), device=device)
+             for a in (rng.rand(128, 256, 3), rng.randn(128, 256, 3)))
+    config = raster.RasterConfig(tile_h=32, tile_w=128, bin_cap=2048,
+                                 expand_cap=64, **_NEEDLE_ENGINES[engine])
+    return (torch.tensor(fv).to(device), torch.tensor(fa).to(device), bg, w,
+            config)
+
+
+def _calls(module, name, run):
+    """[(args, kwargs)] of every call of ``module.name`` during ``run()``."""
+    seen = []
+    inner = getattr(module, name)
+
+    def record(*args, **kwargs):
+        seen.append((args, kwargs))
+        return inner(*args, **kwargs)
+
+    with mock.patch.object(module, name, record):
+        run()
+    return seen
+
+
+def _past_binning_boxes(fid, bbox):
+    """Covered pixels outside their owner's binning box grown by one."""
+    ys, xs = torch.nonzero(fid >= 0, as_tuple=True)
+    box = bbox.long()[fid[ys, xs].long()]
+    return int(((xs < box[:, 0] - 1) | (xs > box[:, 1] + 1)
+                | (ys < box[:, 2] - 1) | (ys > box[:, 3] + 1)).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 5])
+def test_dense_kernel_matches_plain_on_far_needles_on_card(cuda, seed):
+    """The culled dense walk, as the streaming one above: fid and zbuf
+    equal to the un-culled plain walk on the padded arrays, and its boxes
+    equal to the plain ones."""
+    fv, fa, bg, _, config = _needle_scene(cuda, seed, "dense")
+    table, bins, bg_chw, cfg = raster.prepare_dense(fv, fa, bg, config)
+    assert not bool(bins.overflow.any())
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    args = (table, bins.bins, bins.counts, bg_chw)
+    pix_k, fid_k, z_k, boxes = raster_fwd.raster_forward(*args, **geom)
+    pix_p, fid_p, z_p = raster_fwd.raster_forward_plain(*args, **geom)
+    assert torch.equal(fid_k, fid_p) and torch.equal(z_k, z_p)
+    torch.testing.assert_close(pix_k, pix_p, **TOL)
+    assert torch.equal(boxes, raster_fwd.csr_cull_boxes_plain(
+        table, *bg_chw.shape[1:]))
+    assert _past_binning_boxes(fid_k[:128, :256], bins.bbox) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", list(_NEEDLE_ENGINES))
+@pytest.mark.parametrize("seed", [0, 1, 5])
+def test_fused_bwd_kernels_match_plain_on_far_needles_on_card(cuda, seed,
+                                                              engine):
+    """fused_bwd (dense) and fused_bwd_csr on what the op's own backward
+    hands them on far needles, whose pixels past their binning boxes the
+    kernels once dropped: rows within the row tolerance and, value by
+    value, within 1e-5 of the sum of the magnitudes the value adds up, so
+    one dropped pixel shows; equal on a second run."""
+    fv, fa, bg, w, config = _needle_scene(cuda, seed, engine)
+    name = {"dense": "fused_backward_rows",
+            "csr": "fused_backward_rows_csr"}[engine]
+    out = []
+
+    def step():
+        verts = fv.clone().requires_grad_()
+        out.extend(raster.rasterize_screen(verts, fa, bg, config))
+        (out[0] * w).sum().backward()
+
+    ((args, kwargs),) = _calls(fused_bwd, name, step)
+    assert not bool(out[3])
+    assert _past_binning_boxes(out[1], kwargs["bbox"]) > 0
+    geo, *_, fid, bits, sval, pix_cf, grad_cf, n_rows = args
+    kernel = getattr(fused_bwd, name)
+    rows_k = kernel(*args, **kwargs)
+    torch.cuda.synchronize()
+    plain_rows = n_rows + 1 if engine == "csr" else n_rows
+    rows_p = fused_bwd.fused_backward_rows_plain(
+        geo, fid, bits, sval, pix_cf, grad_cf, plain_rows)[:rows_k.shape[0]]
+    terms = fused_bwd.pixel_rows_plain(geo, fid, bits, sval, pix_cf, grad_cf)
+    mass = torch.zeros(rows_p.shape, dtype=torch.float64, device=cuda)
+    owned = fid.reshape(-1) >= 0
+    mass.index_add_(0, fid.reshape(-1)[owned].long(),
+                    terms[owned].abs().double())
+    _check_scatter_rows(rows_k, rows_p, lambda: kernel(*args, **kwargs),
+                        mass.float())
+
+
+def _needle_clip(fv):
+    """Clip-space vertices (w = 1, three a face) [3F, 4] of screen-space
+    faces [F, 3, 4] on a 128 x 256 image, and the faces [F, 3]."""
+    xs, ys = fv[..., 0].double(), fv[..., 1].double()
+    verts = torch.stack([2.0 * xs / 256 - 1.0, 1.0 - 2.0 * ys / 128,
+                         fv[..., 2].double(), torch.ones_like(xs)], -1)
+    faces = torch.arange(3 * fv.shape[0], device=fv.device).reshape(-1, 3)
+    return verts.float().reshape(-1, 4), faces
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", list(_NEEDLE_ENGINES))
+@pytest.mark.parametrize("seed", [0, 1, 5])
+def test_scatter_kernels_match_plain_on_far_needles_on_card(cuda, seed,
+                                                            engine):
+    """scatter_faces (dense) and scatter_faces_csr on what each of two
+    slabs of the row-sharded renderer hands them on far needles: rows as
+    in test_scatter_kernel_matches_plain_on_card, value by value too."""
+    fv, fa, bg, w, config = _needle_scene(cuda, seed, engine)
+    verts, faces = _needle_clip(fv)
+    colors = fa.reshape(-1, 3)
+    name = {"dense": "scatter_to_faces",
+            "csr": "scatter_to_faces_csr"}[engine]
+
+    def step():
+        leaves = [verts.clone().requires_grad_(),
+                  colors.clone().requires_grad_()]
+        pixels, _, _, overflow = rasterise_sharded(
+            bg, leaves[0], leaves[1], faces, LocalGroup(2), config=config,
+            with_aux=True)
+        assert not bool(overflow)
+        (pixels * w).sum().backward()
+
+    calls = _calls(scatter, name, step)
+    assert len(calls) == 2
+    kernel = getattr(scatter, name)
+    plain = getattr(scatter, name + "_plain")
+    for args, kwargs in calls:
+        cot, fid_p, *_, n_out = args
+        rows_k = kernel(*args, **kwargs)
+        torch.cuda.synchronize()
+        _check_scatter_rows(rows_k, plain(cot, fid_p, n_out),
+                            lambda: kernel(*args, **kwargs),
+                            plain(cot.abs(), fid_p, n_out))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(_CSR_CASES))
 def test_fused_bwd_csr_kernel_matches_plain_on_card(cuda, case):
@@ -678,8 +839,10 @@ def test_fused_bwd_csr_kernel_matches_plain_on_card(cuda, case):
     num_faces = fv.shape[0]
     args = (geo.contiguous(), bins.entry_face, bins.start_block, bins.counts,
             fid, bits, sval, pix_cf, grad_cf, num_faces)
+    boxes = dict(bbox=bins.bbox,
+                 cull=raster_fwd.csr_cull_boxes(table, hp, wp))
     before = fused_bwd.LAUNCHES_CSR
-    rows_k = fused_bwd.fused_backward_rows_csr(*args, bbox=bins.bbox, **geom)
+    rows_k = fused_bwd.fused_backward_rows_csr(*args, **boxes, **geom)
     torch.cuda.synchronize()
     assert fused_bwd.LAUNCHES_CSR == before + 1
     rows_p = fused_bwd.fused_backward_rows_csr_plain(
@@ -691,9 +854,11 @@ def test_fused_bwd_csr_kernel_matches_plain_on_card(cuda, case):
     assert (rows_k != 0).any()
     # Deterministic: a second run is equal. Without the boxes it raises.
     assert torch.equal(rows_k, fused_bwd.fused_backward_rows_csr(
-        *args, bbox=bins.bbox, **geom))
+        *args, **boxes, **geom))
     with pytest.raises(ValueError, match="bbox"):
         fused_bwd.fused_backward_rows_csr(*args, **geom)
+    with pytest.raises(ValueError, match="cull"):
+        fused_bwd.fused_backward_rows_csr(*args, bbox=bins.bbox, **geom)
 
 
 @pytest.mark.cuda
@@ -880,10 +1045,11 @@ def test_scatter_scenes_have_the_lists_they_name(name, streaming):
     assert owners.numel() > num_faces // 3
     if streaming:
         rows = scatter.scatter_to_faces_csr(cot, fid, *lists, num_faces,
-                                            bbox=bbox, **geom)
+                                            bbox=bbox, cull=bbox, **geom)
     else:
         rows = scatter.scatter_to_faces(cot, fid, *lists, num_faces + 1,
-                                        bbox=bbox, **geom)[:num_faces]
+                                        bbox=bbox, cull=bbox,
+                                        **geom)[:num_faces]
     assert rows.shape == (num_faces, cot.shape[0])
     assert torch.equal(torch.nonzero((rows != 0).any(1))[:, 0], owners)
 
@@ -912,14 +1078,17 @@ def test_scatter_kernel_matches_plain_on_card(cuda, case):
         cot, fid_p = _scatter_inputs(fid, channels, height, width)
         num_faces, lists, bbox = fv.shape[0], (bins.bins, bins.counts), \
             bins.bbox
+        cull = raster_fwd.csr_cull_boxes(table, *bg_chw.shape[1:])
+    # The scenes' faces own pixels inside their boxes only.
+    boxes = dict(bbox=bbox, cull=bbox if isinstance(case, str) else cull)
     args = (cot, fid_p, *lists, num_faces + 1)
     before = scatter.LAUNCHES
-    rows_k = scatter.scatter_to_faces(*args, bbox=bbox, **geom)
+    rows_k = scatter.scatter_to_faces(*args, **boxes, **geom)
     torch.cuda.synchronize()
     assert scatter.LAUNCHES == before + 1
     _check_scatter_rows(
         rows_k, scatter.scatter_to_faces_plain(cot, fid_p, num_faces + 1),
-        lambda: scatter.scatter_to_faces(*args, bbox=bbox, **geom), mass)
+        lambda: scatter.scatter_to_faces(*args, **boxes, **geom), mass)
     assert rows_k.shape[0] % 8 == 0 and not rows_k[num_faces:].any()
     with pytest.raises(ValueError, match="bbox"):
         scatter.scatter_to_faces(*args, **geom)
@@ -943,14 +1112,17 @@ def test_scatter_csr_kernel_matches_plain_on_card(cuda, case):
                                                         **geom)
         cot, fid_p = _scatter_inputs(fid, bg_chw.shape[0], height, width)
         num_faces, bbox = fv.shape[0], bins.bbox
+        cull = raster_fwd.csr_cull_boxes(table, *bg_chw.shape[1:])
+    # The scenes' faces own pixels inside their boxes only.
+    boxes = dict(bbox=bbox, cull=bbox if case in _SCATTER_SCENES else cull)
     args = (cot, fid_p, *lists, num_faces)
     before = scatter.LAUNCHES_CSR
-    rows_k = scatter.scatter_to_faces_csr(*args, bbox=bbox, **geom)
+    rows_k = scatter.scatter_to_faces_csr(*args, **boxes, **geom)
     torch.cuda.synchronize()
     assert scatter.LAUNCHES_CSR == before + 1
     _check_scatter_rows(
         rows_k, scatter.scatter_to_faces_csr_plain(cot, fid_p, num_faces),
-        lambda: scatter.scatter_to_faces_csr(*args, bbox=bbox, **geom), mass)
+        lambda: scatter.scatter_to_faces_csr(*args, **boxes, **geom), mass)
     assert rows_k.shape == (num_faces, cot.shape[0])
     with pytest.raises(ValueError, match="bbox"):
         scatter.scatter_to_faces_csr(*args, **geom)

@@ -73,9 +73,9 @@ def _port_bins(bins, streaming):
     no boxes)."""
     if streaming:
         return tr.StreamBins(_t(bins.entry_face), _t(bins.start_block),
-                             _t(bins.counts), _t(bins.overflow), None)
+                             _t(bins.counts), _t(bins.overflow), None, None)
     return tr.DenseBins(_t(bins.bins), _t(bins.counts), _t(bins.overflow),
-                        None)
+                        None, None)
 
 
 @functools.lru_cache(maxsize=None)

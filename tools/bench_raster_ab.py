@@ -1,39 +1,61 @@
 #!/usr/bin/env python3
-"""The layout swap (K4) and the streaming forward (K7) on one CUDA card,
-against another tree's, in one process.
+"""The whole-tile forwards (K5, K7), the fused backwards (K6, K8) and the
+layout swap (K4) on one CUDA card, against another tree's, in one process.
 
     python3 tools/bench_raster_ab.py [--parent DIR] [--runs N]
+        [--kernels K5,K6,K7,K8,K4] [--spheres 224,...]
 
-Times ``ops.raster_fwd.raster_forward_csr`` (raster_fwd_csr.cu) on the
+Times ``ops.raster_fwd.raster_forward_csr`` (raster_fwd_csr.cu) and
+``ops.fused_bwd.fused_backward_rows_csr`` (fused_bwd_csr.cu) on the
 99,904-face sphere at 1024 x 1024 with 3 and 9 channels (the faces the
-default API's own render hands the raster op) and on the 10,224-face bench
-sphere under ``RasterConfig(streaming=True)``, and
+default API's own render hands the raster op; ``--spheres`` adds the
+default API's ``uv_sphere(n, n)`` of 2 n (n - 1) faces at 3 channels for
+each other n listed) and on the 10,224-face bench sphere under
+``RasterConfig(streaming=True)`` (K8 on the forward's
+outputs, the prologue's planes and ``chip_smoke.py``'s upstream gradients);
+``ops.raster_fwd.raster_forward`` (raster_fwd_dense.cu) on the bench sphere
+at 1024 x 1024 under ``RasterConfig(engine="dense")``, on config 4's faces
+at 512 x 512 and on the flagship step's G-buffer faces at 256 x 256 with 9
+channels (both as ``chip_smoke.py`` phase 7 captures them), and
+``ops.fused_bwd.fused_backward_rows`` (fused_bwd.cu) on those three dense
+forwards' outputs; and
 ``ops.raster_fwd.flat_subtile_swap`` (subtile_swap.cu) on the five
 per-pixel fields the sharded packed halo backward hands it (one slab of
 ``rasterise_sharded``, the bench sphere at 3 and 9 channels: 12 and 24
 planes of 1024 x 1024), as ``chip_smoke.py`` phases 10 and 12 capture
 them. For each shape and variant it prints
 
-* the check: K7's fid and zbuf equal to the plain (un-culled) version's on
-  the whole padded arrays and pixels within ``chip_smoke.TOL``, and every
-  output bit-equal across variants; K4 bit-equal to its plain version;
-* K7's faces tested per pixel without the cull and with it
-  (``chip_smoke.csr_tests_per_pixel``, this tree's cull boxes) and the
-  bound of ``chip_smoke.py``;
+* the check: K5's and K7's fid and zbuf equal to the plain (un-culled)
+  version's on the whole padded arrays and pixels within ``chip_smoke.TOL``,
+  and every output bit-equal across variants; K6's and K8's rows within
+  ``chip_smoke.TOL_ROWS`` of the column's largest magnitude + 1e-6 of the
+  plain version's and equal on a second run (the variants sum in other
+  orders, so their rows are compared with the plain version's, not with
+  each other's); K4 bit-equal to its plain version;
+* K5's and K7's faces tested per pixel without the cull and with it
+  (``chip_smoke.tests_per_pixel``, this tree's cull boxes) and the bounds
+  of ``chip_smoke.py``;
 * single-call time: the median of synchronised calls of the wrapper (CUDA
   events), allocation and launches included;
-* device time: the device kernels of one call, from a ``torch.profiler``
-  window of ``--runs`` calls;
+* device time: the device kernels of one call, by kernel (each launch of a
+  call: K5's and K7's box launch and walk, K6's and K8's two passes), from a
+  ``torch.profiler`` window of ``--runs`` calls;
 * back-to-back time: ``--runs`` calls queued without a synchronise, per call,
   and the host's time to queue one call;
 * for K4 the same figures for one strided ``contiguous()`` copy of the
   stacked planes (the PyTorch call that computes the same permutation).
 
+``--kernels NEEDLES`` instead holds K6, K8, K9 and K10 of both trees against
+their plain versions on what the backward hands them on the far-needle
+scenes of the card tests, and prints the values outside the card tests'
+limits.
+
 With ``--parent DIR`` (another tree of this repository, unpacked with ``git
-archive``) that tree's two sources are built beside this tree's and timed
-through that tree's own wrapper code: its ``ops/raster_fwd.py``, loaded as a
-module of its own whose ``_build.load`` returns the libraries built from
-that tree, so its own ``_swap_fn`` and ``_csr_fn`` type their entry points.
+archive``) that tree's sources are built beside this tree's and timed
+through that tree's own wrapper code: its ``ops/raster_fwd.py`` and
+``ops/fused_bwd.py``, loaded as modules of their own whose ``_build.load``
+returns the libraries built from that tree, so its own ``_swap_fn``,
+``_csr_fn`` and ``_dense_fn`` type their entry points.
 The two are timed in turns (new, old, old, new).
 Prints the card's name and power limit on every line; exits non-zero
 without a CUDA device.
@@ -42,31 +64,33 @@ without a CUDA device.
 import argparse
 import functools
 import importlib.util
+import inspect
 import statistics
 import sys
 import types
 from pathlib import Path
 from unittest import mock
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
+sys.path.insert(0, str(ROOT / "tests"))
 
-NAMES = ("subtile_swap", "raster_fwd_csr")
+NAMES = ("subtile_swap", "raster_fwd_csr", "raster_fwd_dense",
+         "fused_bwd", "fused_bwd_csr", "scatter_faces", "scatter_faces_csr")
 
 
 def _parent_module(root):
-    """The other tree's ``ops/raster_fwd.py`` as a module of its own whose
-    ``_build.load(name)`` builds ``csrc/<name>.cu`` of that tree: its
-    wrappers, host code and all, around its kernels."""
+    """The other tree's ``ops/raster_fwd.py``, ``ops/fused_bwd.py`` and
+    ``ops/scatter.py`` as modules of their own (attributes of the namespace
+    returned) whose ``_build.load(name)`` builds ``csrc/<name>.cu`` of that
+    tree at first use: its wrappers, host code and all, around its
+    kernels."""
     from bench_scatter import build_lib
 
-    path = Path(root) / "dirt_tpu_torch" / "ops" / "raster_fwd.py"
-    spec = importlib.util.spec_from_file_location("parent_raster_fwd", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
     libs = {}
 
     def load(name):
@@ -74,16 +98,31 @@ def _parent_module(root):
             libs[name] = build_lib(root, name, "parent")
         return libs[name]
 
-    module._build = types.SimpleNamespace(load=load)
-    for name in NAMES:
-        load(name)
-    return module
+    modules = {}
+    for name in ("raster_fwd", "fused_bwd", "scatter"):
+        path = Path(root) / "dirt_tpu_torch" / "ops" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        module._build = types.SimpleNamespace(load=load)
+        modules[name] = module
+    return types.SimpleNamespace(**modules)
+
+
+def _boxes_of(fn, bbox, cull):
+    """The box arguments ``fn`` (a fused or scatter wrapper of some tree)
+    takes: ``bbox`` and, from the cull-box repair of the backward on,
+    ``cull``."""
+    params = inspect.signature(fn).parameters
+    return dict(bbox=bbox, **({"cull": cull} if "cull" in params else {}))
 
 
 def _time(tag, card, variants, runs, kernel_key):
     """Time every variant in turns; print single-call, device and
-    back-to-back figures per variant. ``kernel_key`` picks the device
-    kernels that belong to a hand-written kernel by name."""
+    back-to-back figures per variant. ``kernel_key`` (a name or a tuple of
+    names) picks the device kernels that belong to a hand-written kernel by
+    name."""
+    keys = (kernel_key,) if isinstance(kernel_key, str) else kernel_key
     import chip_smoke
     from bench_scatter import short_name
 
@@ -98,42 +137,61 @@ def _time(tag, card, variants, runs, kernel_key):
         host.setdefault(label, []).append(h)
     for label, fn in variants.items():
         device = chip_smoke._device_ms(fn, runs)
-        mine = sum(ms for n, ms in device.items() if kernel_key in n)
+        mine = sum(ms for n, ms in device.items()
+                   if any(k in n for k in keys))
         parts = ", ".join(f"{short_name(n)} {ms:.4f}"
                           for n, ms in sorted(device.items(),
                                               key=lambda kv: -kv[1]))
         print(f"[{tag}] {label}: single call "
               f"{' / '.join(f'{v:.4f}' for v in single[label])} ms (medians "
               f"of {runs}); device {sum(device.values()):.4f} ms per call "
-              f"({parts}; the {kernel_key} kernel {mine:.4f}); back to back "
+              f"({parts}; the {' + '.join(keys)} kernels {mine:.4f}); back "
+              f"to back "
               f"{' / '.join(f'{v:.4f}' for v in queued[label])} ms per call, "
               f"host {statistics.mean(host[label]):.4f} ms to queue one "
               f"({card})")
 
 
-def _bench_csr(tag, inputs, card, runs, parent):
+def _bench_forward(tag, engine, inputs, card, runs, parent):
+    """K5 (``engine`` "dense") or K7 ("csr") on one scene, new and old;
+    returns (table, bins, bg_chw, concrete config, the plain version's
+    outputs, this tree's cull boxes) for the backward."""
     import chip_smoke
     from dirt_tpu_torch.ops import raster, raster_fwd
 
     face_verts, face_attrs, background, config = inputs
-    table, bins, bg_chw, cfg = raster.prepare_csr(face_verts, face_attrs,
-                                                  background, config)
-    if bool(bins.overflow):
+    if engine == "csr":
+        name = "raster_fwd_csr"
+        table, bins, bg_chw, cfg = raster.prepare_csr(
+            face_verts, face_attrs, background, config)
+        lists = (table, bins.entry_face, bins.start_block, bins.counts,
+                 bg_chw)
+        new, plain = raster_fwd.raster_forward_csr, \
+            raster_fwd.raster_forward_csr_plain
+        old = parent and parent.raster_fwd.raster_forward_csr
+    else:
+        name = "raster_fwd_dense"
+        table, bins, bg_chw, cfg = raster.prepare_dense(
+            face_verts, face_attrs, background, config)
+        lists = (table, bins.bins, bins.counts, bg_chw)
+        new, plain = raster_fwd.raster_forward, raster_fwd.raster_forward_plain
+        old = parent and parent.raster_fwd.raster_forward
+    if bool(bins.overflow.any()):
         raise RuntimeError(f"[{tag}] binning overflowed under {cfg}")
     _, hp, wp = bg_chw.shape
     channels = face_attrs.shape[-1]
     geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
-    lists = (table, bins.entry_face, bins.start_block, bins.counts, bg_chw)
-    variants = {"new": functools.partial(raster_fwd.raster_forward_csr,
-                                         *lists, **geom)}
-    if parent is not None:
-        variants["old"] = functools.partial(parent.raster_forward_csr,
-                                            *lists, **geom)
-    want = raster_fwd.raster_forward_csr_plain(*lists, **geom)
+    variants = {"new": functools.partial(new, *lists, **geom)}
+    if old is not None:
+        variants["old"] = functools.partial(old, *lists, **geom)
+    want = plain(*lists, **geom)
     cull = raster_fwd.csr_cull_boxes(table, hp, wp)
-    before, after = chip_smoke.csr_tests_per_pixel(
+    if not torch.equal(cull, raster_fwd.csr_cull_boxes_plain(table, hp, wp)):
+        raise RuntimeError(f"[{tag}] the cull boxes differ from the plain "
+                           "ones")
+    before, after = chip_smoke.tests_per_pixel(
         bins, cull, cfg.tile_h, cfg.tile_w, hp, wp)
-    _, rows32 = chip_smoke.csr_tests_per_pixel(
+    _, rows32 = chip_smoke.tests_per_pixel(
         bins, cull, cfg.tile_h, cfg.tile_w, hp, wp, warp=(1, 32))
     box = bins.bbox.long()
     box_px = int((torch.clamp(box[:, 1] - box[:, 0] + 1, min=0)
@@ -141,19 +199,20 @@ def _bench_csr(tag, inputs, card, runs, parent):
     covered = int((want[1] >= 0).sum())
     listed = int(bins.counts.sum())
     bound = chip_smoke._bound(
-        4 * table.numel() + 4 * (listed + 2 * bins.counts.numel())
-        + 4 * hp * wp * (2 * channels + 2),
+        4 * table.numel() + 4 * (listed + (len(lists) - 3)
+                                 * bins.counts.numel())
+        + 16 * table.shape[0] + 4 * hp * wp * (2 * channels + 2),
         box_px * chip_smoke.TEST_FLOPS
         + covered * chip_smoke._attr_flops(channels))
-    print(f"[{tag}] table {tuple(table.shape)}, listed {listed}, largest "
-          f"tile {int(bins.counts.max())}, tiles {cfg.tile_h}x{cfg.tile_w}, "
-          f"padded {hp}x{wp}: faces tested per pixel without the cull "
-          f"{before:.2f}, culled {after:.2f} (warps of 4 x 8 pixels; of 1 x "
-          f"32: {rows32:.2f}); bound {bound['bound_ms']:.4f} "
-          f"ms by {bound['bound_by']} ({card})")
+    print(f"[{tag}] {name} table {tuple(table.shape)}, listed {listed}, "
+          f"largest tile {int(bins.counts.max())}, tiles "
+          f"{cfg.tile_h}x{cfg.tile_w}, padded {hp}x{wp}: faces tested per "
+          f"pixel without the cull {before:.2f}, culled {after:.2f} (warps of "
+          f"4 x 8 pixels; of 1 x 32: {rows32:.2f}); bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({card})")
     first = None
     for label, fn in variants.items():
-        got = fn()
+        got = fn()[:3]
         torch.cuda.synchronize()
         fid_bad = int((got[1] != want[1]).sum())
         z_bad = int((got[2] != want[2]).sum())
@@ -165,8 +224,176 @@ def _bench_csr(tag, inputs, card, runs, parent):
               f"{z_bad}, pixels outside allclose {pix_bad} (padded arrays), "
               f"all outputs equal to the first variant's {same}")
         if fid_bad or z_bad or pix_bad or not same:
-            raise RuntimeError(f"[{tag}] {label} raster_fwd_csr is wrong")
-    _time(tag, card, variants, runs, "raster_fwd_csr")
+            raise RuntimeError(f"[{tag}] {label} {name} is wrong")
+    _time(tag, card, variants, runs, (name, "cull_boxes"))
+    return table, bins, bg_chw, cfg, want, cull
+
+
+def _bench_fused(tag, engine, face_verts, face_attrs, weights, forward,
+                 card, runs, parent):
+    """K6 (``engine`` "dense") or K8 ("csr") on the outputs of one forward
+    (``_bench_forward``'s return), new and old."""
+    import chip_smoke
+    from dirt_tpu_torch.ops import fused_bwd, packed_bwd
+    from dirt_tpu_torch.ops.triangle_setup import setup_planes
+
+    table, bins, bg_chw, cfg, (pix, fid, zbuf), cull = forward
+    num_faces = face_verts.shape[0]
+    channels, hp, wp = pix.shape
+    grad_cf = weights.permute(2, 0, 1).contiguous()
+    bits, sval = packed_bwd.fused_neighbor_prologue(fid, zbuf, pix, grad_cf)
+    geo = setup_planes(face_verts, face_attrs)[0].contiguous()
+    fields = (fid, bits, sval, pix, grad_cf)
+    if engine == "csr":
+        name, wrapper, n_rows = ("fused_bwd_csr", "fused_backward_rows_csr",
+                                 num_faces)
+        args = (geo, bins.entry_face, bins.start_block, bins.counts,
+                *fields, n_rows)
+        want = fused_bwd.fused_backward_rows_csr_plain(geo, *fields, n_rows)
+    else:
+        name, wrapper, n_rows = ("fused_bwd", "fused_backward_rows",
+                                 num_faces + 1)
+        args = (geo, bins.bins, bins.counts, *fields, n_rows)
+        want = fused_bwd.fused_backward_rows_plain(geo, *fields, n_rows)
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    new = getattr(fused_bwd, wrapper)
+    variants = {"new": functools.partial(
+        new, *args, **_boxes_of(new, bins.bbox, cull), **geom)}
+    if parent is not None:
+        old = getattr(parent.fused_bwd, wrapper)
+        variants["old"] = functools.partial(
+            old, *args, **_boxes_of(old, bins.bbox, cull), **geom)
+    covered = int((fid >= 0).sum())
+    listed = int(bins.counts.sum())
+    lists = len(args) - len(fields) - 2
+    bound = chip_smoke._bound(
+        4 * 17 * num_faces + 4 * (listed + (lists - 1) * bins.counts.numel())
+        + 4 * hp * wp * (6 + 2 * channels)
+        + 4 * want.numel(), covered * chip_smoke._core_flops(channels))
+    print(f"[{tag}] {name} rows {tuple(want.shape)}, listed {listed} of "
+          f"{args[1].numel()} slots, covered {covered} px: bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({card})")
+    scale = want.abs().amax(dim=0, keepdim=True)
+    for label, fn in variants.items():
+        got = fn()
+        again = fn()
+        torch.cuda.synchronize()
+        bad = int(((got - want).abs() > chip_smoke.TOL_ROWS * scale
+                   + 1e-6).sum())
+        same = torch.equal(got, again)
+        print(f"[{tag}] {label}: values outside the row limit {bad}, max "
+              f"|diff| {float((got - want).abs().max()):.3g}, second run "
+              f"equal {same}, sha256 of the rows {chip_smoke._digest(got)}")
+        if bad or not same:
+            raise RuntimeError(f"[{tag}] {label} {name} is wrong")
+    _time(tag, card, variants, runs, name + "_")
+
+
+def _calls(module, name, run):
+    """[(args, kwargs)] of every call of ``module.name`` during ``run()``."""
+    seen = []
+    inner = getattr(module, name)
+
+    def record(*args, **kwargs):
+        seen.append((args, kwargs))
+        return inner(*args, **kwargs)
+
+    with mock.patch.object(module, name, record):
+        run()
+    return seen
+
+
+def _bench_needles(card, parent):
+    """K6, K8, K9 and K10, new and old, on what the backward hands them on
+    the far-needle scenes of ``tests/test_torch_cuda.py`` (needles whose
+    far corners lie 1e3 to 1e6 pixels off a 128 x 256 image): the fused
+    kernels on the op's backward, the scatters on two slabs of
+    ``rasterise_sharded``. Prints the values outside the card tests' limits
+    (the row limit, and 1e-5 of the sum of the value's terms' magnitudes +
+    1e-9, which one dropped pixel exceeds)."""
+    import chip_smoke
+    from _torch_port_scene import needle_soup
+    from dirt_tpu_torch.ops import fused_bwd, raster, scatter
+    from dirt_tpu_torch.parallel.group import LocalGroup
+    from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+
+    device = torch.device("cuda", 0)
+    engines = {"dense": dict(engine="dense", streaming=False),
+               "csr": dict(streaming=True)}
+    for seed in (0, 1, 5):
+        fv, fa = (torch.tensor(a).to(device) for a in needle_soup(
+            200, 128, 256, seed, (3.0, 6.0), (-6.0, 0.0)))
+        rng = np.random.RandomState(seed)
+        bg, w = (torch.tensor(a.astype(np.float32), device=device)
+                 for a in (rng.rand(128, 256, 3), rng.randn(128, 256, 3)))
+        xs, ys = fv[..., 0].double(), fv[..., 1].double()
+        verts = torch.stack([2.0 * xs / 256 - 1.0, 1.0 - 2.0 * ys / 128,
+                             fv[..., 2].double(), torch.ones_like(xs)],
+                            -1).float().reshape(-1, 4)
+        faces = torch.arange(verts.shape[0], device=device).reshape(-1, 3)
+        for engine, fields in engines.items():
+            config = raster.RasterConfig(tile_h=32, tile_w=128, bin_cap=2048,
+                                         expand_cap=64, **fields)
+            fused = {"dense": "fused_backward_rows",
+                     "csr": "fused_backward_rows_csr"}[engine]
+            scat = {"dense": "scatter_to_faces",
+                    "csr": "scatter_to_faces_csr"}[engine]
+
+            def op_step():
+                v = fv.clone().requires_grad_()
+                (raster.rasterize_screen(v, fa, bg, config)[0] * w
+                 ).sum().backward()
+
+            def sharded_step():
+                v = verts.clone().requires_grad_()
+                (rasterise_sharded(bg, v, fa.reshape(-1, 3), faces,
+                                   LocalGroup(2), config=config) * w
+                 ).sum().backward()
+
+            cases = []
+            for (args, kwargs) in _calls(fused_bwd, fused, op_step):
+                geo, *_, fid, bits, sval, pix, grad, n_rows = args
+                rows = n_rows + 1 if engine == "csr" else n_rows
+                want = fused_bwd.fused_backward_rows_plain(
+                    geo, fid, bits, sval, pix, grad, rows)
+                terms = fused_bwd.pixel_rows_plain(geo, fid, bits, sval,
+                                                   pix, grad)
+                owned = fid.reshape(-1) >= 0
+                mass = torch.zeros(want.shape, dtype=torch.float64,
+                                   device=device).index_add_(
+                    0, fid.reshape(-1)[owned].long(),
+                    terms[owned].abs().double())
+                cases.append((fused, fused_bwd, parent and parent.fused_bwd,
+                              args, kwargs, want, mass.float()))
+            for slab, (args, kwargs) in enumerate(
+                    _calls(scatter, scat, sharded_step)):
+                cot, fid_p, *_, n_out = args
+                plain = getattr(scatter, scat + "_plain")
+                cases.append((f"{scat} slab {slab}", scatter,
+                              parent and parent.scatter, args, kwargs,
+                              plain(cot, fid_p, n_out),
+                              plain(cot.abs(), fid_p, n_out)))
+            for name, new_mod, old_mod, args, kwargs, want, mass in cases:
+                geom = dict(tile_h=kwargs["tile_h"], tile_w=kwargs["tile_w"])
+                wrapper = name.split()[0]
+                trees = [("new", getattr(new_mod, wrapper))]
+                if old_mod is not None:
+                    trees.append(("old", getattr(old_mod, wrapper)))
+                for label, fn in trees:
+                    got = fn(*args, **_boxes_of(fn, kwargs["bbox"],
+                                                kwargs["cull"]), **geom)
+                    torch.cuda.synchronize()
+                    got, ref = got[:want.shape[0]], want[:got.shape[0]]
+                    diff = (got - ref).abs()
+                    scale = ref.abs().amax(dim=0, keepdim=True)
+                    rows_bad = int((diff > chip_smoke.TOL_ROWS * scale
+                                    + 1e-6).sum())
+                    value_bad = int((diff > chip_smoke.TOL_ROWS
+                                     * mass[:got.shape[0]] + 1e-9).sum())
+                    print(f"[needles far-needles-{seed} {engine}] {name} "
+                          f"{label}: values outside the row limit "
+                          f"{rows_bad}, outside the per-value limit "
+                          f"{value_bad} of {got.numel()} ({card})")
 
 
 def _swap_arrays(step):
@@ -196,7 +423,7 @@ def _bench_swap(tag, arrays, card, runs, parent):
     view = stacked.reshape(-1, hp // 8, 8, wp // 128, 8, 16).transpose(-4, -2)
     variants = {"new": lambda: raster_fwd.flat_subtile_swap(arrays)}
     if parent is not None:
-        variants["old"] = lambda: parent.flat_subtile_swap(arrays)
+        variants["old"] = lambda: parent.raster_fwd.flat_subtile_swap(arrays)
     variants["strided copy"] = view.contiguous
     bound = chip_smoke._bound(2 * 4 * stacked.numel(), 0)
     print(f"[{tag}] {len(arrays)} arrays, {stacked.shape[0]} planes of "
@@ -221,17 +448,29 @@ def _bench_swap(tag, arrays, card, runs, parent):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", help="another tree of the repository "
-                        "whose K4 and K7 are timed beside this one's")
+                        "whose kernels are timed beside this one's")
     parser.add_argument("--runs", type=int, default=20)
+    parser.add_argument("--kernels", default="K5,K6,K7,K8,K4",
+                        help="which of K5, K6, K7, K8, K4 to time (K6 runs "
+                        "K5 and K8 runs K7 for their inputs); NEEDLES holds "
+                        "K6, K8, K9, K10 of both trees against their plain "
+                        "versions on far needles")
+    parser.add_argument("--spheres", default="224",
+                        help="uv_sphere(n, n) resolutions of the default "
+                        "API's CSR scenes for K7 and K8 (224: 99,904 faces, "
+                        "at 3 and 9 channels; any other n at 3)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_raster_ab: torch.cuda.is_available() is False")
     import chip_smoke
     import dirt_tpu_torch
+    from dirt_tpu_torch import entry
     from dirt_tpu_torch.ops import _build
+    from dirt_tpu_torch.ops.triangle_setup import screen_from_clip
     from dirt_tpu_torch.parallel.group import LocalGroup
     from dirt_tpu_torch.parallel.sharding import rasterise_sharded
 
+    kernels = opts.kernels.split(",")
     device = torch.device("cuda", 0)
     card = chip_smoke.card_line()
     print(card)
@@ -245,42 +484,92 @@ def main():
     size = chip_smoke.SIZE
     _, clip, colors, faces, background, weights = chip_smoke._bench_scene(
         device)
-    big_loss, (big_bg, big_clip, big_colors), (big_faces, big_cfg) = \
-        chip_smoke.big_sphere_step(device)
-    with torch.no_grad():
-        big3 = chip_smoke._raster_inputs(
-            lambda: big_loss(big_bg, big_clip, big_colors))
-        big9 = chip_smoke._raster_inputs(
-            lambda: dirt_tpu_torch.rasterise(
-                torch.zeros((size, size, 9), device=device), big_clip,
-                chip_smoke._rand(3, big_clip.shape[0], 9, device=device),
-                big_faces, config=big_cfg))
-        stream_cfg = dirt_tpu_torch.suggest_raster_config(
-            clip, faces, size, size,
-            config=dirt_tpu_torch.RasterConfig(streaming=True), clip=False)
-        bench = chip_smoke._raster_inputs(
-            lambda: dirt_tpu_torch.rasterise(background, clip, colors, faces,
-                                             config=stream_cfg, clip=False))
-    n_big = big_faces.shape[0]
-    for tag, inputs in ((f"K7 {n_big}-face sphere {size}^2 C=3", big3),
-                        (f"K7 {n_big}-face sphere {size}^2 C=9", big9),
-                        (f"K7 bench sphere {size}^2 streaming=True", bench)):
-        _bench_csr(tag, inputs, card, opts.runs, parent)
-    del big3, big9, bench
+    if "K7" in kernels or "K8" in kernels:
+        weights9 = chip_smoke._rand(4, size, size, 9, device=device)
+        scenes = []
+        for n in (int(v) for v in opts.spheres.split(",")):
+            big_loss, (big_bg, big_clip, big_colors), (big_faces, big_cfg) = \
+                chip_smoke.big_sphere_step(device, n)
+            n_big = big_faces.shape[0]
+            with torch.no_grad():
+                scenes.append((f"{n_big}-face sphere {size}^2 C=3",
+                               chip_smoke._raster_inputs(
+                                   lambda: big_loss(big_bg, big_clip,
+                                                    big_colors)), weights))
+                if n == 224:
+                    scenes.append((
+                        f"{n_big}-face sphere {size}^2 C=9",
+                        chip_smoke._raster_inputs(
+                            lambda: dirt_tpu_torch.rasterise(
+                                torch.zeros((size, size, 9), device=device),
+                                big_clip, chip_smoke._rand(
+                                    3, big_clip.shape[0], 9, device=device),
+                                big_faces, config=big_cfg)), weights9))
+        with torch.no_grad():
+            stream_cfg = dirt_tpu_torch.suggest_raster_config(
+                clip, faces, size, size,
+                config=dirt_tpu_torch.RasterConfig(streaming=True),
+                clip=False)
+            bench = chip_smoke._raster_inputs(
+                lambda: dirt_tpu_torch.rasterise(
+                    background, clip, colors, faces, config=stream_cfg,
+                    clip=False))
+        scenes.append((f"bench sphere {size}^2 streaming=True", bench,
+                       weights))
+        for tag, inputs, w in scenes:
+            forward = _bench_forward(f"K7 {tag}", "csr", inputs, card,
+                                     opts.runs, parent)
+            if "K8" in kernels:
+                _bench_fused(f"K8 {tag}", "csr", inputs[0], inputs[1], w,
+                             forward, card, opts.runs, parent)
+            del forward
+        del scenes, bench
 
-    packed_cfg = dirt_tpu_torch.suggest_raster_config(
-        clip, faces, size, size, clip=False)
-    colors9 = chip_smoke._rand(3, clip.shape[0], 9, device=device)
-    for c, cols, bg, w in (
-            (3, colors, background, weights),
-            (9, colors9, torch.zeros((size, size, 9), device=device),
-             chip_smoke._rand(4, size, size, 9, device=device))):
-        arrays = _swap_arrays(lambda: chip_smoke._grads(
-            lambda bg, v, c, f, config, clip: rasterise_sharded(
-                bg, v, c, f, LocalGroup(1), config=config, with_aux=True),
-            bg, clip, cols, faces, w, packed_cfg, False))
-        _bench_swap(f"K4 sharded packed halo fields {size}^2 C={c}", arrays,
-                    card, opts.runs, parent)
+    if "K5" in kernels or "K6" in kernels:
+        # chip_smoke.py phase 7's three shapes, faces and upstream
+        # gradients.
+        dense_cfg = dirt_tpu_torch.suggest_raster_config(
+            clip, faces, size, size,
+            config=dirt_tpu_torch.RasterConfig(engine="dense"), clip=False)
+        face_verts = screen_from_clip(clip, size, size)[faces]
+        c4_loss, c4_leaves = chip_smoke.config4_loss(device)
+        step_fn, (e_verts, e_pose) = entry.entry()
+        with torch.no_grad():
+            c4 = chip_smoke._raster_inputs(lambda: c4_loss(*c4_leaves))
+            flagship = chip_smoke._raster_inputs(
+                lambda: step_fn(e_verts, e_pose))
+        for tag, inputs, w in (
+                (f"bench sphere {size}^2 dense",
+                 (face_verts, colors[faces], background, dense_cfg),
+                 weights),
+                ("config 4 512^2", c4,
+                 chip_smoke._rand(1, 512, 512, 3, device=device)),
+                ("flagship G-buffer 256^2 C=9", flagship,
+                 chip_smoke._rand(5, 256, 256, 9, device=device))):
+            forward = _bench_forward(f"K5 {tag}", "dense", inputs, card,
+                                     opts.runs, parent)
+            if "K6" in kernels:
+                _bench_fused(f"K6 {tag}", "dense", inputs[0], inputs[1], w,
+                             forward, card, opts.runs, parent)
+
+    if "NEEDLES" in kernels:
+        _bench_needles(card, parent)
+
+    if "K4" in kernels:
+        packed_cfg = dirt_tpu_torch.suggest_raster_config(
+            clip, faces, size, size, clip=False)
+        colors9 = chip_smoke._rand(3, clip.shape[0], 9, device=device)
+        for c, cols, bg, w in (
+                (3, colors, background, weights),
+                (9, colors9, torch.zeros((size, size, 9), device=device),
+                 chip_smoke._rand(4, size, size, 9, device=device))):
+            arrays = _swap_arrays(lambda: chip_smoke._grads(
+                lambda bg, v, c, f, config, clip: rasterise_sharded(
+                    bg, v, c, f, LocalGroup(1), config=config,
+                    with_aux=True),
+                bg, clip, cols, faces, w, packed_cfg, False))
+            _bench_swap(f"K4 sharded packed halo fields {size}^2 C={c}",
+                        arrays, card, opts.runs, parent)
 
 
 if __name__ == "__main__":

@@ -84,14 +84,20 @@ def build_lib(root, name, label, defines=()):
     return ctypes.CDLL(str(out))
 
 
-def _build_other(root, name, label, defines=(), n_int=8):
+def _build_other(root, name, label, defines=()):
     """A scatter kernel of the tree at ``root`` (``build_lib``); returns its
-    C entry point, which takes ``n_int`` ints between the pointers and the
-    stream."""
+    C entry point, typed from that tree's source: ``takes_cull`` is set if
+    it takes the cull boxes beside the binning boxes (trees from the
+    cull-box repair of the backward on), ``takes_out_rows`` if it takes the
+    output's row count (trees whose pass 2 writes every output row)."""
+    text = (Path(root) / "dirt_tpu_torch" / "csrc" / f"{name}.cu").read_text()
     fn = getattr(build_lib(root, name, label, defines), ENTRY[name])
     fn.restype = ctypes.c_int
-    n_ptr = 7 if name == "scatter_faces" else 8
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+    fn.takes_cull = "const int* cull" in text
+    fn.takes_out_rows = "int out_rows" in text
+    n_ptr = (7 if name == "scatter_faces" else 8) + fn.takes_cull
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                   + [ctypes.c_int] * (7 + fn.takes_out_rows)
                    + [ctypes.c_void_p])
     return fn
 
@@ -117,13 +123,15 @@ def _old_wrapper(fn, name, args, kwargs):
 
     cot, fid, *lists, n_out = args
     tile_h, tile_w, bbox = kwargs["tile_h"], kwargs["tile_w"], kwargs["bbox"]
+    cull = kwargs["cull"]
+    boxes = (bbox, cull) if fn.takes_cull else (bbox,)
     device = fid.device
     dense = name == "scatter_faces"
     num_faces = n_out - 1 if dense else n_out
 
     def call():
         k_cols, hp, wp, total = scatter._check_image(
-            cot, fid, bbox, num_faces, tile_h, tile_w)
+            cot, fid, bbox, cull, num_faces, tile_h, tile_w)
         for tensor in lists:
             check_tensor("list", tensor, torch.int32, tuple(tensor.shape),
                          device)
@@ -134,10 +142,10 @@ def _old_wrapper(fn, name, args, kwargs):
                               device=device)
         last = lists[0].shape[1] if dense else slots
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(t.data_ptr() for t in lists), bbox.data_ptr(),
+        err = fn(*(t.data_ptr() for t in [*lists, *boxes]),
                  fid.data_ptr(), cot.data_ptr(), partial.data_ptr(),
                  out.data_ptr(), k_cols, hp, wp, tile_h, tile_w, last,
-                 num_faces, stream)
+                 num_faces, *([rows] if fn.takes_out_rows else []), stream)
         if err != 0:
             raise RuntimeError(f"parent {name}: CUDA error {err}")
         return out
@@ -170,25 +178,29 @@ def _bench(tag, name, step, card, runs, old_fns, tuned):
         return torch.zeros(rows_p.shape, device=cot.device
                            ).index_add_(0, owner, pixel_rows)
 
-    # Owned pixels outside their face's box.
-    box = bbox[owner].long()
+    # Owned pixels outside their face's binning box and cull box.
     px, py = own_px % fid.shape[1], own_px // fid.shape[1]
-    outside = int(((px < box[:, 0]) | (px > box[:, 1]) | (py < box[:, 2])
-                   | (py > box[:, 3])).sum())
+
+    def outside_of(boxes):
+        box = boxes[owner].long()
+        return int(((px < box[:, 0]) | (px > box[:, 1]) | (py < box[:, 2])
+                    | (py > box[:, 3])).sum())
+
+    outside_bin, outside = outside_of(bbox), outside_of(kwargs["cull"])
     counts = lists[-1]
     listed = int(counts.sum())
     slots = lists[0].numel()
     owned = int(own_px.numel())
     nbytes = (4 * owned * k_cols + 4 * fid.numel() + 4 * rows_p.numel()
-              + 4 * (listed + (len(lists) - 1) * counts.numel())
-              + 16 * bbox.shape[0])
+              + 4 * (listed + (len(lists) - 1) * counts.numel()))
     bound = chip_smoke._bound(nbytes, owned * k_cols)
     mass = plain_fn(cot.abs(), fid, n_out)
     scale = rows_p.abs().amax(dim=0, keepdim=True)
     print(f"[{tag}] {name} cot {tuple(cot.shape)} lists "
           f"{tuple(lists[0].shape)}: listed {listed} of {slots} slots (live "
           f"share {listed / slots:.4f}), owned {owned} px, owned pixels "
-          f"outside their face's box {outside}, bound "
+          f"outside their face's binning box {outside_bin}, outside its "
+          f"cull box {outside}, bound "
           f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}")
 
     variants = {"new": new}
@@ -271,7 +283,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"[build {name}] {line.strip()}")
     root = Path(__file__).resolve().parents[1]
-    old_fns = ({n: _build_other(opts.parent, n, "parent", n_int=7)
+    old_fns = ({n: _build_other(opts.parent, n, "parent")
                 for n in names} if opts.parent else None)
     tuned = {spec: {n: _build_other(root, n, f"tuned{i}", spec.split(","))
                     for n in names}
