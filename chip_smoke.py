@@ -18,7 +18,8 @@ raises and exits non-zero; nothing is caught):
    bench's upstream gradient ``RandomState(1).rand(1024, 1024, 3)``):
    raster_fwd_packed fid and zbuf equal, pixels allclose(rtol=1e-6,
    atol=1e-6); packed_prologue bits equal, sval allclose(rtol=1e-6,
-   atol=1e-6); packed_bwd entry rows allclose(rtol=1e-5, atol=1e-6);
+   atol=1e-6); packed_bwd entry rows allclose(rtol=1e-5, atol=1e-6),
+   and the values whose bits differ from the plain version's;
 4. the main path: forward checks (overflow flag clear, equal nonzero
    covered pixels with and without clipping), then ``loss = sum(pixels *
    w)`` and ``loss.backward()`` to vertices, colors and background:
@@ -563,6 +564,12 @@ def _check_packed_kernels(tag, face_verts, face_attrs, background, weights,
     _sync()
     rows_bad = int((~torch.isclose(rows_k, rows_p, **TOL_BWD)).sum())
     err = float((rows_k - rows_p).abs().max())
+    # Bit for bit: the same sums in the same order; on the card the plain
+    # version's index_add_ (atomicAdd) flushes subnormal sums to zero, so
+    # differences below the smallest normal float are counted apart.
+    bits_differ = rows_k.view(torch.int32) != rows_p.view(torch.int32)
+    below = bits_differ & ((rows_k - rows_p).abs()
+                           < torch.finfo(torch.float32).tiny)
     same = torch.equal(rows_k, packed_bwd.packed_entry_rows(prep))
     record["packed_bwd"] = dict(
         max_abs_err=err,
@@ -573,8 +580,10 @@ def _check_packed_kernels(tag, face_verts, face_attrs, background, weights,
                  + 4 * rows_k.numel(), covered * _core_flops(channels)))
     print(f"[{tag}] packed_bwd entry rows "
           f"{tuple(rows_k.shape)}: values outside allclose(rtol=1e-5, "
-          f"atol=1e-6) {rows_bad}, max |diff| {err:.3g}, max |row| "
-          f"{float(rows_p.abs().max()):.4g}, nonzero rows "
+          f"atol=1e-6) {rows_bad}, max |diff| {err:.3g}, values whose bits "
+          f"differ from the plain version's {int((bits_differ & ~below).sum())}"
+          f" (besides {int(below.sum())} below the smallest normal float), "
+          f"max |row| {float(rows_p.abs().max()):.4g}, nonzero rows "
           f"{int((rows_p != 0).any(1).sum())}, second run equal {same}; "
           f"kernel {record['packed_bwd']['ms']:.4f} ms, plain "
           f"{record['packed_bwd']['plain_ms']:.4f} ms, bound "

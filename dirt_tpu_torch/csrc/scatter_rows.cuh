@@ -1,11 +1,11 @@
 // The two passes of the face scatters (scatter_faces.cu over dense [T, cap]
 // bins, scatter_faces_csr.cu over CSR runs): per-pixel rows cot[:, y, x]
 // (channels-first planes [K, hp, wp]) summed onto the face that owns the
-// pixel, without atomics. The fused CSR backward (fused_bwd_csr.cu) takes
-// the block structure of pass 1 (csr_block_tile, stage_entries,
-// walk_entries, fold_step) with a body of its own, and pass 2 as it is; the
-// fused dense backward keeps fused_rows.cuh's passes. These passes are
-// shaped by what bounds a scatter on Hopper.
+// pixel, without atomics. The fused backwards (fused_bwd.cu over dense bins,
+// fused_bwd_csr.cu over CSR runs) take the block structure of pass 1
+// (csr_block_tile, stage_entries, walk_entries, fold_step) with a body of
+// their own (fused_rows.cuh), and pass 2 as it is. These passes are shaped
+// by what bounds a scatter on Hopper.
 // By count that is bytes, but the card could move the bytes the function
 // needs in a sixth of the time it takes: what it waits for is the chain of
 // dependent loads (list -> box -> owner -> planes) and the 32-byte sectors

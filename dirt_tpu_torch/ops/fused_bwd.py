@@ -8,10 +8,11 @@ gradient into per-face cotangent rows ``[12 + 3C]`` (9 edge, 3 denominator,
 3C attribute columns): ``raster_bwd.pixel_cotangents_core`` on every covered
 pixel, summed over the pixels each face owns.
 
-* CUDA tensors launch the hand-written kernels ``csrc/fused_bwd.cu`` (its
-  passes are ``csrc/fused_rows.cuh``'s) and ``csrc/fused_bwd_csr.cu`` (a
-  block per 128 CSR rows that gives warps to live rows only and sums in
-  registers, then ``csrc/scatter_rows.cuh``'s reduction onto faces): they
+* CUDA tensors launch the hand-written kernels ``csrc/fused_bwd.cu`` (a
+  warp per live slot of a tile's list) and ``csrc/fused_bwd_csr.cu`` (a
+  block per 64 CSR rows whose warps take the live ones); both sum in
+  registers (``csrc/fused_rows.cuh``), then reduce onto faces with
+  ``csrc/scatter_rows.cuh``'s second pass: they
   read each owner's geometry row directly (the TPU kernels' ``binned17``
   pre-gather and one-hot matrix products have no counterpart) and reduce
   without atomics, in a fixed order, through per-list-entry partial rows,
@@ -160,7 +161,7 @@ def _kernel_fn():
     fn.argtypes = (
         [ctypes.c_void_p, ctypes.c_int]
         + [ctypes.c_void_p] * 11
-        + [ctypes.c_int] * 7
+        + [ctypes.c_int] * 8
         + [ctypes.c_void_p]
     )
     return fn
@@ -187,10 +188,10 @@ def _launch(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf, num_rows,
                   num_faces)
 
     rows_padded = -(-num_rows // 8) * 8
-    # The kernel writes the first num_faces rows; the sentinel and padding
-    # rows stay zero. ``partial`` needs no clearing: pass 2 reads only the
-    # (tile, slot) rows pass 1 wrote.
-    out = torch.zeros((rows_padded, k_cols), dtype=torch.float32,
+    # The kernel writes every row of ``out``: the first num_faces rows, then
+    # zeros for the sentinel and padding rows. ``partial`` needs no clearing:
+    # pass 2 reads only the (tile, slot) rows pass 1 wrote.
+    out = torch.empty((rows_padded, k_cols), dtype=torch.float32,
                       device=device)
     partial = torch.empty((total * cap, k_cols), dtype=torch.float32,
                           device=device)
@@ -202,7 +203,8 @@ def _launch(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf, num_rows,
             bbox.data_ptr(), cull.data_ptr(), fid.data_ptr(), bits.data_ptr(),
             sval.data_ptr(), pix_cf.data_ptr(), grad_cf.data_ptr(),
             partial.data_ptr(), out.data_ptr(),
-            channels, hp, wp, tile_h, tile_w, cap, num_faces, stream,
+            channels, hp, wp, tile_h, tile_w, cap, num_faces, rows_padded,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"{_KERNEL} launch failed: CUDA error {err}")

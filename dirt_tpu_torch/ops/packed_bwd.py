@@ -71,11 +71,16 @@ from dirt_tpu_torch.ops.triangle_setup import GEO_USED
 LAUNCHES_PROLOGUE = 0
 LAUNCHES_BWD = 0
 
-# Shared memory of one packed_bwd block: a static id stage (128 iterations
-# x 8 groups of floats) plus, per thread, the owner index and the 12 + 3C
-# cotangent columns.
-_BWD_THREADS = SUB_H * GROUPS * SUB_W
-_BWD_STATIC_SMEM = 128 * GROUPS * 4
+# The most cotangent columns one launch of packed_bwd stages: 12 + 3C up to
+# C = 14 in one launch, more in further launches over the same owners (the
+# first version of the kernel, a block of 1,024 threads, held no more in an
+# H100's shared memory; no path of the repository runs more channels, and
+# the split keeps the column groups in use at C = 16).
+_BWD_COLUMNS = 54
+# A block of packed_bwd: its threads, and its static shared memory (ids and
+# masks) in bytes.
+_BWD_THREADS = SUB_H * SUB_W
+_BWD_STATIC_SMEM = 128 * 20
 
 _PROLOGUE = "packed_prologue"
 _BWD = "packed_bwd"
@@ -83,13 +88,13 @@ _BWD = "packed_bwd"
 
 def columns_per_pass(device=None) -> int:
     """Cotangent columns one launch of the backward kernel stages on
-    ``device`` (default: the current CUDA device): what the card's opt-in
-    shared memory per block holds beside the owner index, 54 on an H100
-    (227 KB), which is 14 channels. More columns run as further launches
-    over the same owners, one per group of this many columns."""
+    ``device`` (default: the current CUDA device): 54 (14 channels), or
+    fewer where the card's opt-in shared memory per block holds fewer. More
+    columns run as further launches over the same owners, one per group of
+    this many columns."""
     smem = torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin
-    return (smem - _BWD_STATIC_SMEM) // (4 * _BWD_THREADS) - 1
+    return min(_BWD_COLUMNS, (smem - _BWD_STATIC_SMEM) // (4 * _BWD_THREADS))
 
 
 # --- K3: the neighbor prologue ------------------------------------------

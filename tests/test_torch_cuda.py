@@ -46,7 +46,13 @@ count (16, 32 and 33 channels) like the packed backward below it.
 
 The layout swap kernel against its plain version (a permutation: equal bit
 for bit, float32 and int32 alike), and the packed backward kernel on
-flat-subtile fields bit-equal to itself on image-layout fields.
+flat-subtile fields bit-equal to itself on image-layout fields. The packed
+backward at 3, 9 and 16 channels on image and flat-subtile fields also bit
+for bit against its plain version run on the CPU (the same sums in the
+same order; on the card the plain version's ``index_add_`` flushes
+subnormal sums to zero), and the fused dense backward at each of its
+compile-time instances and its general form with the dense engine's
+tolerance, on lists that reach their cap beside empty tiles.
 """
 
 from unittest import mock
@@ -306,6 +312,43 @@ def test_backward_kernel_takes_channels_beyond_one_pass(cuda, channels):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("channels", [3, 9, 16])
+@pytest.mark.parametrize("layout", ["image", "flat"])
+def test_backward_kernel_bits_equal_plain_on_card(cuda, channels, layout):
+    """The packed backward sums each budget row's own pixels in the
+    subtile's row-major order, as its plain version does: the rows are
+    equal bit for bit to the plain version's run on the CPU (on the card
+    the plain version's ``index_add_`` sums with atomicAdd, which flushes
+    subnormal sums to zero), 16 channels in two launches, on image and on
+    flat-subtile fields; equal on a second run; and two chunk slices
+    [0, k) and [k, n) give the whole range's rows."""
+    prep = _backward_inputs(cuda, "sphere", 192, 256, channels, 64)
+    if layout == "flat":
+        prep = packed_bwd._PackedBwdPrep(
+            *raster_fwd.flat_subtile_swap(
+                [prep.fid_p, prep.bits, prep.sval, prep.pix_cf,
+                 prep.grad_cf]),
+            prep.bins, prep.geo, prep.att, prep.channels, prep.k_cols,
+            prep.tile_h, prep.tile_w, flat=True)
+    rows_k = packed_bwd.packed_entry_rows(prep)
+    on_cpu = packed_bwd._PackedBwdPrep(
+        *(t.cpu() for t in (prep.fid_p, prep.bits, prep.sval, prep.pix_cf,
+                            prep.grad_cf)),
+        type(prep.bins)(*(None if v is None else v.cpu() for v in prep.bins)),
+        prep.geo.cpu(), prep.att.cpu(), prep.channels, prep.k_cols,
+        prep.tile_h, prep.tile_w, flat=prep.flat)
+    rows_p = packed_bwd.packed_entry_rows_plain(
+        on_cpu, on_cpu.bins.rows, 0, prep.budget_chunks)
+    assert torch.equal(rows_k.cpu(), rows_p)
+    assert int((rows_k != 0).any(1).sum()) > 100
+    assert torch.equal(rows_k, packed_bwd.packed_entry_rows(prep))
+    for k in (1, prep.budget_chunks // 3, prep.budget_chunks - 1):
+        halves = torch.cat([packed_bwd.packed_entry_rows(prep, 0, k),
+                            packed_bwd.packed_entry_rows(prep, k)])
+        assert torch.equal(halves, rows_k)
+
+
+@pytest.mark.cuda
 def test_packed_gradients_with_16_channels_on_card_match_cpu(cuda):
     verts, colors, faces = sphere_scene(24, 32, channels=16)
     bg = np.random.RandomState(6).rand(192, 256, 16).astype(np.float32)
@@ -460,6 +503,67 @@ def test_fused_bwd_kernel_matches_plain_on_card(cuda, kind, height, width,
         fused_bwd.fused_backward_rows(*args, **geom)
     with pytest.raises(ValueError, match="cull"):
         fused_bwd.fused_backward_rows(*args, bbox=bins.bbox, **geom)
+
+
+# (scene, channels, height, width): the fused dense backward's
+# compile-time instances, at C = 3 on a mesh of small faces (2,400 faces of
+# a few pixels over the left half of 128 x 512) and on one of larger faces
+# (the 1,472-face sphere at 512 x 512) and at C = 9, and its general form
+# at C = 5.
+_FUSED_INSTANCES = [("soup", 3, 128, 512), ("sphere", 3, 512, 512),
+                    ("sphere", 9, 512, 512), ("sphere", 5, 256, 384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,channels,height,width", _FUSED_INSTANCES)
+def test_fused_bwd_kernel_instances_on_card(cuda, kind, channels, height,
+                                            width):
+    """A scene binned with its cap at the fullest tile's count (so one
+    list reaches the cap exactly) over an image with empty tiles: the
+    fused dense backward's rows within the row tolerance of the plain
+    version's, equal on a second run, and zero for the sentinel and
+    padding rows."""
+    if kind == "soup":
+        faces = screen_soup(2400, height, width // 2, seed=13,
+                            channels=channels, spread=6.0)
+    else:
+        faces = _faces(kind, height, width, channels)
+    fv, fa = (torch.tensor(a, device=cuda) for a in faces)
+    bg = torch.zeros(height, width, channels, device=cuda)
+    config = raster.RasterConfig(engine="dense", tile_h=32, tile_w=128,
+                                 bin_cap=fv.shape[0])
+    _, bins, _, _ = raster.prepare_dense(fv, fa, bg, config)
+    cap = int(bins.counts.max())
+    table, bins, bg_chw, cfg = raster.prepare_dense(
+        fv, fa, bg, config._replace(bin_cap=cap))
+    assert not bool(bins.overflow.any())
+    assert bins.bins.shape[1] == cap and int(bins.counts.max()) == cap
+    assert bool((bins.counts == 0).any())
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    pix_cf, fid, zbuf = raster_fwd.raster_forward_plain(
+        table, bins.bins, bins.counts, bg_chw, **geom)
+    grad_cf = torch.randn_like(pix_cf)
+    bits, sval = packed_bwd.fused_neighbor_prologue_plain(fid, zbuf, pix_cf,
+                                                          grad_cf)
+    geo = setup_planes(fv, fa)[0].contiguous()
+    num_faces = fv.shape[0]
+    args = (geo, bins.bins, bins.counts, fid, bits, sval, pix_cf, grad_cf,
+            num_faces + 1)
+    boxes = dict(bbox=bins.bbox,
+                 cull=raster_fwd.csr_cull_boxes(table, *fid.shape))
+    before = fused_bwd.LAUNCHES
+    rows_k = fused_bwd.fused_backward_rows(*args, **boxes, **geom)
+    torch.cuda.synchronize()
+    assert fused_bwd.LAUNCHES == before + 1
+    rows_p = fused_bwd.fused_backward_rows_plain(
+        geo, fid, bits, sval, pix_cf, grad_cf, num_faces + 1)
+    assert rows_k.shape == rows_p.shape
+    scale = rows_p.abs().amax(dim=0, keepdim=True)
+    assert ((rows_k - rows_p).abs() <= 1e-5 * scale + 1e-6).all()
+    assert int((rows_k != 0).any(1).sum()) > num_faces // 4
+    assert not rows_k[num_faces:].any()
+    assert torch.equal(rows_k, fused_bwd.fused_backward_rows(
+        *args, **boxes, **geom))
 
 
 @pytest.mark.cuda

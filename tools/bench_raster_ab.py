@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The whole-tile forwards (K5, K7), the fused backwards (K6, K8) and the
-layout swap (K4) on one CUDA card, against another tree's, in one process.
+"""The whole-tile forwards (K5, K7), the fused backwards (K6, K8), the
+layout swap (K4) and the packed backward (K2) on one CUDA card, against
+another tree's, in one process.
 
-    python3 tools/bench_raster_ab.py [--parent DIR] [--runs N]
-        [--kernels K5,K6,K7,K8,K4] [--spheres 224,...]
+    python3 tools/bench_raster_ab.py [--parent DIR[,DIR...]] [--runs N]
+        [--kernels K5,K6,K7,K8,K4,K2] [--spheres 224,...]
 
 Times ``ops.raster_fwd.raster_forward_csr`` (raster_fwd_csr.cu) and
 ``ops.fused_bwd.fused_backward_rows_csr`` (fused_bwd_csr.cu) on the
@@ -23,7 +24,13 @@ forwards' outputs; and
 per-pixel fields the sharded packed halo backward hands it (one slab of
 ``rasterise_sharded``, the bench sphere at 3 and 9 channels: 12 and 24
 planes of 1024 x 1024), as ``chip_smoke.py`` phases 10 and 12 capture
-them. For each shape and variant it prints
+them; and ``ops.packed_bwd.packed_entry_rows`` (packed_bwd.cu) on what the
+packed backward hands it on four shapes: the bench sphere at 1024 x 1024
+with ``clip=False`` and 3 channels (the bench's main path), config 5's
+9-channel G-buffer at 1024 x 1024, the bench sphere with 16 channels (two
+launches) and one slab of the sharded packed path (``rasterise_sharded``
+with one local slab: flat-subtile fields). For each shape and variant it
+prints
 
 * the check: K5's and K7's fid and zbuf equal to the plain (un-culled)
   version's on the whole padded arrays and pixels within ``chip_smoke.TOL``,
@@ -31,15 +38,20 @@ them. For each shape and variant it prints
   ``chip_smoke.TOL_ROWS`` of the column's largest magnitude + 1e-6 of the
   plain version's and equal on a second run (the variants sum in other
   orders, so their rows are compared with the plain version's, not with
-  each other's); K4 bit-equal to its plain version;
+  each other's); K4 bit-equal to its plain version; K2 bit-equal to its
+  plain version run on the CPU (on the card the plain version's
+  ``index_add_`` flushes subnormal sums to zero), to a second run and to
+  this tree's rows, and (this tree's) two chunk slices equal to the whole
+  range;
 * K5's and K7's faces tested per pixel without the cull and with it
   (``chip_smoke.tests_per_pixel``, this tree's cull boxes) and the bounds
   of ``chip_smoke.py``;
 * single-call time: the median of synchronised calls of the wrapper (CUDA
   events), allocation and launches included;
 * device time: the device kernels of one call, by kernel (each launch of a
-  call: K5's and K7's box launch and walk, K6's and K8's two passes), from a
-  ``torch.profiler`` window of ``--runs`` calls;
+  call: K5's and K7's box launch and walk, K6's and K8's two passes, K2's
+  one launch per column group), from a ``torch.profiler`` window of
+  ``--runs`` calls;
 * back-to-back time: ``--runs`` calls queued without a synchronise, per call,
   and the host's time to queue one call;
 * for K4 the same figures for one strided ``contiguous()`` copy of the
@@ -52,11 +64,16 @@ limits.
 
 With ``--parent DIR`` (another tree of this repository, unpacked with ``git
 archive``) that tree's sources are built beside this tree's and timed
-through that tree's own wrapper code: its ``ops/raster_fwd.py`` and
-``ops/fused_bwd.py``, loaded as modules of their own whose ``_build.load``
-returns the libraries built from that tree, so its own ``_swap_fn``,
-``_csr_fn`` and ``_dense_fn`` type their entry points.
-The two are timed in turns (new, old, old, new).
+through that tree's own wrapper code: its ``ops/raster_fwd.py``,
+``ops/fused_bwd.py`` and ``ops/packed_bwd.py``, loaded as modules of their
+own whose ``_build.load`` returns the libraries built from that tree, so its
+own ``_swap_fn``, ``_csr_fn``, ``_dense_fn`` and ``_bwd_fn`` type their
+entry points. The two are timed in turns (new, old, old, new). K2, K6 and
+K8 take several trees (``--parent A,B``), each labelled by its directory's
+name and timed in turns: a copy of this tree with one tuning constant
+edited is how a constant is chosen; a copy with one pass of K2 cut out,
+timed beside the whole kernel, splits its time (such a tree's K2 rows are
+reported, not refused).
 Prints the card's name and power limit on every line; exits non-zero
 without a CUDA device.
 """
@@ -80,14 +97,16 @@ sys.path.insert(0, str(ROOT / "tools"))
 sys.path.insert(0, str(ROOT / "tests"))
 
 NAMES = ("subtile_swap", "raster_fwd_csr", "raster_fwd_dense",
-         "fused_bwd", "fused_bwd_csr", "scatter_faces", "scatter_faces_csr")
+         "fused_bwd", "fused_bwd_csr", "scatter_faces", "scatter_faces_csr",
+         "packed_bwd")
 
 
-def _parent_module(root):
-    """The other tree's ``ops/raster_fwd.py``, ``ops/fused_bwd.py`` and
-    ``ops/scatter.py`` as modules of their own (attributes of the namespace
-    returned) whose ``_build.load(name)`` builds ``csrc/<name>.cu`` of that
-    tree at first use: its wrappers, host code and all, around its
+def _parent_module(root, label="parent"):
+    """The other tree's ``ops/raster_fwd.py``, ``ops/fused_bwd.py``,
+    ``ops/scatter.py`` and ``ops/packed_bwd.py`` as modules of their own
+    (attributes of the namespace returned) whose ``_build.load(name)``
+    builds ``csrc/<name>.cu`` of that tree at first use (into a library
+    named after ``label``): its wrappers, host code and all, around its
     kernels."""
     from bench_scatter import build_lib
 
@@ -95,13 +114,14 @@ def _parent_module(root):
 
     def load(name):
         if name not in libs:
-            libs[name] = build_lib(root, name, "parent")
+            libs[name] = build_lib(root, name, label)
         return libs[name]
 
     modules = {}
-    for name in ("raster_fwd", "fused_bwd", "scatter"):
+    for name in ("raster_fwd", "fused_bwd", "scatter", "packed_bwd"):
         path = Path(root) / "dirt_tpu_torch" / "ops" / f"{name}.py"
-        spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
+        spec = importlib.util.spec_from_file_location(
+            f"{label}_{name}", path)
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
         module._build = types.SimpleNamespace(load=load)
@@ -230,9 +250,9 @@ def _bench_forward(tag, engine, inputs, card, runs, parent):
 
 
 def _bench_fused(tag, engine, face_verts, face_attrs, weights, forward,
-                 card, runs, parent):
+                 card, runs, parents):
     """K6 (``engine`` "dense") or K8 ("csr") on the outputs of one forward
-    (``_bench_forward``'s return), new and old."""
+    (``_bench_forward``'s return), this tree's and each parent's."""
     import chip_smoke
     from dirt_tpu_torch.ops import fused_bwd, packed_bwd
     from dirt_tpu_torch.ops.triangle_setup import setup_planes
@@ -259,9 +279,9 @@ def _bench_fused(tag, engine, face_verts, face_attrs, weights, forward,
     new = getattr(fused_bwd, wrapper)
     variants = {"new": functools.partial(
         new, *args, **_boxes_of(new, bins.bbox, cull), **geom)}
-    if parent is not None:
+    for label, parent in parents.items():
         old = getattr(parent.fused_bwd, wrapper)
-        variants["old"] = functools.partial(
+        variants[label] = functools.partial(
             old, *args, **_boxes_of(old, bins.bbox, cull), **geom)
     covered = int((fid >= 0).sum())
     listed = int(bins.counts.sum())
@@ -287,6 +307,98 @@ def _bench_fused(tag, engine, face_verts, face_attrs, weights, forward,
         if bad or not same:
             raise RuntimeError(f"[{tag}] {label} {name} is wrong")
     _time(tag, card, variants, runs, name + "_")
+
+
+def _bench_packed(tag, prep, card, runs, parents):
+    """K2 on the inputs one run of the packed backward hands
+    ``packed_entry_rows`` (``prep``), this tree's and each parent's. Every
+    variant's rows are held bit for bit against the plain version run on
+    the CPU (on the card the plain version's index_add_ sums with atomicAdd,
+    which flushes subnormal sums to zero: those differences are counted
+    apart), against a second run of itself, and against this tree's rows;
+    a parent that differs is reported and timed all the same (a tree with a
+    pass cut out, timed to split the kernel's time, gives other rows).
+    Returns the failures of this tree's kernel (an empty list when it
+    passes)."""
+    import chip_smoke
+    from dirt_tpu_torch.ops import packed_bwd
+
+    rows = packed_bwd._entry_table_rows(prep)
+    want = packed_bwd.packed_entry_rows_plain(prep, rows, 0,
+                                              prep.budget_chunks)
+    # The plain version on the CPU as well, whose sums keep subnormals.
+    bins_cpu = type(prep.bins)(*(None if v is None else v.cpu()
+                                 for v in prep.bins))
+    prep_cpu = packed_bwd._PackedBwdPrep(
+        *(t.cpu() for t in (prep.fid_p, prep.bits, prep.sval, prep.pix_cf,
+                            prep.grad_cf)),
+        bins_cpu, prep.geo.cpu(), prep.att.cpu(), prep.channels, prep.k_cols,
+        prep.tile_h, prep.tile_w, flat=prep.flat)
+    want_cpu = packed_bwd.packed_entry_rows_plain(
+        prep_cpu, rows.cpu(), 0, prep.budget_chunks).to(want.device)
+    channels, hp, wp = prep.pix_cf.shape
+    bins = prep.bins
+    live = chip_smoke._packed_live(bins, prep.tile_h)
+    covered = int((prep.fid_p >= 0).sum())
+    bound = chip_smoke._bound(
+        live * 8 * rows.shape[1] * 4
+        + 4 * (2 * bins.n_iters.numel() + 2 * bins.iter_off.numel())
+        + 4 * hp * wp * (6 + 2 * channels) + 4 * want.numel(),
+        covered * chip_smoke._core_flops(channels))
+    passes = -(-prep.k_cols // packed_bwd.columns_per_pass(prep.fid_p.device))
+    print(f"[{tag}] packed_bwd rows {tuple(want.shape)}, "
+          f"{'flat-subtile' if prep.flat else 'image'} layout, live "
+          f"iterations {live}, covered {covered} px, {passes} launch(es) of "
+          f"at most {packed_bwd.columns_per_pass(prep.fid_p.device)} "
+          f"columns: bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']} ({card})")
+    variants = {"new": functools.partial(packed_bwd.packed_entry_rows, prep)}
+    for label, parent in parents.items():
+        variants[label] = functools.partial(
+            parent.packed_bwd.packed_entry_rows, prep)
+    failures = []
+    first = None
+    tiny = torch.finfo(torch.float32).tiny
+    for label, fn in variants.items():
+        got = fn()
+        again = fn()
+        torch.cuda.synchronize()
+        # On the card the plain version's index_add_ sums with atomicAdd,
+        # which flushes subnormal sums to zero; the kernel keeps them, so
+        # the two can differ by less than the smallest normal float.
+        bits_differ = got.view(torch.int32) != want.view(torch.int32)
+        below = bits_differ & ((got - want).abs() < tiny)
+        differ_cpu = int((got.view(torch.int32)
+                          != want_cpu.view(torch.int32)).sum())
+        same = torch.equal(got, again)
+        first = got if first is None else first
+        line = (f"[{tag}] {label}: values whose bits differ from the plain "
+                f"version's on the CPU {differ_cpu} of {want.numel()}, from "
+                f"its on the card {int(bits_differ.sum())} ("
+                f"{int(below.sum())} of them by less than the smallest "
+                f"normal float; max |diff| "
+                f"{float((got - want).abs().max()):.3g}), second run equal "
+                f"{same}, equal to this tree's rows {torch.equal(got, first)}")
+        if label == "new":
+            mid = prep.budget_chunks // 2
+            halves = torch.cat([packed_bwd.packed_entry_rows(prep, 0, mid),
+                                packed_bwd.packed_entry_rows(prep, mid)])
+            composed = torch.equal(halves, got)
+            line += f", chunk slices [0, {mid}) + [{mid}, end) equal {composed}"
+            if differ_cpu or not same or not composed:
+                failures.append(tag)
+        print(line)
+    _time(tag, card, variants, runs, "packed_bwd")
+    return failures
+
+
+def _packed_calls(step):
+    """The prepared inputs one run of ``step()`` hands
+    ``packed_entry_rows``."""
+    from dirt_tpu_torch.ops import packed_bwd
+
+    return [args[0] for args, _ in _calls(packed_bwd, "packed_entry_rows",
+                                          step)]
 
 
 def _calls(module, name, run):
@@ -448,13 +560,14 @@ def _bench_swap(tag, arrays, card, runs, parent):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", help="another tree of the repository "
-                        "whose kernels are timed beside this one's")
+                        "whose kernels are timed beside this one's; for K2, "
+                        "K6 and K8 several, separated by commas")
     parser.add_argument("--runs", type=int, default=20)
-    parser.add_argument("--kernels", default="K5,K6,K7,K8,K4",
-                        help="which of K5, K6, K7, K8, K4 to time (K6 runs "
-                        "K5 and K8 runs K7 for their inputs); NEEDLES holds "
-                        "K6, K8, K9, K10 of both trees against their plain "
-                        "versions on far needles")
+    parser.add_argument("--kernels", default="K5,K6,K7,K8,K4,K2",
+                        help="which of K5, K6, K7, K8, K4, K2 to time (K6 "
+                        "runs K5 and K8 runs K7 for their inputs); NEEDLES "
+                        "holds K6, K8, K9, K10 of both trees against their "
+                        "plain versions on far needles")
     parser.add_argument("--spheres", default="224",
                         help="uv_sphere(n, n) resolutions of the default "
                         "API's CSR scenes for K7 and K8 (224: 99,904 faces, "
@@ -479,7 +592,11 @@ def main():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build {name}] {line.strip()}")
-    parent = _parent_module(opts.parent) if opts.parent else None
+    roots = opts.parent.split(",") if opts.parent else []
+    parents = {("old" if len(roots) == 1 else f"old {Path(root).name}"):
+               _parent_module(root, f"parent{i}")
+               for i, root in enumerate(roots)}
+    parent = next(iter(parents.values()), None)
 
     size = chip_smoke.SIZE
     _, clip, colors, faces, background, weights = chip_smoke._bench_scene(
@@ -521,7 +638,7 @@ def main():
                                      opts.runs, parent)
             if "K8" in kernels:
                 _bench_fused(f"K8 {tag}", "csr", inputs[0], inputs[1], w,
-                             forward, card, opts.runs, parent)
+                             forward, card, opts.runs, parents)
             del forward
         del scenes, bench
 
@@ -550,10 +667,54 @@ def main():
                                      opts.runs, parent)
             if "K6" in kernels:
                 _bench_fused(f"K6 {tag}", "dense", inputs[0], inputs[1], w,
-                             forward, card, opts.runs, parent)
+                             forward, card, opts.runs, parents)
 
     if "NEEDLES" in kernels:
         _bench_needles(card, parent)
+
+    if "K2" in kernels:
+        # The packed backward's four shapes: the bench's main path (clip
+        # off), config 5's G-buffer, 16 channels (two launches), and one
+        # slab of the sharded packed path (flat-subtile fields).
+        packed_cfg = dirt_tpu_torch.suggest_raster_config(
+            clip, faces, size, size, clip=False)
+        render5, leaves5 = chip_smoke.config5_render(device)
+        w5 = chip_smoke._rand(1, size, size, 3, device=device)
+
+        def config5_step():
+            fresh = [t.detach().clone().requires_grad_() for t in leaves5]
+            (render5(*fresh) * w5).sum().backward()
+
+        colors16 = chip_smoke._rand(5, clip.shape[0], 16, device=device)
+        scenes16 = (torch.zeros((size, size, 16), device=device), clip,
+                    colors16, faces,
+                    chip_smoke._rand(6, size, size, 16, device=device))
+        shapes = [
+            (f"bench sphere {size}^2 packed clip=False C=3",
+             lambda: chip_smoke._grads(
+                 dirt_tpu_torch.rasterise_with_aux, background, clip, colors,
+                 faces, weights, packed_cfg, False)),
+            (f"config 5 {size}^2 C=9", config5_step),
+            (f"bench sphere {size}^2 packed C=16",
+             lambda: chip_smoke._grads(
+                 dirt_tpu_torch.rasterise_with_aux, *scenes16[:4],
+                 scenes16[4], packed_cfg, False)),
+            (f"sharded packed slab {size}^2 C=3 (flat layout)",
+             lambda: chip_smoke._grads(
+                 lambda bg, v, c, f, config, clip: rasterise_sharded(
+                     bg, v, c, f, LocalGroup(1), config=config,
+                     with_aux=True),
+                 background, clip, colors, faces, weights, packed_cfg,
+                 False)),
+        ]
+        failures = []
+        for tag, step in shapes:
+            (prep,) = _packed_calls(step)
+            failures += _bench_packed(f"K2 {tag}", prep, card, opts.runs,
+                                      parents)
+            del prep
+        if failures:
+            raise RuntimeError(f"K2 is wrong on: {failures}")
 
     if "K4" in kernels:
         packed_cfg = dirt_tpu_torch.suggest_raster_config(
