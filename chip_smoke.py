@@ -16,20 +16,23 @@ raises and exits non-zero; nothing is caught):
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (the bench scene's real bins, rows and outputs, and the
    bench's upstream gradient ``RandomState(1).rand(1024, 1024, 3)``):
-   raster_fwd_packed fid and zbuf equal, pixels allclose(rtol=1e-6,
-   atol=1e-6); packed_prologue bits equal, sval allclose(rtol=1e-6,
-   atol=1e-6); packed_bwd entry rows allclose(rtol=1e-5, atol=1e-6),
+   raster_fwd_packed's fid, zbuf and pixels equal bit for bit;
+   packed_prologue (``padded_prologue``, on what the packed backward hands
+   it: the forward's cropped fid and depth, its pixels as the permuted view
+   of its [C, Hp, Wp] output, the upstream gradient) its five outputs
+   (padded fid, bits, sval, padded pixels and gradient) equal bit for bit;
+   packed_bwd entry rows allclose(rtol=1e-5, atol=1e-6),
    and the values whose bits differ from the plain version's;
 4. the main path: forward checks (overflow flag clear, equal nonzero
    covered pixels with and without clipping), then ``loss = sum(pixels *
    w)`` and ``loss.backward()`` to vertices, colors and background:
    finite, nonzero vertex and color gradients, d_background equal to w
    on background and 0 on covered pixels, launch counts > 0 for all three
-   kernels, the kernel path's gradients against the same path with every
-   kernel replaced by its plain version (max |diff| <= 1e-5 max |grad|),
-   and the times (median of 20,
-   CUDA events) of the forward, the fwd+bwd step, the backward alone and
-   fwd+bwd Mpix/s;
+   kernels and one prologue launch per backward, the kernel path's
+   gradients against the same path with every kernel replaced by its
+   plain version (max |diff| <= 1e-5 max |grad|), and the times (median
+   of 20, CUDA events) of the forward, the fwd+bwd step, the backward
+   alone and fwd+bwd Mpix/s;
 5. a few training steps: Adam on the L2 loss to a target render, from a
    perturbed pose and perturbed colors; the loss must fall;
 6. the three packed kernels against their plain versions at 9 channels
@@ -45,9 +48,11 @@ raises and exits non-zero; nothing is caught):
    against the plain walk that tests every listed face at every pixel, on
    the whole padded arrays: fid and zbuf equal, pixels allclose(rtol=1e-6,
    atol=1e-6), and its boxes equal to their plain version; its line gives
-   the faces tested per pixel without the cull and with it; fused_bwd on
-   those boxes: cotangent rows within 1e-5 of the column's largest
-   magnitude + 1e-6 (the kernel sums float32 in a fixed order, the plain
+   the faces tested per pixel without the cull and with it; the prologue
+   on what the backward hands it, its five outputs bit for bit against its
+   plain version; fused_bwd on those fields and boxes: cotangent rows
+   within 1e-5 of the column's largest magnitude + 1e-6 (the kernel sums
+   float32 in a fixed order, the plain
    version float64), and equal on a second run; each line carries a
    SHA-256 prefix of the kernel's inputs (the backward's also of the
    upstream gradient alone) and the backward's of its rows, so two trees
@@ -58,7 +63,8 @@ raises and exits non-zero; nothing is caught):
    flagship step ``dirt_tpu_torch.entry.entry()`` (2,208 faces, 256x256,
    dense engine); overflow clear, gradients finite and within 1e-4 of max
    |gradient| of the same path with every kernel replaced by its plain
-   version, launch counts > 0; then 10 Adam steps on the flagship loss
+   version, launch counts > 0 and one prologue launch per backward (also
+   in phases 9 and 11); then 10 Adam steps on the flagship loss
    over (vertices, pose), which must fall;
 9. configs 1-4 of ``bench_configs.py`` on the port, once each: forward and
    a gradient step on the auto (dense) engine, overflow clear, times;
@@ -226,6 +232,81 @@ def _bound(nbytes, flops):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def packed_forward_bound(bins, tile_h, channels, fid):
+    """raster_fwd_packed's bound, from ``bins`` and the forward's [Hp, Wp]
+    face ids: the 14 test columns (0..13) of each live job's row, and the
+    denominator, id and 3C attribute columns (14..17, 19..) once for each
+    distinct winning row (a face wins at most one row of an 8 x 16
+    subtile); the per-tile and per-strip fields; the background where no
+    face won; the three outputs written once. One coverage and depth test
+    per (pixel, live iteration) and one attribute evaluation per covered
+    pixel."""
+    hp, wp = fid.shape
+    live = _packed_live(bins, tile_h)
+    hit = fid >= 0
+    covered = int(hit.sum())
+    ys, xs = torch.nonzero(hit, as_tuple=True)
+    subtile = (ys // 8) * (wp // 16) + xs // 16
+    won = int(torch.unique(subtile * (int(fid.max()) + 1)
+                           + fid[hit].long()).numel())
+    meta_bytes = 4 * (2 * bins.n_iters.numel() + 2 * bins.iter_off.numel())
+    return _bound(live * 8 * 14 * 4 + won * (4 + 3 * channels) * 4
+                  + meta_bytes + 4 * hp * wp * (channels + 2)
+                  + 4 * (hp * wp - covered) * channels,
+                  live * 1024 * TEST_FLOPS + covered * _attr_flops(channels))
+
+
+def prologue_bound(height, width, hp, wp, channels):
+    """padded_prologue's bound: fid, depth, pixels and gradient of the
+    [H, W] image read once (8 + 8C bytes a pixel); padded fid, bits, four
+    sval planes, padded pixels and gradient written once (24 + 8C bytes a
+    padded pixel); per padded pixel and direction 3C + 1 operations."""
+    return _bound(height * width * (8 + 8 * channels)
+                  + hp * wp * (24 + 8 * channels),
+                  hp * wp * 4 * (3 * channels + 1))
+
+
+def _prologue_check(tag, args, card, runs=0, plain_runs=0):
+    """packed_prologue (``padded_prologue``) against its plain version on
+    ``args`` (fid, zbuf, pixels, grad_pixels, tile_h, tile_w), its five
+    outputs bit for bit; with ``runs`` its times and bound too. Returns
+    (the kernel's outputs, {max_abs_err, and with ``runs`` ms, plain_ms,
+    bound_ms, bound_by}); raises on a mismatch."""
+    from dirt_tpu_torch.ops import packed_bwd
+
+    got = packed_bwd.padded_prologue(*args)
+    want = packed_bwd.padded_prologue_plain(*args)
+    _sync()
+    names = ("fid_p", "bits", "sval", "pix_cf", "grad_cf")
+    bad = {n: int((g.view(torch.int32) != w.view(torch.int32)).sum())
+           for n, g, w in zip(names, got, want)}
+    err = float((got[2] - want[2]).abs().max())
+    record = dict(max_abs_err=err)
+    timing = ""
+    if runs:
+        height, width, channels = args[2].shape
+        _, hp, wp = got[3].shape
+        record.update(
+            ms=_median_ms(lambda: packed_bwd.padded_prologue(*args), runs),
+            plain_ms=_median_ms(
+                lambda: packed_bwd.padded_prologue_plain(*args), plain_runs),
+            **prologue_bound(height, width, hp, wp, channels))
+        timing = (f"; kernel {record['ms']:.4f} ms, plain "
+                  f"{record['plain_ms']:.4f} ms, bound "
+                  f"{record['bound_ms']:.4f} ms by {record['bound_by']} "
+                  f"(medians of {runs} and {plain_runs})")
+    print(f"[{tag}] packed_prologue fid {tuple(args[0].shape)} strides "
+          f"{args[0].stride()}, pixels {tuple(args[2].shape)} strides "
+          f"{args[2].stride()}, grad strides {args[3].stride()} -> padded "
+          f"{tuple(got[3].shape)}: values whose bits differ from the plain "
+          f"version's {bad} (bits nonzero {int((want[1] != 0).sum())}), max "
+          f"|sval diff| {err:.3g}{timing} ({card})")
+    if any(bad.values()):
+        raise RuntimeError(f"[{tag}] packed_prologue disagrees with its "
+                           "plain version")
+    return got, record
+
+
 def _sync():
     torch.cuda.synchronize()
 
@@ -382,10 +463,17 @@ def _reset_launch_counts():
     fused_bwd.LAUNCHES = fused_bwd.LAUNCHES_CSR = 0
 
 
-def _need_launches(path, counts, kernels):
+def _need_launches(path, counts, kernels, backwards=1):
+    """Every kernel of ``kernels`` launched; the prologue, where it is one
+    of them, once per backward (it pads the fields itself: no copy before
+    it)."""
     missed = [k for k in kernels if counts[k] < 1]
     if missed:
         raise RuntimeError(f"{path} missed a kernel: {missed} of {counts}")
+    if ("packed_prologue" in kernels
+            and counts["packed_prologue"] != backwards):
+        raise RuntimeError(f"{path}: want {backwards} prologue launch(es), "
+                           f"one per backward, got {counts}")
 
 
 def _plain_patches():
@@ -442,8 +530,8 @@ def _plain_patches():
         mock.patch.object(fused_bwd, "fused_backward_rows_csr",
                           plain_fused_csr),
         mock.patch.object(raster_fwd, "raster_forward_packed", plain_forward),
-        mock.patch.object(packed_bwd, "fused_neighbor_prologue",
-                          packed_bwd.fused_neighbor_prologue_plain),
+        mock.patch.object(packed_bwd, "padded_prologue",
+                          packed_bwd.padded_prologue_plain),
         mock.patch.object(packed_bwd, "packed_entry_rows", plain_rows),
         mock.patch.object(raster_fwd, "raster_forward", plain_dense),
         mock.patch.object(fused_bwd, "fused_backward_rows", plain_fused),
@@ -494,9 +582,12 @@ def _check_packed_kernels(tag, face_verts, face_attrs, background, weights,
     pix_k, fid_k, z_k = kernel()
     pix_p, fid_p, z_p = plain()
     _sync()
-    fid_bad = int((fid_k != fid_p).sum())
-    z_bad = int((z_k != z_p).sum())
-    pix_bad = int((~torch.isclose(pix_k, pix_p, **TOL)).sum())
+
+    def differ(a, b):
+        return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+    fid_bad, z_bad, pix_bad = (differ(fid_k, fid_p), differ(z_k, z_p),
+                               differ(pix_k, pix_p))
     err = float((pix_k - pix_p).abs().max())
     live = _packed_live(bins, cfg.tile_h)
     covered = int((fid_k >= 0).sum())
@@ -506,13 +597,11 @@ def _check_packed_kernels(tag, face_verts, face_attrs, background, weights,
     record["raster_fwd_packed"] = dict(
         max_abs_err=err, ms=_median_ms(kernel, runs),
         plain_ms=_median_ms(plain, plain_runs),
-        **_bound(row_bytes + meta_bytes + 4 * plane * (2 * channels + 2),
-                 live * 1024 * TEST_FLOPS + covered * _attr_flops(channels)))
+        **packed_forward_bound(bins, cfg.tile_h, channels, fid_k))
     print(f"[{tag}] raster_fwd_packed rows "
-          f"{tuple(bins.rows.shape)} bg {tuple(bg_chw.shape)}: fid "
-          f"mismatches {fid_bad}, zbuf "
-          f"mismatches {z_bad}, pixels outside allclose(rtol=1e-6, atol=1e-6)"
-          f" {pix_bad}, max |pix diff| {err:.3g}; kernel "
+          f"{tuple(bins.rows.shape)} bg {tuple(bg_chw.shape)}: values whose "
+          f"bits differ from the plain version's: fid {fid_bad}, zbuf "
+          f"{z_bad}, pixels {pix_bad}, max |pix diff| {err:.3g}; kernel "
           f"{record['raster_fwd_packed']['ms']:.4f} ms, plain "
           f"{record['raster_fwd_packed']['plain_ms']:.4f} ms, bound "
           f"{record['raster_fwd_packed']['bound_ms']:.4f} ms by "
@@ -522,37 +611,14 @@ def _check_packed_kernels(tag, face_verts, face_attrs, background, weights,
         raise RuntimeError(f"[{tag}] raster_fwd_packed disagrees with its "
                            "plain version")
 
-    # The backward's inputs: the forward's outputs (the sizes used here need
-    # no tile padding) and the upstream gradient.
-    grad_cf = weights.permute(2, 0, 1).contiguous()
-    pro_args = (fid_k, z_k, pix_k, grad_cf)
-    bits_k, sval_k = packed_bwd.fused_neighbor_prologue(*pro_args)
-    bits_p, sval_p = packed_bwd.fused_neighbor_prologue_plain(*pro_args)
-    _sync()
-    bits_bad = int((bits_k != bits_p).sum())
-    sval_bad = int((~torch.isclose(sval_k, sval_p, **TOL)).sum())
-    err = float((sval_k - sval_p).abs().max())
-    record["packed_prologue"] = dict(
-        max_abs_err=err,
-        ms=_median_ms(lambda: packed_bwd.fused_neighbor_prologue(*pro_args),
-                      runs),
-        plain_ms=_median_ms(
-            lambda: packed_bwd.fused_neighbor_prologue_plain(*pro_args),
-            plain_runs),
-        **_bound(4 * plane * (2 + 2 * channels + 5),
-                 plane * 4 * (3 * channels + 1)))
-    print(f"[{tag}] packed_prologue fid {tuple(fid_k.shape)} "
-          f"pix {tuple(pix_k.shape)}: bits mismatches {bits_bad} (of "
-          f"{int((bits_p != 0).sum())} nonzero), sval outside "
-          f"allclose(rtol=1e-6, atol=1e-6) {sval_bad}, max |sval diff| "
-          f"{err:.3g}; kernel {record['packed_prologue']['ms']:.4f} ms, "
-          f"plain {record['packed_prologue']['plain_ms']:.4f} ms, bound "
-          f"{record['packed_prologue']['bound_ms']:.4f} ms by "
-          f"{record['packed_prologue']['bound_by']} (medians of "
-          f"{runs} and {plain_runs}, {card})")
-    if bits_bad or sval_bad:
-        raise RuntimeError(f"[{tag}] packed_prologue disagrees with its "
-                           "plain version")
+    # What the packed backward hands the prologue: the forward's outputs as
+    # the op keeps them (fid and depth cropped to the image, the pixels a
+    # permuted view of the [C, Hp, Wp] output) and the upstream gradient.
+    height, width = background.shape[:2]
+    _, record["packed_prologue"] = _prologue_check(
+        tag, (fid_k[:height, :width], z_k[:height, :width],
+              pix_k.permute(1, 2, 0)[:height, :width], weights, cfg.tile_h,
+              cfg.tile_w), card, runs, plain_runs)
 
     geo, att, _ = setup_planes(face_verts, face_attrs)
     prep = packed_bwd.prepare_backward_packed(
@@ -662,7 +728,7 @@ def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
     raster_fwd_csr and fused_bwd_csr for "csr". ``weights`` [size, size, C]
     is the upstream gradient. Returns {kernel: max_abs_err, ms, plain_ms,
     bound_ms, bound_by}; raises on a mismatch."""
-    from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster, raster_fwd
+    from dirt_tpu_torch.ops import fused_bwd, raster, raster_fwd
     from dirt_tpu_torch.ops.triangle_setup import setup_planes
 
     channels = face_attrs.shape[-1]
@@ -747,12 +813,15 @@ def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
         raise RuntimeError(f"[{tag}] {fwd_name} disagrees with its plain "
                            "version")
 
-    grad_cf = weights.permute(2, 0, 1).contiguous()
-    bits, sval = packed_bwd.fused_neighbor_prologue(fid_k, z_k, pix_k,
-                                                    grad_cf)
+    # The prologue on what the backward hands it (the image is a whole
+    # number of tiles here, so nothing is cropped): its padded fields, bits
+    # and sval are what the fused kernel reads.
+    (fid_p, bits, sval, pix_cf, grad_cf), _ = _prologue_check(
+        tag, (fid_k, z_k, pix_k.permute(1, 2, 0), weights, cfg.tile_h,
+              cfg.tile_w), card)
     geo, _, _ = setup_planes(face_verts, face_attrs)
     geo = geo.contiguous()
-    fields = (fid_k, bits, sval, pix_k, grad_cf, n_rows)
+    fields = (fid_p, bits, sval, pix_cf, grad_cf, n_rows)
     boxes = dict(bbox=bins.bbox, cull=cull)
 
     def fused():
@@ -1404,7 +1473,7 @@ def main():
     }
     _sync()
     launches = _launch_counts()
-    _need_launches("packed main path", launches, KERNELS[:3])
+    _need_launches("packed main path", launches, KERNELS[:3], backwards=2)
 
     covered = {}
     for c, ((pixels, fid, zbuf, overflow), grads) in runs.items():

@@ -8,28 +8,38 @@
 //     depth in image layout, so both swaps disappear: it computes
 //     flat_subtile_swap o _fwd_packed_kernel o flat_subtile_swap.
 //
-// Work decomposition. One thread block per (tile, strip): 8 rows x 128
-// columns, one thread per pixel. Pixel (r, c) belongs to lane group
-// g = c / 16. The block walks its strip's contiguous run of iterations
-// [iter_off, iter_off + strip_iters), clamped to the tile's n_iters, in
-// ascending order; iteration i's job for group g is budget row
-// (start_block * PACK_ITERS + i) * GROUPS + g of the pre-gathered face rows.
-// Ascending order plus the strict z < zbuf test keeps the rule that a depth
-// tie goes to the lower face id.
+// Work decomposition. One warp per job stream: the 8 x 16 pixels of one
+// (tile, strip, lane group), four consecutive pixels of one row a lane
+// (lane l: row l / 4, columns 4 (l % 4) .. + 3). The warp walks its strip's
+// contiguous run of iterations [iter_off, iter_off + strip_iters), clamped
+// to the tile's n_iters, in ascending order; iteration i's job is budget
+// row (start_block * PACK_ITERS + i) * GROUPS + g of the pre-gathered face
+// rows. Ascending order plus the strict z < zbuf test keeps the rule that
+// a depth tie goes to the lower face id. The 4 warps of a block are 4 of
+// the 8 groups of one (tile, strip); they share nothing and never wait on
+// each other (__syncwarp only). On the H100, blocks of 4 warps ran 5-13%
+// faster than blocks of a strip's 8 and as fast as blocks of 1 or 2;
+// stages of 16 jobs, and a cap of 40 registers (12 blocks an SM, which
+// spills), were slower.
 //
-// The loop only runs the coverage and depth test and remembers the winning
-// row; the perspective reciprocal and the C attribute planes are evaluated
-// once per pixel, from the winning row, after the loop. The expressions are
-// the TPU kernel's (raster_fwd.py:482-503) with the same operation order;
-// built with -fmad=false (no multiply-add contraction) and IEEE division,
-// so the kernel matches its plain PyTorch version bit for bit.
+// The loop only runs the coverage and depth test and remembers the
+// winning row (a 32-bit index; the wrapper checks that the rows fit); the
+// perspective reciprocal and the C attribute planes are evaluated once per
+// pixel, from the winning row, after the loop. The expressions are the TPU
+// kernel's (raster_fwd.py:482-503) in the same operation order: the
+// products m3 dy, m6 dy, m9 dy, m12 dy, the same for a lane's four pixels,
+// are taken once per job, which rounds alike. Built with -fmad=false (no
+// multiply-add contraction) and IEEE division, so fid, zbuf and pixels
+// equal its plain PyTorch version bit for bit.
 //
-// What bounds it: the per-pixel iteration count (~20 per strip on the
-// 10k-face sphere at 1024^2) times ~20 flops, plus writing the (C + 2)
-// output planes once. The 17 coefficients each iteration needs are staged
-// in shared memory for STAGE iterations at a time by the whole block with
-// coalesced loads, so a face row is read from device memory once per
-// strip; every other read is a shared-memory broadcast.
+// What bounds it: the per-pixel iteration count (11 per strip on average
+// on the 10k-face sphere at 1024^2) times ~22 flops, plus writing the
+// (C + 2) output planes once; on the card the test loop took 78% of the
+// first version's time at C = 3, the epilogue 17% (42% at C = 16). Each warp stages STAGE jobs' coefficient columns
+// 0..15 at a time in its own shared memory (16-byte loads: the rows are
+// 32-byte aligned, packed_table_width pads to 8 columns) and reads each
+// job's as four 16-byte broadcasts, one set for its four pixels a lane;
+// outputs and the background move as 16-byte vectors.
 
 #include <cuda_runtime.h>
 
@@ -40,11 +50,12 @@ constexpr int SUB_W = 16;
 constexpr int GROUPS = 8;
 constexpr int TILE_W = GROUPS * SUB_W;        // 128
 constexpr int PACK_ITERS = 64;
-constexpr int THREADS = SUB_H * TILE_W;       // 1024
-constexpr int NCOEF = 17;                     // geo columns 0..16
+constexpr int WARPS = 4;                      // warps (job streams) a block
+constexpr int THREADS = 32 * WARPS;
+constexpr int LANE_PIX = 4;                   // consecutive pixels a lane
+constexpr int STAGE = 32;                     // jobs a warp stages at a time
 constexpr int COL_ID = 17;
 constexpr int COL_ATT = 19;
-constexpr int STAGE = 32;                     // iterations per smem stage
 constexpr float BIG_Z = 3.0e38f;
 
 __global__ void __launch_bounds__(THREADS)
@@ -55,82 +66,122 @@ raster_fwd_packed_kernel(
     const float* __restrict__ bg, float* __restrict__ pix,
     int* __restrict__ fid, float* __restrict__ zbuf,
     int channels, int hp, int wp, int tile_h, int tiles_x) {
-  __shared__ float coef[STAGE * GROUPS * NCOEF];
+  // Columns 0..15 of STAGE jobs, per warp.
+  __shared__ float4 stage[WARPS][STAGE][4];
 
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int job = blockIdx.x * WARPS + warp;  // (t * strips + s) * G + g
+  const int ts = job / GROUPS;
+  const int g = job - ts * GROUPS;
   const int strips = tile_h / SUB_H;
-  const int ts = blockIdx.x;                  // t * strips + s
   const int t = ts / strips;
   const int s = ts - t * strips;
-  const int tid = threadIdx.x;
-  const int r = tid / TILE_W;
-  const int c = tid - r * TILE_W;
-  const int g = c / SUB_W;
   const int tx = t % tiles_x;
   const int ty = t / tiles_x;
-  const int x = tx * TILE_W + c;
-  const int y = ty * tile_h + s * SUB_H + r;
-  const float xf = (float)x + 0.5f;
+  const int x0 = tx * TILE_W + g * SUB_W + (lane & 3) * LANE_PIX;
+  const int y = ty * tile_h + s * SUB_H + (lane >> 2);
   const float yf = (float)y + 0.5f;
+  float xf[LANE_PIX];
+#pragma unroll
+  for (int k = 0; k < LANE_PIX; ++k) xf[k] = (float)(x0 + k) + 0.5f;
 
   const int lo = iter_off[ts];
   const int hi = min(lo + strip_iters[ts], n_iters[t]);
-  const long long row0 = (long long)start_block[t] * PACK_ITERS;
+  const int row0 = start_block[t] * PACK_ITERS;
+  float4 (*st)[4] = stage[warp];
 
-  float zb = BIG_Z;
-  long long best = -1;                        // winning budget row
+  float zb[LANE_PIX];
+  int best[LANE_PIX];                          // winning budget row
+#pragma unroll
+  for (int k = 0; k < LANE_PIX; ++k) {
+    zb[k] = BIG_Z;
+    best[k] = -1;
+  }
   for (int i0 = lo; i0 < hi; i0 += STAGE) {
     const int n = min(STAGE, hi - i0);
-    __syncthreads();                          // previous stage consumed
-    const float* src = rows + (row0 + i0) * GROUPS * (long long)width;
-    for (int k = tid; k < n * GROUPS * NCOEF; k += THREADS) {
-      const int j = k / NCOEF;
-      coef[k] = src[(long long)j * width + (k - j * NCOEF)];
+    __syncwarp();                              // previous stage consumed
+    for (int q = lane; q < 4 * n; q += 32) {
+      const int j = q >> 2;
+      const float4* src = reinterpret_cast<const float4*>(
+          rows + (size_t)((row0 + i0 + j) * GROUPS + g) * width);
+      st[j][q & 3] = __ldg(src + (q & 3));
     }
-    __syncthreads();
+    __syncwarp();
     for (int j = 0; j < n; ++j) {
-      const float* m = coef + (j * GROUPS + g) * NCOEF;
-      const float dx = xf - m[0];
-      const float dy = yf - m[1];
-      const float e0 = m[2] * dx + m[3] * dy + m[4];
-      const float e1 = m[5] * dx + m[6] * dy + m[7];
-      const float e2 = m[8] * dx + m[9] * dy + m[10];
-      const float zv = m[11] * dx + m[12] * dy + m[13];
-      // min(e0, e1, e2) >= 0, NaN-safe like jnp.minimum: any NaN fails.
-      if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && zv < zb &&
-          zv >= -1.0f && zv <= 1.0f) {
-        zb = zv;
-        best = (row0 + i0 + j) * GROUPS + g;
+      // a = m0..m3, b = m4..m7, c = m8..m11, d = m12..m15.
+      const float4 a = st[j][0], b = st[j][1], c = st[j][2], d = st[j][3];
+      const float dy = yf - a.y;
+      const float m3dy = a.w * dy, m6dy = b.z * dy;
+      const float m9dy = c.y * dy, m12dy = d.x * dy;
+      const int row = (row0 + i0 + j) * GROUPS + g;
+#pragma unroll
+      for (int k = 0; k < LANE_PIX; ++k) {
+        const float dx = xf[k] - a.x;
+        const float e0 = a.z * dx + m3dy + b.x;   // m2 dx + m3 dy + m4
+        const float e1 = b.y * dx + m6dy + b.w;   // m5 dx + m6 dy + m7
+        const float e2 = c.x * dx + m9dy + c.z;   // m8 dx + m9 dy + m10
+        const float zv = c.w * dx + m12dy + d.y;  // m11 dx + m12 dy + m13
+        // min(e0, e1, e2) >= 0, NaN-safe like jnp.minimum: any NaN fails.
+        if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && zv < zb[k] &&
+            zv >= -1.0f && zv <= 1.0f) {
+          zb[k] = zv;
+          best[k] = row;
+        }
       }
     }
   }
 
-  const long long plane = (long long)hp * wp;
-  const long long p = (long long)y * wp + x;
-  zbuf[p] = zb;
-  if (best >= 0) {
-    const float* m = rows + best * width;
-    const float dx = xf - m[0];
-    const float dy = yf - m[1];
-    const float den = m[14] * dx + m[15] * dy + m[16];
-    const float recip = 1.0f / den;
-    fid[p] = (int)m[COL_ID];
-    for (int ch = 0; ch < channels; ++ch) {
-      const float* a = m + COL_ATT + 3 * ch;
-      pix[ch * plane + p] = (a[0] * dx + a[1] * dy + a[2]) * recip;
+  const int plane = hp * wp;
+  const int p = y * wp + x0;
+  *reinterpret_cast<float4*>(zbuf + p) = make_float4(zb[0], zb[1], zb[2],
+                                                     zb[3]);
+  const float* m[LANE_PIX];
+  float dx[LANE_PIX], dy[LANE_PIX], recip[LANE_PIX];
+  int ids[LANE_PIX];
+  bool missed = false;
+#pragma unroll
+  for (int k = 0; k < LANE_PIX; ++k) {
+    ids[k] = -1;
+    m[k] = rows;
+    dx[k] = dy[k] = recip[k] = 0.0f;
+    if (best[k] >= 0) {
+      m[k] = rows + (size_t)best[k] * width;
+      dx[k] = xf[k] - m[k][0];
+      dy[k] = yf - m[k][1];
+      const float den = m[k][14] * dx[k] + m[k][15] * dy[k] + m[k][16];
+      recip[k] = 1.0f / den;
+      ids[k] = (int)m[k][COL_ID];
+    } else {
+      missed = true;
     }
-  } else {
-    fid[p] = -1;
-    for (int ch = 0; ch < channels; ++ch) {
-      pix[ch * plane + p] = bg[ch * plane + p];
+  }
+  *reinterpret_cast<int4*>(fid + p) = make_int4(ids[0], ids[1], ids[2],
+                                                ids[3]);
+  for (int ch = 0; ch < channels; ++ch) {
+    float4 back = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (missed) {
+      back = __ldg(reinterpret_cast<const float4*>(bg + ch * plane + p));
     }
+    const float bk[LANE_PIX] = {back.x, back.y, back.z, back.w};
+    float v[LANE_PIX];
+#pragma unroll
+    for (int k = 0; k < LANE_PIX; ++k) {
+      const float* at = m[k] + COL_ATT + 3 * ch;
+      v[k] = best[k] >= 0 ? (at[0] * dx[k] + at[1] * dy[k] + at[2]) * recip[k]
+                          : bk[k];
+    }
+    *reinterpret_cast<float4*>(pix + ch * plane + p) =
+        make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). All pointers are device
-// pointers; the launch goes on `stream` and does not synchronise. Returns
-// the cudaGetLastError() code of the launch (0 on success).
+// pointers, `rows`, `bg`, `pix`, `fid` and `zbuf` 16-byte aligned, `width`
+// a multiple of 4; the launch goes on `stream` and does not synchronise.
+// Returns the cudaGetLastError() code of the launch (0 on success).
 extern "C" int dirt_raster_fwd_packed(
     const float* rows, int width,
     const int* start_block, const int* n_iters,
@@ -138,9 +189,9 @@ extern "C" int dirt_raster_fwd_packed(
     const float* bg, float* pix, int* fid, float* zbuf,
     int channels, int hp, int wp, int tile_h, void* stream) {
   const int tiles_x = wp / TILE_W;
-  const int blocks = (hp / tile_h) * tiles_x * (tile_h / SUB_H);
-  if (blocks > 0) {
-    raster_fwd_packed_kernel<<<blocks, THREADS, 0,
+  const int jobs = (hp / tile_h) * tiles_x * (tile_h / SUB_H) * GROUPS;
+  if (jobs > 0) {
+    raster_fwd_packed_kernel<<<jobs / WARPS, THREADS, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         rows, width, start_block, n_iters, iter_off, strip_iters, bg, pix,
         fid, zbuf, channels, hp, wp, tile_h, tiles_x);

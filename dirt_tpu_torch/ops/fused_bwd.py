@@ -24,7 +24,7 @@ pixel, summed over the pixels each face owns.
   :func:`fused_backward_rows_csr_plain`.
 
 The boundary-pair inputs are the packed backward's bit plane and ``sval``
-planes (``packed_bwd.fused_neighbor_prologue``), not the ``nfid4`` /
+planes (``packed_bwd.padded_prologue``), not the ``nfid4`` /
 ``nz4`` / ``sval4`` maps of the JAX function: the cotangent core takes
 either form and the bits are what the prologue kernel makes.
 """
@@ -69,7 +69,7 @@ def fused_backward_rows(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf,
         fid: [Hp, Wp] int32, padded to whole tiles with -2 (padding neither
             owns cotangents nor forms boundary pairs).
         bits: [Hp, Wp] int32 and sval: [4, Hp, Wp] f32 from
-            ``packed_bwd.fused_neighbor_prologue`` on the padded arrays.
+            ``packed_bwd.padded_prologue``, which pads the fields too.
         pix_cf, grad_cf: [C, Hp, Wp] f32.
         num_rows: F + 1 (sentinel row included).
         bbox: [F, 4] int32 (xmin, xmax, ymin, ymax), the boxes the bins
@@ -232,7 +232,7 @@ def fused_backward_rows_csr(geo, entry_face, start_block, counts, fid, bits,
             pixel's fid is in its tile's run.
         fid: [Hp, Wp] int32, padded to whole tiles with -2.
         bits: [Hp, Wp] int32 and sval: [4, Hp, Wp] f32 from
-            ``packed_bwd.fused_neighbor_prologue`` on the padded arrays.
+            ``packed_bwd.padded_prologue``, which pads the fields too.
         pix_cf, grad_cf: [C, Hp, Wp] f32.
         bbox: [F, 4] int32 (xmin, xmax, ymin, ymax), the boxes the bins
             were made from, and cull: [>= F, 4] int32, the forward's cull

@@ -4,10 +4,12 @@ Counterpart of ``dirt_tpu/ops/packed_bwd.py``. The backward runs over the
 same packed bins the forward used (``binning.bin_faces_packed``) and the
 face rows the forward gathered (``bins.rows``):
 
-1. :func:`prepare_backward_packed` pads the image-space fields to whole
-   tiles and runs the neighbor prologue (:func:`fused_neighbor_prologue`,
-   kernel K3): the four boundary pair & front tests as one int32 bit
-   plane, and the four per-direction ``sval`` planes;
+1. :func:`prepare_backward_packed` runs the neighbor prologue
+   (:func:`padded_prologue`, kernel K3) over the unpadded image-space
+   fields: in one pass it pads them to whole tiles and computes the four
+   boundary pair & front tests as one int32 bit plane and the four
+   per-direction ``sval`` planes (the dense and the streaming backwards
+   call it too);
 2. :func:`packed_entry_rows` (kernel K2) sums, for every budget row (one
    face on one 8x16 subtile), ``pixel_cotangents_core`` over the subtile
    pixels that row owns, into per-entry rows ``[budget_rows, 12 + 3C]``
@@ -18,8 +20,9 @@ face rows the forward gathered (``bins.rows``):
 
 Both kernels are hand-written CUDA (``csrc/packed_prologue.cu``,
 ``csrc/packed_bwd.cu``). The prologue writes image layout and the backward
-kernel reads it; on the halo path (``nbrs`` given) the five per-pixel
-fields go through the layout swap (``raster_fwd.flat_subtile_swap``, kernel
+kernel reads it; on the halo path (``nbrs`` given) the fields are padded
+by :func:`pad_fields`, and the five per-pixel fields go through the layout
+swap (``raster_fwd.flat_subtile_swap``, kernel
 ``csrc/subtile_swap.cu``) and the backward kernel reads flat-subtile
 layout, as the reference's halo path does. The 3-pass bf16 one-hot matmuls
 that moved values through the TPU's matrix unit become direct reads of the
@@ -110,8 +113,68 @@ def combine_bits(fid_p, zbuf_p, nfid4, nz4):
     return bits
 
 
+def pad_fields(fid, zbuf, pixels, grad_pixels, tile_h: int, tile_w: int):
+    """The image-space fields padded to whole tiles: (fid_p [Hp, Wp] int32,
+    zbuf_p [Hp, Wp] f32, pix_cf [C, Hp, Wp] f32, grad_cf [C, Hp, Wp] f32),
+    padded with -2, BIG_Z, 0 and 0 (padding pixels own nothing and pair
+    with nothing)."""
+    height, width = fid.shape
+    hp = -(-height // tile_h) * tile_h
+    wp = -(-width // tile_w) * tile_w
+    pad2 = (0, wp - width, 0, hp - height)
+    pad = torch.nn.functional.pad
+    fid_p = pad(fid.to(torch.int32), pad2, value=-2).contiguous()
+    zbuf_p = pad(zbuf, pad2, value=BIG_Z).contiguous()
+    pix_cf = pad(pixels.permute(2, 0, 1), pad2).contiguous()
+    grad_cf = pad(grad_pixels.to(torch.float32).permute(2, 0, 1),
+                  pad2).contiguous()
+    return fid_p, zbuf_p, pix_cf, grad_cf
+
+
+def padded_prologue(fid, zbuf, pixels, grad_pixels, tile_h: int,
+                    tile_w: int):
+    """The backward's padded fields and the boundary-pair inputs, in one
+    pass over the unpadded image.
+
+    Args:
+        fid: [H, W] int32 face ids (-1 background).
+        zbuf: [H, W] f32 depths.
+        pixels, grad_pixels: [H, W, C] f32 (any other dtype of the gradient
+            is converted first).
+    Any strides: the kernel reads the four fields through them (the
+    forward's pixels are a permuted, cropped view of its [C, Hp, Wp]
+    output), so nothing is padded or copied before it.
+    Returns:
+        (fid_p [Hp, Wp] int32 padded with -2, bits [Hp, Wp] int32, sval
+        [4, Hp, Wp] f32, pix_cf and grad_cf [C, Hp, Wp] f32 padded with 0):
+        :func:`pad_fields` followed by :func:`fused_neighbor_prologue` on
+        its output (its padded depth is read, never built).
+    """
+    device = fid.device
+    if device.type == "cpu":
+        return padded_prologue_plain(fid, zbuf, pixels, grad_pixels, tile_h,
+                                     tile_w)
+    if device.type != "cuda":
+        raise ValueError(f"padded_prologue: no kernel for device {device}")
+    height, width = fid.shape
+    return _launch_prologue(fid, zbuf, pixels, grad_pixels,
+                            -(-height // tile_h) * tile_h,
+                            -(-width // tile_w) * tile_w, copies=True)
+
+
+def padded_prologue_plain(fid, zbuf, pixels, grad_pixels, tile_h: int,
+                          tile_w: int):
+    """Plain PyTorch version of :func:`padded_prologue` (any device)."""
+    fid_p, zbuf_p, pix_cf, grad_cf = pad_fields(fid, zbuf, pixels,
+                                                grad_pixels, tile_h, tile_w)
+    bits, sval = fused_neighbor_prologue_plain(fid_p, zbuf_p, pix_cf,
+                                               grad_cf)
+    return fid_p, bits, sval, pix_cf, grad_cf
+
+
 def fused_neighbor_prologue(fid_p, zbuf_p, pix_cf, grad_cf):
-    """Boundary-pair bit plane and per-direction sval, in image layout.
+    """Boundary-pair bit plane and per-direction sval of padded fields, in
+    image layout.
 
     Args:
         fid_p: [Hp, Wp] int32 (padding = -2).
@@ -122,6 +185,8 @@ def fused_neighbor_prologue(fid_p, zbuf_p, pix_cf, grad_cf):
         ``pair & front`` with pair = (fid != nfid) & (nfid != -2);
         sval [4, Hp, Wp] f32 — ``0.5 * sum_c (g + g_n)(p - p_n)``).
         Out-of-image neighbors get fid -2, z BIG_Z and pix/grad 0.
+    The kernel is :func:`padded_prologue`'s, with nothing to pad and its
+    copies left out.
     """
     device = fid_p.device
     if device.type == "cpu":
@@ -130,7 +195,11 @@ def fused_neighbor_prologue(fid_p, zbuf_p, pix_cf, grad_cf):
         raise ValueError(
             f"fused_neighbor_prologue: no kernel for device {device}"
         )
-    return _launch_prologue(fid_p, zbuf_p, pix_cf, grad_cf)
+    _, hp, wp = pix_cf.shape
+    _, bits, sval, _, _ = _launch_prologue(
+        fid_p, zbuf_p, pix_cf.permute(1, 2, 0), grad_cf.permute(1, 2, 0),
+        hp, wp, copies=False)
+    return bits, sval
 
 
 def fused_neighbor_prologue_plain(fid_p, zbuf_p, pix_cf, grad_cf):
@@ -156,32 +225,62 @@ def fused_neighbor_prologue_plain(fid_p, zbuf_p, pix_cf, grad_cf):
 def _prologue_fn():
     fn = _build.load(_PROLOGUE).dirt_packed_prologue
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+                   + [ctypes.c_void_p] * 6)
     return fn
 
 
-def _launch_prologue(fid_p, zbuf_p, pix_cf, grad_cf):
+def _launch_prologue(fid, zbuf, pixels, grad, hp: int, wp: int,
+                     copies: bool):
+    """(fid_p, bits, sval, pix_cf, grad_cf) from one launch over the
+    [H, W] fields (``pixels`` and ``grad`` [H, W, C]) at any strides;
+    with ``copies`` False the padded copies are not written (None)."""
     global LAUNCHES_PROLOGUE
-    device = fid_p.device
-    channels, hp, wp = pix_cf.shape
-    check_tensor("fid_p", fid_p, torch.int32, (hp, wp), device)
-    check_tensor("zbuf_p", zbuf_p, torch.float32, (hp, wp), device)
-    check_tensor("pix_cf", pix_cf, torch.float32, (channels, hp, wp), device)
-    check_tensor("grad_cf", grad_cf, torch.float32, (channels, hp, wp),
-                 device)
-    bits = torch.empty((hp, wp), dtype=torch.int32, device=device)
-    sval = torch.empty((4, hp, wp), dtype=torch.float32, device=device)
+    device = fid.device
+    height, width = fid.shape
+    channels = pixels.shape[-1]
+    # As pad_fields converts them; a no-op (no copy) on the forward's fid
+    # and a float32 gradient.
+    fid = fid.to(torch.int32)
+    grad = grad.to(torch.float32)
+    for name, arr, dtype, shape in (
+            ("fid", fid, torch.int32, (height, width)),
+            ("zbuf", zbuf, torch.float32, (height, width)),
+            ("pixels", pixels, torch.float32, (height, width, channels)),
+            ("grad_pixels", grad, torch.float32, (height, width, channels))):
+        if (arr.device != device or arr.dtype != dtype
+                or tuple(arr.shape) != shape):
+            raise ValueError(f"{name}: want {dtype} {shape} on {device}, "
+                             f"got {arr.dtype} {tuple(arr.shape)} on "
+                             f"{arr.device}")
+    if height > hp or width > wp:
+        raise ValueError(f"padded image {hp}x{wp} does not hold "
+                         f"{height}x{width}")
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    fid_p = empty(hp, wp, dtype=torch.int32) if copies else None
+    bits = empty(hp, wp, dtype=torch.int32)
+    sval = empty(4, hp, wp)
+    pix_cf = empty(channels, hp, wp) if copies else None
+    grad_cf = empty(channels, hp, wp) if copies else None
     fn = _prologue_fn()
-    with torch.cuda.device(device):
+    with raster_fwd.on_device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(fid_p.data_ptr(), zbuf_p.data_ptr(), pix_cf.data_ptr(),
-                 grad_cf.data_ptr(), bits.data_ptr(), sval.data_ptr(),
-                 channels, hp, wp, stream)
+        err = fn(*(t.data_ptr() for t in (fid, zbuf, pixels, grad)),
+                 *fid.stride(), *zbuf.stride(), *pixels.stride(),
+                 *grad.stride(), height, width, channels, hp, wp,
+                 *(None if t is None else t.data_ptr()
+                   for t in (fid_p, bits, sval, pix_cf, grad_cf)), stream)
+    if err == -1:
+        raise ValueError(f"{_PROLOGUE}: an offset of the {height}x{width} "
+                         f"fields or of the padded {hp}x{wp} planes does "
+                         "not fit in 32 bits")
     if err != 0:
         raise RuntimeError(f"{_PROLOGUE} launch failed: CUDA error {err}")
     LAUNCHES_PROLOGUE += 1
-    return bits, sval
+    return fid_p, bits, sval, pix_cf, grad_cf
 
 
 # --- preparation ----------------------------------------------------------
@@ -216,30 +315,25 @@ def prepare_backward_packed(geo, att, fid, zbuf, pixels, grad_pixels, bins,
     """Pad the image-space fields and build the boundary-pair inputs.
 
     fid pads with -2, zbuf with BIG_Z, pixels and grad with 0 (padding
-    pixels own nothing and pair with nothing). With ``nbrs`` None the
-    prologue kernel computes the bit plane and sval; otherwise ``nbrs`` is
-    a precomputed ``(nfid4, nz4, sval4)`` of shape [4, Hp, Wp] each (in
+    pixels own nothing and pair with nothing). With ``nbrs`` None one
+    launch of the prologue kernel (:func:`padded_prologue`) writes the
+    padded fields, the bit plane and sval; otherwise ``nbrs`` is a
+    precomputed ``(nfid4, nz4, sval4)`` of shape [4, Hp, Wp] each (in
     ``boundary_cases`` order, at the padded shape; the sharded halo path
-    splices neighbor rows into it) and is combined into bits here; the five
+    splices neighbor rows into it), the fields are padded by
+    :func:`pad_fields` and the maps combined into bits here; the five
     fields then go to flat-subtile layout in one pass of the swap kernel
     (``prep.flat``), as in the reference's halo path.
     """
     geo = torch.as_tensor(geo, dtype=torch.float32)
     att = torch.as_tensor(att, dtype=torch.float32)
     channels = pixels.shape[-1]
-    height, width = fid.shape
-    hp = -(-height // tile_h) * tile_h
-    wp = -(-width // tile_w) * tile_w
-    pad2 = (0, wp - width, 0, hp - height)
-    pad = torch.nn.functional.pad
-    fid_p = pad(fid.to(torch.int32), pad2, value=-2).contiguous()
-    zbuf_p = pad(zbuf, pad2, value=BIG_Z).contiguous()
-    pix_cf = pad(pixels.permute(2, 0, 1), pad2).contiguous()
-    grad_cf = pad(grad_pixels.to(torch.float32).permute(2, 0, 1),
-                  pad2).contiguous()
     if nbrs is None:
-        bits, sval = fused_neighbor_prologue(fid_p, zbuf_p, pix_cf, grad_cf)
+        fid_p, bits, sval, pix_cf, grad_cf = padded_prologue(
+            fid, zbuf, pixels, grad_pixels, tile_h, tile_w)
     else:
+        fid_p, zbuf_p, pix_cf, grad_cf = pad_fields(
+            fid, zbuf, pixels, grad_pixels, tile_h, tile_w)
         nfid4, nz4, sval4 = nbrs
         bits = combine_bits(fid_p, zbuf_p, nfid4.to(torch.int32), nz4)
         sval = torch.as_tensor(sval4, dtype=torch.float32)
@@ -417,7 +511,7 @@ def _launch_bwd(prep, rows, c_lo, c_hi):
     out = torch.zeros(((c_hi - c_lo) * PACK_CHUNK, prep.k_cols),
                       dtype=torch.float32, device=device)
     fn = _bwd_fn()
-    with torch.cuda.device(device):
+    with raster_fwd.on_device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             rows.data_ptr(), rows.shape[1],

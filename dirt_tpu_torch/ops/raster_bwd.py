@@ -410,36 +410,14 @@ def backward_torch(geo, att, fid, zbuf, pixels, grad_pixels, own_mask=None):
     return d_geo, d_att, d_background
 
 
-def _padded_fields(fid, zbuf, pixels, grad_pixels, tile_h, tile_w):
-    """The image-space inputs of a fused backward, padded to whole tiles:
-    (fid_p, bits, sval, pix_cf, grad_cf).
-
-    Padding is fid -2 / BIG_Z / 0, so it neither owns cotangents nor pairs
-    with true image-border pixels; the boundary-pair bits and ``sval`` come
-    from ``packed_bwd.fused_neighbor_prologue`` on the padded arrays.
-    """
-    from dirt_tpu_torch.ops.packed_bwd import fused_neighbor_prologue
-
-    height, width = fid.shape
-    hp = -(-height // tile_h) * tile_h
-    wp = -(-width // tile_w) * tile_w
-    pad2 = (0, wp - width, 0, hp - height)
-    pad = torch.nn.functional.pad
-    fid_p = pad(fid.to(torch.int32), pad2, value=-2).contiguous()
-    zbuf_p = pad(zbuf, pad2, value=BIG_Z).contiguous()
-    pix_cf = pad(pixels.permute(2, 0, 1), pad2).contiguous()
-    grad_cf = pad(grad_pixels.to(torch.float32).permute(2, 0, 1),
-                  pad2).contiguous()
-    bits, sval = fused_neighbor_prologue(fid_p, zbuf_p, pix_cf, grad_cf)
-    return fid_p, bits, sval, pix_cf, grad_cf
-
-
 def backward_fused(geo, att, fid, zbuf, pixels, grad_pixels, bins, counts,
                    tile_h: int, tile_w: int, bbox=None, cull=None):
     """Dense-path backward: neighbor prologue + the fused kernel.
 
     Same semantics and returns as :func:`backward_torch`. The image-space
-    fields are padded to whole tiles (:func:`_padded_fields`), and
+    fields are padded to whole tiles by the prologue kernel
+    (``packed_bwd.padded_prologue``, which also writes the boundary-pair
+    bits and ``sval``), and
     ``fused_bwd.fused_backward_rows`` sums the per-pixel cotangents onto
     the owning faces. ``bins`` / ``counts`` are the forward's
     (``binning.bin_faces``), at any cap; ``bbox`` [F, 4] are the boxes they
@@ -448,11 +426,12 @@ def backward_fused(geo, att, fid, zbuf, pixels, grad_pixels, bins, counts,
     (see ``fused_bwd``).
     """
     from dirt_tpu_torch.ops.fused_bwd import fused_backward_rows
+    from dirt_tpu_torch.ops.packed_bwd import padded_prologue
 
     geo = torch.as_tensor(geo, dtype=torch.float32)
     att = torch.as_tensor(att, dtype=torch.float32)
     num_faces = geo.shape[0]
-    fid_p, bits, sval, pix_cf, grad_cf = _padded_fields(
+    fid_p, bits, sval, pix_cf, grad_cf = padded_prologue(
         fid, zbuf, pixels, grad_pixels, tile_h, tile_w)
     rows = fused_backward_rows(
         geo.contiguous(), bins, counts, fid_p, bits, sval, pix_cf, grad_cf,
@@ -475,10 +454,11 @@ def backward_fused_csr(geo, att, fid, zbuf, pixels, grad_pixels, entry_face,
     ``geo``'s and the kernel needs no second.
     """
     from dirt_tpu_torch.ops.fused_bwd import fused_backward_rows_csr
+    from dirt_tpu_torch.ops.packed_bwd import padded_prologue
 
     geo = torch.as_tensor(geo, dtype=torch.float32)
     att = torch.as_tensor(att, dtype=torch.float32)
-    fid_p, bits, sval, pix_cf, grad_cf = _padded_fields(
+    fid_p, bits, sval, pix_cf, grad_cf = padded_prologue(
         fid, zbuf, pixels, grad_pixels, tile_h, tile_w)
     rows = fused_backward_rows_csr(
         geo.contiguous(), entry_face, start_block, counts, fid_p, bits, sval,

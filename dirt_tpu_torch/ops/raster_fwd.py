@@ -216,12 +216,24 @@ def _launch(rows, bins, background_chw, tile_h, tile_w):
     check_rows(rows, bins, channels, device)
     check_tensor("background", background_chw, torch.float32,
                  (channels, hp, wp), device)
+    # The kernel keeps the winning row as a 32-bit index, its pixel offsets
+    # are 32-bit, and it reads rows and background as 16-byte vectors.
+    if rows.shape[0] >= 2**31 or channels * hp * wp >= 2**31:
+        raise ValueError(f"{rows.shape[0]} rows or a {channels}x{hp}x{wp} "
+                         "image exceed 32-bit indices")
+    if rows.shape[1] % 4:
+        raise ValueError(f"rows: want a width that is a multiple of 4, got "
+                         f"{rows.shape[1]}")
+    for name, array in (("rows", rows), ("background", background_chw)):
+        if array.data_ptr() % 16:
+            raise ValueError(f"{name}: want a 16-byte aligned start, got a "
+                             f"view at byte offset {array.data_ptr() % 16}")
 
     pix = torch.empty((channels, hp, wp), dtype=torch.float32, device=device)
     fid = torch.empty((hp, wp), dtype=torch.int32, device=device)
     zbuf = torch.empty((hp, wp), dtype=torch.float32, device=device)
     fn = _kernel_fn()
-    with torch.cuda.device(device):
+    with on_device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             rows.data_ptr(), rows.shape[1],

@@ -9,9 +9,14 @@ card it runs without the JAX package's conftest:
         tests/test_torch_cuda.py
 
 Tolerances: the forward kernel against its plain version on the card,
-fid and zbuf equal (the kernel is built with -fmad=false and IEEE
-division, so both round alike), pixels allclose(rtol=1e-6, atol=1e-6).
-The prologue kernel: bits equal, sval allclose(rtol=1e-6, atol=1e-6). The
+fid, zbuf and pixels equal bit for bit (the kernel is built with
+-fmad=false and IEEE division and keeps the plain version's operation
+order, so both round alike), at every tile height (one to eight strips),
+depth ties included. The prologue kernel: bits and sval equal bit for
+bit (the same sums in the same order), depth ties included; with the
+padding taken in (``padded_prologue``), its padded fid, pixels and
+gradient too, at sizes off the tile multiple and through strided inputs;
+one launch per backward on each engine. The
 backward kernel: entry rows allclose(rtol=1e-5, atol=1e-6) (same
 expressions and the same per-row summation order as its plain version;
 the margin allows for a torch CUDA op rounding one step otherwise), and
@@ -115,8 +120,16 @@ _KERNEL_CASES = [
 ]
 
 
+# The forward's cases: those above and the two tile heights they lack,
+# one strip (8) and two (16).
+_FORWARD_CASES = _KERNEL_CASES + [
+    ("soup", 100, 130, 5, 8),
+    ("sphere", 128, 256, 3, 16),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,height,width,channels,tile_h", _KERNEL_CASES)
+@pytest.mark.parametrize("kind,height,width,channels,tile_h", _FORWARD_CASES)
 def test_kernel_matches_plain_on_card(cuda, kind, height, width, channels,
                                       tile_h):
     fv, fa = _faces(kind, height, width, channels)
@@ -141,8 +154,38 @@ def test_kernel_matches_plain_on_card(cuda, kind, height, width, channels,
         bins.rows, bins, bg_chw, tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     assert torch.equal(fid_k, fid_p)
     assert torch.equal(z_k, z_p)
-    torch.testing.assert_close(pix_k, pix_p, **TOL)
+    assert torch.equal(pix_k, pix_p)
     assert (fid_k >= 0).any() and (fid_k < 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_h", [8, 64])
+def test_packed_kernel_gives_depth_ties_to_the_lower_id_on_card(cuda,
+                                                                tile_h):
+    """Every face twice, the copy after the original in id order and with
+    other colors: equal depths everywhere, so the original wins each pixel
+    of the pair (the strict depth test over ascending iterations), as in
+    the plain version."""
+    height, width, channels = 100, 130, 3
+    fv, fa = screen_soup(60, height, width, seed=4, channels=channels,
+                         spread=30.0)
+    fv = torch.tensor(np.concatenate([fv, fv])).to(cuda)
+    fa = torch.tensor(np.concatenate([fa, 1.0 - fa])).to(cuda)
+    bg = torch.zeros(height, width, channels, device=cuda)
+    config = raster.suggest_config(
+        fv, height, width, raster.RasterConfig(engine="packed", tile_h=tile_h))
+    config = config._replace(budget=4 * config.budget)
+    table2, bins, bg_chw, cfg = raster.prepare_packed(fv, fa, bg, config)
+    assert not bool(bins.overflow)
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    pix_k, fid_k, z_k = raster_fwd.raster_forward_packed(
+        table2, bins, bg_chw, rows=bins.rows, **geom)
+    pix_p, fid_p, z_p = raster_fwd.raster_forward_packed_plain(
+        bins.rows, bins, bg_chw, **geom)
+    assert torch.equal(fid_k, fid_p) and torch.equal(z_k, z_p)
+    assert torch.equal(pix_k, pix_p)
+    covered = fid_k >= 0
+    assert covered.any() and bool((fid_k[covered] < 60).all())
 
 
 @pytest.mark.cuda
@@ -200,8 +243,110 @@ def test_prologue_kernel_matches_plain_on_card(cuda, kind, height, width,
     assert packed_bwd.LAUNCHES_PROLOGUE == before + 1
     bits_p, sval_p = packed_bwd.fused_neighbor_prologue_plain(*args)
     assert torch.equal(bits_k, bits_p)
-    torch.testing.assert_close(sval_k, sval_p, **TOL)
+    assert torch.equal(sval_k, sval_p)
     assert (bits_k != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,height,width,channels,tile_h",
+                         _KERNEL_CASES[:3])
+def test_prologue_kernel_keeps_the_tie_rule_on_card(cuda, kind, height,
+                                                    width, channels, tile_h):
+    """Depths quantised to 9 values, so many neighbour pairs with other
+    faces tie: bits and sval equal to the plain version's bit for bit."""
+    prep = _backward_inputs(cuda, kind, height, width, channels, tile_h)
+    gen = torch.Generator(device=cuda).manual_seed(height + channels)
+    zbuf = torch.round(4.0 * (2.0 * torch.rand(
+        prep.fid_p.shape, generator=gen, device=cuda) - 1.0)) / 4.0
+    fid = prep.fid_p
+    ties = ((fid[:, 1:] != fid[:, :-1]) & (fid[:, 1:] >= 0)
+            & (fid[:, :-1] >= 0) & (zbuf[:, 1:] == zbuf[:, :-1]))
+    assert ties.any()
+    args = (fid, zbuf, prep.pix_cf, prep.grad_cf)
+    bits_k, sval_k = packed_bwd.fused_neighbor_prologue(*args)
+    torch.cuda.synchronize()
+    bits_p, sval_p = packed_bwd.fused_neighbor_prologue_plain(*args)
+    assert torch.equal(bits_k, bits_p)
+    assert torch.equal(sval_k, sval_p)
+
+
+# (height, width, channels, tile_h, tile_w, layout): sizes off the tile
+# multiple; a tile width that is not a multiple of 4 (the kernel's
+# one-pixel stores); the inputs as the backward hands them (pixels a
+# permuted, cropped view of a [C, Hp, Wp] array, the gradient [H, W, C]),
+# contiguous [H, W, C] pixels, and a float64 gradient.
+_PADDED_CASES = [
+    (37, 131, 3, 32, 128, "view"),
+    (100, 130, 9, 32, 128, "view"),
+    (100, 130, 1, 64, 128, "contiguous"),
+    (64, 256, 3, 8, 128, "float64"),
+    (50, 70, 2, 8, 20, "view"),
+    (33, 45, 5, 16, 15, "contiguous"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("height,width,channels,tile_h,tile_w,layout",
+                         _PADDED_CASES)
+def test_padded_prologue_matches_plain_on_card(cuda, height, width,
+                                               channels, tile_h, tile_w,
+                                               layout):
+    gen = torch.Generator(device=cuda).manual_seed(height * width)
+    hp = -(-height // tile_h) * tile_h
+    wp = -(-width // tile_w) * tile_w
+    fid = torch.randint(-1, 9, (hp, wp), generator=gen, device=cuda,
+                        dtype=torch.int32)[:height, :width]
+    zbuf = torch.round(4.0 * torch.rand((hp, wp), generator=gen,
+                                        device=cuda)) / 4.0
+    zbuf = torch.where(fid < 0, 3.0e38, zbuf[:height, :width])
+    chw = torch.rand((channels, hp, wp), generator=gen, device=cuda)
+    pixels = chw.permute(1, 2, 0)[:height, :width]
+    if layout == "contiguous":
+        pixels = pixels.contiguous()
+    grad = torch.randn((height, width, channels), generator=gen, device=cuda)
+    if layout == "float64":
+        grad = grad.double()
+    args = (fid, zbuf, pixels, grad, tile_h, tile_w)
+    before = packed_bwd.LAUNCHES_PROLOGUE
+    got = packed_bwd.padded_prologue(*args)
+    torch.cuda.synchronize()
+    assert packed_bwd.LAUNCHES_PROLOGUE == before + 1
+    want = packed_bwd.padded_prologue_plain(*args)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+    assert (got[1] != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["packed", "dense", "csr"])
+def test_one_prologue_launch_per_backward_on_card(cuda, engine):
+    """Each single-device backward pads its fields in the prologue's one
+    launch and gives the gradients of the same backward on the CPU."""
+    verts, colors, faces = sphere_scene(24, 32)
+    bg = np.random.RandomState(6).rand(100, 130, 3).astype(np.float32)
+    weights = np.random.RandomState(7).randn(100, 130, 3).astype(np.float32)
+    fields = {"packed": dict(engine="packed"),
+              "dense": dict(engine="dense"),
+              "csr": dict(streaming=True)}[engine]
+    grads = []
+    for device, launches in (("cpu", 0), (cuda, 1)):
+        scene = convert.scene_from_numpy(bg, verts, colors, faces, device)
+        config = dirt_tpu_torch.suggest_raster_config(
+            scene[1], scene[3], 100, 130,
+            config=dirt_tpu_torch.RasterConfig(**fields), clip=False)
+        leaves = [t.clone().requires_grad_() for t in scene[:3]]
+        before = packed_bwd.LAUNCHES_PROLOGUE
+        pixels = dirt_tpu_torch.rasterise(leaves[0], leaves[1], leaves[2],
+                                          scene[3], config=config,
+                                          clip=False)
+        (pixels * torch.tensor(weights, device=device)).sum().backward()
+        torch.cuda.synchronize()
+        assert packed_bwd.LAUNCHES_PROLOGUE == before + launches
+        grads.append([t.grad.cpu() for t in leaves])
+    for g_cpu, g_card in zip(*grads):
+        scale = float(g_cpu.abs().max())
+        assert float((g_card - g_cpu).abs().max()) <= 1e-4 * scale
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The whole-tile forwards (K5, K7), the fused backwards (K6, K8), the
-layout swap (K4) and the packed backward (K2) on one CUDA card, against
-another tree's, in one process.
+layout swap (K4), the packed backward (K2), the packed forward (K1) and the
+neighbour prologue (K3) on one CUDA card, against another tree's, in one
+process.
 
     python3 tools/bench_raster_ab.py [--parent DIR[,DIR...]] [--runs N]
-        [--kernels K5,K6,K7,K8,K4,K2] [--spheres 224,...]
+        [--kernels K5,K6,K7,K8,K4,K2,K1,K3] [--spheres 224,...]
 
 Times ``ops.raster_fwd.raster_forward_csr`` (raster_fwd_csr.cu) and
 ``ops.fused_bwd.fused_backward_rows_csr`` (fused_bwd_csr.cu) on the
@@ -29,8 +30,22 @@ packed backward hands it on four shapes: the bench sphere at 1024 x 1024
 with ``clip=False`` and 3 channels (the bench's main path), config 5's
 9-channel G-buffer at 1024 x 1024, the bench sphere with 16 channels (two
 launches) and one slab of the sharded packed path (``rasterise_sharded``
-with one local slab: flat-subtile fields). For each shape and variant it
-prints
+with one local slab: flat-subtile fields); and
+``ops.raster_fwd.raster_forward_packed`` (raster_fwd_packed.cu) on what the
+op hands it on four shapes: the bench sphere at 1024 x 1024 with
+``clip=False`` and 3 channels (the bench's main path), config 5's
+9-channel G-buffer, the bench sphere with 16 channels and one slab of the
+sharded packed path; and ``ops.packed_bwd.padded_prologue``
+(packed_prologue.cu) on what the single-device backwards hand it on six
+shapes: the bench sphere packed with ``clip=False`` and 3 channels, config
+5 (9 channels), the bench sphere with 16 channels, the default API's
+99,904-face sphere (CSR engine), config 4 at 512 x 512 and the flagship
+step at 256 x 256 with 9 channels (dense).
+A tree from before the prologue took the padding in is timed as that
+tree's backward ran it: its pad and layout copies
+(``pad_fields``, copied into this tool as ``_copies_then_prologue``), then
+its ``fused_neighbor_prologue`` on the padded arrays, all in one call and
+in one profiler window. For each shape and variant it prints
 
 * the check: K5's and K7's fid and zbuf equal to the plain (un-culled)
   version's on the whole padded arrays and pixels within ``chip_smoke.TOL``,
@@ -42,7 +57,9 @@ prints
   plain version run on the CPU (on the card the plain version's
   ``index_add_`` flushes subnormal sums to zero), to a second run and to
   this tree's rows, and (this tree's) two chunk slices equal to the whole
-  range;
+  range; K1's fid, zbuf and pixels and K3's five outputs bit-equal to
+  their plain versions (a tree whose kernel differs is reported and timed,
+  not refused, like a tree with a part of K1 cut out to split its time);
 * K5's and K7's faces tested per pixel without the cull and with it
   (``chip_smoke.tests_per_pixel``, this tree's cull boxes) and the bounds
   of ``chip_smoke.py``;
@@ -51,7 +68,7 @@ prints
 * device time: the device kernels of one call, by kernel (each launch of a
   call: K5's and K7's box launch and walk, K6's and K8's two passes, K2's
   one launch per column group), from a ``torch.profiler`` window of
-  ``--runs`` calls;
+  ``--runs`` calls (for K3 of an older tree, its copies with it);
 * back-to-back time: ``--runs`` calls queued without a synchronise, per call,
   and the host's time to queue one call;
 * for K4 the same figures for one strided ``contiguous()`` copy of the
@@ -68,12 +85,12 @@ through that tree's own wrapper code: its ``ops/raster_fwd.py``,
 ``ops/fused_bwd.py`` and ``ops/packed_bwd.py``, loaded as modules of their
 own whose ``_build.load`` returns the libraries built from that tree, so its
 own ``_swap_fn``, ``_csr_fn``, ``_dense_fn`` and ``_bwd_fn`` type their
-entry points. The two are timed in turns (new, old, old, new). K2, K6 and
-K8 take several trees (``--parent A,B``), each labelled by its directory's
-name and timed in turns: a copy of this tree with one tuning constant
-edited is how a constant is chosen; a copy with one pass of K2 cut out,
-timed beside the whole kernel, splits its time (such a tree's K2 rows are
-reported, not refused).
+entry points. The two are timed in turns (new, old, old, new). K1, K2,
+K3, K6 and K8 take several trees (``--parent A,B``), each labelled by its
+directory's name and timed in turns: a copy of this tree with one tuning
+constant edited is how a constant is chosen; a copy with one pass of K2 or
+one part of K1 cut out, timed beside the whole kernel, splits its time
+(such a tree's outputs are reported, not refused).
 Prints the card's name and power limit on every line; exits non-zero
 without a CUDA device.
 """
@@ -98,7 +115,7 @@ sys.path.insert(0, str(ROOT / "tests"))
 
 NAMES = ("subtile_swap", "raster_fwd_csr", "raster_fwd_dense",
          "fused_bwd", "fused_bwd_csr", "scatter_faces", "scatter_faces_csr",
-         "packed_bwd")
+         "packed_bwd", "raster_fwd_packed", "packed_prologue")
 
 
 def _parent_module(root, label="parent"):
@@ -392,6 +409,112 @@ def _bench_packed(tag, prep, card, runs, parents):
     return failures
 
 
+def _bench_packed_forward(tag, call, card, runs, parents):
+    """K1 on what one run of the op hands ``raster_forward_packed``
+    (``call``: (args, kwargs)), this tree's and each parent's; fid, zbuf and
+    pixels held bit for bit against the plain version. Returns the
+    failures of this tree's kernel."""
+    import chip_smoke
+    from dirt_tpu_torch.ops import raster_fwd
+
+    (table2, bins, bg_chw), kwargs = call
+    geom = dict(tile_h=kwargs["tile_h"], tile_w=kwargs["tile_w"])
+    rows = kwargs["rows"]
+    want = raster_fwd.raster_forward_packed_plain(rows, bins, bg_chw, **geom)
+    covered = int((want[1] >= 0).sum())
+    bound = chip_smoke.packed_forward_bound(
+        bins, geom["tile_h"], bg_chw.shape[0], want[1])
+    print(f"[{tag}] raster_fwd_packed rows {tuple(rows.shape)}, bg "
+          f"{tuple(bg_chw.shape)}, tile_h {geom['tile_h']}, live iterations "
+          f"{chip_smoke._packed_live(bins, geom['tile_h'])}, covered "
+          f"{covered} px: bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']} ({card})")
+    variants = {"new": functools.partial(
+        raster_fwd.raster_forward_packed, table2, bins, bg_chw, rows=rows,
+        **geom)}
+    for label, parent in parents.items():
+        variants[label] = functools.partial(
+            parent.raster_fwd.raster_forward_packed, table2, bins, bg_chw,
+            rows=rows, **geom)
+    failures = []
+    for label, fn in variants.items():
+        got = fn()
+        torch.cuda.synchronize()
+        bad = [int((g.view(torch.int32) != w.view(torch.int32)).sum())
+               for g, w in zip(got, want)]
+        print(f"[{tag}] {label}: values whose bits differ from the plain "
+              f"version's: pixels {bad[0]}, fid {bad[1]}, zbuf {bad[2]} "
+              f"({card})")
+        if label == "new" and any(bad):
+            failures.append(tag)
+    _time(tag, card, variants, runs, "raster_fwd_packed")
+    return failures
+
+
+def _copies_then_prologue(module, fid, zbuf, pixels, grad_pixels, tile_h,
+                          tile_w):
+    """A tree's prologue call as its backwards make it: one launch that
+    pads (``padded_prologue``), or, in a tree from before it took the
+    padding in, the pad and layout copies of that tree's
+    ``prepare_backward_packed`` and then its ``fused_neighbor_prologue``."""
+    if hasattr(module, "padded_prologue"):
+        return module.padded_prologue(fid, zbuf, pixels, grad_pixels, tile_h,
+                                      tile_w)
+    height, width = fid.shape
+    hp = -(-height // tile_h) * tile_h
+    wp = -(-width // tile_w) * tile_w
+    pad2 = (0, wp - width, 0, hp - height)
+    pad = torch.nn.functional.pad
+    fid_p = pad(fid.to(torch.int32), pad2, value=-2).contiguous()
+    zbuf_p = pad(zbuf, pad2, value=3.0e38).contiguous()
+    pix_cf = pad(pixels.permute(2, 0, 1), pad2).contiguous()
+    grad_cf = pad(grad_pixels.to(torch.float32).permute(2, 0, 1),
+                  pad2).contiguous()
+    bits, sval = module.fused_neighbor_prologue(fid_p, zbuf_p, pix_cf,
+                                                grad_cf)
+    return fid_p, bits, sval, pix_cf, grad_cf
+
+
+def _bench_prologue(tag, args, card, runs, parents):
+    """K3 on what one backward hands ``padded_prologue`` (``args``), this
+    tree's and each parent's (with the copies in front of it where that
+    tree made them); the five outputs held bit for bit against the plain
+    version. Returns the failures of this tree's kernel."""
+    import chip_smoke
+    from dirt_tpu_torch.ops import packed_bwd
+
+    fid, _, pixels, grad, tile_h, tile_w = args
+    want = packed_bwd.padded_prologue_plain(*args)
+    height, width, channels = pixels.shape
+    _, hp, wp = want[3].shape
+    bound = chip_smoke.prologue_bound(height, width, hp, wp, channels)
+    old_bound = chip_smoke._bound(4 * hp * wp * (2 + 2 * channels + 5), 0)
+    print(f"[{tag}] packed_prologue {height}x{width} -> {hp}x{wp}, "
+          f"{channels} channels, pixels strides {pixels.stride()}, grad "
+          f"strides {grad.stride()} {grad.dtype}: bound of the call "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (of the "
+          f"prologue alone on padded fields, 2 + 2C planes read and 5 "
+          f"written: {old_bound['bound_ms']:.4f} ms) ({card})")
+    variants = {"new": functools.partial(
+        _copies_then_prologue, packed_bwd, *args)}
+    for label, parent in parents.items():
+        variants[label] = functools.partial(
+            _copies_then_prologue, parent.packed_bwd, *args)
+    failures = []
+    names = ("fid_p", "bits", "sval", "pix_cf", "grad_cf")
+    for label, fn in variants.items():
+        got = fn()
+        torch.cuda.synchronize()
+        bad = {n: int((g.view(torch.int32) != w.view(torch.int32)).sum())
+               for n, g, w in zip(names, got, want)}
+        print(f"[{tag}] {label}: values whose bits differ from the plain "
+              f"version's {bad} ({card})")
+        if label == "new" and any(bad.values()):
+            failures.append(tag)
+    _time(tag, card, variants, runs, "packed_prologue")
+    return failures
+
+
 def _packed_calls(step):
     """The prepared inputs one run of ``step()`` hands
     ``packed_entry_rows``."""
@@ -560,11 +683,12 @@ def _bench_swap(tag, arrays, card, runs, parent):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", help="another tree of the repository "
-                        "whose kernels are timed beside this one's; for K2, "
-                        "K6 and K8 several, separated by commas")
+                        "whose kernels are timed beside this one's; for K1, "
+                        "K2, K3, K6 and K8 several, separated by commas")
     parser.add_argument("--runs", type=int, default=20)
-    parser.add_argument("--kernels", default="K5,K6,K7,K8,K4,K2",
-                        help="which of K5, K6, K7, K8, K4, K2 to time (K6 "
+    parser.add_argument("--kernels", default="K5,K6,K7,K8,K4,K2,K1,K3",
+                        help="which of K5, K6, K7, K8, K4, K2, K1, K3 to "
+                        "time (K6 "
                         "runs K5 and K8 runs K7 for their inputs); NEEDLES "
                         "holds K6, K8, K9, K10 of both trees against their "
                         "plain versions on far needles")
@@ -715,6 +839,87 @@ def main():
             del prep
         if failures:
             raise RuntimeError(f"K2 is wrong on: {failures}")
+
+    if "K1" in kernels:
+        # The packed forward's four shapes, as the op hands them to it.
+        from dirt_tpu_torch.ops import raster_fwd
+
+        packed_cfg = dirt_tpu_torch.suggest_raster_config(
+            clip, faces, size, size, clip=False)
+        render5, leaves5 = chip_smoke.config5_render(device)
+        colors16 = chip_smoke._rand(5, clip.shape[0], 16, device=device)
+        shapes = [
+            (f"bench sphere {size}^2 packed clip=False C=3",
+             lambda: dirt_tpu_torch.rasterise(
+                 background, clip, colors, faces, config=packed_cfg,
+                 clip=False)),
+            (f"config 5 {size}^2 C=9", lambda: render5(*leaves5)),
+            (f"bench sphere {size}^2 packed C=16",
+             lambda: dirt_tpu_torch.rasterise(
+                 torch.zeros((size, size, 16), device=device), clip,
+                 colors16, faces, config=packed_cfg, clip=False)),
+            (f"sharded packed slab {size}^2 C=3",
+             lambda: rasterise_sharded(
+                 background, clip, colors, faces, LocalGroup(1),
+                 config=packed_cfg)),
+        ]
+        failures = []
+        for tag, run in shapes:
+            with torch.no_grad():
+                (call,) = _calls(raster_fwd, "raster_forward_packed", run)
+            failures += _bench_packed_forward(f"K1 {tag}", call, card,
+                                              opts.runs, parents)
+            del call
+        if failures:
+            raise RuntimeError(f"K1 is wrong on: {failures}")
+
+    if "K3" in kernels:
+        # What the single-device backwards hand the prologue: packed (the
+        # bench's main path and config 5), CSR (the default API's 99,904
+        # faces), dense (config 4, the flagship step).
+        from dirt_tpu_torch.ops import packed_bwd
+
+        packed_cfg = dirt_tpu_torch.suggest_raster_config(
+            clip, faces, size, size, clip=False)
+        render5, leaves5 = chip_smoke.config5_render(device)
+        w5 = chip_smoke._rand(1, size, size, 3, device=device)
+
+        def grad_step(loss_fn, leaves):
+            def step():
+                fresh = [t.detach().clone().requires_grad_() for t in leaves]
+                loss_fn(*fresh).backward()
+            return step
+
+        big_loss, big_leaves, _ = chip_smoke.big_sphere_step(device)
+        colors16 = chip_smoke._rand(5, clip.shape[0], 16, device=device)
+        shapes = [
+            (f"bench sphere {size}^2 packed clip=False C=3",
+             lambda: chip_smoke._grads(
+                 dirt_tpu_torch.rasterise_with_aux, background, clip, colors,
+                 faces, weights, packed_cfg, False)),
+            (f"config 5 {size}^2 C=9", grad_step(
+                lambda v, p: (render5(v, p) * w5).sum(), leaves5)),
+            (f"bench sphere {size}^2 packed C=16",
+             lambda: chip_smoke._grads(
+                 dirt_tpu_torch.rasterise_with_aux,
+                 torch.zeros((size, size, 16), device=device), clip,
+                 colors16, faces,
+                 chip_smoke._rand(6, size, size, 16, device=device),
+                 packed_cfg, False)),
+            (f"default API 99,904 faces {size}^2 csr C=3",
+             grad_step(big_loss, big_leaves)),
+            ("config 4 512^2 dense C=3",
+             grad_step(*chip_smoke.config4_loss(device))),
+            ("flagship 256^2 dense C=9", grad_step(*entry.entry())),
+        ]
+        failures = []
+        for tag, step in shapes:
+            (call,) = _calls(packed_bwd, "padded_prologue", step)
+            failures += _bench_prologue(f"K3 {tag}", call[0], card,
+                                        opts.runs, parents)
+            del call
+        if failures:
+            raise RuntimeError(f"K3 is wrong on: {failures}")
 
     if "K4" in kernels:
         packed_cfg = dirt_tpu_torch.suggest_raster_config(
