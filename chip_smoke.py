@@ -129,10 +129,23 @@ raises and exits non-zero; nothing is caught):
     training step, whose loss must fall, and the two-level render), and one
     step through a ``torch.distributed`` group of one rank (NCCL, a
     ``file://`` store in a temporary directory), which must equal the
-    one-slab local step.
+    one-slab local step;
+14. the bench, the config store and the OBJ loader: ``bench_torch.py``'s
+    tracked step (``bench_torch.measure``: the bench sphere at 1024x1024,
+    ``clip=False``, the caps of phase 4) for three samples through
+    ``utils.benchtime``, whose times must be finite and positive, with the
+    packed kernels launched (one prologue per backward); a RasterConfig
+    through ``utils.configstore`` in a temporary file (equal after the
+    round trip, kept by ``cached_config`` after one overflow-checked
+    render on the card, and a stale entry replaced by caps that do not
+    overflow); and a 1,472-face UV sphere written as OBJ, loaded by the
+    native parser (``io.objloader``, built with g++ on first use; equal
+    to the Python parser's), rendered at 1024x1024 by the packed engine
+    on the card: fid and zbuf equal to the plain path's, pixels within
+    1e-6.
 
 Phase 9 runs each config once and phases 12 and 13 take medians of 10, to
-keep the whole run near a minute and a half. The line before the last is
+keep the whole run under two minutes. The line before the last is
 the kernels' JSON record (``library_ms`` where phase 12 times one PyTorch
 call of the same function: ``index_add_`` for the scatters, a strided copy
 for the swap), the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -151,6 +164,18 @@ from unittest import mock
 
 import numpy as np
 import torch
+
+# The bench's scene and camera, and the roofline's peaks and operation
+# counts (one place for both scripts).
+from bench_torch import (
+    TEST_FLOPS,
+    attr_flops as _attr_flops,
+    bench_scene,
+    bound as _bound,
+    camera_clip as _clip_verts,
+    card_line,
+    core_flops as _core_flops,
+)
 
 SIZE = 1024
 CHANNELS = 3
@@ -206,30 +231,6 @@ TOL_SLAB_PIXELS = 3e-5
 # other orders), and differing face ids as a share of the covered pixels.
 TOL_ENGINES = 1e-4
 TRAIN_STEPS = 10
-# Published peaks of one H100 SXM: HBM bytes/s and float32 FLOP/s outside
-# the tensor cores (the kernels use no tensor core).
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = 67e12
-# Arithmetic of one (pixel, face) coverage and depth test, of one pixel's
-# attribute evaluation, and of cotangent_core.cuh for one covered pixel.
-TEST_FLOPS = 22
-
-
-def _attr_flops(channels):
-    return 6 + 5 * channels
-
-
-def _core_flops(channels):
-    return 330 + 6 * channels + (12 + 3 * channels)
-
-
-def _bound(nbytes, flops):
-    """bound_ms and bound_by: the larger of bytes over the memory rate and
-    operations over the float32 peak."""
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def packed_forward_bound(bins, tile_h, channels, fid):
@@ -371,21 +372,6 @@ def _queued_ms(fn, runs=RUNS, warmup=3):
     return start.elapsed_time(end) / runs, host
 
 
-def _clip_verts(verts_obj, rot, device):
-    from dirt_tpu_torch.core import matrices
-
-    def t(v):
-        return torch.tensor(v, dtype=torch.float32, device=device)
-
-    mv = matrices.compose(
-        matrices.rodrigues(rot),
-        matrices.translation(t([0.0, 0.0, -3.0])),
-    )
-    proj = matrices.perspective_projection(t(0.1), t(20.0), t(0.045), t(1.0))
-    return matrices.transform_homogeneous(verts_obj,
-                                          matrices.compose(mv, proj))
-
-
 def _world(verts_obj, device, pose=(0.4, 0.3, 0.0)):
     """World-space vertices [V, 3]: Rodrigues ``pose``, 3 units down -z."""
     from dirt_tpu_torch.core import matrices
@@ -399,23 +385,9 @@ def _world(verts_obj, device, pose=(0.4, 0.3, 0.0)):
 
 
 def _bench_scene(device):
-    from dirt_tpu_torch.core import mesh
-
-    verts_obj, faces, _ = mesh.uv_sphere(n_lat=72, n_lon=72)
-    verts_obj = torch.as_tensor(verts_obj, device=device)
-    rot = torch.tensor([0.4, 0.3, 0.0], device=device)
-    clip = _clip_verts(verts_obj, rot, device)
-    colors = torch.as_tensor(
-        np.random.RandomState(0).rand(len(verts_obj), 3).astype(np.float32),
-        device=device,
-    )
-    faces = torch.as_tensor(faces.astype(np.int64), device=device)
-    background = torch.zeros((SIZE, SIZE, CHANNELS), device=device)
-    weights = torch.as_tensor(
-        np.random.RandomState(1).rand(SIZE, SIZE, CHANNELS)
-        .astype(np.float32), device=device,
-    )
-    return verts_obj, clip, colors, faces, background, weights
+    """``bench_torch.bench_scene`` at SIZE with CHANNELS: (object-space
+    vertices, clip-space vertices, colors, faces, background, weights)."""
+    return bench_scene(SIZE, device, channels=CHANNELS)
 
 
 def _rel_err(got, want):
@@ -1235,15 +1207,6 @@ def sharded_dense_step(device, slabs=4):
     return loss_fn, (background, clip, colors)
 
 
-def card_line():
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-
-
 def config5_render(device):
     """(render, leaves) of config 5 of ``bench_configs.py`` on the port: the
     10,224-face sphere at 1024 x 1024 through the deferred pipeline (9-channel
@@ -1407,6 +1370,115 @@ def _step_check(tag, loss_fn, leaves, card, runs=10, plain=True):
           f"launches {launches}; forward {fwd_ms:.4f} ms, fwd+bwd "
           f"{step_ms:.4f} ms (medians of {runs}) ({card})")
     return float(loss_k), launches
+
+
+def _obj_text(verts, faces, uvs):
+    """A Wavefront OBJ of a mesh: positions, UVs and ``v/vt`` faces."""
+    lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts]
+    lines += [f"vt {u:.6f} {v:.6f}" for u, v in uvs]
+    lines += [f"f {a}/{a} {b}/{b} {c}/{c}" for a, b, c in faces + 1]
+    return "\n".join(lines) + "\n"
+
+
+def _bench_and_io_check(scene, config, card):
+    """Phase 14: the bench's tracked step through ``utils.benchtime``, a
+    RasterConfig through ``utils.configstore`` in a temporary file, and a
+    mesh written as OBJ, loaded by the native parser and rendered on the
+    card by the packed engine against the plain path."""
+    import bench_torch
+    import dirt_tpu_torch
+    from dirt_tpu_torch.core import mesh
+    from dirt_tpu_torch.io import objloader
+    from dirt_tpu_torch.utils import configstore
+
+    # One forward with aux, then three warm-up and three timed calls of
+    # the forward and of the step: six backwards.
+    _reset_launch_counts()
+    (t_min, t_med), line = bench_torch.measure(
+        "14 bench tracked step", scene, config, False, samples=3)
+    _sync()
+    _need_launches("bench tracked step", _launch_counts(), KERNELS[:3],
+                   backwards=6)
+    if not (np.isfinite([t_min, t_med]).all() and 0 < t_min <= t_med):
+        raise RuntimeError(f"[14] bench step times {t_min!r}, {t_med!r}")
+    print(line.replace("# ", "[", 1).replace(":", "]", 1) + f" ({card})")
+
+    _, clip, _, faces, background, _ = scene
+    with tempfile.TemporaryDirectory() as tmp:
+        store = Path(tmp) / "configs_torch.json"
+        configstore.save_config("bench", config, store)
+        if configstore.load_config("bench", store) != config:
+            raise RuntimeError("[14] configstore round trip changed the "
+                               "config")
+        kept = configstore.cached_config("bench", clip, faces, SIZE, SIZE,
+                                         path=store)
+        stale = config._replace(bin_cap=1, expand_cap=1)
+        configstore.save_config("bench", stale, store)
+        fresh = configstore.cached_config("bench", clip, faces, SIZE, SIZE,
+                                          path=store)
+        if (kept != config or fresh == stale
+                or configstore.load_config("bench", store) != fresh
+                or configstore.overflows(clip, faces, SIZE, SIZE, fresh)):
+            raise RuntimeError(f"[14] configstore: kept {kept}, replaced the "
+                               f"stale entry by {fresh}")
+        print(f"[14 configstore] round trip equal; the stored caps kept "
+              f"after one overflow-checked render on the card; a stale entry "
+              f"(bin_cap 1, expand_cap 1) replaced by {fresh}")
+
+        verts, tris, uvs = mesh.uv_sphere(n_lat=24, n_lon=32)
+        path = Path(tmp) / "sphere.obj"
+        path.write_text(_obj_text(np.asarray(verts), np.asarray(tris),
+                                  np.asarray(uvs)))
+        start = time.perf_counter()
+        loaded = objloader.load_obj(str(path), native=True)
+        load_ms = (time.perf_counter() - start) * 1e3
+        start = time.perf_counter()
+        objloader.load_obj(str(path), native=True)
+        again_ms = (time.perf_counter() - start) * 1e3
+        python = objloader.load_obj(str(path), native=False)
+    if not (np.array_equal(loaded.faces, python.faces)
+            and np.allclose(loaded.vertices, python.vertices, atol=1e-6)
+            and loaded.has_uv):
+        raise RuntimeError("[14] the native OBJ parser disagrees with the "
+                           "Python one")
+    device = background.device
+    v_obj, uv_obj, _, f_obj = loaded.to_tensors(device)
+    obj_clip = _clip_verts(v_obj, torch.tensor([0.4, 0.3, 0.0],
+                                               device=device), device)
+    obj_colors = torch.cat([uv_obj, 0.5 + 0.5 * v_obj[:, :1]], dim=1)
+    obj_config = dirt_tpu_torch.suggest_raster_config(
+        obj_clip, f_obj, SIZE, SIZE,
+        config=dirt_tpu_torch.RasterConfig(engine="packed"), clip=False)
+
+    def render():
+        return dirt_tpu_torch.rasterise_with_aux(
+            background, obj_clip, obj_colors, f_obj, config=obj_config,
+            clip=False)
+
+    _reset_launch_counts()
+    pixels, fid, zbuf, overflow = render()
+    _sync()
+    _need_launches("OBJ render", _launch_counts(), KERNELS[:1])
+    patches = _plain_patches()
+    for patch in patches:
+        patch.start()
+    try:
+        pix_pl, fid_pl, z_pl, _ = render()
+    finally:
+        for patch in patches:
+            patch.stop()
+    covered = int((fid >= 0).sum())
+    if (bool(overflow) or covered == 0 or not torch.equal(fid, fid_pl)
+            or not torch.equal(zbuf, z_pl)
+            or not torch.allclose(pixels, pix_pl, **TOL)):
+        raise RuntimeError("[14] the OBJ render on the card disagrees with "
+                           "the plain path, or is empty or overflows")
+    print(f"[14 OBJ] {len(loaded.vertices)} vertices, {len(loaded.faces)} "
+          f"faces written and loaded by the native parser ({load_ms:.1f} ms "
+          f"on first use, {again_ms:.2f} ms again; equal to the Python "
+          f"parser), rendered at {SIZE}^2 by the packed "
+          f"engine: {covered} covered pixels, fid and zbuf equal to the plain "
+          f"path's, pixels within {TOL}")
 
 
 def main():
@@ -2031,6 +2103,11 @@ def main():
     print(f"[13 torch.distributed] one rank over NCCL: max |grad diff| / max "
           f"|grad| from the one-slab local step "
           f"{' '.join(f'{e:.3g}' for e in nccl_err)} (limit {TOL_GRAD:g})")
+
+    # --- 14. the bench, the config store and the OBJ loader ----------------
+    _bench_and_io_check(
+        (verts_obj, clip, colors, faces, background, weights),
+        configs[False], card)
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

@@ -15,8 +15,10 @@ the fused streaming backward and the two per-face scatters of the
 row-sharded backward, each with a plain PyTorch version for CPU tensors),
 count-then-allocate caps, the render stack above
 them (``core.lighting``, ``core.texture``, ``render.gbuffer``,
-``render.deferred``) and the row-sharded renderer (``parallel.sharding``,
-``parallel.group``, ``parallel.multihost``).
+``render.deferred``), the row-sharded renderer (``parallel.sharding``,
+``parallel.group``, ``parallel.multihost``), OBJ loading (``io``) and the
+utilities (``utils``: device timing, the store of honest caps, PPM
+images, scalar logging, checkpoints in ``dirt_tpu``'s file layout).
 """
 
 from dirt_tpu_torch.ops.raster import RasterConfig

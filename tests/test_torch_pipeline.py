@@ -8,8 +8,11 @@ own ``suggest_raster_config`` and must be equal.
 
 Tolerance (the razor-edge policy of tests/test_sharding.py): fid equal
 except on at most 0.5% of pixels, where an f32 edge test lands within
-rounding of zero and XLA's fused arithmetic may round differently; where
-fids agree, pixels and zbuf within 1e-5 absolute. The overflow flag is
+rounding of zero and XLA's fused arithmetic may round differently. Pixels
+and zbuf of each package within 1e-5 absolute of the float64 oracle
+(``dirt_tpu.ref.slowref``) where its fids equal the oracle's: two float32
+renders may round to opposite sides of the exact value, so they are not
+held to each other (tests/_torch_port_oracle.py). The overflow flag is
 equal.
 """
 
@@ -21,6 +24,7 @@ import torch
 
 import dirt_tpu
 import dirt_tpu_torch
+from _torch_port_oracle import assert_near_oracle, oracle_forward
 from _torch_port_scene import SIZE, sphere_scene
 from dirt_tpu.ops.raster import RasterConfig as JaxConfig
 from dirt_tpu_torch import convert
@@ -60,6 +64,18 @@ def _render_both(kind, clip, jax_config, torch_config):
     return [np.asarray(o) for o in out_j], [o.numpy() for o in out_t]
 
 
+@functools.lru_cache(maxsize=None)
+def _oracle(kind, clip):
+    bg, verts, colors, faces = _scene(kind)
+    return oracle_forward(bg, verts, colors, faces, clip)
+
+
+def _assert_both_near_oracle(kind, clip, *renders):
+    for pix, fid, z in renders:
+        assert_near_oracle(pix, fid, z, _oracle(kind, clip), atol=ATOL,
+                           razor=RAZOR)
+
+
 _CASES = [("sphere", False), ("sphere", True), ("crossing", True),
           ("crossing", False)]
 
@@ -79,9 +95,8 @@ def test_rasterise_with_aux_matches(kind, clip):
     assert bool(ovf_t) is bool(ovf_j) is False
     differ = fid_t != fid_j
     assert differ.mean() <= RAZOR, f"{differ.mean():.4%} fids differ"
-    agree = ~differ
-    np.testing.assert_allclose(pix_t[agree], pix_j[agree], rtol=0, atol=ATOL)
-    np.testing.assert_allclose(z_t[agree], z_j[agree], rtol=0, atol=ATOL)
+    _assert_both_near_oracle(kind, clip, (pix_t, fid_t, z_t),
+                             (pix_j, fid_j, z_j))
     covered = fid_t >= 0
     assert covered.mean() > 0.2
     if kind == "crossing":
@@ -115,15 +130,14 @@ def test_rasterise_matches_aux_and_default_background():
     RasterConfig(streaming=True),
 ])
 def test_streaming_configs_render_like_jax(config):
-    """Configs that pick the streaming engine render equal to ``dirt_tpu``'s
-    render under the same tolerance as above (the engine's own tests are in
+    """Configs that pick the streaming engine render like ``dirt_tpu``
+    under the same tolerance as above (the engine's own tests are in
     tests/test_torch_csr.py)."""
     (pix_j, fid_j, z_j, ovf_j), (pix_t, fid_t, z_t, ovf_t) = _render_both(
         "sphere", False, JaxConfig(**config._asdict()), config)
     assert bool(ovf_t) is bool(ovf_j) is False
     differ = fid_t != fid_j
     assert differ.mean() <= RAZOR, f"{differ.mean():.4%} fids differ"
-    agree = ~differ
-    np.testing.assert_allclose(pix_t[agree], pix_j[agree], rtol=0, atol=ATOL)
-    np.testing.assert_allclose(z_t[agree], z_j[agree], rtol=0, atol=ATOL)
+    _assert_both_near_oracle("sphere", False, (pix_t, fid_t, z_t),
+                             (pix_j, fid_j, z_j))
     assert (fid_t >= 0).mean() > 0.2
