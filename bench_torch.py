@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Benchmark of dirt_tpu_torch's main path on one CUDA card (H100).
 
-    python3 bench_torch.py [--samples N]
+    python3 bench_torch.py
 
 Prints ONE JSON line first, ``{"metric", "value", "unit", "vs_baseline"}``:
 the Mpix/s of one forward + backward step at 1024x1024 on the scene of
@@ -11,7 +11,7 @@ w)`` with ``w = RandomState(1).rand(1024, 1024, 3)``, gradients to vertices
 and colors, ``clip=False``, under honest caps: ``suggest_raster_config``'s,
 kept in ``bench_cache/configs_torch.json`` (``utils.configstore``) and
 re-validated by one render whose overflow flag must stay clear. ``value``
-is 1024 * 1024 / 1e6 over the median of ``--samples`` step times
+is 1024 * 1024 / 1e6 over the median of ``SAMPLES`` (20) step times
 (``utils.benchtime``: CUDA events around one synchronised call, after
 three warm-up calls). ``vs_baseline`` divides it by ``BASELINE_MPIX_S``,
 this script's first figure on an H100, never a TPU number.
@@ -42,7 +42,6 @@ nothing; it never falls back to the CPU.
 too, and the roofline helpers serve its kernel records.
 """
 
-import argparse
 import json
 import subprocess
 import sys
@@ -56,6 +55,8 @@ import torch
 # 80GB HBM3 at a 700.00 W power limit; later runs divide by it.
 BASELINE_MPIX_S = 57.24
 METRIC = "Mpix/s fwd+bwd, 1024^2, 10k-tri sphere, 1 H100, dirt_tpu_torch"
+# Timed calls per measurement; every run of the tracked line takes as many.
+SAMPLES = 20
 
 # Published peaks of one H100 SXM: HBM bytes/s and float32 FLOP/s outside
 # the tensor cores (the kernels use no tensor core).
@@ -104,11 +105,11 @@ def camera_clip(verts_obj, rot, device):
                                           matrices.compose(mv, proj))
 
 
-def bench_scene(size, device, n=72, channels=3):
+def bench_scene(size, device, n=72):
     """The scene of ``bench.py:88-112`` on ``device``: (object-space
     vertices, clip-space vertices, colors ``RandomState(0)``, faces int64,
-    zero background [size, size, C], upstream gradient ``w =
-    RandomState(1).rand(size, size, C)``) of ``mesh.uv_sphere(n, n)``."""
+    zero background [size, size, 3], upstream gradient ``w =
+    RandomState(1).rand(size, size, 3)``) of ``mesh.uv_sphere(n, n)``."""
     from dirt_tpu_torch.core import mesh
 
     verts_obj, faces, _ = mesh.uv_sphere(n_lat=n, n_lon=n)
@@ -116,13 +117,13 @@ def bench_scene(size, device, n=72, channels=3):
     rot = torch.tensor([0.4, 0.3, 0.0], device=device)
     clip = camera_clip(verts_obj, rot, device)
     colors = torch.as_tensor(
-        np.random.RandomState(0).rand(len(verts_obj), channels)
+        np.random.RandomState(0).rand(len(verts_obj), 3)
         .astype(np.float32), device=device,
     )
     faces = torch.as_tensor(faces.astype(np.int64), device=device)
-    background = torch.zeros((size, size, channels), device=device)
+    background = torch.zeros((size, size, 3), device=device)
     weights = torch.as_tensor(
-        np.random.RandomState(1).rand(size, size, channels)
+        np.random.RandomState(1).rand(size, size, 3)
         .astype(np.float32), device=device,
     )
     return verts_obj, clip, colors, faces, background, weights
@@ -222,10 +223,6 @@ def honest(key, scene, clip_flag, **fields):
 
 
 def main():
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--samples", type=int, default=20,
-                        help="timed calls per measurement (default 20)")
-    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_torch: no CUDA device (torch.cuda.is_available() "
                  "is False); this benchmark runs on the card only")
@@ -244,7 +241,7 @@ def main():
     config = honest("torch_sphere72_1024_auto", scene, False)
     setup_s = time.perf_counter() - start
     (t_min, t_med), line = measure("1024^2 tracked step", scene, config,
-                                   False, args.samples)
+                                   False, SAMPLES)
     value = 1024 * 1024 / 1e6 / t_med
     print(json.dumps({
         "metric": METRIC,
@@ -274,7 +271,7 @@ def main():
             ("99,904-face sphere 1024^2", "sphere224_1024_csr", big, False,
              dict(streaming=True))):
         cfg = honest(f"torch_{key}", case, clip_flag, **fields)
-        print(measure(label, case, cfg, clip_flag, args.samples)[1],
+        print(measure(label, case, cfg, clip_flag, SAMPLES)[1],
               flush=True)
 
 

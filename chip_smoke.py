@@ -385,9 +385,10 @@ def _world(verts_obj, device, pose=(0.4, 0.3, 0.0)):
 
 
 def _bench_scene(device):
-    """``bench_torch.bench_scene`` at SIZE with CHANNELS: (object-space
-    vertices, clip-space vertices, colors, faces, background, weights)."""
-    return bench_scene(SIZE, device, channels=CHANNELS)
+    """``bench_torch.bench_scene`` at SIZE (CHANNELS = 3 channels):
+    (object-space vertices, clip-space vertices, colors, faces, background,
+    weights)."""
+    return bench_scene(SIZE, device)
 
 
 def _rel_err(got, want):

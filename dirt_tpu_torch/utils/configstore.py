@@ -8,9 +8,11 @@ deterministic for a deterministic scene, so a bench stores it under a key
 naming the scene and later runs only re-validate it:
 :func:`cached_config` renders the scene once with the stored caps and keeps
 them if the overflow flag stays clear. A stale entry (the scene changed
-under its key) trips the flag, and an entry that does not match the
-config's fields, or a file of another ``FORMAT``, reads as missing; either
-way the caps are suggested anew, checked by one render, and replace it.
+under its key) trips the flag; an entry that does not match the config's
+fields, or a file of another ``FORMAT``, reads as missing; and an entry
+whose fixed fields differ from the caller's (another engine under the same
+key, say: :func:`matches`) is not the caller's. Each way the caps are
+suggested anew, checked by one render, and replace it.
 Caps that the renderer refuses for the scene (``ValueError``, such as a
 packed budget smaller than the tile count) are stale too.
 
@@ -30,6 +32,10 @@ from dirt_tpu_torch.ops.raster import RasterConfig
 
 DEFAULT_PATH = (Path(__file__).resolve().parents[2] / "bench_cache"
                 / "configs_torch.json")
+
+# The fields suggest_raster_config never fills in: a stored entry must
+# carry the caller's value of each, None included.
+_KEPT = ("engine", "streaming", "tile_w")
 
 # Bump when RasterConfig's fields or suggest_raster_config's semantics
 # change in a way that invalidates stored caps wholesale.
@@ -69,6 +75,15 @@ def save_config(key: str, config: RasterConfig, path=None) -> None:
     os.replace(tmp, path)
 
 
+def matches(stored: RasterConfig, config: RasterConfig) -> bool:
+    """Whether ``stored`` could be suggest_raster_config's answer to
+    ``config``: equal in the fields it keeps and in every other field the
+    caller set (not None)."""
+    return all(getattr(stored, name) == value
+               for name, value in config._asdict().items()
+               if value is not None or name in _KEPT)
+
+
 def overflows(vertices, faces, height: int, width: int,
               config: RasterConfig, clip: bool = False) -> bool:
     """Whether one render of the scene under ``config`` raises the
@@ -86,14 +101,15 @@ def cached_config(key: str, vertices, faces, height: int, width: int,
                   config: RasterConfig | None = None, clip: bool = False,
                   path=None) -> RasterConfig:
     """Honest caps for the scene stored under ``key``: the stored config if
-    one render under it keeps the overflow flag clear, else
-    ``suggest_raster_config``'s (from ``config``'s fixed fields), checked
-    the same way and stored. Raises if the suggested caps overflow."""
+    it :func:`matches` ``config`` and one render under it keeps the
+    overflow flag clear, else ``suggest_raster_config``'s (from
+    ``config``'s fixed fields), checked the same way and stored. Raises if
+    the suggested caps overflow."""
     from dirt_tpu_torch.rasterise_ops import suggest_raster_config
 
     vertices = vertices.detach()
     stored = load_config(key, path)
-    if stored is not None:
+    if stored is not None and matches(stored, config or RasterConfig()):
         try:
             stale = overflows(vertices, faces, height, width, stored, clip)
         except ValueError:          # caps that cannot fit this scene at all

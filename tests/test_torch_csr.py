@@ -19,7 +19,7 @@ so each kernel wrapper takes its plain PyTorch version). Tolerances:
   test_torch_pipeline.py); pixels and zbuf within 5e-6 where fids agree;
   the overflow flag equal; every gradient within 1e-4 of its largest
   magnitude (the vertices of faces on razor pixels, and of faces whose
-  boundary decision flips or float32 cannot settle, left out: there the
+  boundary decision flips between the packages, left out: there the
   port is held to the float64 oracle's backward, tests/_torch_port_oracle.py);
 * the port's streaming engine against its dense engine (one forward
   arithmetic, two list layouts): fid and zbuf equal, pixels within 1e-6,
@@ -36,7 +36,8 @@ import torch
 
 import dirt_tpu
 import dirt_tpu_torch
-from _torch_port_oracle import oracle_vertex_grads, port_slots, vertex_keep
+from _torch_port_oracle import (jax_planes, oracle_vertex_grads, port_slots,
+                                vertex_keep)
 from _torch_port_scene import SIZE, clip_soup, screen_soup, sphere_scene
 from dirt_tpu import rasterise_ops as jro
 from dirt_tpu.ops import binning as jbin
@@ -383,12 +384,14 @@ def test_rasterise_streaming_matches_jax_vjp(case):
     np.testing.assert_allclose(dbg_t[agree], dbg_j[agree], rtol=0, atol=1e-6)
     _grad_close(dc_t, dc_j)
     # Vertices of faces on razor pixels see another owner, and those of
-    # faces whose boundary decision flips or float32 cannot settle see
+    # faces whose boundary decision flips between the packages see
     # another pair term: hold the port to the oracle there instead.
     bg, verts, colors, faces, w, _ = _scene(kind)
     config = tr.RasterConfig(**fields)
     slots = port_slots(bg, verts, colors, faces, config, clip)
-    keep = vertex_keep(faces, len(dv_t), fid_t, fid_j, slots, z_j)
+    geo_j = jax_planes(bg, verts, colors, faces, config, clip)
+    keep = vertex_keep(faces, len(dv_t), fid_t, fid_j, slots, z_j,
+                       geo_j)
     assert keep.mean() > 0.9
     _grad_close(dv_t[keep], dv_j[keep])
     if not keep.all():

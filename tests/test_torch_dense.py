@@ -41,8 +41,9 @@ import torch
 
 import dirt_tpu
 import dirt_tpu_torch
-from _torch_port_oracle import (assert_near_oracle, oracle_forward,
-                                oracle_vertex_grads, port_slots, vertex_keep)
+from _torch_port_oracle import (assert_near_oracle, jax_planes,
+                                oracle_forward, oracle_vertex_grads,
+                                port_slots, vertex_keep)
 from _torch_port_scene import SIZE, screen_soup, sphere_scene
 from dirt_tpu.ops import binning as jbin
 from dirt_tpu.ops import fused_bwd as jfb
@@ -366,10 +367,12 @@ def test_rasterise_dense_matches_jax_vjp(kind, clip, engine):
     np.testing.assert_allclose(dbg_t[agree], dbg_j[agree], rtol=0, atol=1e-6)
     np.testing.assert_allclose(dc_t, dc_j, rtol=1e-4, atol=1e-5)
     # Vertices of faces on razor pixels see another owner, and those of
-    # faces whose boundary decision flips or float32 cannot settle see
+    # faces whose boundary decision flips between the packages see
     # another pair term: hold the port to the oracle there instead.
     slots = port_slots(bg, verts, colors, faces, config, clip)
-    keep = vertex_keep(faces, len(dv_t), fid_t, fid_j, slots, z_j)
+    geo_j = jax_planes(bg, verts, colors, faces, config, clip)
+    keep = vertex_keep(faces, len(dv_t), fid_t, fid_j, slots, z_j,
+                       geo_j)
     assert keep.mean() > 0.9
     np.testing.assert_allclose(dv_t[keep], dv_j[keep], rtol=1e-3, atol=1e-3)
     if not keep.all():

@@ -319,3 +319,27 @@ def test_cached_config_replaces_a_stale_entry(tmp_path, fields):
     assert fresh == suggest_raster_config(
         verts, faces, 128, 128, config=RasterConfig(engine=fields["engine"]),
         clip=False)
+
+
+@pytest.mark.parametrize("stored_fields,asked", [
+    (dict(engine="dense"), dict(engine="packed")),
+    (dict(streaming=True), {}),
+    (dict(engine="dense"), dict(engine="dense", streaming=True)),
+])
+def test_cached_config_replaces_an_entry_of_other_fixed_fields(
+        tmp_path, stored_fields, asked):
+    verts, faces = _small_scene()
+    path = tmp_path / "configs_torch.json"
+    stored = suggest_raster_config(verts, faces, 128, 128,
+                                   config=RasterConfig(**stored_fields),
+                                   clip=False)
+    assert not configstore.overflows(verts, faces, 128, 128, stored)
+    configstore.save_config("sphere", stored, path)
+    want = suggest_raster_config(verts, faces, 128, 128,
+                                 config=RasterConfig(**asked), clip=False)
+    got = configstore.cached_config("sphere", verts, faces, 128, 128,
+                                    config=RasterConfig(**asked), path=path)
+    assert got == want != stored
+    assert configstore.load_config("sphere", path) == want
+    assert configstore.matches(got, RasterConfig(**asked))
+    assert not configstore.matches(stored, RasterConfig(**asked))
