@@ -126,10 +126,13 @@ raises and exits non-zero; nothing is caught):
     and scatter_faces / scatter_faces_csr / subtile_swap + packed_bwd once
     per slab, no other engine's; times of forward and fwd+bwd. Then
     ``entry.dryrun_multichip(4)`` (five Adam steps of the data x tiles
-    training step, whose loss must fall, and the two-level render), and one
-    step through a ``torch.distributed`` group of one rank (NCCL, a
-    ``file://`` store in a temporary directory), which must equal the
-    one-slab local step;
+    training step, whose loss must fall, the two-level render, and the
+    overlapped and face-sharded renders of the same scene, whose losses
+    must be 2128.7512 +- 1e-3), and one step through a ``torch.distributed``
+    group of one rank (NCCL, a ``file://`` store in a temporary directory),
+    which must equal the one-slab local step; in the same group one step
+    each of phase 15's two paths, which must equal their ``LocalGroup(1)``
+    steps within 1e-5 of max |gradient|;
 14. the bench, the config store and the OBJ loader: ``bench_torch.py``'s
     tracked step (``bench_torch.measure``: the bench sphere at 1024x1024,
     ``clip=False``, the caps of phase 4) for three samples through
@@ -142,9 +145,28 @@ raises and exits non-zero; nothing is caught):
     native parser (``io.objloader``, built with g++ on first use; equal
     to the Python parser's), rendered at 1024x1024 by the packed engine
     on the card: fid and zbuf equal to the plain path's, pixels within
-    1e-6.
+    1e-6;
+15. the overlapped and the face-sharded renderers at full width (run
+    after phase 13, before 14). ``rasterise_sharded(overlap_chunks=k)`` of
+    the bench sphere, packed, under the caps of phase 4, with 1 and 4 local
+    slabs at k = 1, 2, 4: raster_fwd_packed and subtile_swap launched once
+    per slab and packed_bwd once per slab and chunk, and no other kernel;
+    every packed_bwd launch on a chunk slice bit-equal to its plain
+    version on the same slice, and each slab's slices concatenated equal
+    to one launch over its whole budget; image and fid equal to the
+    non-overlapped sharded render's; gradients within 1e-5 of max
+    |gradient| of the single-device step and of the non-overlapped
+    sharded step. ``rasterise_face_sharded`` over four local
+    members on the bench sphere under the dense engine's caps (each member
+    runs raster_fwd_dense) and on the 99,904-face sphere under the packed
+    engine's (raster_fwd_packed): the forward kernel once per member and no
+    other kernel, fid equal to the single-device render's, pixels within
+    3e-5, gradients within 1e-4. Times (medians of 10, fwd+bwd) of the bench
+    sphere under phase 4's caps: single device, sharded with 1 and 4 slabs,
+    overlapped with 1 and 4 slabs at k = 1, 2, 4, face-sharded with 1 and 4
+    members.
 
-Phase 9 runs each config once and phases 12 and 13 take medians of 10, to
+Phase 9 runs each config once and phases 12, 13 and 15 take medians of 10, to
 keep the whole run under two minutes. The line before the last is
 the kernels' JSON record (``library_ms`` where phase 12 times one PyTorch
 call of the same function: ``index_add_`` for the scatters, a strided copy
@@ -231,6 +253,11 @@ TOL_SLAB_PIXELS = 3e-5
 # other orders), and differing face ids as a share of the covered pixels.
 TOL_ENGINES = 1e-4
 TRAIN_STEPS = 10
+# Chunk counts of the overlapped backward in phase 15.
+OVERLAP_CHUNKS = (1, 2, 4)
+# The loss that variants 2-4 of dryrun_multichip give (one image), as
+# __graft_entry__.dryrun_multichip prints it on four CPU devices.
+DRYRUN_LOSS = 2128.7512
 
 
 def packed_forward_bound(bins, tile_h, channels, fid):
@@ -1186,6 +1213,233 @@ def _sharded_check(tag, engine, scene, config, weights, card, runs=10):
     return counts
 
 
+def _capture_entry_rows():
+    """(patch, calls): a patch of ``packed_bwd.packed_entry_rows`` (to
+    ``start()``) that launches the kernel as the path asks and keeps every
+    call's (prep, c_lo, c_hi, rows) in ``calls``."""
+    from dirt_tpu_torch.ops import packed_bwd
+
+    calls = []
+    kernel = packed_bwd.packed_entry_rows
+
+    def capture(prep, c_lo=0, c_hi=None):
+        rows = kernel(prep, c_lo, c_hi)
+        calls.append((prep, c_lo,
+                      prep.budget_chunks if c_hi is None else c_hi, rows))
+        return rows
+
+    return mock.patch.object(packed_bwd, "packed_entry_rows", capture), calls
+
+
+def _check_chunk_slices(tag, calls):
+    """Every packed_bwd launch on a chunk slice against the plain version on
+    the same slice, bit for bit (values below the smallest normal float
+    apart: the plain version's ``index_add_`` flushes those on the card),
+    and each slab's slices, in order, tiling its budget and concatenated
+    bit-equal to one launch over the whole budget. Returns (slices, chunk
+    bounds of the first slab, max |kernel - plain|)."""
+    from dirt_tpu_torch.ops import packed_bwd
+
+    by_prep = {}
+    for prep, c_lo, c_hi, rows in calls:
+        by_prep.setdefault(id(prep), (prep, []))[1].append((c_lo, c_hi, rows))
+    differ_bits, worst, first = 0, 0.0, None
+    for prep, slices in by_prep.values():
+        table_rows = packed_bwd._entry_table_rows(prep)
+        for c_lo, c_hi, rows in slices:
+            plain = packed_bwd.packed_entry_rows_plain(prep, table_rows, c_lo,
+                                                       c_hi)
+            differ = rows.view(torch.int32) != plain.view(torch.int32)
+            below = differ & ((rows - plain).abs()
+                              < torch.finfo(torch.float32).tiny)
+            differ_bits += int((differ & ~below).sum())
+            worst = max(worst, float((rows - plain).abs().max()))
+        bounds = [c for c_lo, c_hi, _ in slices for c in (c_lo, c_hi)]
+        first = first or bounds
+        tiled = (bounds[0] == 0 and bounds[-1] == prep.budget_chunks
+                 and bounds[1:-1:2] == bounds[2::2])
+        whole = packed_bwd.packed_entry_rows(prep)
+        if not tiled or not torch.equal(
+                torch.cat([rows for *_, rows in slices]), whole):
+            raise RuntimeError(f"[{tag}] chunk slices {bounds} do not tile "
+                               f"the budget's {prep.budget_chunks} chunks or "
+                               "differ from one launch over all of them")
+    if differ_bits:
+        raise RuntimeError(f"[{tag}] {differ_bits} values of the chunk "
+                           "slices' rows differ from the plain version's")
+    return len(calls), first[::2] + first[-1:], worst
+
+
+def _check_grads(tag, grads, references):
+    """Gradients finite and nonzero (vertices, colors), and within each
+    limit of its reference: ``references`` maps a label to (gradients,
+    limit). Returns {label: [max |diff| / max |reference| per gradient]}."""
+    for g in grads:
+        if g is None or not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"[{tag}] gradient missing or not finite")
+    if not all(bool(g.abs().sum() > 0) for g in grads[:2]):
+        raise RuntimeError(f"[{tag}] zero gradient")
+    errs = {}
+    for label, (want, limit) in references.items():
+        errs[label] = [_rel_err(g, w) for g, w in zip(grads, want)]
+        if not all(e <= limit for e in errs[label]):
+            raise RuntimeError(f"[{tag}] gradients differ from the {label} "
+                               f"ones: {errs[label]} (limit {limit:g})")
+    return errs
+
+
+def _overlap_check(tag, scene, config, weights, card, runs=10):
+    """``rasterise_sharded(overlap_chunks=k)`` with 1 and 4 local slabs at
+    k = 1, 2, 4: launch counts (raster_fwd_packed and subtile_swap once per
+    slab, packed_bwd once per slab and chunk, no other kernel), every
+    chunk slice of packed_bwd against its plain version, the image and fid
+    equal to the non-overlapped sharded render's, gradients against the
+    single-device step and the non-overlapped sharded one (TOL_GRAD);
+    fwd+bwd times. Returns (launch counts summed over the runs,
+    {label: ms})."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.parallel.group import LocalGroup
+    from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+
+    background, clip, colors, faces = scene
+
+    def single(bg, verts, cols, faces, config, clip):
+        return dirt_tpu_torch.rasterise_with_aux(bg, verts, cols, faces,
+                                                 config=config, clip=False)
+
+    def sharded(n, chunks=None):
+        def render(bg, verts, cols, faces, config, clip):
+            return rasterise_sharded(bg, verts, cols, faces, LocalGroup(n),
+                                     config=config, overlap_chunks=chunks,
+                                     with_aux=True)
+        return render
+
+    def step(render):
+        return _grads(render, background, clip, colors, faces, weights,
+                      config, False)
+
+    grads_1 = step(single)[1]
+    times = {"single device": _median_ms(lambda: step(single), runs)}
+    launches = dict.fromkeys(KERNELS, 0)
+    for n in (1, 4):
+        (pix_s, fid_s, _, _), grads_s = step(sharded(n))
+        times[f"sharded n={n}"] = _median_ms(lambda: step(sharded(n)), runs)
+        for k in OVERLAP_CHUNKS:
+            patch, calls = _capture_entry_rows()
+            _reset_launch_counts()
+            patch.start()
+            (pix_o, fid_o, _, ovf_o), grads_o = step(sharded(n, k))
+            _sync()
+            counts = _launch_counts()
+            patch.stop()
+            want = {"raster_fwd_packed": n, "subtile_swap": n,
+                    "packed_bwd": n * k}
+            if any(v != want.get(name, 0) for name, v in counts.items()):
+                raise RuntimeError(f"[{tag}] {n} slabs x {k} chunks: want "
+                                   f"launches {want} and no other, got "
+                                   f"{counts}")
+            for name, v in counts.items():
+                launches[name] += v
+            slices, bounds, worst = _check_chunk_slices(
+                f"{tag} {n} slabs x {k} chunks", calls)
+            if (bool(ovf_o) or not torch.equal(fid_o, fid_s)
+                    or not torch.equal(pix_o, pix_s)):
+                raise RuntimeError(f"[{tag}] {n} slabs x {k} chunks: the "
+                                   "image differs from the sharded render's")
+            errs = _check_grads(f"{tag} {n} slabs x {k} chunks", grads_o, {
+                "single-device": (grads_1, TOL_GRAD),
+                "non-overlapped sharded": (grads_s, TOL_GRAD)})
+            print(f"[{tag}] {n} slab(s) x {k} chunk(s): launches "
+                  f"{ {name: v for name, v in counts.items() if v} }; "
+                  f"{slices} packed_bwd chunk slices (bounds {bounds} of "
+                  f"slab 0) bit-equal to the plain version (max |diff| "
+                  f"{worst:.3g}), each slab's slices concatenated equal to "
+                  f"one launch; image and fid equal to the non-overlapped "
+                  f"render's; max |grad diff| / max |grad| (vertices colors "
+                  f"background) vs single device "
+                  f"{' '.join(f'{e:.3g}' for e in errs['single-device'])} "
+                  f"(limit {TOL_GRAD:g}), vs non-overlapped sharded "
+                  f"{' '.join(f'{e:.3g}' for e in errs['non-overlapped sharded'])}"
+                  f" (limit {TOL_GRAD:g})")
+            times[f"overlap n={n} k={k}"] = _median_ms(
+                lambda: step(sharded(n, k)), runs)
+    return launches, times
+
+
+def face_sharded_step(scene, config, weights, members):
+    """``_grads`` of ``sum(image * w)`` through ``rasterise_face_sharded``
+    with ``members`` local members: ((pixels, fid, zbuf, overflow),
+    gradients)."""
+    from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
+    from dirt_tpu_torch.parallel.group import LocalGroup
+
+    background, clip, colors, faces = scene
+    return _grads(
+        lambda bg, verts, cols, faces, config, clip: rasterise_face_sharded(
+            bg, verts, cols, faces, LocalGroup(members), config=config,
+            with_aux=True),
+        background, clip, colors, faces, weights, config, False)
+
+
+def _face_sharded_check(tag, scene, config, weights, kernel):
+    """``rasterise_face_sharded`` with four local members against the
+    single-device render under the same config: overflow clear, fid equal,
+    pixels within TOL_SLAB_PIXELS, gradients within TOL_ENGINES, and the
+    members' forward kernel ``kernel`` launched once per member and no
+    other kernel. Returns the launch counts."""
+    import dirt_tpu_torch
+
+    background, clip, colors, faces = scene
+    (pix_1, fid_1, _, ovf_1), grads_1 = _grads(
+        dirt_tpu_torch.rasterise_with_aux, background, clip, colors, faces,
+        weights, config, False)
+    _reset_launch_counts()
+    (pix_4, fid_4, _, ovf_4), grads_4 = face_sharded_step(scene, config,
+                                                          weights, 4)
+    _sync()
+    counts = _launch_counts()
+    if any(v != (4 if name == kernel else 0) for name, v in counts.items()):
+        raise RuntimeError(f"[{tag}] want 4 launches of {kernel} (one per "
+                           f"member) and no other, got {counts}")
+    pix_err = float((pix_4 - pix_1).detach().abs().max())
+    if (bool(ovf_1) or bool(ovf_4) or not torch.equal(fid_4, fid_1)
+            or pix_err > TOL_SLAB_PIXELS):
+        raise RuntimeError(f"[{tag}] overflow {bool(ovf_1)} {bool(ovf_4)}, "
+                           f"{int((fid_4 != fid_1).sum())} fids differ, max "
+                           f"|pixel diff| {pix_err:.3g}")
+    errs = _check_grads(tag, grads_4,
+                        {"single-device": (grads_1, TOL_ENGINES)})
+    print(f"[{tag}] {faces.shape[0]} faces over 4 members "
+          f"({faces.shape[0] // 4} each): overflow False, fid equal to the "
+          f"single-device render, max |pixel diff| {pix_err:.3g} (limit "
+          f"{TOL_SLAB_PIXELS:g}); max |grad diff| / max |grad| (vertices "
+          f"colors background) {' '.join(f'{e:.3g}' for e in errs['single-device'])}"
+          f" (limit {TOL_ENGINES:g}); launches "
+          f"{ {name: v for name, v in counts.items() if v} }")
+    return counts
+
+
+def new_paths_grads(group, scene, config, weights):
+    """{path: gradients} of ``sum(image * w)`` through the overlapped
+    (2 chunks) and the face-sharded renderer over ``group``."""
+    from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
+    from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+
+    renders = {
+        "overlap": lambda bg, v, c, f: rasterise_sharded(
+            bg, v, c, f, group, config=config, overlap_chunks=2,
+            with_aux=True),
+        "face-sharded": lambda bg, v, c, f: rasterise_face_sharded(
+            bg, v, c, f, group, config=config, with_aux=True),
+    }
+    background, clip, colors, faces = scene
+    return {
+        path: _grads(lambda bg, v, c, f, config, clip: render(bg, v, c, f),
+                     background, clip, colors, faces, weights, config,
+                     False)[1]
+        for path, render in renders.items()}
+
+
 def sharded_dense_step(device, slabs=4):
     """(loss_fn, leaves) of the row-sharded renderer on the bench sphere at
     1024 x 1024 under ``RasterConfig(engine="dense")`` with
@@ -1204,6 +1458,47 @@ def sharded_dense_step(device, slabs=4):
     def loss_fn(bg, verts, cols):
         return (rasterise_sharded(bg, verts, cols, faces, LocalGroup(slabs),
                                   config=config) * weights).sum()
+
+    return loss_fn, (background, clip, colors)
+
+
+def overlap_loss(device, slabs=4, chunks=4):
+    """(loss_fn, leaves) of ``rasterise_sharded(overlap_chunks=chunks)`` on
+    the bench sphere at 1024 x 1024 under phase 4's caps (the packed
+    engine), ``slabs`` local slabs on the one card; ``loss_fn(background,
+    vertices, colors)`` is ``sum(image * w)``, ``w`` as above."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.parallel.group import LocalGroup
+    from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+
+    _, clip, colors, faces, background, weights = _bench_scene(device)
+    config = dirt_tpu_torch.suggest_raster_config(clip, faces, SIZE, SIZE,
+                                                  clip=False)
+
+    def loss_fn(bg, verts, cols):
+        return (rasterise_sharded(bg, verts, cols, faces, LocalGroup(slabs),
+                                  config=config, overlap_chunks=chunks)
+                * weights).sum()
+
+    return loss_fn, (background, clip, colors)
+
+
+def face_sharded_loss(device, members=4):
+    """(loss_fn, leaves) of ``rasterise_face_sharded`` on the bench sphere
+    at 1024 x 1024 under phase 4's caps, ``members`` local members (four:
+    2,556 faces each, the dense engine), as :func:`overlap_loss`."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
+    from dirt_tpu_torch.parallel.group import LocalGroup
+
+    _, clip, colors, faces, background, weights = _bench_scene(device)
+    config = dirt_tpu_torch.suggest_raster_config(clip, faces, SIZE, SIZE,
+                                                  clip=False)
+
+    def loss_fn(bg, verts, cols):
+        return (rasterise_face_sharded(bg, verts, cols, faces,
+                                       LocalGroup(members), config=config)
+                * weights).sum()
 
     return loss_fn, (background, clip, colors)
 
@@ -2072,12 +2367,21 @@ def main():
     print(f"[13 dryrun_multichip(4)] data=2 x tiles=2 training step, 5 Adam "
           f"steps: loss {' '.join(f'{v:.6g}' for v in dry['losses'])}; "
           f"two-level render loss {dry['loss_two_level']:.6g}, max |d verts| "
-          f"{dry['grad_two_level']:.4g}; launches {counts}; "
-          f"{time.perf_counter() - start:.2f} s ({card})")
+          f"{dry['grad_two_level']:.4g}; overlap_chunks=2 loss "
+          f"{dry['loss_overlap']:.6g}, max |d verts| "
+          f"{dry['grad_overlap']:.4g}; face-sharded loss "
+          f"{dry['loss_face_sharded']:.6g}, max |d verts| "
+          f"{dry['grad_face_sharded']:.4g} (both {DRYRUN_LOSS} +- 1e-3); "
+          f"launches {counts}; {time.perf_counter() - start:.2f} s ({card})")
     if (not dry["losses"][-1] < dry["losses"][0]
             or not np.isfinite(dry["losses"]).all()
             or not dry["grad_two_level"] > 0):
         raise RuntimeError("[13] dryrun_multichip: the loss did not fall")
+    if not all(abs(dry[key] - DRYRUN_LOSS) <= 1e-3
+               for key in ("loss_overlap", "loss_face_sharded")):
+        raise RuntimeError(f"[13] dryrun_multichip: the overlap and "
+                           f"face-sharded variants' losses are not "
+                           f"{DRYRUN_LOSS}: {dry}")
     _need_launches("dryrun_multichip", counts,
                    ("raster_fwd_packed", "subtile_swap", "packed_bwd",
                     "raster_fwd_dense", "scatter_faces"))
@@ -2090,11 +2394,16 @@ def main():
             background, clip, colors, faces, weights, dense_big, False)[1]
 
     want = grads_of(LocalGroup(1))
+    # Phase 15's paths through the same group (one NCCL group a process).
+    want_new = new_paths_grads(LocalGroup(1), bench3, configs[False],
+                               weights)
     with tempfile.TemporaryDirectory() as store:
         torch.distributed.init_process_group(
             "nccl", init_method=f"file://{store}/store", rank=0, world_size=1,
             device_id=device)
         got = grads_of(DistGroup())
+        got_new = new_paths_grads(DistGroup(), bench3, configs[False],
+                                  weights)
         _sync()
         torch.distributed.destroy_process_group()
     nccl_err = [_rel_err(g, w) for g, w in zip(got, want)]
@@ -2104,6 +2413,44 @@ def main():
     print(f"[13 torch.distributed] one rank over NCCL: max |grad diff| / max "
           f"|grad| from the one-slab local step "
           f"{' '.join(f'{e:.3g}' for e in nccl_err)} (limit {TOL_GRAD:g})")
+    for path, grads in got_new.items():
+        err = [_rel_err(g, w) for g, w in zip(grads, want_new[path])]
+        if not all(e <= TOL_GRAD for e in err):
+            raise RuntimeError(f"[15] the one-rank NCCL group's {path} step "
+                               f"differs from the LocalGroup(1) step: {err}")
+        print(f"[15 torch.distributed] {path}, one rank over NCCL (bench "
+              f"sphere, packed): max |grad diff| / max |grad| from the "
+              f"LocalGroup(1) step {' '.join(f'{e:.3g}' for e in err)} "
+              f"(limit {TOL_GRAD:g})")
+
+    # --- 15. the overlapped and face-sharded renderers at full width ---------
+    counts, times = _overlap_check("15 overlap bench sphere packed", bench3,
+                                   configs[False], weights, card)
+    counts_dense = _face_sharded_check(
+        "15 face-sharded bench sphere dense", bench3, dense_big, weights,
+        "raster_fwd_dense")
+    big_packed = dirt_tpu_torch.suggest_raster_config(
+        big_clip, big_faces, SIZE, SIZE,
+        config=dirt_tpu_torch.RasterConfig(engine="packed"), clip=False)
+    counts_packed = _face_sharded_check(
+        f"15 face-sharded {n_big}-face sphere packed", big3, big_packed,
+        weights, "raster_fwd_packed")
+    for members in (1, 4):
+        if bool(face_sharded_step(bench3, configs[False], weights,
+                                  members)[0][3]):
+            raise RuntimeError(f"[15] face-sharded bench sphere, {members} "
+                               f"members: overflow under {configs[False]}")
+        times[f"face-sharded n={members}"] = _median_ms(
+            lambda: face_sharded_step(bench3, configs[False], weights,
+                                      members), 10)
+    for kernel_name in KERNELS:
+        launches[kernel_name] += (counts[kernel_name]
+                                  + counts_dense[kernel_name]
+                                  + counts_packed[kernel_name])
+    print(f"[15 times] bench sphere {SIZE}^2 C=3 fwd+bwd under the caps of "
+          f"phase 4 (face-sharded n=4: four dense members): "
+          + ", ".join(f"{label} {ms:.4f} ms" for label, ms in times.items())
+          + f" (medians of 10) ({card})")
 
     # --- 14. the bench, the config store and the OBJ loader ----------------
     _bench_and_io_check(

@@ -6,8 +6,8 @@ single-device half): a textured, Phong-lit UV sphere rendered through
 ``shade_deferred``, and the mean squared error against a black target.
 The loss is differentiable w.r.t. the object-space vertices and the pose.
 :func:`dryrun_multichip` is the counterpart of its multi-device half: one
-training step over a data x rows layout and a render over a two-level row
-group.
+training step over a data x rows layout, and renders over a two-level row
+group, with the overlapped backward and over a face group.
 """
 
 from __future__ import annotations
@@ -97,8 +97,8 @@ def entry(device="cuda", size: int = 256, n_lat: int = 24, n_lon: int = 48):
 def dryrun_multichip(n_devices: int, device="cuda", steps: int = 1):
     """Sharded training steps over ``n_devices`` slabs (tiny shapes).
 
-    Counterpart of ``__graft_entry__.dryrun_multichip``'s first two
-    variants. The layout is ``parallel.multihost.make_render_mesh``'s: the
+    Counterpart of ``__graft_entry__.dryrun_multichip`` (its four
+    variants). The layout is ``parallel.multihost.make_render_mesh``'s: the
     ranks of ``torch.distributed`` where it is initialised (``n_devices``
     must then be its world size), else local groups that play all
     ``n_devices`` slabs in this process on ``device``.
@@ -113,13 +113,29 @@ def dryrun_multichip(n_devices: int, device="cuda", steps: int = 1):
     2. For ``n_devices >= 4`` and even: ``rasterise_sharded`` of a 24-face
        random scene at 64 x 128 on the dense engine over a two-level (dcn=2
        x tiles) row group, value and vertex gradient.
+    3. For ``n_devices >= 2``: the same scene through
+       ``rasterise_sharded(overlap_chunks=2)`` over a row group of the first
+       two members, packed engine (``parallel.overlap``).
+    4. For ``n_devices >= 4``: the same scene through
+       ``rasterise_face_sharded`` over a face group of the first four
+       members, dense engine (``parallel.face_sharding``).
 
-    Prints one line per variant and returns their numbers:
-    ``{"loss", "losses", "step", "loss_two_level", "grad_two_level"}``:
-    the first step's loss, every step's, the largest bump after the last
-    step, and variant 2's value and largest vertex gradient (None when it
-    does not run). Runs on the card unless ``device`` says otherwise.
+    Variants 2-4 render one image, so their values agree. Under
+    ``torch.distributed`` every rank makes the groups of variants 3 and 4,
+    and a rank outside a group takes no part in its variant.
+
+    Prints one line per variant run and returns their numbers:
+    ``{"loss", "losses", "step", "loss_two_level", "grad_two_level",
+    "loss_overlap", "grad_overlap", "loss_face_sharded",
+    "grad_face_sharded"}``: the first step's loss, every step's, the
+    largest bump after the last step, and variants 2-4's value and largest
+    vertex gradient (None when the variant does not run, or runs without
+    this rank). Runs on the card unless ``device`` says otherwise.
     """
+    import torch.distributed as dist
+
+    from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
+    from dirt_tpu_torch.parallel.group import DistGroup, LocalGroup
     from dirt_tpu_torch.parallel.multihost import make_render_mesh
     from dirt_tpu_torch.parallel.sharding import rasterise_sharded, slab_render
 
@@ -184,32 +200,80 @@ def dryrun_multichip(n_devices: int, device="cuda", steps: int = 1):
         losses.append(float(loss.detach()))
     out = {"loss": losses[0], "losses": losses,
            "step": float(params.detach().abs().max()),
-           "loss_two_level": None, "grad_two_level": None}
+           "loss_two_level": None, "grad_two_level": None,
+           "loss_overlap": None, "grad_overlap": None,
+           "loss_face_sharded": None, "grad_face_sharded": None}
     print(f"dryrun_multichip OK: {n_devices} devices (data={data} x "
           f"tiles={tiles}), loss={out['loss']:.5f}, "
           f"|grad step|={out['step']:.2e}")
 
+    # Small random scene shared by the remaining variants.
+    rng = np.random.RandomState(0)
+    verts2 = f32(np.concatenate(
+        [rng.uniform(-0.8, 0.8, (30, 2)),
+         rng.uniform(-0.5, 0.5, (30, 1)), np.ones((30, 1))], axis=1))
+    faces2 = torch.as_tensor(rng.randint(0, 30, (24, 3)), device=device)
+    colors2 = f32(rng.rand(30, 3))
+    bg2 = torch.zeros((64, 128, 3), device=device)
+    cfg2 = RasterConfig(tile_h=8, tile_w=128, bin_cap=64)
+
+    def value_and_grad(render, group):
+        """sum(image ** 2) over the whole image and its largest vertex
+        gradient, or (None, None) on a rank outside ``group``."""
+        if group is None:
+            return None, None
+        verts = verts2.clone().requires_grad_()
+        img = render(verts, group)
+        value = group.all_reduce_sum(torch.sum(img * img))
+        value.backward()
+        return float(value.detach()), float(verts.grad.abs().max())
+
+    def first(count):
+        """A group of the first ``count`` members (None on a rank outside
+        it); every rank makes each group, in one order."""
+        if not dist.is_initialized():
+            return LocalGroup(count)
+        ranks = list(range(count))
+        made = dist.new_group(ranks)
+        return DistGroup(ranks, made) if dist.get_rank() in ranks else None
+
     if n_devices >= 4 and n_devices % 2 == 0:
         # Two-level variant: rows shard dcn-major over the flattened (dcn,
         # tiles) group, so each host owns a contiguous band.
-        rng = np.random.RandomState(0)
-        verts2 = f32(np.concatenate(
-            [rng.uniform(-0.8, 0.8, (30, 2)),
-             rng.uniform(-0.5, 0.5, (30, 1)), np.ones((30, 1))], axis=1))
-        faces2 = torch.as_tensor(rng.randint(0, 30, (24, 3)), device=device)
-        colors2 = f32(rng.rand(30, 3))
-        bg2 = torch.zeros((64, 128, 3), device=device)
-        cfg2 = RasterConfig(tile_h=8, tile_w=128, bin_cap=64)
         layout2 = make_render_mesh(tiles_per_host=n_devices // 2, data=1,
                                    local_size=n_devices)
-        verts2.requires_grad_()
-        img = rasterise_sharded(bg2, verts2, colors2, faces2, layout2.rows,
-                                config=cfg2)
-        value = layout2.rows.all_reduce_sum(torch.sum(img * img))
-        value.backward()
-        out["loss_two_level"] = float(value.detach())
-        out["grad_two_level"] = float(verts2.grad.abs().max())
+        out["loss_two_level"], out["grad_two_level"] = value_and_grad(
+            lambda v, group: rasterise_sharded(bg2, v, colors2, faces2, group,
+                                               config=cfg2), layout2.rows)
         print(f"dryrun_multichip two-level mesh OK: data=1 x dcn=2 x "
               f"tiles={n_devices // 2}, loss={out['loss_two_level']:.4f}, "
               f"|d verts|={out['grad_two_level']:.2e}")
+
+    if n_devices >= 2:
+        # The overlapped backward: the packed backward in budget-chunk
+        # slices, each slice's parameter gradients summed at once.
+        # expand_cap covers the worst slab-local span (8 x 4 subtiles on a
+        # 32 x 128 slab): a cut would change the image.
+        cfg3 = RasterConfig(tile_h=8, tile_w=128, engine="packed",
+                            expand_cap=32, budget=1024)
+        out["loss_overlap"], out["grad_overlap"] = value_and_grad(
+            lambda v, group: rasterise_sharded(bg2, v, colors2, faces2, group,
+                                               config=cfg3, overlap_chunks=2),
+            first(2))
+        if out["loss_overlap"] is not None:
+            print(f"dryrun_multichip overlap_chunks=2 OK: tiles=2, "
+                  f"loss={out['loss_overlap']:.4f}, "
+                  f"|d verts|={out['grad_overlap']:.2e}")
+
+    if n_devices >= 4:
+        # Face-list sharding: faces split over the group, min-depth
+        # composite, rows x faces backward.
+        out["loss_face_sharded"], out["grad_face_sharded"] = value_and_grad(
+            lambda v, group: rasterise_face_sharded(bg2, v, colors2, faces2,
+                                                    group, config=cfg2),
+            first(4))
+        if out["loss_face_sharded"] is not None:
+            print(f"dryrun_multichip face-sharded OK: faces=4, "
+                  f"loss={out['loss_face_sharded']:.4f}, "
+                  f"|d verts|={out['grad_face_sharded']:.2e}")
     return out

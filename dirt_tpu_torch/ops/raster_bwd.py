@@ -355,6 +355,26 @@ def backward_scatter_halo(geo, att, fid_e, zbuf_e, pixels_e, grad_e,
     return d_geo, d_att, d_background_e
 
 
+def sum_onto_faces(d_geo_cols, d_att_cols, fid, covered, num_faces: int):
+    """Per-pixel cotangent columns summed onto the owning faces, without
+    the anchor columns: (d_geo [F, 24], d_att [F, 3C]).
+
+    One float32 ``index_add_`` per column group over the ``covered``
+    pixels, where ``dirt_tpu`` uses ``segment_sum`` (on CUDA tensors the
+    adds are atomic, so the sums' order is not fixed).
+    """
+    device = d_att_cols[0].device
+    seg = torch.clamp(fid, min=0).long().reshape(-1)
+    weight = covered.reshape(-1, 1).to(torch.float32)
+    sums = []
+    for cols in (d_geo_cols, d_att_cols):
+        per_pixel = torch.stack(cols, dim=0).reshape(len(cols), -1).T
+        out = torch.zeros((num_faces, len(cols)), dtype=torch.float32,
+                          device=device)
+        sums.append(out.index_add_(0, seg, per_pixel * weight))
+    return tuple(sums)
+
+
 def backward_torch(geo, att, fid, zbuf, pixels, grad_pixels, own_mask=None):
     """Gradients w.r.t. plane coefficients: the reference's pure engine.
 
@@ -380,7 +400,6 @@ def backward_torch(geo, att, fid, zbuf, pixels, grad_pixels, own_mask=None):
     geo = torch.as_tensor(geo, dtype=torch.float32)
     att = torch.as_tensor(att, dtype=torch.float32)
     num_faces = geo.shape[0]
-    channels = pixels.shape[-1]
 
     covered = fid >= 0
     if own_mask is not None:
@@ -393,18 +412,8 @@ def backward_torch(geo, att, fid, zbuf, pixels, grad_pixels, own_mask=None):
     d_geo_cols, d_att_cols = pixel_cotangents(
         g16cf, covered, fid, zbuf, pixels_cf, grad_cf
     )
-
-    seg = safe_fid.reshape(-1)
-    weight = covered.reshape(-1, 1).to(torch.float32)
-    d_geo_pix = torch.stack(d_geo_cols, dim=0).reshape(GEO_WIDTH, -1).T
-    d_att_pix = torch.stack(d_att_cols, dim=0).reshape(3 * channels, -1).T
-    d_geo = torch.zeros((num_faces, GEO_WIDTH), dtype=torch.float32,
-                        device=geo.device)
-    d_geo.index_add_(0, seg, d_geo_pix * weight)
-    d_att = torch.zeros((num_faces, 3 * channels), dtype=torch.float32,
-                        device=geo.device)
-    d_att.index_add_(0, seg, d_att_pix * weight)
-
+    d_geo, d_att = sum_onto_faces(d_geo_cols, d_att_cols, fid, covered,
+                                  num_faces)
     d_geo = anchor_cotangents(geo, att, d_geo, d_att)
     d_background = torch.where(covered[..., None], 0.0, grad_pixels)
     return d_geo, d_att, d_background

@@ -30,9 +30,19 @@ Groups over another axis (scenes of a batch, the "data" axis) use the same
 two classes: :meth:`replicated` marks a tensor every member uses, so its
 gradient is summed over the group, and :meth:`all_reduce_sum` sums a value
 (a loss) over it.
+
+The collectives of the overlapped and the face-sharded renderers
+(``parallel.overlap``, ``parallel.face_sharding``) take and return one
+tensor per local member, as :meth:`exchange_rows` does:
+:meth:`all_reduce_async_` (the per-chunk ``psum`` of ``dirt_tpu``, whose
+handle is waited on later), :meth:`all_reduce_min` (``pmin``),
+:meth:`all_gather` (``all_gather(tiled=True)``) and :meth:`reduce_scatter`
+(``psum_scatter(tiled=True)``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.distributed as dist
@@ -69,6 +79,37 @@ class LocalGroup:
     def all_reduce_sum(self, tensor):
         """The sum of ``tensor`` over the group's processes: just this one."""
         return tensor
+
+    def all_reduce_async_(self, tensors):
+        """Sum over the members, in place: each tensor of ``tensors`` (one
+        per local member) becomes the sum of all of them. Returns a handle
+        whose ``wait()`` returns once the sums are there: here at once."""
+        total = functools.reduce(torch.add, tensors)
+        for tensor in tensors:
+            tensor.copy_(total)
+        return _Done()
+
+    def all_reduce_min(self, tensors):
+        """The elementwise minimum over the members, for each member."""
+        least = functools.reduce(torch.minimum, tensors)
+        return [least] * len(tensors)
+
+    def all_gather(self, tensors):
+        """The members' tensors concatenated along dim 0, for each member."""
+        gathered = torch.cat(tensors)
+        return [gathered] * len(tensors)
+
+    def reduce_scatter(self, tensors):
+        """The sum over the members, split along dim 0 into ``size`` equal
+        blocks: member i gets block i."""
+        return list(functools.reduce(torch.add, tensors).chunk(self.size))
+
+
+class _Done:
+    """The handle of a collective that has already completed."""
+
+    def wait(self):
+        return True
 
 
 class _SumGradient(torch.autograd.Function):
@@ -147,6 +188,39 @@ class DistGroup:
         """Sum ``tensor`` over the group, in place; returns it."""
         dist.all_reduce(tensor, group=self.process_group)
         return tensor
+
+    def all_reduce_async_(self, tensors):
+        """See :meth:`LocalGroup.all_reduce_async_`: the sum over the ranks,
+        started and not waited for (``dist.all_reduce(async_op=True)``).
+        The tensor must be contiguous and left alone until ``wait()``."""
+        (tensor,) = tensors
+        return dist.all_reduce(tensor, group=self.process_group,
+                               async_op=True)
+
+    def all_reduce_min(self, tensors):
+        """See :meth:`LocalGroup.all_reduce_min`."""
+        (tensor,) = tensors
+        least = tensor.contiguous().clone()
+        dist.all_reduce(least, op=dist.ReduceOp.MIN,
+                        group=self.process_group)
+        return [least]
+
+    def all_gather(self, tensors):
+        """See :meth:`LocalGroup.all_gather`."""
+        (tensor,) = tensors
+        tensor = tensor.contiguous()
+        parts = [torch.empty_like(tensor) for _ in range(self.size)]
+        dist.all_gather(parts, tensor, group=self.process_group)
+        return [torch.cat(parts)]
+
+    def reduce_scatter(self, tensors):
+        """See :meth:`LocalGroup.reduce_scatter`."""
+        (tensor,) = tensors
+        block = tensor.new_empty((tensor.shape[0] // self.size,
+                                  *tensor.shape[1:]))
+        dist.reduce_scatter_tensor(block, tensor.contiguous(),
+                                   group=self.process_group)
+        return [block]
 
     def replicated(self, tensor):
         """``tensor`` (equal on every rank) with its gradient summed over

@@ -21,7 +21,8 @@ Counterpart of ``dirt_tpu/parallel/sharding.py``:
 * Gradients of the replicated inputs are summed over the group
   (``group.replicated``), the counterpart of ``shard_map``'s transpose.
 
-``overlap_chunks`` (``dirt_tpu.parallel.overlap``) is not ported yet.
+``rasterise_sharded(overlap_chunks=N)`` runs ``parallel.overlap``'s op
+instead, which reuses this module's per-slab forward and halo exchange.
 """
 
 from __future__ import annotations
@@ -46,6 +47,29 @@ def _pack_row(fid, zbuf, pixels, grad_pixels, row: int):
         pixels[row].contiguous().view(torch.int32),
         grad_pixels[row].contiguous().view(torch.int32),
     ], dim=1)
+
+
+def _shift_rows(face_verts, rows: int):
+    """Screen-space faces moved ``rows`` rows up: global rows in the
+    coordinates of a slab whose first row is ``rows``."""
+    return face_verts - face_verts.new_tensor([0.0, float(rows), 0.0, 0.0])
+
+
+def _split_rows(arrays, parts: int):
+    """Each of ``parts`` equal row blocks of every array: [(a0, b0, ...),
+    (a1, b1, ...), ...]."""
+    height = arrays[0].shape[0] // parts
+    return [tuple(a[i * height:(i + 1) * height] for a in arrays)
+            for i in range(parts)]
+
+
+def _exchange_halos(group, fields):
+    """The halo rows of each held slab or band from the group: (tops,
+    bottoms) of packed rows (:func:`_pack_row`). ``fields`` holds each
+    one's (fid, zbuf, pixels, grad_pixels)."""
+    return group.exchange_rows(
+        [_pack_row(*f, 0) for f in fields],
+        [_pack_row(*f, f[0].shape[0] - 1) for f in fields])
 
 
 def _exchange_halo_rows(fid, zbuf, pixels, grad_pixels, top, bottom):
@@ -97,6 +121,25 @@ def _halo_neighbor_stacks(fid_e, zbuf_e, pixels_e, grad_e, hp: int, wp: int):
         _pad(torch.stack([n[k][1:-1] for n in nbrs]), padh, value=fill)
         for k, fill in enumerate((-2, BIG_Z, 0.0))
     )
+
+
+def _slab_forwards(face_verts, face_attrs, bg_rows, config, slabs):
+    """The single-device forward of each held slab, on the faces shifted
+    into its rows: (pixels, fid, zbuf of the held rows, top to bottom;
+    overflow []; the slabs' bins)."""
+    slab_h = bg_rows.shape[0] // len(slabs)
+    outs = [raster._forward_impl(
+        _shift_rows(face_verts, slab * slab_h), face_attrs,
+        bg_rows[i * slab_h:(i + 1) * slab_h], config)[:4]
+        for i, slab in enumerate(slabs)]
+    pixels, fid, zbuf = (torch.cat([o[k] for o in outs]) for k in range(3))
+    overflow = torch.stack([torch.any(o[3].overflow) for o in outs]).any()
+    return pixels, fid, zbuf, overflow, [o[3] for o in outs]
+
+
+def _held_rows(background, held, slab_h: int):
+    """The background rows of the slabs ``held``, top to bottom."""
+    return torch.cat([background[s * slab_h:(s + 1) * slab_h] for s in held])
 
 
 def _slab_backward(config, fv_local, fa, pixels, fid, zbuf, bins,
@@ -163,21 +206,11 @@ class _SlabOp(torch.autograd.Function):
                 total_height):
         slabs = list(group.local)
         slab_h = bg_rows.shape[0] // len(slabs)
-        outs = []
-        for i, slab in enumerate(slabs):
-            fv_local = face_verts - face_verts.new_tensor(
-                [0.0, float(slab * slab_h), 0.0, 0.0])
-            outs.append(raster._forward_impl(
-                fv_local, face_attrs, bg_rows[i * slab_h:(i + 1) * slab_h],
-                config)[:4])
-        pixels, fid, zbuf = (torch.cat([o[k] for o in outs])
-                             for k in range(3))
-        overflow = torch.stack([torch.any(o[3].overflow)
-                                for o in outs]).any()
+        pixels, fid, zbuf, overflow, ctx.bins = _slab_forwards(
+            face_verts, face_attrs, bg_rows, config, slabs)
         ctx.mark_non_differentiable(fid, zbuf, overflow)
         ctx.save_for_backward(face_verts.detach(), face_attrs.detach(),
                               pixels, fid, zbuf)
-        ctx.bins = [o[3] for o in outs]
         ctx.static = (config, group, total_height, slabs, slab_h)
         return pixels, fid, zbuf, overflow
 
@@ -202,20 +235,15 @@ class _SlabOp(torch.autograd.Function):
             d_bg = torch.where((fid >= 0)[..., None], 0.0, grad_pixels)
             return None, None, d_bg if need_bg else None, None, None, None
 
-        fields = [tuple(a[i * slab_h:(i + 1) * slab_h]
-                        for a in (fid, zbuf, pixels, grad_pixels))
-                  for i in range(len(slabs))]
-        tops, bottoms = group.exchange_rows(
-            [_pack_row(*f, 0) for f in fields],
-            [_pack_row(*f, slab_h - 1) for f in fields])
+        fields = _split_rows((fid, zbuf, pixels, grad_pixels), len(slabs))
+        tops, bottoms = _exchange_halos(group, fields)
         d_fv = d_fa = None
         d_bg = []
         for i, slab in enumerate(slabs):
             fid_i, zbuf_i, pixels_i, grad_i = fields[i]
-            fv_local = face_verts - face_verts.new_tensor(
-                [0.0, float(slab * slab_h), 0.0, 0.0])
             g_fv, g_fa, g_bg = _slab_backward(
-                config, fv_local, face_attrs, pixels_i, fid_i, zbuf_i,
+                config, _shift_rows(face_verts, slab * slab_h), face_attrs,
+                pixels_i, fid_i, zbuf_i,
                 ctx.bins[i], grad_i, tops[i], bottoms[i], need_fv, need_fa)
             if need_fv:
                 d_fv = g_fv if d_fv is None else d_fv + g_fv
@@ -282,6 +310,9 @@ def rasterise_sharded(background, vertices, vertex_colors, faces, group,
             this process) or ``DistGroup`` (one slab per rank; for two-level
             layouts the flattened host-major group of
             ``parallel.multihost.make_render_mesh``).
+        overlap_chunks: if given, the backward runs in that many chunks
+            whose parameter gradients are summed over the group one by one
+            (``parallel.overlap.rasterise_overlapped``; packed engine only).
         with_aux: also return (fid, zbuf, overflow) of the held rows.
     Returns:
         The rendered rows this process holds (``group.local`` slabs, top to
@@ -290,10 +321,11 @@ def rasterise_sharded(background, vertices, vertex_colors, faces, group,
         held rows only), vertices and vertex_colors (summed over the group).
     """
     if overlap_chunks is not None:
-        raise NotImplementedError(
-            "overlap_chunks (the per-chunk gradient all-reduce of "
-            "dirt_tpu.parallel.overlap) is not ported yet; it comes with "
-            "parallel/overlap.py in a later PR")
+        from dirt_tpu_torch.parallel.overlap import rasterise_overlapped
+
+        return rasterise_overlapped(background, vertices, vertex_colors,
+                                    faces, group, config, overlap_chunks,
+                                    with_aux=with_aux)
     background = torch.as_tensor(background, dtype=torch.float32)
     height, width, _ = background.shape
     n = group.size
@@ -305,7 +337,7 @@ def rasterise_sharded(background, vertices, vertex_colors, faces, group,
         )
     slab_h = height // n
     held = list(group.local)
-    bg_rows = background if len(held) == n else torch.cat(
-        [background[s * slab_h:(s + 1) * slab_h] for s in held])
+    bg_rows = background if len(held) == n else _held_rows(background, held,
+                                                           slab_h)
     return slab_render(bg_rows, vertices, vertex_colors, faces, height,
                        width, group, config, with_aux=with_aux)

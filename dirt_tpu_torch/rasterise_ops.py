@@ -47,6 +47,9 @@ def _as_inputs(vertices, vertex_colors, faces):
         vertex_colors, dtype=torch.float32, device=device
     )
     faces = torch.as_tensor(faces, device=device).to(torch.int64)
+    if faces.numel() == 0:
+        raise ValueError(f"faces is empty (shape {list(faces.shape)}): "
+                         f"there is no triangle to rasterise")
     return vertices, vertex_colors, faces
 
 

@@ -1,11 +1,17 @@
-"""The row-sharded renderer over ``torch.distributed`` (gloo, CPU).
+"""The sharded renderers over ``torch.distributed`` (gloo, CPU).
 
 Each test starts 2 or 4 processes with ``torch.multiprocessing.spawn`` (the
 workers live in ``_torch_port_dist.py``, which imports no jax); they join a
 gloo group through a ``file://`` store in ``tmp_path``, render their slab
 with halo rows sent by ``batch_isend_irecv`` and sum the parameter
 gradients with ``all_reduce``. What the ranks end with is held against the
-local group's result for the same number of slabs.
+local group's result for the same number of slabs. The overlapped backward
+(``rasterise_sharded(overlap_chunks=2)``) sums the parameter gradients in
+its own op, chunk by chunk, and the face-sharded renderer composites with
+``all_reduce(MIN)`` and routes face rows with ``all_gather`` and
+``reduce_scatter_tensor``: on a local group every sum over members is a sum
+in one process, so these runs are where a gradient summed twice, or not at
+all, shows.
 
 Tolerances: image rows and background gradients equal (the same ops on the
 same inputs); vertex and color gradients within 1e-5 of the largest
@@ -77,6 +83,16 @@ def test_gloo_ranks_match_local_group(tmp_path, world, engine):
                                                    engine))
 
 
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("path,engine", [("overlap", "packed"),
+                                         ("face_sharded", "dense")])
+def test_gloo_ranks_match_local_group_new_paths(tmp_path, path, engine,
+                                                world):
+    ranks = _run(workers.sharded_worker, world, tmp_path, engine, path)
+    _check_against_local(ranks, workers.scene_step(LocalGroup(world), engine,
+                                                   path=path))
+
+
 def test_two_level_mesh_groups_and_gradients(tmp_path):
     """data=2 x dcn=1 x tiles=2 over four ranks: rank = d * 2 + t, each data
     index renders its own scene over its own row group."""
@@ -99,10 +115,16 @@ def test_two_level_rows_shard_host_major(tmp_path):
 
 
 def test_dryrun_multichip_over_gloo_matches_local(tmp_path):
+    """All four variants; ranks 2 and 3 are outside the overlap variant's
+    group of the first two."""
     want = entry.dryrun_multichip(4, "cpu")
-    for got in _run(workers.dryrun_worker, 4, tmp_path):
+    assert want["loss_overlap"] is not None
+    for rank, got in enumerate(_run(workers.dryrun_worker, 4, tmp_path)):
         for key, value in want.items():
-            assert got[key] == pytest.approx(value, rel=1e-5), key
+            if rank >= 2 and key in ("loss_overlap", "grad_overlap"):
+                assert got[key] is None, key
+            else:
+                assert got[key] == pytest.approx(value, rel=1e-5), key
 
 
 def test_init_distributed_single_process(monkeypatch):

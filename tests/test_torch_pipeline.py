@@ -141,3 +141,37 @@ def test_streaming_configs_render_like_jax(config):
     _assert_both_near_oracle("sphere", False, (pix_t, fid_t, z_t),
                              (pix_j, fid_j, z_j))
     assert (fid_t >= 0).mean() > 0.2
+
+
+def _empty_scene():
+    verts = np.zeros((3, 4), np.float32)
+    verts[:, 3] = 1.0
+    return verts, np.ones((3, 3), np.float32), np.zeros((0, 3), np.int32)
+
+
+@pytest.mark.parametrize("clip", [True, False])
+def test_empty_face_list_raises_value_error_in_both(clip):
+    verts, colors, faces = _empty_scene()
+    with pytest.raises(ValueError):
+        dirt_tpu.rasterise(None, verts, colors, faces, height=16, width=16,
+                           channels=3, clip=clip)
+    with pytest.raises(ValueError, match=r"faces is empty \(shape \[0, 3\]\)"):
+        dirt_tpu_torch.rasterise(None, verts, colors, faces, height=16,
+                                 width=16, channels=3, clip=clip)
+
+
+@pytest.mark.parametrize("path", ["sharded", "overlap", "face_sharded"])
+def test_empty_face_list_raises_value_error_in_the_group_renderers(path):
+    from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
+    from dirt_tpu_torch.parallel.group import LocalGroup
+    from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+
+    verts, colors, faces = _empty_scene()
+    render = {
+        "sharded": rasterise_sharded,
+        "overlap": lambda *a: rasterise_sharded(*a, overlap_chunks=2),
+        "face_sharded": rasterise_face_sharded,
+    }[path]
+    with pytest.raises(ValueError, match="faces is empty"):
+        render(np.zeros((128, 128, 3), np.float32), verts, colors, faces,
+               LocalGroup(2))

@@ -194,9 +194,9 @@ def test_rasterise_sharded_rejects_bad_arguments():
     with pytest.raises(ValueError, match=r"divisible by devices\*tile_h"):
         rasterise_sharded(bg, verts, colors, faces, LocalGroup(3),
                           config=_config("dense"))
-    with pytest.raises(NotImplementedError, match="overlap"):
+    with pytest.raises(ValueError, match="requires the packed engine"):
         rasterise_sharded(bg, verts, colors, faces, LocalGroup(2),
-                          config=_config("packed"), overlap_chunks=2)
+                          config=_config("dense"), overlap_chunks=2)
     with pytest.raises(ValueError, match="do not split"):
         slab_render(bg[:127], verts, colors, faces, 128, 128, LocalGroup(2))
     with pytest.raises(ValueError, match="at least one slab"):

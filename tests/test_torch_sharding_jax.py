@@ -11,7 +11,10 @@ background rtol = atol = 1e-4. The streaming engine, whose backward ends in
 the CSR scatter, meets them with room: its image differs by about 1.2e-6 and
 its vertex gradient by about 6e-4 where the largest entry is 882 (the two
 packages sum a face's pixels in other orders). ``dryrun_multichip`` is held against the losses
-``__graft_entry__.dryrun_multichip`` prints (5 and 4 decimals).
+``__graft_entry__.dryrun_multichip`` prints (5 and 4 decimals), and its
+overlap and face-sharded variants against the loss all of dirt_tpu's
+variants 2-4 give, 2128.7512, and the largest vertex gradient dirt_tpu's
+face-sharded variant gives on four CPU devices, 1.0396e+03.
 """
 
 import functools
@@ -82,12 +85,16 @@ def test_sharded_gradients_match_jax(engine, which):
 
 
 def test_dryrun_multichip_matches_jax(capfd):
-    """The data x tiles training step (n = 2: one scene, two slabs) and the
-    two-level render (n = 4: the recorded dry run's loss; dirt_tpu's n = 4
-    run would also compile its overlap and face-sharded variants)."""
+    """The data x tiles training step and the overlap variant (n = 2: one
+    scene, two slabs), the two-level render and the face-sharded variant
+    (n = 4: the recorded dry run's values; dirt_tpu's n = 4 run would
+    compile all four variants)."""
     graft.dryrun_multichip(2)
+    jax_text = capfd.readouterr().out
     jax_loss, overlap_loss = (float(x) for x in re.findall(
-        r"loss=([0-9.]+)", capfd.readouterr().out))
+        r"loss=([0-9.]+)", jax_text))
+    overlap_grad = float(re.search(r"overlap_chunks=2 OK: .*\|d verts\|="
+                                   r"([0-9.e+]+)", jax_text).group(1))
     two = entry.dryrun_multichip(2, "cpu")
     four = entry.dryrun_multichip(4, "cpu")
     port_text = capfd.readouterr().out
@@ -101,3 +108,12 @@ def test_dryrun_multichip_matches_jax(capfd):
     assert four["loss_two_level"] == pytest.approx(2128.7512, abs=1e-3)
     assert four["grad_two_level"] > 0 and 0 < four["step"] <= 0.011
     assert four["loss"] != two["loss"]          # two scenes, not one
+    assert "overlap_chunks=2 OK: tiles=2" in port_text
+    assert "face-sharded OK: faces=4" in port_text
+    for out in (two, four):
+        assert out["loss_overlap"] == pytest.approx(overlap_loss, abs=1e-3)
+        # dirt_tpu prints its gradient to three digits.
+        assert out["grad_overlap"] == pytest.approx(overlap_grad, rel=5e-3)
+    assert two["loss_face_sharded"] is None
+    assert four["loss_face_sharded"] == pytest.approx(2128.7512, abs=1e-3)
+    assert four["grad_face_sharded"] == pytest.approx(1.0396e3, rel=1e-4)

@@ -3,18 +3,22 @@
 
     python3 tools/prof_torch_steps.py
 
-Takes a ``torch.profiler`` window of a few fwd+bwd steps of five paths of
+Takes a ``torch.profiler`` window of a few fwd+bwd steps of eight paths of
 the port on one CUDA card and prints, for each: device kernels per step,
 device busy time per step, the span of the window per step, the busy share
-(busy / span), the hand-written kernels' device time, and the five largest
-items by device time. The paths are the flagship step
+(busy / span), the hand-written kernels' device time, the five largest
+items by device time and the five largest host operations by their own
+host time (without their children's). The paths are the flagship step
 (``dirt_tpu_torch.entry.entry()``: 2,208 faces, 256 x 256, dense engine,
 9-channel G-buffer), config 5 of ``bench_configs.py`` (10,224 faces,
 1024 x 1024, packed engine, 9-channel G-buffer, texture + Phong), config
 4's lit sphere (2,208 faces, 512 x 512, dense engine, 3 channels), the
 default API on the 99,904-face sphere (1024 x 1024, 3 channels, which runs
-the streaming csr engine) and the row-sharded renderer on the bench sphere
-(10,224 faces, 1024 x 1024, dense engine, four slabs on the one card).
+the streaming csr engine), the row-sharded renderer on the bench sphere
+(10,224 faces, 1024 x 1024, dense engine, four slabs on the one card), the
+same sphere through the overlapped backward (packed engine, four slabs)
+with one chunk and with four, and through the face-sharded renderer (four
+members, dense engine).
 The profiler's own host cost stretches the span, so the busy shares are
 lower bounds of the unprofiled ones. Prints the card's name and power
 limit beside the numbers; exits non-zero without a CUDA device.
@@ -71,6 +75,10 @@ def _profile(label, step, card):
     for name, (total, count) in top:
         print(f"[{label}]   top: {total / STEPS:.4f} ms per step x"
               f"{count / STEPS:.0f} {name[:70]}")
+    for op in sorted(prof.key_averages(),
+                     key=lambda op: -op.self_cpu_time_total)[:5]:
+        print(f"[{label}]   host: {op.self_cpu_time_total / 1e3 / STEPS:.4f} "
+              f"ms per step x{op.count / STEPS:.0f} {op.key[:70]}")
 
 
 def main():
@@ -112,6 +120,13 @@ def main():
 
     _profile("sharded 4 slabs 1024^2 dense",
              grad_step(*chip_smoke.sharded_dense_step(device)), card)
+
+    for chunks in (1, 4):
+        _profile(f"overlap 4 slabs x {chunks} chunks 1024^2 packed",
+                 grad_step(*chip_smoke.overlap_loss(device, 4, chunks)), card)
+
+    _profile("face-sharded 4 members 1024^2 dense",
+             grad_step(*chip_smoke.face_sharded_loss(device)), card)
 
 
 if __name__ == "__main__":
