@@ -32,11 +32,15 @@ TFLOP/s (an H100 SXM's published peaks). The lines:
 4. 1024x1024 with ``clip=True`` (near-plane clipping, the API's default);
 5. the 99,904-face sphere (``mesh.uv_sphere(224, 224)``, same camera)
    under the packed engine (what ``suggest_raster_config`` picks with
-   ``clip=False``) and under the streaming engine.
+   ``clip=False``) and under the streaming engine;
+6. the 1,001,112-face sphere (``mesh.uv_sphere(708, 708)``, the scale of
+   ``tools/bench_large.py``'s largest cell), the same two engines.
 
-Build time of the kernels and the caps' set-up are printed apart, as
-set-up. Without a CUDA device the script exits non-zero and measures
-nothing; it never falls back to the CPU.
+Build time of the kernels and each line's set-up of its honest caps (the
+exact counts on the card, ``count_packed_exact`` or the CSR counts, and the
+one validating render) are printed apart, as set-up. Without a CUDA device
+the script exits non-zero and measures nothing; it never falls back to the
+CPU.
 
 ``bench_scene`` and ``camera_clip`` build the scene for ``chip_smoke.py``
 too, and the roofline helpers serve its kernel records.
@@ -257,6 +261,7 @@ def main():
 
     small = bench_scene(256, device)
     big = bench_scene(1024, device, n=224)
+    huge = bench_scene(1024, device, n=708)
     for label, key, case, clip_flag, fields in (
             ("1024^2", "sphere72_1024_dense", scene, False,
              dict(engine="dense")),
@@ -269,10 +274,16 @@ def main():
             ("99,904-face sphere 1024^2", "sphere224_1024_auto", big, False,
              {}),
             ("99,904-face sphere 1024^2", "sphere224_1024_csr", big, False,
-             dict(streaming=True))):
+             dict(streaming=True)),
+            ("1,001,112-face sphere 1024^2", "sphere708_1024_auto", huge,
+             False, {}),
+            ("1,001,112-face sphere 1024^2", "sphere708_1024_csr", huge,
+             False, dict(streaming=True))):
+        start = time.perf_counter()
         cfg = honest(f"torch_{key}", case, clip_flag, **fields)
-        print(measure(label, case, cfg, clip_flag, SAMPLES)[1],
-              flush=True)
+        setup_s = time.perf_counter() - start
+        print(measure(label, case, cfg, clip_flag, SAMPLES)[1]
+              + f"; caps set up in {setup_s:.2f} s: {cfg}", flush=True)
 
 
 if __name__ == "__main__":

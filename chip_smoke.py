@@ -66,8 +66,10 @@ raises and exits non-zero; nothing is caught):
    version, launch counts > 0 and one prologue launch per backward (also
    in phases 9 and 11); then 10 Adam steps on the flagship loss
    over (vertices, pose), which must fall;
-9. configs 1-4 of ``bench_configs.py`` on the port, once each: forward and
-   a gradient step on the auto (dense) engine, overflow clear, times;
+9. configs 1-4 of ``bench_configs_torch.py`` (the port's sheet of
+   ``bench_configs.py``'s scenes, which phases 7 and 8 take too), once
+   each: forward and a gradient step on the auto (dense) engine under
+   honest caps, overflow clear, times;
 10. the streaming (CSR) engine's kernels, raster_fwd_csr and fused_bwd_csr,
     against their plain versions at three shapes: the 99,904-face sphere
     (``mesh.uv_sphere(224, 224)``, the camera and colors above) at 1024x1024
@@ -164,10 +166,36 @@ raises and exits non-zero; nothing is caught):
     3e-5, gradients within 1e-4. Times (medians of 10, fwd+bwd) of the bench
     sphere under phase 4's caps: single device, sharded with 1 and 4 slabs,
     overlapped with 1 and 4 slabs at k = 1, 2, 4, face-sharded with 1 and 4
-    members.
+    members;
+16. the port's demos, each through its ``main`` (``demos/torch_demo*.py``)
+    writing into a temporary directory: demos 1 (square, 64x64) and 2
+    (cube, 256x256): fid and image equal to the same render with every
+    kernel replaced by its plain version; demos 3 (texture
+    recovery, 512x512, 60 steps), 4 (light and pose, 512x512, 80 steps)
+    and 5 (deferred inverse rendering, 10,224 faces, 1024x1024, 9-channel
+    G-buffer, packed engine, 80 Adam steps): the first step's gradients
+    within 1e-4 of max |gradient| of the plain path's, the loss fallen by
+    the demo's own ratio (0.3, 0.25, 0.5 of the first), each kernel of the
+    path (demo 3, which trains the texture alone, so that no gradient
+    reaches the raster op: raster_fwd_dense; demo 4: raster_fwd_dense,
+    packed_prologue, fused_bwd; demo 5: raster_fwd_packed, packed_prologue,
+    packed_bwd) launched once per step of the loop and no other kernel,
+    ms/step of each loop (CUDA events), and demo 5's checkpoint loaded back
+    equal;
+17. the 1,001,112-face sphere (``mesh.uv_sphere(708, 708)``, the bench
+    camera and colors, 1024x1024, ``clip=False``), one fwd+bwd under the
+    packed engine (what ``suggest_raster_config`` picks) and one under the
+    streaming engine, each under its honest caps: overflow clear, only the
+    engine's kernels launched, gradients finite and nonzero, fids equal
+    between the engines, pixels within 3e-5 and gradients within 1e-4 of
+    max |gradient|; the caps, their set-up time, the peak memory of each
+    step, its time (first call, then the median of 3) and its device time
+    from a profiler window with the four largest device items (no
+    plain-version comparison at this size: the plain walk alone takes
+    seconds on 99,904 faces).
 
 Phase 9 runs each config once and phases 12, 13 and 15 take medians of 10, to
-keep the whole run under two minutes. The line before the last is
+keep the whole run near two and a half minutes. The line before the last is
 the kernels' JSON record (``library_ms`` where phase 12 times one PyTorch
 call of the same function: ``index_add_`` for the scatters, a strided copy
 for the swap), the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -187,6 +215,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+import bench_configs_torch
 # The bench's scene and camera, and the roofline's peaks and operation
 # counts (one place for both scripts).
 from bench_torch import (
@@ -397,18 +426,6 @@ def _queued_ms(fn, runs=RUNS, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / runs, host
-
-
-def _world(verts_obj, device, pose=(0.4, 0.3, 0.0)):
-    """World-space vertices [V, 3]: Rodrigues ``pose``, 3 units down -z."""
-    from dirt_tpu_torch.core import matrices
-
-    model = matrices.compose(
-        matrices.rodrigues(torch.as_tensor(pose, dtype=torch.float32,
-                                           device=device)),
-        matrices.translation(torch.tensor([0.0, 0.0, -3.0], device=device)),
-    )
-    return matrices.transform_homogeneous(verts_obj, model)[..., :3]
 
 
 def _bench_scene(device):
@@ -875,38 +892,10 @@ def _check_tile_kernels(tag, engine, face_verts, face_attrs, size, config,
     return record
 
 
-def _posed_sphere(n_lat, n_lon, device):
-    """(object-space vertices, clip-space vertices, faces, uvs) of a UV
-    sphere under the camera of ``bench_configs._posed``."""
-    from dirt_tpu_torch.core import mesh
-
-    verts_obj, faces, uvs = mesh.uv_sphere(n_lat=n_lat, n_lon=n_lon)
-    verts_obj = torch.as_tensor(verts_obj, device=device)
-    rot = torch.tensor([0.4, 0.3, 0.0], device=device)
-    return (verts_obj, _clip_verts(verts_obj, rot, device),
-            torch.as_tensor(faces.astype(np.int64), device=device),
-            torch.as_tensor(uvs, device=device))
-
-
 def _rand(seed, *shape, device):
     return torch.as_tensor(
         np.random.RandomState(seed).rand(*shape).astype(np.float32),
         device=device)
-
-
-def _honest(clip, faces, size):
-    """Count-then-allocate config, and a hard check that it renders
-    untruncated (``bench_configs._honest``)."""
-    import dirt_tpu_torch
-
-    config = dirt_tpu_torch.suggest_raster_config(clip, faces, size, size)
-    overflow = dirt_tpu_torch.rasterise_with_aux(
-        torch.zeros((size, size, 3), device=clip.device), clip,
-        torch.zeros((clip.shape[0], 3), device=clip.device), faces,
-        config=config)[3]
-    if bool(overflow):
-        raise RuntimeError(f"suggested caps overflow: {config}")
-    return config
 
 
 def _scatter_call(fn, name):
@@ -1504,59 +1493,22 @@ def face_sharded_loss(device, members=4):
 
 
 def config5_render(device):
-    """(render, leaves) of config 5 of ``bench_configs.py`` on the port: the
+    """(render, leaves) of config 5 of ``bench_configs_torch.py``: the
     10,224-face sphere at 1024 x 1024 through the deferred pipeline (9-channel
     G-buffer, 128 x 128 checkerboard, Phong) under count-then-allocate caps
     (the packed engine). ``render(verts, pose, **kwargs)`` is
     ``entry.deferred_render``; the leaves are (object-space vertices, pose)."""
-    from dirt_tpu_torch import entry
-    from dirt_tpu_torch.core import mesh
-
-    verts_obj, faces, uvs, _, proj = entry.deferred_scene(72, 72,
-                                                          device=device)
-    texture = torch.as_tensor(mesh.checkerboard_texture(128, 10, 3),
-                              device=device)
-    pose = torch.tensor([0.4, 0.3, 0.0], device=device)
-    config = _honest(_clip_verts(verts_obj, pose, device), faces, SIZE)
-
-    def render(verts, pose, **kwargs):
-        return entry.deferred_render(verts, pose, faces, uvs, texture, proj,
-                                     SIZE, config, **kwargs)
-
-    return render, (verts_obj, pose)
+    config = bench_configs_torch.config5(device)
+    return config.forward, config.leaves
 
 
 def config4_loss(device):
-    """(loss_fn, leaves) of config 4 of ``bench_configs.py`` on the port: the
+    """(loss_fn, leaves) of config 4 of ``bench_configs_torch.py``: the
     2,208-face sphere at 512 x 512, diffuse + specular vertex shading, the
     dense engine under count-then-allocate caps; ``loss_fn(light, pose)`` is
     ``sum(image * w)`` with ``w = RandomState(1).rand(512, 512, 3)``."""
-    import dirt_tpu_torch
-    from dirt_tpu_torch import entry
-    from dirt_tpu_torch.core import lighting
-
-    verts_obj, faces, _, _, proj = entry.deferred_scene(device=device)
-    pose = torch.tensor([0.4, 0.3, 0.0], device=device)
-    config = _honest(_clip_verts(verts_obj, pose, device), faces, 512)
-    white = torch.ones((verts_obj.shape[0], 3), device=device)
-    background = torch.zeros((512, 512, 3), device=device)
-    weights = _rand(1, 512, 512, 3, device=device)
-    one3 = torch.ones(3, device=device)
-
-    def loss_fn(light, pose):
-        world = _world(verts_obj, device, pose)
-        normals = lighting.vertex_normals(world, faces)
-        ldir = light / torch.linalg.norm(light)
-        shaded = lighting.diffuse_directional(
-            normals, white, ldir, one3
-        ) + lighting.specular_directional(
-            world, normals, white, torch.zeros(3, device=device), ldir, one3,
-            24.0)
-        clip = torch.cat([world, torch.ones_like(world[:, :1])], 1) @ proj
-        return (dirt_tpu_torch.rasterise(background, clip, shaded, faces,
-                                         config=config) * weights).sum()
-
-    return loss_fn, (torch.tensor([0.3, 0.8, 0.52], device=device), pose)
+    config = bench_configs_torch.config4(device)
+    return config.loss, config.leaves
 
 
 def big_sphere_step(device, n=224):
@@ -1775,6 +1727,210 @@ def _bench_and_io_check(scene, config, card):
           f"parser), rendered at {SIZE}^2 by the packed "
           f"engine: {covered} covered pixels, fid and zbuf equal to the plain "
           f"path's, pixels within {TOL}")
+
+
+def _demo(name):
+    """The module of ``demos/<name>.py`` (the port's demos are scripts, not a
+    package)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "demos" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _check_demo_render(tag, module, device, out):
+    """Phase 16, demos 1-2: ``main`` on the card, then the same render with
+    every kernel replaced by its plain version: fid and image equal.
+    Returns the launches of ``main``'s render."""
+    _reset_launch_counts()
+    image, fid = module.main(device, out)
+    _sync()
+    counts = _launch_counts()
+    _need_launches(tag, counts, ("raster_fwd_dense",))
+    patches = _plain_patches()
+    for patch in patches:
+        patch.start()
+    try:
+        image_pl, fid_pl = module.render(device)
+    finally:
+        for patch in patches:
+            patch.stop()
+    err = float((image - image_pl).abs().max())
+    if not (torch.equal(fid, fid_pl) and torch.equal(image, image_pl)):
+        raise RuntimeError(f"[{tag}] the render differs from the plain "
+                           f"path's: max |diff| {err}")
+    print(f"[{tag}] {tuple(image.shape)}: {int((fid >= 0).sum())} covered "
+          f"px; fid and image equal to the plain path's; launches {counts}")
+    return counts
+
+
+def _check_demo_fit(tag, module, kwargs, need, ratio, card, out):
+    """Phase 16, demos 3-5: the first step's gradients against the plain
+    path's (``_step_check``, TOL_DEFERRED), then the demo's ``main`` on the
+    card, its loop (``fit``) counted: every kernel of ``need`` once per step
+    and no other kernel, the loss fallen by the demo's own ratio. Returns
+    (``main``'s result, the loop's launches)."""
+    loss_fn, params = module.problem(
+        **{k: v for k, v in kwargs.items() if k != "steps"})[:2]
+    _step_check(f"{tag} first step", loss_fn, tuple(params.values()), card,
+                runs=5)
+    loop = {}
+    inner = module.fit
+
+    def counted(*args):
+        _sync()
+        _reset_launch_counts()
+        result = inner(*args)
+        _sync()
+        loop.update(_launch_counts())
+        return result
+
+    with mock.patch.object(module, "fit", counted):
+        result = module.main(out=out, **kwargs)
+    steps = result["steps"]
+    wrong = {k: n for k, n in loop.items() if n != (steps if k in need
+                                                    else 0)}
+    if wrong:
+        raise RuntimeError(f"[{tag}] want {need} once per step of {steps} "
+                           f"and no other kernel, got {loop}")
+    if not result["l1"] < ratio * result["l0"]:
+        raise RuntimeError(f"[{tag}] the loss fell only {result['l0']} -> "
+                           f"{result['l1']}")
+    print(f"[{tag}] {steps} steps: loss {result['l0']:.6g} -> "
+          f"{result['l1']:.6g} (limit {ratio} of the first); "
+          f"{result['ms_per_step']:.4f} ms/step (CUDA events around the "
+          f"loop); launches in the loop {loop} ({card})")
+    return result, loop
+
+
+def _demos_check(device, card):
+    """Phase 16: the port's demos 1-5, each through its ``main`` into a
+    temporary directory. Returns the launches of demos 1-2's renders and of
+    demos 3-5's loops, summed."""
+    from dirt_tpu_torch.utils.checkpoint import load_pytree
+
+    launches = dict.fromkeys(KERNELS, 0)
+    dense = ("raster_fwd_dense", "packed_prologue", "fused_bwd")
+    demo5 = _demo("torch_demo5_deferred")
+    with tempfile.TemporaryDirectory() as out:
+        runs = [_check_demo_render(f"16 {name}", _demo(name), device, out)
+                for name in ("torch_demo1_square", "torch_demo2_cube")]
+        # Demo 3 trains the texture alone: nothing before the raster op
+        # needs a gradient, so its loop runs the forward kernel only.
+        for tag, name, kwargs, need, ratio in (
+                ("16 torch_demo3_textured 512^2", "torch_demo3_textured",
+                 dict(size=512, steps=60), ("raster_fwd_dense",), 0.3),
+                ("16 torch_demo4_lit 512^2", "torch_demo4_lit",
+                 dict(size=512, steps=80), dense, 0.25),
+                ("16 torch_demo5_deferred 1024^2 10,224 faces C=9",
+                 "torch_demo5_deferred",
+                 dict(size=SIZE, steps=80, n_lat=72, n_lon=72), KERNELS[:3],
+                 0.5)):
+            module = demo5 if name == "torch_demo5_deferred" else _demo(name)
+            result, loop = _check_demo_fit(tag, module,
+                                           dict(kwargs, device=device), need,
+                                           ratio, card, out)
+            runs.append(loop)
+        restored = load_pytree(result["checkpoint"])
+        if not (np.array_equal(restored["params"]["pose"],
+                               result["pose"].cpu().numpy())
+                and int(restored["step"]) == result["steps"]
+                and sorted(restored) == ["m", "params", "step", "v"]):
+            raise RuntimeError("[16] demo 5's checkpoint did not load back "
+                               "equal")
+        print(f"[16 torch_demo5_deferred] checkpoint {sorted(restored)} "
+              f"loads back equal; pose {result['pose'].tolist()} (true "
+              f"{list(demo5.TRUE_POSE)})")
+    for counts in runs:
+        for kernel_name in KERNELS:
+            launches[kernel_name] += counts[kernel_name]
+    return launches
+
+
+def _huge_sphere_check(device, card, n=708):
+    """Phase 17: ``mesh.uv_sphere(n, n)`` (708: 1,001,112 faces) under the
+    bench camera at SIZE, ``clip=False``, one fwd+bwd under the packed
+    engine (what ``suggest_raster_config`` picks) and under the streaming
+    engine, each under its honest caps: overflow clear, gradients finite
+    and nonzero, fids equal between the engines, pixels within
+    TOL_SLAB_PIXELS, gradients within TOL_ENGINES of max |gradient|. Returns
+    the launches of the two steps."""
+    import dirt_tpu_torch
+    from bench_torch import engine_of
+
+    scene = bench_scene(SIZE, device, n=n)
+    _, clip, colors, faces, background, weights = scene
+    num_faces = faces.shape[0]
+    runs, launches, lines = {}, {}, []
+    for engine, fields in (("packed", {}), ("csr", dict(streaming=True))):
+        start = time.perf_counter()
+        config = dirt_tpu_torch.suggest_raster_config(
+            clip, faces, SIZE, SIZE,
+            config=dirt_tpu_torch.RasterConfig(**fields), clip=False)
+        _sync()
+        setup_s = time.perf_counter() - start
+        if engine_of(config, num_faces) != engine:
+            raise RuntimeError(f"[17] {config} is not the {engine} engine")
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        start = time.perf_counter()
+        runs[engine] = _grads(dirt_tpu_torch.rasterise_with_aux, background,
+                              clip, colors, faces, weights, config, False)
+        _sync()
+        step_s = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated()
+        counts = _launch_counts()
+        path = KERNELS[:3] if engine == "packed" else CSR_PATH
+        _need_launches(f"17 {engine}", counts, path)
+        if any(counts[k] for k in KERNELS if k not in path):
+            raise RuntimeError(f"[17] {engine}: another engine's kernel "
+                               f"launched: {counts}")
+        for k in path:
+            launches[k] = launches.get(k, 0) + counts[k]
+        (_, fid, _, overflow), grads = runs[engine]
+        if bool(overflow):
+            raise RuntimeError(f"[17] {engine}: overflow under {config}")
+        if not all(g is not None and bool(torch.isfinite(g).all())
+                   for g in grads) or not bool(grads[0].abs().sum() > 0):
+            raise RuntimeError(f"[17] {engine}: gradients missing, not "
+                               f"finite or zero")
+        def step():
+            return _grads(dirt_tpu_torch.rasterise_with_aux, background,
+                          clip, colors, faces, weights, config, False)
+
+        step_ms = _median_ms(step, runs=3, warmup=0)
+        device = _device_ms(step, runs=3, warmup=0)
+        largest = sorted(device.items(), key=lambda kv: -kv[1])[:4]
+        lines.append(
+            f"[17 {num_faces}-face sphere {SIZE}^2 {engine}] caps {config} "
+            f"set up in {setup_s:.2f} s; overflow False; covered "
+            f"{int((fid >= 0).sum())} px; fwd+bwd first call "
+            f"{step_s * 1e3:.1f} ms (host clock), then {step_ms:.4f} ms "
+            f"(median of 3); device busy {sum(device.values()):.4f} ms a "
+            f"step (profiler), largest: "
+            + ", ".join(f"{k[:48]} {v:.4f} ms" for k, v in largest)
+            + f"; peak memory {peak / 2**20:.1f} MiB; launches {counts} "
+            f"({card})")
+    (pix_p, fid_p, _, _), grads_p = runs["packed"]
+    (pix_c, fid_c, _, _), grads_c = runs["csr"]
+    pix_err = float((pix_p - pix_c).detach().abs().max())
+    errs = [_rel_err(g_c, g_p) for g_c, g_p in zip(grads_c, grads_p)]
+    if not (torch.equal(fid_p, fid_c) and pix_err <= TOL_SLAB_PIXELS
+            and all(e <= TOL_ENGINES for e in errs)):
+        raise RuntimeError(f"[17] csr and packed engines disagree: "
+                           f"{int((fid_p != fid_c).sum())} fids, pixels "
+                           f"{pix_err}, gradients {errs}")
+    for line in lines:
+        print(line)
+    print(f"[17 {num_faces}-face sphere {SIZE}^2] csr vs packed: fid equal, "
+          f"pixels max |diff| {pix_err:.3g} (limit {TOL_SLAB_PIXELS:g}), "
+          f"max |grad diff| / max |grad| vertices {errs[0]:.3g} colors "
+          f"{errs[1]:.3g} background {errs[2]:.3g} (limit "
+          f"{TOL_ENGINES:g}); gradients finite")
+    return launches
 
 
 def main():
@@ -2001,8 +2157,6 @@ def main():
     # --- 7. the dense kernels vs plain versions ------------------------------
     from dirt_tpu_torch import entry
     from dirt_tpu_torch.core import mesh
-    from dirt_tpu_torch.core.texture import sample_texture
-    from dirt_tpu_torch.render.gbuffer import render_gbuffer
 
     # Config 4's and the flagship step's own shapes: the faces each path's
     # render hands the raster op (2,208 faces + the near-plane clip's slots),
@@ -2086,48 +2240,13 @@ def main():
         raise RuntimeError("flagship loss did not fall, or its first value "
                            "is not the step's")
 
-    # --- 9. configs 1-4 of bench_configs.py -------------------------------------
-    dense_need = ("raster_fwd_dense", "packed_prologue", "fused_bwd")
-
-    def run_config(label, loss_fn, leaves):
-        _, counts = _step_check(label, loss_fn, leaves, card)
-        _need_launches(label, counts, dense_need)
-
-    tri = torch.tensor([[-0.5, -0.5, 0, 1], [0.5, -0.5, 0, 1],
-                        [0.0, 0.6, 0, 1]], device=device)
-    tri_faces = torch.tensor([[0, 1, 2]], device=device)
-    w1 = _rand(1, 64, 64, 1, device=device)
-    ones1 = torch.ones((3, 1), device=device)
-    bg1 = torch.zeros((64, 64, 1), device=device)
-    run_config("9 config1 single-tri 64^2",
-               lambda v: (dirt_tpu_torch.rasterise(bg1, v, ones1, tri_faces)
-                          * w1).sum(), (tri,))
-
-    cube_v, cube_f = mesh.cube()
-    cube_clip = _clip_verts(torch.as_tensor(cube_v, device=device), pose,
-                            device)
-    cube_f = torch.as_tensor(cube_f.astype(np.int64), device=device)
-    w2 = _rand(1, 256, 256, 3, device=device)
-    bg2 = torch.zeros((256, 256, 3), device=device)
-    run_config("9 config2 cube 256^2",
-               lambda c, co: (dirt_tpu_torch.rasterise(bg2, c, co, cube_f)
-                              * w2).sum(),
-               (cube_clip, _rand(0, 8, 3, device=device)))
-
-    _, s_clip, s_faces, s_uvs = _posed_sphere(24, 48, device)
-    dense_cfg4 = _honest(s_clip, s_faces, 512)
-    w3 = _rand(1, 512, 512, 3, device=device)
-
-    def config3_loss(c, tex):
-        gb = render_gbuffer(c, s_faces, {"uv": s_uvs}, 512, 512,
-                            config=dense_cfg4)
-        return (sample_texture(tex, gb["uv"]) * gb["mask"] * w3).sum()
-
-    run_config("9 config3 textured 512^2", config3_loss,
-               (s_clip, torch.as_tensor(mesh.checkerboard_texture(128, 10, 3),
-                                        device=device)))
-
-    run_config("9 config4 lit 512^2", c4_loss, c4_leaves)
+    # --- 9. configs 1-4 of bench_configs_torch.py ---------------------------
+    for make in bench_configs_torch.CONFIGS[:4]:
+        sheet = make(device)
+        label = f"9 {sheet.name}"
+        _, counts = _step_check(label, sheet.loss, sheet.leaves, card)
+        _need_launches(label, counts,
+                       ("raster_fwd_dense", "packed_prologue", "fused_bwd"))
 
     # --- 10. the streaming kernels vs plain versions --------------------------
     big_loss, (big_bg, big_clip, big_colors), (big_faces, big_cfg) = \
@@ -2456,6 +2575,14 @@ def main():
     _bench_and_io_check(
         (verts_obj, clip, colors, faces, background, weights),
         configs[False], card)
+
+    # --- 16. the demos -------------------------------------------------------
+    for kernel_name, count in _demos_check(device, card).items():
+        launches[kernel_name] += count
+
+    # --- 17. the 1,001,112-face sphere -----------------------------------------
+    for kernel_name, count in _huge_sphere_check(device, card).items():
+        launches[kernel_name] += count
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

@@ -34,23 +34,30 @@ def _device(args) -> torch.device:
                      "device to time on")
 
 
-def _sample_s(fn, args, device: torch.device) -> float:
+def timed(device, fn, *args):
+    """(``fn(*args)``, seconds of that one call) on ``device``: between two
+    CUDA events after a ``torch.cuda.synchronize()`` on a card, by
+    ``perf_counter`` on the CPU."""
+    device = torch.device(device)
     if device.type == "cuda":
         with torch.cuda.device(device):
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn(*args)
+            out = fn(*args)
             end.record()
             end.synchronize()
-            seconds = start.elapsed_time(end) / 1e3
-    elif device.type == "cpu":
+            return out, start.elapsed_time(end) / 1e3
+    if device.type == "cpu":
         t0 = time.perf_counter()
-        fn(*args)
-        seconds = time.perf_counter() - t0
-    else:
-        raise ValueError(f"no timer for device {device}")
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+    raise ValueError(f"no timer for device {device}")
+
+
+def _sample_s(fn, args, device: torch.device) -> float:
+    seconds = timed(device, fn, *args)[1]
     if not (math.isfinite(seconds) and seconds > 0.0):
         raise ValueError(f"invalid time sample: {seconds!r} s")
     return seconds

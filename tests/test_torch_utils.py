@@ -220,6 +220,13 @@ def test_device_time_on_the_cpu():
     assert benchtime.device_time(fn, (a,), warmup=0, samples=1) > 0
 
 
+def test_timed_returns_the_result_and_its_time():
+    out, seconds = benchtime.timed("cpu", lambda x: x + 1, torch.zeros(3))
+    assert torch.equal(out, torch.ones(3)) and seconds > 0
+    with pytest.raises(ValueError, match="no timer for device meta"):
+        benchtime.timed("meta", lambda: None)
+
+
 def test_device_time_raises_on_an_invalid_sample(monkeypatch):
     """A clock that does not move gives a 0 s sample: it raises, it is not
     clamped to a tiny positive time."""
