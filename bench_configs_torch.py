@@ -24,8 +24,9 @@ configs 1-2 take them too):
    (packed engine).
 
 The scenes live here once: ``chip_smoke.py`` and ``tools/`` import
-:data:`CONFIGS`. Without a CUDA device the script exits non-zero and
-measures nothing.
+:data:`CONFIGS`, and ``demos/torch_demo5_deferred.py`` builds config 5's
+scene and caps through :func:`deferred_scene`. Without a CUDA device the
+script exits non-zero and measures nothing.
 """
 
 import sys
@@ -37,6 +38,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import bench_torch  # noqa: E402
 
 SAMPLES = 20
 POSE = (0.4, 0.3, 0.0)
@@ -54,43 +57,47 @@ class Config(NamedTuple):
     raster: object
 
 
-def weights(size, channels, device, seed=1):
-    """``RandomState(seed).rand(size, size, channels)`` as float32."""
+def weights(size, channels, device):
+    """``RandomState(1).rand(size, size, channels)`` as float32."""
     return torch.as_tensor(
-        np.random.RandomState(seed).rand(size, size, channels)
+        np.random.RandomState(1).rand(size, size, channels)
         .astype(np.float32), device=device)
 
 
-def honest(clip, faces, size, clip_flag=True):
+def honest(clip, faces, size):
     """Count-then-allocate caps, and a hard check that one render under them
     is untruncated (a time is only meaningful for a complete render)."""
     import dirt_tpu_torch
 
-    config = dirt_tpu_torch.suggest_raster_config(clip, faces, size, size,
-                                                  clip=clip_flag)
+    config = dirt_tpu_torch.suggest_raster_config(clip, faces, size, size)
     device = clip.device
     overflow = dirt_tpu_torch.rasterise_with_aux(
         torch.zeros((size, size, 3), device=device), clip,
         torch.zeros((clip.shape[0], 3), device=device), faces,
-        config=config, clip=clip_flag)[3]
+        config=config)[3]
     if bool(overflow):
         raise RuntimeError(f"the suggested caps overflow: {config}")
     return config
 
 
-def posed(verts_obj, pose, device):
-    """Clip-space vertices of ``bench_configs._posed``: Rodrigues ``pose``,
-    3 units down -z, perspective (near 0.1, far 20, right 0.045)."""
-    from dirt_tpu_torch.core import matrices
+def posed(verts_obj, device):
+    """Clip-space vertices at :data:`POSE` under the bench camera
+    (``bench_torch.camera_clip``, as ``bench_configs._posed``)."""
+    return bench_torch.camera_clip(
+        verts_obj, torch.tensor(POSE, device=device), device)
 
-    model_view = matrices.compose(
-        matrices.rodrigues(torch.as_tensor(pose, dtype=torch.float32,
-                                           device=device)),
-        matrices.translation(torch.tensor([0.0, 0.0, -3.0], device=device)),
-    )
-    projection = matrices.perspective_projection(0.1, 20.0, 0.045, 1.0)
-    return matrices.transform_homogeneous(
-        verts_obj, matrices.compose(model_view, projection.to(device)))
+
+def deferred_scene(n_lat, n_lon, size, device):
+    """(verts_obj, faces, uvs, texture, projection, raster) of config 5 and
+    demo 5: ``uv_sphere(n_lat, n_lon)``, the 128 x 128 checkerboard of 10
+    squares, the bench projection, under :func:`honest` caps at
+    :data:`POSE`."""
+    from dirt_tpu_torch import entry
+
+    verts_obj, faces, uvs, texture, projection = entry.deferred_scene(
+        n_lat, n_lon, device, checker=(128, 10))
+    raster = honest(posed(verts_obj, device), faces, size)
+    return verts_obj, faces, uvs, texture, projection, raster
 
 
 def _sphere(n_lat, n_lon, device):
@@ -134,7 +141,7 @@ def config2(device):
 
     size = 256
     verts_obj, faces = mesh.cube()
-    clip = posed(torch.as_tensor(verts_obj, device=device), POSE, device)
+    clip = posed(torch.as_tensor(verts_obj, device=device), device)
     colors = torch.as_tensor(np.random.RandomState(0).rand(
         len(verts_obj), 3).astype(np.float32), device=device)
     faces = torch.as_tensor(faces.astype(np.int64), device=device)
@@ -156,7 +163,7 @@ def config3(device):
 
     size = 512
     verts_obj, faces, uvs = _sphere(24, 48, device)
-    clip = posed(verts_obj, POSE, device)
+    clip = posed(verts_obj, device)
     texture = torch.as_tensor(mesh.checkerboard_texture(128, 10, 3),
                               device=device)
     raster = honest(clip, faces, size)
@@ -176,7 +183,7 @@ def config4(device):
     size = 512
     verts_obj, faces, _ = _sphere(24, 48, device)
     pose = torch.tensor(POSE, device=device)
-    raster = honest(posed(verts_obj, pose, device), faces, size)
+    raster = honest(posed(verts_obj, device), faces, size)
     white = torch.ones((verts_obj.shape[0], 3), device=device)
     background = torch.zeros((size, size, 3), device=device)
     projection = matrices.perspective_projection(
@@ -212,15 +219,11 @@ def config5(device):
     ``entry.deferred_render`` (``with_gbuffer=True`` also returns the
     G-buffer)."""
     from dirt_tpu_torch import entry
-    from dirt_tpu_torch.core import mesh
 
     size = 1024
-    verts_obj, faces, uvs, _, projection = entry.deferred_scene(
-        72, 72, device=device)
-    texture = torch.as_tensor(mesh.checkerboard_texture(128, 10, 3),
-                              device=device)
+    verts_obj, faces, uvs, texture, projection, raster = deferred_scene(
+        72, 72, size, device)
     pose = torch.tensor(POSE, device=device)
-    raster = honest(posed(verts_obj, pose, device), faces, size)
 
     def forward(verts, pose, **kwargs):
         return entry.deferred_render(verts, pose, faces, uvs, texture,
@@ -244,17 +247,17 @@ def gradient_step(config):
     return step
 
 
-def report(config, samples=SAMPLES):
+def report(config):
     """The config's line: forward and gradient step, min and median ms,
     Mpix/s at the median, peak memory over the step."""
     from dirt_tpu_torch.utils.benchtime import device_time_stats
 
     with torch.no_grad():
         fwd = device_time_stats(config.forward, config.leaves,
-                                samples=samples)
+                                samples=SAMPLES)
     torch.cuda.reset_peak_memory_stats()
     step = device_time_stats(gradient_step(config), config.leaves,
-                             samples=samples)
+                             samples=SAMPLES)
     peak = torch.cuda.max_memory_allocated()
     mpix = config.size * config.size / 1e6
     return (f"{config.name:44s} fwd min {fwd[0] * 1e3:8.3f} median "
@@ -269,7 +272,6 @@ def main():
         sys.exit("bench_configs_torch: no CUDA device "
                  "(torch.cuda.is_available() is False); it runs on the card "
                  "only")
-    import bench_torch
     from dirt_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1902,15 +1902,15 @@ def _huge_sphere_check(device, card, n=708):
                           clip, colors, faces, weights, config, False)
 
         step_ms = _median_ms(step, runs=3, warmup=0)
-        device = _device_ms(step, runs=3, warmup=0)
-        largest = sorted(device.items(), key=lambda kv: -kv[1])[:4]
+        device_items = _device_ms(step, runs=3, warmup=0)
+        largest = sorted(device_items.items(), key=lambda kv: -kv[1])[:4]
         lines.append(
             f"[17 {num_faces}-face sphere {SIZE}^2 {engine}] caps {config} "
             f"set up in {setup_s:.2f} s; overflow False; covered "
             f"{int((fid >= 0).sum())} px; fwd+bwd first call "
             f"{step_s * 1e3:.1f} ms (host clock), then {step_ms:.4f} ms "
-            f"(median of 3); device busy {sum(device.values()):.4f} ms a "
-            f"step (profiler), largest: "
+            f"(median of 3); device busy "
+            f"{sum(device_items.values()):.4f} ms a step (profiler), largest: "
             + ", ".join(f"{k[:48]} {v:.4f} ms" for k, v in largest)
             + f"; peak memory {peak / 2**20:.1f} MiB; launches {counts} "
             f"({card})")

@@ -67,7 +67,7 @@ def problem(size=SIZE, device="cuda"):
         texture
 
 
-def fit(loss_fn, params, steps, lr=LR):
+def fit(loss_fn, params, steps):
     """``steps`` steps of gradient descent on the texture. Returns (params,
     the loss of every step before its update [steps])."""
     texture = params["texture"].detach().clone().requires_grad_()
@@ -76,7 +76,7 @@ def fit(loss_fn, params, steps, lr=LR):
         loss = loss_fn(texture)
         (grad,) = torch.autograd.grad(loss, [texture])
         with torch.no_grad():
-            texture -= lr * grad
+            texture -= LR * grad
         losses.append(loss.detach())
     return {"texture": texture.detach()}, torch.stack(losses)
 

@@ -6,11 +6,12 @@ Port of ``demos/demo5_deferred.py``, the flagship pipeline as a trainer: a
 G-buffer (position | normal | uv | mask, 9 channels) of a ~10k-triangle UV
 sphere (``uv_sphere(72, 72)``: 10,224 faces), textured and Phong-lit by
 ``shade_deferred``, under ``suggest_raster_config``'s caps on the true pose
-(the packed engine at this size). From a perturbed pose, 80 Adam steps fit
-the pose alone for the first half and pose plus a per-vertex bump field
-after (``torch.optim.Adam``, two parameter groups: pose lr 5e-3, bump lr 0
-then 2e-4; both groups' moments update from the first step, as in the JAX
-loop). Writes the target and recovered renders, the loss curve
+(the packed engine at this size): the scene and caps of config 5 of
+``bench_configs_torch.py`` (``deferred_scene``). From a perturbed pose, 80
+Adam steps fit the pose alone for the first half and pose plus a per-vertex
+bump field after (``torch.optim.Adam``, two parameter groups: pose lr 5e-3,
+bump lr 0 then 2e-4; both groups' moments update from the first step, as
+in the JAX loop). Writes the target and recovered renders, the loss curve
 (``demo5_metrics.csv``: ``step,wall_s,loss``) and a resumable checkpoint
 (``demo5_ckpt.npz``: ``{"params": {"pose", "bump"}, "m", "v", "step"}`` in
 ``dirt_tpu``'s file layout, m and v the optimiser's ``exp_avg`` /
@@ -31,10 +32,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-import dirt_tpu_torch  # noqa: E402
+import bench_configs_torch  # noqa: E402
 from dirt_tpu_torch import entry  # noqa: E402
-from dirt_tpu_torch.convert import deferred_scene_from_numpy  # noqa: E402
-from dirt_tpu_torch.core import matrices, mesh  # noqa: E402
 from dirt_tpu_torch.utils.benchtime import timed  # noqa: E402
 from dirt_tpu_torch.utils.checkpoint import load_pytree, save_pytree  # noqa: E402
 from dirt_tpu_torch.utils.image import save_ppm  # noqa: E402
@@ -47,35 +46,13 @@ STEPS = int(os.environ.get("DIRT_DEMO_STEPS", "80"))
 N_LAT = int(os.environ.get("DIRT_DEMO_LAT", "72"))
 N_LON = int(os.environ.get("DIRT_DEMO_LON", "72"))
 
-TRUE_POSE = (0.4, 0.3, 0.0)
+# The pose of the target, on which config 5's caps are measured.
+TRUE_POSE = bench_configs_torch.POSE
 INIT_POSE = (0.52, 0.22, 0.05)
 LR_POSE = 5e-3
 LR_BUMP = 2e-4
 BETAS = (0.9, 0.999)
 EPS = 1e-8
-
-
-def build_scene(n_lat=N_LAT, n_lon=N_LON, device="cuda"):
-    """(verts_obj [V, 3], faces [F, 3], uvs [V, 2], texture [128, 128, 3],
-    projection [4, 4]) on ``device``."""
-    verts_obj, faces, uvs = mesh.uv_sphere(n_lat=n_lat, n_lon=n_lon)
-    projection = matrices.perspective_projection(0.1, 20.0, 0.045, 1.0)
-    return deferred_scene_from_numpy(
-        verts_obj, faces, uvs, mesh.checkerboard_texture(128, 10, 3),
-        projection.numpy(), device)
-
-
-def raster_config(verts_obj, faces, projection, size):
-    """Count-then-allocate caps measured on the true pose (the auto caps
-    truncate this mesh's silhouette spans at 1024^2)."""
-    device = verts_obj.device
-    model = matrices.compose(
-        matrices.rodrigues(torch.tensor(TRUE_POSE, device=device)),
-        matrices.translation(torch.tensor([0.0, 0.0, -3.0], device=device)),
-    )
-    clip = matrices.transform_homogeneous(
-        verts_obj, matrices.compose(model, projection))
-    return dirt_tpu_torch.suggest_raster_config(clip, faces, size, size)
 
 
 def make_render(faces, uvs, texture, projection, config, size):
@@ -94,9 +71,8 @@ def problem(size=SIZE, n_lat=N_LAT, n_lon=N_LON, device="cuda"):
     is the mean squared error of the render of ``verts_obj * (1 + bump)`` at
     ``pose`` against the target (the render at the true pose); ``params``
     the initial ``{"pose", "bump"}``."""
-    verts_obj, faces, uvs, texture, projection = build_scene(
-        n_lat, n_lon, device)
-    config = raster_config(verts_obj, faces, projection, size)
+    verts_obj, faces, uvs, texture, projection, config = \
+        bench_configs_torch.deferred_scene(n_lat, n_lon, size, device)
     render = make_render(faces, uvs, texture, projection, config, size)
     with torch.no_grad():
         target = render(verts_obj, torch.tensor(TRUE_POSE, device=device))

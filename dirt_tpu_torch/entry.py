@@ -21,13 +21,15 @@ from dirt_tpu_torch.render.deferred import shade_deferred
 from dirt_tpu_torch.render.gbuffer import render_gbuffer
 
 
-def deferred_scene(n_lat: int = 24, n_lon: int = 48, device="cuda"):
+def deferred_scene(n_lat: int = 24, n_lon: int = 48, device="cuda",
+                   checker: tuple[int, int] = (64, 8)):
     """(verts_obj [V, 3], faces [F, 3], uvs [V, 2], texture, projection)
-    of the flagship scene, as tensors on ``device``."""
+    of the flagship scene, as tensors on ``device``. ``checker`` is the
+    texture's (size, squares): the flagship's 64 / 8, or demo 5's 128 / 10."""
     from dirt_tpu_torch.convert import deferred_scene_from_numpy
 
     verts_obj, faces, uvs = mesh.uv_sphere(n_lat=n_lat, n_lon=n_lon)
-    texture = mesh.checkerboard_texture(64, 8, 3)
+    texture = mesh.checkerboard_texture(*checker, 3)
     projection = matrices.perspective_projection(0.1, 20.0, 0.045, 1.0)
     return deferred_scene_from_numpy(verts_obj, faces, uvs, texture,
                                      projection.numpy(), device)

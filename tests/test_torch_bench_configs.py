@@ -132,6 +132,6 @@ def test_honest_raises_on_overflowing_caps(monkeypatch):
     monkeypatch.setattr(dirt_tpu_torch, "suggest_raster_config",
                         lambda *a, **k: tight)
     verts_obj, faces = mesh.cube()
-    clip = sheet.posed(torch.as_tensor(verts_obj), sheet.POSE, "cpu")
+    clip = sheet.posed(torch.as_tensor(verts_obj), "cpu")
     with pytest.raises(RuntimeError, match="overflow"):
         sheet.honest(clip, torch.as_tensor(faces.astype(np.int64)), 256)
