@@ -192,7 +192,26 @@ raises and exits non-zero; nothing is caught):
     step, its time (first call, then the median of 3) and its device time
     from a profiler window with the four largest device items (no
     plain-version comparison at this size: the plain walk alone takes
-    seconds on 99,904 faces).
+    seconds on 99,904 faces);
+18. the port's profilers, ``tools/prof_torch_stages.py``,
+    ``prof_torch_binning.py`` and ``prof_torch_parallel.py``, through their
+    ``run`` (2 samples a line; profiler windows of 2 calls, none in the
+    binning tool) on the bench sphere under phase 4's caps and
+    on the 1,001,112-face sphere under ``suggest_raster_config``'s (the
+    parallel tool on the bench sphere only), each line beside the card's
+    name and power limit, with the checks that they time the work the API
+    does: the staged forward (setup, binning, raster_fwd_packed) gives
+    pixels, fid and zbuf equal bit for bit to ``rasterise_with_aux``'s, and
+    packed_prologue -> packed_bwd -> the pool reduce the output of
+    ``backward_packed`` bit for bit, on both scenes; ``bin_faces_packed(...,
+    _stage=0)`` equal field by field to the call without ``_stage``; on the
+    bench sphere the ten ``_stage`` checksums on the card equal to the
+    CPU's from the same inputs; the binning tool's A/B of each
+    ``torch.cummax`` call (a start-flag cumsum, a scatter, a gather) equal
+    to it; the parallel tool's variants (sharded, overlapped with 1, 2, 4
+    chunks, face-sharded, one member each) with the plain step's fid and
+    gradients within 1e-4 of max |gradient|; raster_fwd_packed,
+    packed_prologue and packed_bwd launched.
 
 Phase 9 runs each config once and phases 12, 13 and 15 take medians of 10, to
 keep the whole run near two and a half minutes. The line before the last is
@@ -1933,6 +1952,104 @@ def _huge_sphere_check(device, card, n=708):
     return launches
 
 
+# Samples per line of phase 18's tools (the tools' own defaults are 10 on
+# the bench sphere and 3 on the 1,001,112-face sphere) and calls in the
+# stage and parallel tools' profiler windows (their own default 5; the
+# binning tool runs without one here).
+TOOL_SAMPLES = 2
+TOOL_PROFILE = 2
+
+
+def _tools_check(device, card, bench_config):
+    """Phase 18: the stage, binning and parallel profilers
+    (``tools/prof_torch_stages.py``, ``prof_torch_binning.py``,
+    ``prof_torch_parallel.py``) through their ``run`` on the bench sphere
+    under ``bench_config`` (phase 4's caps) and on the 1,001,112-face sphere
+    under ``suggest_raster_config``'s, with the checks that they time the
+    work the API does: on both scenes the staged forward (setup, binning,
+    K1) gives fid, zbuf and pixels equal bit for bit to
+    ``rasterise_with_aux``'s, the backward pieces (K3, K2, the pool
+    reduce) the output of ``backward_packed`` bit for bit, and
+    ``_stage=0`` bins equal field by field to a call without it; on the
+    bench sphere every ``_stage`` checksum on the card equals the one the
+    CPU computes from the same inputs; the binning tool asserts its cummax
+    A/B values equal and the parallel tool every variant's fid equal to the
+    plain step's and its gradients within TOL_ENGINES. Returns the launch
+    counts of the phase."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.ops import binning
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import prof_torch_binning
+    import prof_torch_parallel
+    import prof_torch_stages
+
+    start = time.perf_counter()
+    _reset_launch_counts()
+    for n_lat in (72, 708):
+        scene = bench_scene(SIZE, device, n=n_lat)
+        _, clip, colors, faces, background, weights = scene
+        config = bench_config if n_lat == 72 else \
+            dirt_tpu_torch.suggest_raster_config(clip, faces, SIZE, SIZE,
+                                                 clip=False)
+        tag = f"18 tools {faces.shape[0]} faces {SIZE}^2"
+        pixels, fid, zbuf, geo, att, bins, geom = \
+            prof_torch_stages.staged_forward(scene, config)
+        want = dirt_tpu_torch.rasterise_with_aux(
+            background, clip, colors, faces, config=config, clip=False)
+        if bool(want[3]) or not all(
+                torch.equal(a, b) for a, b in zip((pixels, fid, zbuf), want)):
+            raise RuntimeError(f"[{tag}] the staged forward differs from "
+                               f"rasterise_with_aux (overflow "
+                               f"{bool(want[3])})")
+        got = prof_torch_stages.staged_backward(
+            geo, att, fid, zbuf, pixels, weights, bins, geom)
+        want = prof_torch_stages.backward_core(
+            geo, att, fid, zbuf, pixels, weights, bins, geom)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(f"[{tag}] prologue -> K2 -> pool reduce "
+                               f"differs from backward_packed")
+        _, _, bbox, edges = prof_torch_stages.setup(clip, colors, faces, SIZE)
+        plain = prof_torch_stages.bin_faces(bbox, edges, geom)
+        zero = prof_torch_stages.bin_faces(bbox, edges, geom, _stage=0)
+        for field in binning.PackedBins._fields:
+            a, b = getattr(plain, field), getattr(zero, field)
+            if (a is None) != (b is None) or (
+                    a is not None and not torch.equal(a, b)):
+                raise RuntimeError(f"[{tag}] _stage=0 changes {field}")
+        print(f"[{tag}] staged forward (setup, binning, K1) bit-equal to "
+              f"rasterise_with_aux: pixels, fid, zbuf; prologue -> K2 -> "
+              f"pool reduce bit-equal to backward_packed; _stage=0 bins "
+              f"equal field by field ({card})")
+        del pixels, fid, zbuf, geo, att, bins, got, want, plain, zero
+        prof_torch_stages.run(device, SIZE, n_lat, TOOL_SAMPLES, config,
+                              TOOL_PROFILE, card)
+        record = prof_torch_binning.run(device, SIZE, n_lat, TOOL_SAMPLES,
+                                        config, 0, card)
+        if n_lat == 72:
+            on_cpu = prof_torch_binning.stage_checksums(
+                tuple(c.cpu() for c in bbox), [c.cpu() for c in edges], geom)
+            if on_cpu != record["checksums"]:
+                raise RuntimeError(f"[{tag}] _stage checksums on the card "
+                                   f"{record['checksums']} differ from the "
+                                   f"CPU's {on_cpu}")
+            print(f"[{tag}] the ten _stage checksums on the card equal the "
+                  f"CPU's from the same inputs")
+        del scene, clip, colors, faces, background, weights, bbox, edges
+    prof_torch_parallel.run(device, SIZE, samples=TOOL_SAMPLES,
+                            config=bench_config, profile=TOOL_PROFILE,
+                            card=card)
+    _sync()
+    counts = _launch_counts()
+    missed = [k for k in KERNELS[:3] if counts[k] < 1]
+    if missed:
+        raise RuntimeError(f"[18 tools] missed a kernel: {missed} of "
+                           f"{counts}")
+    print(f"[18 tools] launches {counts}; {time.perf_counter() - start:.1f} s "
+          f"({card})")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -2582,6 +2699,11 @@ def main():
 
     # --- 17. the 1,001,112-face sphere -----------------------------------------
     for kernel_name, count in _huge_sphere_check(device, card).items():
+        launches[kernel_name] += count
+
+    # --- 18. the stage, binning and parallel profilers ---------------------
+    for kernel_name, count in _tools_check(device, card,
+                                           configs[False]).items():
         launches[kernel_name] += count
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -6,7 +6,7 @@ It keeps ``dirt_tpu``'s module layout and names; ``dirt_tpu`` stays the
 reference the port's tests hold it to. The package imports torch and
 numpy, never jax.
 
-Ported so far: the packed, the dense and the streaming (CSR) engine,
+Ported: the packed, the dense and the streaming (CSR) engine,
 forward and backward (clipping, triangle setup, binning, and ten CUDA
 kernels for sm_90a: the packed raster, the backward's neighbor prologue,
 the fused packed backward, the image <-> flat-subtile layout swap, the
@@ -15,10 +15,17 @@ the fused streaming backward and the two per-face scatters of the
 row-sharded backward, each with a plain PyTorch version for CPU tensors),
 count-then-allocate caps, the render stack above
 them (``core.lighting``, ``core.texture``, ``render.gbuffer``,
-``render.deferred``), the row-sharded renderer (``parallel.sharding``,
-``parallel.group``, ``parallel.multihost``), OBJ loading (``io``) and the
-utilities (``utils``: device timing, the store of honest caps, PPM
-images, scalar logging, checkpoints in ``dirt_tpu``'s file layout).
+``render.deferred``, ``entry``: the flagship step and the multi-chip dry
+run), the row-sharded renderer (``parallel.sharding``,
+``parallel.group``, ``parallel.multihost``), its overlapped backward
+(``parallel.overlap``) and the face-sharded renderer
+(``parallel.face_sharding``), OBJ loading (``io``) and the utilities
+(``utils``: device timing, the store of honest caps, PPM images, scalar
+logging, checkpoints in ``dirt_tpu``'s file layout). Beside the package:
+the bench and the five-config sheet (``bench_torch.py``,
+``bench_configs_torch.py``), the demos (``demos/torch_demo*.py``) and the
+profilers (``tools/prof_torch_*.py``). Nothing of ``dirt_tpu`` is left to
+port.
 """
 
 from dirt_tpu_torch.ops.raster import RasterConfig

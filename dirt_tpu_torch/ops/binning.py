@@ -194,7 +194,7 @@ def bin_faces_packed(
     bbox, height: int, width: int, tile_h: int, tile_w: int,
     budget_iters: int, expand_cap: int,
     edges=None, pool_cap: int | None = None,
-    work_cap: int | None = None,
+    work_cap: int | None = None, _stage: int = 0,
 ) -> PackedBins:
     """Lane-packed subtile binning (see :class:`PackedBins`).
 
@@ -216,6 +216,12 @@ def bin_faces_packed(
     ``work_cap``: the stages after the sort run on the first ``work_cap``
     sorted elements only (dead candidates sort last); an undersized cap
     truncates whole tail pairs and raises ``overflow``.
+
+    ``_stage`` > 0 returns early, after stage N, with an int64 checksum
+    scalar (the profiling hook of ``tools/prof_torch_binning.py``): the
+    stage numbers and checksum expressions of ``dirt_tpu``'s hook (11, 12,
+    13 the parts of stage 1, then 1 to 7), whose int32 sums wrap where
+    these do not.
     """
     bxmin, bxmax, bymin, bymax = _bbox_cols(bbox)
     device = bxmin.device
@@ -263,6 +269,8 @@ def bin_faces_packed(
     neg_pool = torch.full((pool_cap,), -1, dtype=_I64, device=device)
     face_of = _cummax(_set_drop(neg_pool, slot0, fidx))
     s0_of = _cummax(_set_drop(neg_pool, slot0, slot0))
+    if _stage == 11:
+        return torch.sum(face_of) + torch.sum(s0_of)
 
     fc = torch.clamp(face_of, 0, max(nf - 1, 0))
     f_gxmin, f_gymin = gxmin[fc], gymin[fc]
@@ -278,6 +286,8 @@ def bin_faces_packed(
     gy = f_gymin + ey
     gx = f_gxmin + ex
     pair_ok = (face_of >= 0) & (e < f_njobs)
+    if _stage == 12:
+        return torch.sum(gy) + torch.sum(gx) + torch.sum(pair_ok)
     if edges is not None:
         # Conservative triangle-vs-subtile test: drop candidates whose
         # 8x16 pixel-center rect lies more than half a pixel outside any
@@ -294,6 +304,8 @@ def bin_faces_packed(
                 + torch.clamp(b3, min=0.0) * (SUB_H - 1))
         slack = 0.5 * torch.sqrt(a3 * a3 + b3 * b3)
         pair_ok = pair_ok & torch.all(emax >= -slack, dim=0)
+    if _stage == 13:
+        return torch.sum(gy) + torch.sum(gx) + torch.sum(pair_ok)
     t_id = _fdiv(gy, strips) * tiles_x + _fdiv(gx, groups)
     sid_p = torch.where(
         pair_ok,
@@ -302,6 +314,8 @@ def bin_faces_packed(
         nsid,
     )
     face_p = torch.clamp(face_of, min=0)
+    if _stage == 1:
+        return torch.sum(sid_p) + torch.sum(face_p)
 
     # --- 2. merged sort: pairs + headers -------------------------------
     hdr_sid = arange(nsid)
@@ -336,12 +350,16 @@ def bin_faces_packed(
     run_start = _cummax(torch.where(is_start, iota, 0))
     rank = iota - run_start            # header rank 0, real pairs 1..len
     is_end = torch.cat([differs, true1])
+    if _stage == 2:
+        return torch.sum(rank) + torch.sum(face_s) + torch.sum(is_end)
 
     # --- 3. per-subtile counts (run length at each run's end) ----------
     end_key = torch.where(is_end & (sid_s < nsid), sid_s, nsid)
     counts = _set_drop(
         torch.zeros((nsid,), dtype=_I64, device=device), end_key, rank
     ).reshape(total, strips, groups)
+    if _stage == 3:
+        return torch.sum(counts) + torch.sum(rank)
 
     # --- 4. grid prefix math --------------------------------------------
     n_iter = torch.amax(counts, dim=2)                       # [T, S]
@@ -368,6 +386,9 @@ def bin_faces_packed(
         + GROUPS * iter_off[:, :, None]
         + arange(groups)[None, None, :]
     )                                                        # [T, S, G]
+    if _stage == 4:
+        return (torch.sum(rowstart) + torch.sum(limit_rows)
+                + torch.sum(n_iters_eff) + torch.sum(rank))
 
     # --- 5. pair placement via per-run cummax ---------------------------
     # Sorted pair p of subtile sid with in-run rank k = rank - 1 lands at
@@ -397,6 +418,8 @@ def bin_faces_packed(
     row_val = torch.where(
         valid_p, j_p * GROUPS + torch.remainder(sid_c, groups), budget_rows
     )
+    if _stage == 5:
+        return torch.sum(row_val) + torch.sum(rank)
 
     # --- 6. entries: strip-aware defaults + one pair scatter ------------
     # Empty rows carry their strip's index so the strip-run arithmetic
@@ -412,6 +435,8 @@ def bin_faces_packed(
     value = face_s * 8 + torch.remainder(_fdiv(sid_c, groups), strips)
     defaults = (nf * 8 + s_row8)[:, None].expand(r8, GROUPS).reshape(-1)
     entries = _set_drop(defaults, row_val, value)
+    if _stage == 6:
+        return torch.sum(entries) + torch.sum(rank)
 
     # --- packed-backward pair backpointers (inverse of the placement) ---
     if want_pair_rows:
@@ -429,6 +454,11 @@ def bin_faces_packed(
     else:
         pair_rows = None
         pool_offs = None
+    if _stage == 7:
+        chk = torch.sum(entries)
+        if pair_rows is not None:
+            chk = chk + torch.sum(pair_rows) + torch.sum(pool_offs)
+        return chk
 
     # --- chunk -> tile map via interval marks ---------------------------
     cmarks = _add_drop(

@@ -1,0 +1,292 @@
+#!/usr/bin/env python3
+"""Stage profiler of dirt_tpu_torch's packed engine on one CUDA card.
+
+    python3 tools/prof_torch_stages.py [size] [--n-lat N] [--samples S]
+
+Counterpart of ``tools/prof_stages.py``. Times each stage of a gradient
+step of the bench sphere (``bench_torch.bench_scene(size)``: the camera,
+colors and upstream gradient of ``bench.py``, ``mesh.uv_sphere(n_lat,
+n_lat)``; 72 gives 10,224 faces, ``--n-lat 708`` the 1,001,112-face sphere
+of ``bench_torch.py``'s line 6) at ``size`` x ``size`` (1024 by default)
+under the packed engine's honest caps (``bench_torch.honest``, the keys of
+the bench), ``clip=False``. The stages, each a function of tensors on the
+card:
+
+  setup             screen_from_clip + face gather + setup_planes +
+                    face_bbox_cols + edge_filter_cols
+  setup+binning     the above + bin_faces_packed
+  forward kernel    pack_face_table_v2 + the entry-row gather +
+                    raster_forward_packed (K1) on fixed bins
+  forward total     rasterise(..., clip=False)
+  fwd+bwd total     the same with loss = sum(pixels * w), loss.backward()
+  backward core     backward_packed on fixed forward results
+  prologue (K3)     padded_prologue
+  entry-row gather  packed_bwd._entry_table_rows (bins without rows)
+  entry rows (K2)   packed_entry_rows
+  pool reduce       pool_reduce_rows
+
+and the glue: fwd+bwd total minus setup+binning, the forward kernel and
+the backward core. For each stage: min and median ms of event-timed
+synchronised calls (``utils.benchtime.device_time_stats``, what a caller
+pays, host included) and, from one profiler window
+(``prof_torch_steps._profile``), device kernels and device busy ms per
+call and the hand-written kernels' share of the busy time; a stage is
+device-bound when its busy time is at least half its median, else
+host-bound. Prints the card's name and power limit beside the numbers;
+exits non-zero without a CUDA device. ``run`` returns the records, and
+``staged_forward`` / ``staged_backward`` give the staged path's outputs,
+which ``chip_smoke.py`` holds bit for bit to the API's.
+"""
+
+import argparse
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = str(Path(__file__).resolve().parents[1])
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+import dirt_tpu_torch  # noqa: E402
+from bench_torch import bench_scene, card_line, honest  # noqa: E402
+from chip_smoke import _grads  # noqa: E402
+from dirt_tpu_torch.ops import binning, packed_bwd, raster, raster_fwd  # noqa: E402
+from dirt_tpu_torch.ops.raster_bwd import assemble_face_gradients  # noqa: E402
+from dirt_tpu_torch.ops.triangle_setup import (  # noqa: E402
+    edge_filter_cols,
+    face_bbox_cols,
+    screen_from_clip,
+    setup_planes,
+)
+from dirt_tpu_torch.utils.benchtime import device_time_stats  # noqa: E402
+from prof_torch_steps import _profile  # noqa: E402
+
+# Samples per stage on the bench sphere and on the 1,001,112-face sphere
+# (tools/bench_large.py:61-63 takes three there).
+SAMPLES = 10
+SAMPLES_LARGE = 3
+# Calls in one profiler window.
+PROFILE_STEPS = 5
+# Busy share of the median above which a stage counts as device-bound.
+DEVICE_BOUND = 0.5
+KERNELS = ("raster_fwd_packed", "packed_prologue", "packed_bwd")
+
+
+def scene_and_config(device, size=1024, n_lat=72, config=None):
+    """(``bench_torch.bench_scene(size, device, n_lat)``, its packed
+    config): ``config`` if given, else the honest caps under the bench's
+    key. Raises unless the config runs the packed engine."""
+    scene = bench_scene(size, device, n=n_lat)
+    if config is None:
+        config = honest(f"torch_sphere{n_lat}_{size}_auto", scene, False)
+    config = config.concrete(size)
+    faces = scene[3]
+    if raster.resolve_engine(config, faces.shape[0]) != "packed":
+        raise ValueError(f"{config} does not run the packed engine on "
+                         f"{faces.shape[0]} faces")
+    return scene, config
+
+
+class Geometry:
+    """The packed binning's static arguments for one scene and config."""
+
+    def __init__(self, config, num_faces, size):
+        self.size = size
+        self.tile_h, self.tile_w = config.tile_h, config.tile_w
+        self.hp = -(-size // self.tile_h) * self.tile_h
+        self.wp = -(-size // self.tile_w) * self.tile_w
+        self.expand, self.budget = raster._packed_caps(
+            config, num_faces, self.hp, self.wp)
+        self.pool_cap, self.work_cap = config.pool_cap, config.work_cap
+        self.bmax = -(-self.expand // binning.POOL_ALIGN)
+
+
+def setup(clip, colors, faces, size):
+    """(geo, att, bbox, edges): screen_from_clip, the face gather,
+    setup_planes, face_bbox_cols and edge_filter_cols, as the API runs them
+    with ``clip=False``."""
+    fv = screen_from_clip(clip, size, size)[faces]
+    geo, att, valid = setup_planes(fv, colors[faces])
+    return geo, att, face_bbox_cols(fv, valid, size, size), \
+        edge_filter_cols(fv)
+
+
+def bin_faces(bbox, edges, geom, _stage=0):
+    """``bin_faces_packed`` under ``geom`` (a :class:`Geometry`)."""
+    return binning.bin_faces_packed(
+        bbox, geom.hp, geom.wp, geom.tile_h, geom.tile_w, geom.budget,
+        geom.expand, edges=edges, pool_cap=geom.pool_cap,
+        work_cap=geom.work_cap, _stage=_stage)
+
+
+def forward_kernel(geo, att, bins, bg_chw, geom):
+    """(table2, rows, pixels [C, Hp, Wp], fid, zbuf [Hp, Wp]): the face
+    table, the entry-row gather and K1, as ``prepare_packed`` and
+    ``_forward_impl`` run them."""
+    table2 = raster_fwd.pack_face_table_v2(geo, att)
+    col_one = raster_fwd.COL_ATT + att.shape[1]
+    if col_one < table2.shape[1]:
+        table2[:, col_one] = 1.0
+    rows = table2[bins.entries.long() // 8].contiguous()
+    pixels, fid, zbuf = raster_fwd.raster_forward_packed(
+        table2, bins, bg_chw, tile_h=geom.tile_h, tile_w=geom.tile_w,
+        rows=rows)
+    return table2, rows, pixels, fid, zbuf
+
+
+def staged_forward(scene, config):
+    """The packed forward stage by stage: (pixels [H, W, C], fid, zbuf
+    [H, W], geo, att, bins with the entry rows attached, the
+    :class:`Geometry`)."""
+    _, clip, colors, faces, background, _ = scene
+    size = background.shape[0]
+    geom = Geometry(config, faces.shape[0], size)
+    geo, att, bbox, edges = setup(clip, colors, faces, size)
+    bins = bin_faces(bbox, edges, geom)
+    bg_chw = raster._padded_background(background, geom.tile_h, geom.tile_w)
+    _, rows, pixels, fid, zbuf = forward_kernel(geo, att, bins, bg_chw, geom)
+    return (pixels.permute(1, 2, 0)[:size, :size], fid[:size, :size],
+            zbuf[:size, :size], geo, att, bins._replace(rows=rows), geom)
+
+
+def _prepared(prologue, bins, geo, att, geom):
+    """The packed backward's prepared inputs from the prologue's five
+    outputs, as ``prepare_backward_packed`` builds them."""
+    channels = att.shape[1] // 3
+    return packed_bwd._PackedBwdPrep(*prologue, bins, geo, att, channels,
+                                     12 + 3 * channels, geom.tile_h,
+                                     geom.tile_w)
+
+
+def staged_backward(geo, att, fid, zbuf, pixels, grad_pixels, bins, geom):
+    """(d_geo, d_att) of the packed backward piece by piece: the prologue
+    (K3), K2 on the prepared fields, the pool reduce and the face
+    gradients, as ``backward_packed`` chains them."""
+    prep = _prepared(packed_bwd.padded_prologue(
+        fid, zbuf, pixels, grad_pixels, geom.tile_h, geom.tile_w),
+        bins, geo, att, geom)
+    entry_rows = packed_bwd.packed_entry_rows(prep)
+    face_rows = packed_bwd.pool_reduce_rows(
+        entry_rows, bins.pair_rows, bins.pool_offs, geo.shape[0], geom.bmax)
+    return assemble_face_gradients(geo, att, face_rows, prep.channels)
+
+
+def backward_core(geo, att, fid, zbuf, pixels, grad_pixels, bins, geom):
+    """``backward_packed`` as the raster op's backward calls it."""
+    return packed_bwd.backward_packed(
+        geo, att, fid, zbuf, pixels, grad_pixels, bins, geo.shape[0],
+        geom.tile_h, geom.tile_w, bmax=geom.bmax)
+
+
+def stages(scene, config):
+    """[(name, fn, args)] of the stages, on fixed intermediates of one
+    staged forward (the backward's on its outputs and ``w``)."""
+    _, clip, colors, faces, background, weights = scene
+    size = background.shape[0]
+    pixels, fid, zbuf, geo, att, bins, geom = staged_forward(scene, config)
+    bg_chw = raster._padded_background(background, geom.tile_h, geom.tile_w)
+    prologue = packed_bwd.padded_prologue(fid, zbuf, pixels, weights,
+                                          geom.tile_h, geom.tile_w)
+    prep = _prepared(prologue, bins, geo, att, geom)
+    bare = _prepared(prologue, bins._replace(rows=None), geo, att, geom)
+    entry_rows = packed_bwd.packed_entry_rows(prep)
+    return [
+        ("setup", lambda c, co: setup(c, co, faces, size), (clip, colors)),
+        ("setup+binning",
+         lambda c, co: bin_faces(*setup(c, co, faces, size)[2:], geom),
+         (clip, colors)),
+        ("forward kernel",
+         lambda g, a, b: forward_kernel(g, a, bins, b, geom),
+         (geo, att, bg_chw)),
+        ("forward total",
+         lambda b, c, co: dirt_tpu_torch.rasterise(
+             b, c, co, faces, config=config, clip=False),
+         (background, clip, colors)),
+        ("fwd+bwd total",
+         lambda b, c, co: _grads(dirt_tpu_torch.rasterise_with_aux, b, c,
+                                 co, faces, weights, config, False),
+         (background, clip, colors)),
+        ("backward core",
+         lambda g, a, *f: backward_core(g, a, *f, bins, geom),
+         (geo, att, fid, zbuf, pixels, weights)),
+        ("prologue (K3)",
+         lambda *f: packed_bwd.padded_prologue(*f, geom.tile_h, geom.tile_w),
+         (fid, zbuf, pixels, weights)),
+        ("entry-row gather",
+         lambda g: packed_bwd._entry_table_rows(bare), (geo,)),
+        ("entry rows (K2)",
+         lambda g: packed_bwd.packed_entry_rows(prep), (geo,)),
+        ("pool reduce",
+         lambda r: packed_bwd.pool_reduce_rows(
+             r, bins.pair_rows, bins.pool_offs, geo.shape[0], geom.bmax),
+         (entry_rows,)),
+    ]
+
+
+def run(device, size=1024, n_lat=72, samples=None, config=None,
+        profile=PROFILE_STEPS, card=""):
+    """Times every stage of the scene; returns {"faces", "size", "config",
+    "stages": [record], "glue_ms"}. A record holds the stage's name, min
+    and median ms and, when ``profile`` (the calls of one profiler window;
+    0 for none, as on the CPU) is set, kernels and busy ms per call, the
+    hand-written kernels' share of the busy time and ``bound`` ("device"
+    or "host"). Prints one line a stage."""
+    device = torch.device(device)
+    scene, config = scene_and_config(device, size, n_lat, config)
+    num_faces = scene[3].shape[0]
+    if samples is None:
+        samples = SAMPLES_LARGE if num_faces > 100_000 else SAMPLES
+    tag = f"stages {num_faces} faces {size}^2"
+    print(f"[{tag}] packed, clip=False, caps {config}, {samples} samples a "
+          f"stage ({card})")
+    records = []
+    for name, fn, args in stages(scene, config):
+        t_min, t_med = device_time_stats(fn, args, samples=samples)
+        rec = dict(stage=name, min_ms=t_min * 1e3, median_ms=t_med * 1e3)
+        line = (f"[{tag}] {name}: min {rec['min_ms']:.4f} ms, median "
+                f"{rec['median_ms']:.4f} ms")
+        if profile:
+            prof = _profile(name, lambda: fn(*args), card,
+                            steps=profile, echo=False)
+            ours = sum(ms for ms, _ in prof["ours"].values())
+            rec.update(kernels=prof["kernels"], busy_ms=prof["busy_ms"],
+                       ours_share=ours / prof["busy_ms"],
+                       bound=("device" if prof["busy_ms"]
+                              >= DEVICE_BOUND * rec["median_ms"]
+                              else "host"))
+            line += (f"; {rec['kernels']:.1f} device kernels, device busy "
+                     f"{rec['busy_ms']:.4f} ms a call, hand-written kernels "
+                     f"{100 * rec['ours_share']:.1f}% of it: "
+                     f"{rec['bound']}-bound")
+        print(line + f" ({card})")
+        records.append(rec)
+    med = {r["stage"]: r["median_ms"] for r in records}
+    glue = (med["fwd+bwd total"] - med["setup+binning"]
+            - med["forward kernel"] - med["backward core"])
+    print(f"[{tag}] glue (fwd+bwd total - setup+binning - forward kernel - "
+          f"backward core, medians): {glue:.4f} ms; binning ~"
+          f"{med['setup+binning'] - med['setup']:.4f} ms ({card})")
+    return dict(faces=num_faces, size=size, config=config, stages=records,
+                glue_ms=glue)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("size", type=int, nargs="?", default=1024)
+    parser.add_argument("--n-lat", type=int, default=72)
+    parser.add_argument("--samples", type=int)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("prof_torch_stages: torch.cuda.is_available() is False")
+    from dirt_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build(KERNELS)
+    card = card_line()
+    print(card)
+    run("cuda", args.size, args.n_lat, args.samples, card=card)
+
+
+if __name__ == "__main__":
+    main()

@@ -40,20 +40,33 @@ OURS = ("raster_fwd_packed_kernel", "packed_prologue_kernel",
         "scatter_faces_csr_reduce_kernel", "subtile_swap_kernel")
 
 
-def _profile(label, step, card):
+def _profile(label, step, card, steps=STEPS, echo=True):
+    """A ``torch.profiler`` window of ``steps`` calls of ``step`` (after
+    three warm-up calls, synchronised inside the window; a window without
+    device records is taken again with twice the calls, up to three
+    windows). Prints its lines
+    when ``echo`` and returns the record: device kernels per step, device
+    busy and span per step (ms), busy share, the hand-written kernels'
+    {name: (ms per step, launches per step)}, the five largest device items
+    and the five largest host operations as (name, ms per step, count per
+    step)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(STEPS):
-            step()
+    for _ in range(3):
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+        steps *= 2
+    else:
         raise RuntimeError("the profiler recorded no device activity")
     busy = sum(e.device_time for e in kernels) / 1e3          # ms
     begin = min(e.time_range.start for e in kernels)
@@ -65,20 +78,32 @@ def _profile(label, step, card):
         by_name[e.name] = (total + e.device_time / 1e3, count + 1)
     ours = {o: v for n, v in by_name.items() for o in OURS if o in n}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    print(f"[{label}] device kernels per step {len(kernels) / STEPS:.1f}, "
-          f"device busy per step {busy / STEPS:.4f} ms, device span per step "
-          f"{span / STEPS:.4f} ms, busy share {busy / span:.3f} "
-          f"(window of {STEPS} steps, {card})")
-    for name, (total, count) in sorted(ours.items()):
-        print(f"[{label}]   kernel {name}: {total / STEPS:.4f} ms per step "
-              f"({count // STEPS} launches)")
-    for name, (total, count) in top:
-        print(f"[{label}]   top: {total / STEPS:.4f} ms per step x"
-              f"{count / STEPS:.0f} {name[:70]}")
-    for op in sorted(prof.key_averages(),
-                     key=lambda op: -op.self_cpu_time_total)[:5]:
-        print(f"[{label}]   host: {op.self_cpu_time_total / 1e3 / STEPS:.4f} "
-              f"ms per step x{op.count / STEPS:.0f} {op.key[:70]}")
+    host = sorted(prof.key_averages(),
+                  key=lambda op: -op.self_cpu_time_total)[:5]
+    record = dict(
+        label=label, kernels=len(kernels) / steps, busy_ms=busy / steps,
+        span_ms=span / steps, busy_share=busy / span,
+        ours={name: (total / steps, count / steps)
+              for name, (total, count) in sorted(ours.items())},
+        top=[(name, total / steps, count / steps)
+             for name, (total, count) in top],
+        host=[(op.key, op.self_cpu_time_total / 1e3 / steps,
+               op.count / steps) for op in host])
+    if echo:
+        print(f"[{label}] device kernels per step {record['kernels']:.1f}, "
+              f"device busy per step {record['busy_ms']:.4f} ms, device span "
+              f"per step {record['span_ms']:.4f} ms, busy share "
+              f"{record['busy_share']:.3f} (window of {steps} steps, {card})")
+        for name, (ms, count) in record["ours"].items():
+            print(f"[{label}]   kernel {name}: {ms:.4f} ms per step "
+                  f"({count:.0f} launches)")
+        for name, ms, count in record["top"]:
+            print(f"[{label}]   top: {ms:.4f} ms per step x{count:.0f} "
+                  f"{name[:70]}")
+        for key, ms, count in record["host"]:
+            print(f"[{label}]   host: {ms:.4f} ms per step x{count:.0f} "
+                  f"{key[:70]}")
+    return record
 
 
 def main():
