@@ -36,6 +36,13 @@ TFLOP/s (an H100 SXM's published peaks). The lines:
 6. the 1,001,112-face sphere (``mesh.uv_sphere(708, 708)``, the scale of
    ``tools/bench_large.py``'s largest cell), the same two engines.
 
+After each of these lines, one starting ``# graphed`` times the same step
+as one CUDA-graph replay (``utils.graphstep.GraphedStep``, the counterpart
+of the reference's ``jax.jit`` of its step), beside the eager step's min and
+median, with the capture's time, the peak memory allocated over capture
+and replays and what the graph's private pool reserves between replays.
+The tracked first line stays the eager step.
+
 Build time of the kernels and each line's set-up of its honest caps (the
 exact counts on the card, ``count_packed_exact`` or the CSR counts, and the
 one validating render) are printed apart, as set-up. Without a CUDA device
@@ -168,14 +175,13 @@ def engine_of(config, num_faces):
     return raster.resolve_engine(config, num_faces)
 
 
-def measure(label, scene, config, clip_flag, samples):
-    """Times of the forward and of the step of ``scene`` under ``config``:
-    (the step's (min, median) seconds, the line that reports both)."""
+def _paths(scene, config, clip_flag):
+    """(forward, step) of ``scene`` under ``config``: ``forward(verts,
+    cols)`` the image, ``step(verts, cols)`` the gradients of ``sum(image *
+    w)`` to vertices and colors."""
     import dirt_tpu_torch
-    from dirt_tpu_torch.utils.benchtime import device_time_stats
 
-    _, clip, colors, faces, background, weights = scene
-    height, width = background.shape[:2]
+    _, _, _, faces, background, weights = scene
 
     def forward(verts, cols):
         return dirt_tpu_torch.rasterise(background, verts, cols, faces,
@@ -187,6 +193,18 @@ def measure(label, scene, config, clip_flag, samples):
         (forward(verts, cols) * weights).sum().backward()
         return verts.grad, cols.grad
 
+    return forward, step
+
+
+def measure(label, scene, config, clip_flag, samples):
+    """Times of the forward and of the step of ``scene`` under ``config``:
+    (the step's (min, median) seconds, the line that reports both)."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.utils.benchtime import device_time_stats
+
+    _, clip, colors, faces, background, weights = scene
+    height, width = background.shape[:2]
+    forward, step = _paths(scene, config, clip_flag)
     pixels, fid, _, overflow = dirt_tpu_torch.rasterise_with_aux(
         background, clip, colors, faces, config=config, clip=clip_flag)
     if bool(overflow):
@@ -212,6 +230,39 @@ def measure(label, scene, config, clip_flag, samples):
                   f"{engine_of(config, faces.shape[0])} engine, {samples} "
                   f"samples each; " + "; ".join(lines)
                   + f"; peak memory {peak / 2**20:.1f} MiB over the step")
+
+
+def measure_graphed(label, scene, config, clip_flag, samples, eager):
+    """The step of ``measure`` as one CUDA-graph replay
+    (``utils.graphstep.GraphedStep``), timed as the eager step is, beside
+    the eager step's (min, median) seconds ``eager``: the line that reports
+    both, with the capture's time (its warm-up calls included), the peak
+    memory allocated over capture and replays and the bytes the graph's
+    private pool reserves between replays."""
+    from dirt_tpu_torch.utils.benchtime import device_time_stats, timed
+    from dirt_tpu_torch.utils.graphstep import WARMUP, GraphedStep
+
+    _, clip, colors, faces, background, _ = scene
+    height, width = background.shape[:2]
+    torch.cuda.reset_peak_memory_stats()
+    graphed, capture_s = timed(clip.device, GraphedStep,
+                               _paths(scene, config, clip_flag)[1],
+                               (clip, colors))
+    t_min, t_med = device_time_stats(graphed, (clip, colors),
+                                     samples=samples)
+    peak = torch.cuda.max_memory_allocated()
+    pool = graphed.pool_bytes()
+    mpix = height * width / 1e6
+    return (f"# graphed {label}: {faces.shape[0]} faces {height}x{width} "
+            f"{engine_of(config, faces.shape[0])} engine, {samples} samples "
+            f"each; fwd+bwd eager min {eager[0] * 1e3:.3f} ms median "
+            f"{eager[1] * 1e3:.3f} ms ({mpix / eager[1]:.1f} Mpix/s), graphed "
+            f"min {t_min * 1e3:.3f} ms median {t_med * 1e3:.3f} ms "
+            f"({mpix / t_med:.1f} Mpix/s; eager median / graphed median "
+            f"{eager[1] / t_med:.2f}); capture ({WARMUP} warm-up calls "
+            f"included) {capture_s:.3f} s; peak memory {peak / 2**20:.1f} MiB "
+            f"allocated over capture and replays; the graph's private pool "
+            f"reserves {pool / 2**20:.1f} MiB, held between replays")
 
 
 def honest(key, scene, clip_flag, **fields):
@@ -258,6 +309,8 @@ def main():
           f"{build_s:.1f} s, caps set up in {setup_s:.1f} s", flush=True)
     print(line + f" (Mpix/s at the min {1024 * 1024 / 1e6 / t_min:.2f})",
           flush=True)
+    print(measure_graphed("1024^2 tracked step", scene, config, False,
+                          SAMPLES, (t_min, t_med)), flush=True)
 
     small = bench_scene(256, device)
     big = bench_scene(1024, device, n=224)
@@ -282,8 +335,10 @@ def main():
         start = time.perf_counter()
         cfg = honest(f"torch_{key}", case, clip_flag, **fields)
         setup_s = time.perf_counter() - start
-        print(measure(label, case, cfg, clip_flag, SAMPLES)[1]
-              + f"; caps set up in {setup_s:.2f} s: {cfg}", flush=True)
+        eager, line = measure(label, case, cfg, clip_flag, SAMPLES)
+        print(line + f"; caps set up in {setup_s:.2f} s: {cfg}", flush=True)
+        print(measure_graphed(label, case, cfg, clip_flag, SAMPLES, eager),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -179,9 +179,11 @@ raises and exits non-zero; nothing is caught):
     path (demo 3, which trains the texture alone, so that no gradient
     reaches the raster op: raster_fwd_dense; demo 4: raster_fwd_dense,
     packed_prologue, fused_bwd; demo 5: raster_fwd_packed, packed_prologue,
-    packed_bwd) launched once per step of the loop and no other kernel,
-    ms/step of each loop (CUDA events), and demo 5's checkpoint loaded back
-    equal;
+    packed_bwd) launched once per step of the loop and no other kernel
+    (demo 5, whose steps are CUDA-graph replays: each launched in its
+    ``trainer``, by the capture's warm-up calls and the captured call, and
+    none in the loop), ms/step of each loop (CUDA events), and demo 5's
+    checkpoint loaded back equal;
 17. the 1,001,112-face sphere (``mesh.uv_sphere(708, 708)``, the bench
     camera and colors, 1024x1024, ``clip=False``), one fwd+bwd under the
     packed engine (what ``suggest_raster_config`` picks) and one under the
@@ -211,10 +213,27 @@ raises and exits non-zero; nothing is caught):
     to it; the parallel tool's variants (sharded, overlapped with 1, 2, 4
     chunks, face-sharded, one member each) with the plain step's fid and
     gradients within 1e-4 of max |gradient|; raster_fwd_packed,
-    packed_prologue and packed_bwd launched.
+    packed_prologue and packed_bwd launched;
+19. the compiled steps: each path eager and as CUDA-graph replays
+    (``dirt_tpu_torch.utils.graphstep.GraphedStep``, the counterpart of the
+    reference's ``jax.jit`` and ``lax.scan``): the bench sphere at
+    1024x1024 under the packed (phase 4's caps), dense and csr engines with
+    ``clip`` off and on, the flagship step (``entry.entry_step``'s value
+    and gradient), demo 5's 80 Adam steps (``trainer`` and ``run``) and the
+    1,001,112-face sphere, packed. Each eager step runs once under
+    ``torch.cuda.set_sync_debug_mode("error")``; the capture must launch
+    each of the eager step's kernels once per warm-up call and once in the
+    captured call (a replay launches nothing through a wrapper); the first
+    replay against the eager call: pixels, fid and overflow equal bit for
+    bit, gradients within 1e-5 of max |gradient| (the deferred paths
+    1e-4: torch's atomics), demo 5's losses and final pose and bump within
+    the larger of 1e-4 and four times the difference of two eager loops
+    (atomics again, which Adam's per-coordinate scaling amplifies); medians (3 for the 1M-face step, 10 otherwise; demo 5: ms a step
+    of each loop), device kernels a call and the busy share of a profiler
+    window, peak memory with the graph's pool.
 
-Phase 9 runs each config once and phases 12, 13 and 15 take medians of 10, to
-keep the whole run near two and a half minutes. The line before the last is
+Phase 9 runs each config once and phases 12, 13, 15 and 19 take medians of
+10, to keep the whole run near three minutes. The line before the last is
 the kernels' JSON record (``library_ms`` where phase 12 times one PyTorch
 call of the same function: ``index_add_`` for the scatters, a strided copy
 for the swap), the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1789,39 +1808,61 @@ def _check_demo_render(tag, module, device, out):
 def _check_demo_fit(tag, module, kwargs, need, ratio, card, out):
     """Phase 16, demos 3-5: the first step's gradients against the plain
     path's (``_step_check``, TOL_DEFERRED), then the demo's ``main`` on the
-    card, its loop (``fit``) counted: every kernel of ``need`` once per step
-    and no other kernel, the loss fallen by the demo's own ratio. Returns
-    (``main``'s result, the loop's launches)."""
+    card, its loop counted: demos 3-4 (``fit``) every kernel of ``need``
+    once per step and no other kernel; demo 5, whose steps are graph
+    replays (``trainer`` captures, ``run`` replays), every kernel of
+    ``need`` ``WARMUP + 1`` times in ``trainer`` (its warm-up calls and the
+    captured one), no other, and none in ``run``; the loss fallen by the
+    demo's own ratio. Returns (``main``'s result, the launches of the loop
+    and its capture)."""
+    from dirt_tpu_torch.utils.graphstep import WARMUP
+
     loss_fn, params = module.problem(
         **{k: v for k, v in kwargs.items() if k != "steps"})[:2]
     _step_check(f"{tag} first step", loss_fn, tuple(params.values()), card,
                 runs=5)
-    loop = {}
-    inner = module.fit
+    counted = {}
 
-    def counted(*args):
-        _sync()
-        _reset_launch_counts()
-        result = inner(*args)
-        _sync()
-        loop.update(_launch_counts())
-        return result
+    def counting(name):
+        inner = getattr(module, name)
 
-    with mock.patch.object(module, "fit", counted):
+        def wrapper(*args):
+            _sync()
+            _reset_launch_counts()
+            result = inner(*args)
+            _sync()
+            counted[name] = _launch_counts()
+            return result
+
+        return mock.patch.object(module, name, wrapper)
+
+    graphed = hasattr(module, "trainer")
+    names = ("trainer", "run") if graphed else ("fit",)
+    patches = [counting(name) for name in names]
+    for patch in patches:
+        patch.start()
+    try:
         result = module.main(out=out, **kwargs)
+    finally:
+        for patch in patches:
+            patch.stop()
     steps = result["steps"]
-    wrong = {k: n for k, n in loop.items() if n != (steps if k in need
-                                                    else 0)}
-    if wrong:
-        raise RuntimeError(f"[{tag}] want {need} once per step of {steps} "
-                           f"and no other kernel, got {loop}")
+    per_kernel = {"fit": steps, "trainer": WARMUP + 1, "run": 0}
+    wrong = {name: counts for name, counts in counted.items()
+             if any(n != (per_kernel[name] if k in need else 0)
+                    for k, n in counts.items())}
+    if wrong or sorted(counted) != sorted(names):
+        raise RuntimeError(f"[{tag}] want {need} launched "
+                           f"{[(n, per_kernel[n]) for n in names]} times and "
+                           f"no other kernel, got {counted}")
     if not result["l1"] < ratio * result["l0"]:
         raise RuntimeError(f"[{tag}] the loss fell only {result['l0']} -> "
                            f"{result['l1']}")
+    loop = counted[names[0]]
     print(f"[{tag}] {steps} steps: loss {result['l0']:.6g} -> "
           f"{result['l1']:.6g} (limit {ratio} of the first); "
           f"{result['ms_per_step']:.4f} ms/step (CUDA events around the "
-          f"loop); launches in the loop {loop} ({card})")
+          f"loop); launches {counted} ({card})")
     return result, loop
 
 
@@ -2048,6 +2089,273 @@ def _tools_check(device, card, bench_config):
     print(f"[18 tools] launches {counts}; {time.perf_counter() - start:.1f} s "
           f"({card})")
     return counts
+
+
+# Timed calls per median of phase 19 (the 1,001,112-face step: 3), and
+# steps in its profiler windows.
+GRAPH_RUNS = 10
+GRAPH_PROFILE = 2
+# Demo 5's training loop in phase 19, as its main runs it.
+DEMO5_STEPS = 80
+
+
+def api_step(scene, config, clip_flag):
+    """``step(background, vertices, colors) -> (pixels, fid, overflow,
+    d_vertices, d_colors, d_background)``: the bench step (``loss = sum(
+    pixels * w)``) of ``scene`` under ``config`` through
+    ``rasterise_with_aux``, as a function of its leaves."""
+    import dirt_tpu_torch
+
+    _, _, _, faces, _, weights = scene
+
+    def step(bg, verts, cols):
+        bg, verts, cols = (t.detach().requires_grad_()
+                           for t in (bg, verts, cols))
+        pixels, fid, _, overflow = dirt_tpu_torch.rasterise_with_aux(
+            bg, verts, cols, faces, config=config, clip=clip_flag)
+        grads = torch.autograd.grad((pixels * weights).sum(),
+                                    (verts, cols, bg))
+        return (pixels.detach(), fid, overflow, *grads)
+
+    return step
+
+
+def _graph_profile(tag, fn, card, steps=GRAPH_PROFILE):
+    """(device kernels a call, device busy ms a call, busy share, the three
+    largest device items as "name ms xcount" a call) of ``fn`` from
+    ``tools/prof_torch_steps.py``'s profiler window."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import prof_torch_steps
+
+    record = prof_torch_steps._profile(tag, fn, card, steps=steps,
+                                       echo=False)
+    top = ", ".join(f"{name[:40]} {ms:.4f} ms x{count:.0f}"
+                    for name, ms, count in record["top"][:3])
+    return record["kernels"], record["busy_ms"], record["busy_share"], top
+
+
+def _graph_pair(tag, step, args, kernels, card, exact, tol,
+                runs=GRAPH_RUNS):
+    """Phase 19: ``step(*args)`` eager and as a ``GraphedStep``.
+
+    After a warm call, one eager call under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host read or a blocking
+    copy raises), with ``kernels`` launched (the prologue once); then the capture (its ``WARMUP`` warm-up calls and the
+    captured call), which must launch every kernel of the eager call
+    ``WARMUP + 1`` times: the captured call went through the path's
+    kernels. The first replay's outputs against the eager call's: the first
+    ``exact`` equal bit for bit, the rest within ``tol`` of their largest
+    magnitude. Medians of ``runs`` calls of each, kernels a call and the
+    busy share of a profiler window (and the graphed call's three largest
+    device items), the peak memory of each above what was allocated before
+    it and the bytes the graph's private pool holds.
+    Returns the launch counts of the capture."""
+    from dirt_tpu_torch.utils.graphstep import WARMUP, GraphedStep
+
+    step(*args)                 # builds kernels and fills caches
+    _sync()
+    _reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        want = step(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _sync()
+    eager_counts = _launch_counts()
+    _need_launches(tag, eager_counts, kernels)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eager_ms = _median_ms(lambda: step(*args), runs, warmup=1)
+    eager_peak = torch.cuda.max_memory_allocated() - base
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    start = time.perf_counter()
+    graphed = GraphedStep(step, args)
+    _sync()
+    capture_s = time.perf_counter() - start
+    counts = _launch_counts()
+    if counts != {k: (WARMUP + 1) * n for k, n in eager_counts.items()}:
+        raise RuntimeError(f"[{tag}] the capture's launches {counts} are not "
+                           f"{WARMUP} warm-up calls and the captured one of "
+                           f"{eager_counts}")
+    got = graphed(*args)
+    _sync()
+    same = [torch.equal(g, w) for g, w in zip(got, want)]
+    errs = [_rel_err(g, w) for g, w in zip(got[exact:], want[exact:])]
+    if not all(same[:exact]) or not all(e <= tol for e in errs):
+        raise RuntimeError(f"[{tag}] graphed and eager disagree: bit-equal "
+                           f"{same}, max |diff| / max |x| {errs}")
+    graphed_ms = _median_ms(lambda: graphed(*args), runs, warmup=1)
+    graph_peak = torch.cuda.max_memory_allocated() - base
+    pool = graphed.pool_bytes()
+    prof = [_graph_profile(f"{tag} {kind}", fn, card) for kind, fn in (
+        ("eager", lambda: step(*args)), ("graphed", lambda: graphed(*args)))]
+    print(f"[{tag}] graphed vs eager: outputs bit-equal {same} (the first "
+          f"{exact} must be), max |diff| / max |x| "
+          f"{' '.join(f'{e:.3g}' for e in errs)} (limit {tol:g}); launches "
+          f"in the capture {counts}; capture {capture_s:.3f} s; median of "
+          f"{runs}: eager {eager_ms:.4f} ms, graphed {graphed_ms:.4f} ms "
+          f"({eager_ms / graphed_ms:.2f}x); device kernels a call eager "
+          f"{prof[0][0]:.1f}, graphed {prof[1][0]:.1f}; device busy a call "
+          f"{prof[0][1]:.4f} / {prof[1][1]:.4f} ms, busy share "
+          f"{prof[0][2]:.3f} / {prof[1][2]:.3f}; largest device items "
+          f"graphed: {prof[1][3]}; peak memory above the "
+          f"allocated before: eager {eager_peak / 2**20:.1f} MiB, capture "
+          f"and replays {graph_peak / 2**20:.1f} MiB; the graph's pool "
+          f"holds {pool / 2**20:.1f} MiB ({card})")
+    return counts
+
+
+def _graphed_demo5_check(device, card):
+    """Phase 19, demo 5: its 80 Adam steps (``trainer`` and ``run``,
+    ``main``'s path) with each step a graph replay, against the same loop
+    with ``GraphedStep`` replaced by the eager call, run twice. The eager
+    steps are not bit-reproducible (torch's scatter-adds in the vertex
+    normals and the gathers' backward sum with atomics, and Adam scales
+    each gradient to its own size, so a vertex whose gradient is rounding
+    noise takes full steps either way), so the graphed loop is held to the
+    eager loop within the larger of TOL_DEFERRED and four times the two
+    eager loops' own difference: every loss, the final pose, the final
+    bump, each as max |diff| over max |x|. Launches: eager, each kernel of
+    the packed path once a step in the loop; graphed, ``WARMUP + 1`` times
+    in ``trainer`` (warm-up calls and the captured one) and none in the
+    loop. ms a step of each loop (CUDA events around it), kernels a step
+    and the busy share of a profiler window of further steps, peak memory
+    above the allocated before, the bytes the graph's pool holds. Returns
+    the launches of the graphed trainer."""
+    from dirt_tpu_torch.utils.benchtime import timed
+    from dirt_tpu_torch.utils.graphstep import WARMUP
+
+    demo5 = _demo("torch_demo5_deferred")
+    loss_fn, params = demo5.problem(SIZE, 72, 72, device)[:2]
+    made = []
+
+    class Recorded(demo5.GraphedStep):
+        def __init__(self, fn, example_args):
+            super().__init__(fn, example_args)
+            made.append(self)
+
+    runs = {}
+    for kind in ("eager", "eager again", "graphed"):
+        patch = mock.patch.object(
+            demo5, "GraphedStep",
+            (lambda fn, example_args: fn) if kind.startswith("eager")
+            else Recorded)
+        with patch:
+            _sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launch_counts()
+            (step, _, leaves), setup_s = timed(device, demo5.trainer,
+                                               loss_fn, params, DEMO5_STEPS)
+            setup_counts = _launch_counts()
+            _reset_launch_counts()
+            losses, loop_s = timed(device, demo5.run, step, DEMO5_STEPS,
+                                   device)
+            loop_counts = _launch_counts()
+            peak = torch.cuda.max_memory_allocated() - base
+            final = [losses] + [t.detach().clone() for t in leaves]
+            prof = None if kind == "eager again" else _graph_profile(
+                f"19 demo5 {kind}", lambda: step(DEMO5_STEPS), card)
+        runs[kind] = (final, setup_counts, loop_counts, setup_s, loop_s,
+                      prof, peak)
+    final_e, setup_e, loop_e, _, loop_s_e, prof_e, peak_e = runs["eager"]
+    final_g, setup_g, loop_g, setup_s, loop_s_g, prof_g, peak_g = \
+        runs["graphed"]
+    path = KERNELS[:3]
+    want_g = {k: (WARMUP + 1 if k in path else 0) for k in KERNELS}
+    want_e = {k: (DEMO5_STEPS if k in path else 0) for k in KERNELS}
+    if (setup_g != want_g or any(loop_g.values()) or loop_e != want_e
+            or any(setup_e.values())):
+        raise RuntimeError(f"[19 demo5] launches: graphed trainer {setup_g} "
+                           f"(want {want_g}), loop {loop_g} (want none); "
+                           f"eager trainer {setup_e}, loop {loop_e} (want "
+                           f"{want_e})")
+    spread = [_rel_err(a, e) for a, e in zip(runs["eager again"][0],
+                                             final_e)]
+    errs = [_rel_err(g, e) for g, e in zip(final_g, final_e)]
+    limits = [max(TOL_DEFERRED, 4 * s) for s in spread]
+    losses_g = final_g[0]
+    if not (all(e <= lim for e, lim in zip(errs, limits))
+            and float(losses_g[-1]) < 0.5 * float(losses_g[0])):
+        raise RuntimeError(f"[19 demo5] graphed and eager loops disagree "
+                           f"(losses, pose, bump: {errs}, limits {limits}, "
+                           f"eager vs eager {spread}) or the loss did not "
+                           f"fall: {float(losses_g[0])} -> "
+                           f"{float(losses_g[-1])}")
+    print(f"[19 demo5 {SIZE}^2 10,224 faces C=9 packed, {DEMO5_STEPS} Adam "
+          f"steps] graphed vs eager: losses, pose, bump max |diff| / max "
+          f"|x| {' '.join(f'{e:.3g}' for e in errs)} (limits "
+          f"{' '.join(f'{x:.3g}' for x in limits)}; eager vs eager "
+          f"{' '.join(f'{x:.3g}' for x in spread)}); loss "
+          f"{float(losses_g[0]):.6g} -> {float(losses_g[-1]):.6g}; "
+          f"launches: graphed trainer {setup_g}, loop none; eager loop "
+          f"{loop_e}; trainer with capture {setup_s:.3f} s; ms a step eager "
+          f"{loop_s_e * 1e3 / DEMO5_STEPS:.4f}, graphed "
+          f"{loop_s_g * 1e3 / DEMO5_STEPS:.4f} "
+          f"({loop_s_e / loop_s_g:.2f}x); device kernels a step eager "
+          f"{prof_e[0]:.1f}, graphed {prof_g[0]:.1f}; device busy a step "
+          f"{prof_e[1]:.4f} / {prof_g[1]:.4f} ms, busy share "
+          f"{prof_e[2]:.3f} / {prof_g[2]:.3f}; largest device items "
+          f"graphed: {prof_g[3]}; peak memory above the "
+          f"allocated before: eager {peak_e / 2**20:.1f} MiB, graphed "
+          f"{peak_g / 2**20:.1f} MiB; the graph's pool holds "
+          f"{made[0].pool_bytes() / 2**20:.1f} MiB ({card})")
+    return setup_g
+
+
+def _graphed_check(device, card, scene, configs):
+    """Phase 19: the port's compiled steps. Each path eager and as
+    CUDA-graph replays (``utils.graphstep.GraphedStep``): the bench sphere
+    at SIZE under phase 4's caps, packed (``configs[c]``), dense and csr,
+    ``clip`` off and on; the flagship step (``entry.entry_step``); demo 5's
+    loop; the 1,001,112-face sphere, packed. Returns the launch counts of
+    the phase (eager calls and captures)."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch import entry
+    from dirt_tpu_torch.utils.graphstep import value_and_grad
+
+    start = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for k in KERNELS:
+            launches[k] += counts[k]
+
+    _, clip, colors, faces, background, _ = scene
+    args = (background, clip, colors)
+    engines = {"packed": (KERNELS[:3], None),
+               "dense": (("raster_fwd_dense", "packed_prologue",
+                          "fused_bwd"), dict(engine="dense")),
+               "csr": (CSR_PATH, dict(streaming=True))}
+    for engine, (path, fields) in engines.items():
+        for c in (False, True):
+            config = configs[c] if fields is None else \
+                dirt_tpu_torch.suggest_raster_config(
+                    clip, faces, SIZE, SIZE,
+                    config=dirt_tpu_torch.RasterConfig(**fields), clip=c)
+            add(_graph_pair(f"19 bench sphere {SIZE}^2 {engine} clip={c}",
+                            api_step(scene, config, c), args, path, card,
+                            exact=3, tol=TOL_GRAD))
+    forward_step, flagship_args = entry.entry(device)
+    add(_graph_pair("19 flagship 256^2 dense C=9",
+                    value_and_grad(forward_step), flagship_args,
+                    ("raster_fwd_dense", "packed_prologue", "fused_bwd"),
+                    card, exact=0, tol=TOL_DEFERRED))
+    add(_graphed_demo5_check(device, card))
+    huge = bench_scene(SIZE, device, n=708)
+    _, h_clip, h_colors, h_faces, h_background, _ = huge
+    h_config = dirt_tpu_torch.suggest_raster_config(h_clip, h_faces, SIZE,
+                                                    SIZE, clip=False)
+    add(_graph_pair(f"19 {h_faces.shape[0]}-face sphere {SIZE}^2 packed",
+                    api_step(huge, h_config, False),
+                    (h_background, h_clip, h_colors), KERNELS[:3], card,
+                    exact=3, tol=TOL_GRAD, runs=3))
+    print(f"[19 compiled steps] launches {launches}; "
+          f"{time.perf_counter() - start:.1f} s ({card})")
+    return launches
 
 
 def main():
@@ -2704,6 +3012,12 @@ def main():
     # --- 18. the stage, binning and parallel profilers ---------------------
     for kernel_name, count in _tools_check(device, card,
                                            configs[False]).items():
+        launches[kernel_name] += count
+
+    # --- 19. the compiled steps: CUDA-graph replays against eager --------
+    for kernel_name, count in _graphed_check(
+            device, card, (verts_obj, clip, colors, faces, background,
+                           weights), configs).items():
         launches[kernel_name] += count
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -11,7 +11,10 @@ sphere (``uv_sphere(72, 72)``: 10,224 faces), textured and Phong-lit by
 Adam steps fit the pose alone for the first half and pose plus a per-vertex
 bump field after (``torch.optim.Adam``, two parameter groups: pose lr 5e-3,
 bump lr 0 then 2e-4; both groups' moments update from the first step, as
-in the JAX loop). Writes the target and recovered renders, the loss curve
+in the JAX loop). On the card each Adam step is one CUDA-graph replay
+(``trainer``), as the JAX loop runs its steps in one jitted ``lax.scan``;
+the capture is timed apart from the loop, as the JAX demo compiles ahead of
+its. Writes the target and recovered renders, the loss curve
 (``demo5_metrics.csv``: ``step,wall_s,loss``) and a resumable checkpoint
 (``demo5_ckpt.npz``: ``{"params": {"pose", "bump"}, "m", "v", "step"}`` in
 ``dirt_tpu``'s file layout, m and v the optimiser's ``exp_avg`` /
@@ -20,8 +23,9 @@ in the JAX loop). Writes the target and recovered renders, the loss curve
 ``DIRT_DEMO_SIZE``, ``DIRT_DEMO_STEPS``, ``DIRT_DEMO_LAT`` and
 ``DIRT_DEMO_LON`` set the defaults of :func:`main`'s arguments, as they set
 the JAX demo's. It runs on the card (``device="cuda"``) and raises without
-one; on a card it prints the first render's time, the steady forward and
-ms/step of the loop from CUDA events, with the card's name and power limit.
+one; on a card it prints the first render's time, the steady forward, the
+set-up and capture of the training step and ms/step of the loop from CUDA
+events, with the card's name and power limit.
 """
 
 import os
@@ -36,6 +40,7 @@ import bench_configs_torch  # noqa: E402
 from dirt_tpu_torch import entry  # noqa: E402
 from dirt_tpu_torch.utils.benchtime import timed  # noqa: E402
 from dirt_tpu_torch.utils.checkpoint import load_pytree, save_pytree  # noqa: E402
+from dirt_tpu_torch.utils.graphstep import GraphedStep  # noqa: E402
 from dirt_tpu_torch.utils.image import save_ppm  # noqa: E402
 from dirt_tpu_torch.utils.metrics import MetricsLogger  # noqa: E402
 
@@ -87,25 +92,68 @@ def problem(size=SIZE, n_lat=N_LAT, n_lon=N_LON, device="cuda"):
     return loss_fn, params, render, target, verts_obj
 
 
-def fit(loss_fn, params, steps):
-    """``steps`` Adam steps from ``params``: pose only for the first
-    ``steps // 2`` (bump lr 0), then pose + bump. Returns (params, the
-    optimiser, the loss of every step before its update [steps])."""
+def trainer(loss_fn, params, steps):
+    """(step, optimiser, (pose, bump)) of ``steps`` Adam steps from
+    ``params``: pose only for the first ``steps // 2`` (bump lr 0), then
+    pose + bump. ``step(t)`` takes step t (1 to ``steps``) and returns its
+    loss before the update, a 0-dim tensor that the next step overwrites on
+    the card; pose and bump are updated in place.
+
+    On the card a step is one replay of a CUDA graph captured here
+    (``GraphedStep``: the forward, the loss, ``backward()`` and
+    ``torch.optim.Adam(capturable=True)``'s update), the counterpart of the
+    JAX demo's jitted ``lax.scan``. The bump group's rate is a tensor on the
+    card that each replay copies in, as the JAX demo carries its rates into
+    its scan. The capture's warm-up calls took Adam steps: the leaves and
+    the optimiser's state are set back to the start before this returns."""
     pose = params["pose"].detach().clone().requires_grad_()
     bump = params["bump"].detach().clone().requires_grad_()
+    device = pose.device
+    rate = torch.zeros((), device=device)
     opt = torch.optim.Adam([{"params": [pose], "lr": LR_POSE},
-                            {"params": [bump], "lr": 0.0}],
-                           betas=BETAS, eps=EPS)
-    losses = []
-    for t in range(1, steps + 1):
-        opt.param_groups[1]["lr"] = 0.0 if t <= steps // 2 else LR_BUMP
+                            {"params": [bump], "lr": rate}],
+                           betas=BETAS, eps=EPS,
+                           capturable=device.type == "cuda")
+
+    def adam_step(lr_bump):
+        rate.copy_(lr_bump)
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(pose, bump)
         loss.backward()
         opt.step()
-        losses.append(loss.detach())
-    return {"pose": pose.detach(), "bump": bump.detach()}, opt, \
-        torch.stack(losses)
+        return loss.detach()
+
+    rates = torch.tensor([0.0, LR_BUMP], device=device)
+    graphed = GraphedStep(adam_step, (rates[0],))
+    with torch.no_grad():
+        pose.copy_(params["pose"])
+        bump.copy_(params["bump"])
+    for state in opt.state.values():
+        for value in state.values():
+            value.zero_()
+
+    def step(t):
+        return graphed(rates[int(t > steps // 2)])
+
+    return step, opt, (pose, bump)
+
+
+def run(step, steps, device):
+    """Steps 1 to ``steps`` of ``trainer``'s ``step``: their losses
+    [steps], kept on ``device`` (one copy a step) and read once after."""
+    losses = torch.empty(steps, device=device)
+    for t in range(1, steps + 1):
+        losses[t - 1] = step(t)
+    return losses
+
+
+def fit(loss_fn, params, steps):
+    """``steps`` Adam steps from ``params`` (``trainer`` and ``run``).
+    Returns (params, the optimiser, the loss of every step before its
+    update [steps])."""
+    step, opt, (pose, bump) = trainer(loss_fn, params, steps)
+    losses = run(step, steps, pose.device)
+    return {"pose": pose.detach(), "bump": bump.detach()}, opt, losses
 
 
 def checkpoint_tree(params, opt, steps):
@@ -168,13 +216,17 @@ def main(size=SIZE, steps=STEPS, n_lat=N_LAT, n_lon=N_LON, device="cuda",
           f"({size * size / fwd_s / 1e6:.1f} Mpix/s)")
 
     l0 = float(loss_fn(**params))
-    (params, opt, losses), loop_s = timed(device, fit, loss_fn, params, steps)
+    (step, opt, (pose, bump)), setup_s = timed(device, trainer, loss_fn,
+                                               params, steps)
+    losses, loop_s = timed(device, run, step, steps, device)
+    params = {"pose": pose.detach(), "bump": bump.detach()}
     l1 = float(loss_fn(**params))
 
     ckpt = save_run(out, params, opt, losses)
     ms_per_step = loop_s / steps * 1e3
     print(f"inverse rendering: loss {l0:.6f} -> {l1:.6f} ({steps} Adam "
-          f"steps, {ms_per_step:.3f} ms/step) ({where})")
+          f"steps, {ms_per_step:.3f} ms/step; set-up and graph capture "
+          f"{setup_s * 1e3:.1f} ms) ({where})")
     print("  pose", [round(x, 3) for x in params["pose"].tolist()],
           "(true", list(TRUE_POSE), ")")
     with torch.no_grad():

@@ -5,12 +5,15 @@ single-device half): a textured, Phong-lit UV sphere rendered through
 ``render_gbuffer`` (9 channels: position, normal, uv, mask) and
 ``shade_deferred``, and the mean squared error against a black target.
 The loss is differentiable w.r.t. the object-space vertices and the pose.
+:func:`entry_step` is its value and gradient as one CUDA-graph replay.
 :func:`dryrun_multichip` is the counterpart of its multi-device half: one
 training step over a data x rows layout, and renders over a two-level row
 group, with the overlapped backward and over a face group.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -19,6 +22,7 @@ from dirt_tpu_torch.core import lighting, matrices, mesh
 from dirt_tpu_torch.ops.raster import RasterConfig
 from dirt_tpu_torch.render.deferred import shade_deferred
 from dirt_tpu_torch.render.gbuffer import render_gbuffer
+from dirt_tpu_torch.utils.graphstep import GraphedStep, value_and_grad
 
 
 def deferred_scene(n_lat: int = 24, n_lon: int = 48, device="cuda",
@@ -35,6 +39,17 @@ def deferred_scene(n_lat: int = 24, n_lon: int = 48, device="cuda",
                                      projection.numpy(), device)
 
 
+@functools.cache
+def _light_and_offset(device: torch.device):
+    """(unit light direction, the world offset 3 units down -z) on
+    ``device``, made once per device: a tensor made from Python data is a
+    copy from the host, which a CUDA-graph capture refuses (a graphed step's
+    warm-up calls make these before its capture)."""
+    light_dir = torch.tensor([0.35, 0.75, 0.56], device=device)
+    return (light_dir / torch.linalg.norm(light_dir),
+            torch.tensor([0.0, 0.0, -3.0], device=device))
+
+
 def deferred_render(verts_obj, pose, faces, uvs, texture, projection,
                     size: int, config: RasterConfig | None = None,
                     with_gbuffer: bool = False):
@@ -48,15 +63,11 @@ def deferred_render(verts_obj, pose, faces, uvs, texture, projection,
     cap truncated the render).
     """
     device = verts_obj.device
-
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-    light_dir = f32([0.35, 0.75, 0.56])
-    light_dir = light_dir / torch.linalg.norm(light_dir)
+    light_dir, offset = _light_and_offset(device)
     model = matrices.compose(
-        matrices.rodrigues(f32(pose)),
-        matrices.translation(f32([0.0, 0.0, -3.0])),
+        matrices.rodrigues(torch.as_tensor(pose, dtype=torch.float32,
+                                           device=device)),
+        matrices.translation(offset),
     )
     world = matrices.transform_homogeneous(verts_obj, model)[..., :3]
     normals = lighting.vertex_normals(world, faces)
@@ -94,6 +105,22 @@ def entry(device="cuda", size: int = 256, n_lat: int = 24, n_lon: int = 48):
 
     pose = torch.tensor([0.4, 0.3, 0.0], device=verts_obj.device)
     return forward_step, (verts_obj, pose)
+
+
+def entry_step(device="cuda", size: int = 256, n_lat: int = 24,
+               n_lon: int = 48):
+    """(step, example_args): the flagship step as one CUDA-graph replay.
+
+    ``step(verts, pose)`` returns (loss, d_verts, d_pose) of
+    :func:`entry`'s ``forward_step`` (``graphstep.value_and_grad``) through
+    a ``GraphedStep`` captured here on the example arguments, the
+    counterpart of ``jax.jit`` of the flagship loss and of the gradient that
+    ``__graft_entry__``'s train step takes. The outputs are the graph's own
+    tensors, overwritten by the next call. On the CPU (``device="cpu"``) the
+    step runs eagerly.
+    """
+    forward_step, args = entry(device, size, n_lat, n_lon)
+    return GraphedStep(value_and_grad(forward_step), args), args
 
 
 def dryrun_multichip(n_devices: int, device="cuda", steps: int = 1):

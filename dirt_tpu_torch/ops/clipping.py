@@ -88,7 +88,7 @@ def _clip_faces_cf(v, a, w_eps):
 
     # Degenerate filler: a single point at w=1 (zero area -> culled free).
     degen_v = torch.zeros_like(v)
-    degen_v[:, 3] = 1.0
+    degen_v[:, 3].fill_(1.0)        # fill_: no number copied from the host
     degen_a = torch.zeros_like(a)
 
     sel = n_in[None, None]

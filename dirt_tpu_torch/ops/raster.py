@@ -310,10 +310,11 @@ def prepare_packed(face_verts_screen, face_attrs, background, config):
     )
     table2 = raster_fwd.pack_face_table_v2(geo, att)
     # Pre-set the backward's "ones" indicator column (ignored by the
-    # forward kernel).
+    # forward kernel); fill_, not an assignment, which would copy the
+    # number from the host.
     col_one = raster_fwd.COL_ATT + 3 * channels
     if col_one < table2.shape[1]:
-        table2[:, col_one] = 1.0
+        table2[:, col_one].fill_(1.0)
     rows = table2[bins.entries.long() // 8].contiguous()
     return table2, bins._replace(rows=rows), bg_chw, config
 

@@ -39,7 +39,6 @@ from dirt_tpu_torch.ops.triangle_setup import (
     GEO_DEN,
     GEO_EDGE,
     GEO_WIDTH,
-    GEO_Z,
 )
 
 GEO_USED_END = GEO_DEN + 3  # == triangle_setup.GEO_USED
@@ -229,9 +228,11 @@ def pixel_cotangents_core(g16cf, covered, fid_pair, zbuf, pixels_cf,
     return d_geo, d_att
 
 
-# Columns of the five geometry planes' ``a`` slopes; each plane's ``b`` and
-# ``c0`` follow at +1 and +2.
-_PLANE_A_COLS = [GEO_EDGE, GEO_EDGE + 3, GEO_EDGE + 6, GEO_Z, GEO_DEN]
+# The five geometry planes (three edges, z, denominator) are consecutive
+# (a, b, c0) column triples, GEO_EDGE to GEO_USED_END: a strided slice
+# takes one coefficient of all five with no index tensor to copy to the
+# card, a copy that a CUDA-graph capture refuses.
+_PLANES = slice(GEO_EDGE, GEO_USED_END)
 
 
 def anchor_cotangents(geo, att, d_geo, d_att):
@@ -242,10 +243,10 @@ def anchor_cotangents(geo, att, d_geo, d_att):
     for ay) over all planes p of the face: the five geometry planes and
     the C attribute numerator planes.
     """
-    a_cols = torch.tensor(_PLANE_A_COLS, device=geo.device)
-    d_c0 = d_geo[:, a_cols + 2]
-    d_ax = -torch.sum(geo[:, a_cols] * d_c0, dim=1)
-    d_ay = -torch.sum(geo[:, a_cols + 1] * d_c0, dim=1)
+    planes = geo[:, _PLANES]
+    d_c0 = d_geo[:, _PLANES][:, 2::3]
+    d_ax = -torch.sum(planes[:, 0::3] * d_c0, dim=1)
+    d_ay = -torch.sum(planes[:, 1::3] * d_c0, dim=1)
     d_ax = d_ax - torch.sum(att[:, 0::3] * d_att[:, 2::3], dim=1)
     d_ay = d_ay - torch.sum(att[:, 1::3] * d_att[:, 2::3], dim=1)
     out = d_geo.clone()

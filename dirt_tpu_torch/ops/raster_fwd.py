@@ -74,6 +74,16 @@ def packed_table_width(channels: int) -> int:
     return -(-width // 8) * 8
 
 
+def _fill_sentinel(sentinel):
+    """The sentinel row's edge offsets -1 (no pixel passes) and its
+    denominator offset 1, in place. Written with ``fill_``: a Python number
+    assigned by indexing is copied from the host, which a CUDA-graph
+    capture refuses."""
+    for col in (4, 7, 10):
+        sentinel[0, col].fill_(-1.0)
+    sentinel[0, 16].fill_(1.0)
+
+
 def pack_face_table_v2(geo, att):
     """[F + 1, W] face table for the packed kernel (sentinel row last).
 
@@ -89,11 +99,8 @@ def pack_face_table_v2(geo, att):
     body = torch.cat([geo[:, :GEO_USED], ids[:, None], zeros, att], dim=1)
     body = F.pad(body, (0, width - body.shape[1]))
     sentinel = torch.zeros((1, width), dtype=torch.float32, device=geo.device)
-    sentinel[0, 4] = -1.0
-    sentinel[0, 7] = -1.0
-    sentinel[0, 10] = -1.0
-    sentinel[0, 16] = 1.0
-    sentinel[0, COL_ID] = float(num_faces)
+    _fill_sentinel(sentinel)
+    sentinel[0, COL_ID].fill_(float(num_faces))
     return torch.cat([body, sentinel], dim=0)
 
 
@@ -460,10 +467,7 @@ def pack_face_table(geo, att):
     table = torch.cat([geo[:, :GEO_USED], att], dim=1)
     sentinel = torch.zeros((1, table.shape[1]), dtype=torch.float32,
                            device=geo.device)
-    sentinel[0, 4] = -1.0
-    sentinel[0, 7] = -1.0
-    sentinel[0, 10] = -1.0
-    sentinel[0, 16] = 1.0
+    _fill_sentinel(sentinel)
     rows_padded = -(-(num_faces + 1) // 8) * 8
     return torch.cat(
         [table, sentinel.expand(rows_padded - num_faces, -1)], dim=0

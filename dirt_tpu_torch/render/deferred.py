@@ -64,12 +64,17 @@ def shade_deferred(
     ldir = f32(light_direction)
     lcol = f32(light_color)
 
+    # A Python number stays one: made a tensor it would be copied to the
+    # card on every call, a copy that a CUDA-graph capture refuses.
+    if not isinstance(ambient, (int, float)):
+        ambient = f32(ambient)
+
     base = mask * 0.0 + 1.0 if albedo is None else f32(albedo)
     if texture is not None:
         base = base * sample_texture(f32(texture), gbuffer["uv"])
 
     cos_nl = torch.sum(n * ldir, dim=-1, keepdim=True)
-    color = base * (relu_split(cos_nl) * lcol + f32(ambient))
+    color = base * (relu_split(cos_nl) * lcol + ambient)
 
     if camera_position is not None:
         view = _unit(f32(camera_position) - gbuffer["position"])

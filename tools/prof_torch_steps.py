@@ -31,6 +31,11 @@ import numpy as np
 import torch
 
 STEPS = 5
+# Profiler windows to try before giving up, each with twice the calls of
+# the last. The tracer now and then hands back no device record for a
+# short window of few kernels: on an H100, three windows in a row of 2, 4
+# and 8 calls of the prologue kernel alone on the 1,001,112-face scene.
+WINDOWS = 6
 OURS = ("raster_fwd_packed_kernel", "packed_prologue_kernel",
         "packed_bwd_kernel", "raster_fwd_dense_kernel",
         "fused_bwd_partial_kernel", "fused_bwd_reduce_kernel",
@@ -43,7 +48,7 @@ OURS = ("raster_fwd_packed_kernel", "packed_prologue_kernel",
 def _profile(label, step, card, steps=STEPS, echo=True):
     """A ``torch.profiler`` window of ``steps`` calls of ``step`` (after
     three warm-up calls, synchronised inside the window; a window without
-    device records is taken again with twice the calls, up to three
+    device records is taken again with twice the calls, up to ``WINDOWS``
     windows). Prints its lines
     when ``echo`` and returns the record: device kernels per step, device
     busy and span per step (ms), busy share, the hand-written kernels'
@@ -54,7 +59,7 @@ def _profile(label, step, card, steps=STEPS, echo=True):
 
     for _ in range(3):
         step()
-    for _ in range(3):
+    for _ in range(WINDOWS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
