@@ -5,10 +5,12 @@
 
 Port of ``bench_configs.py``: the five capability configs, one line each
 with the forward and the gradient step (``loss = sum(image * w)``, ``w =
-RandomState(1).rand(size, size, C)``, backward to every leaf), min and
-median of ``SAMPLES`` event-timed synchronised calls (``utils.benchtime``),
-Mpix/s at the median, and peak device memory over the step. Every config
-renders under count-then-allocate caps (``suggest_raster_config``) whose
+RandomState(1).rand(size, size, C)``, backward to every leaf), eager and as
+CUDA-graph replays (``utils.graphstep``: the counterpart of the JAX sheet's
+jitted device-side loop), min and median of ``SAMPLES`` event-timed
+synchronised calls (``utils.benchtime``), Mpix/s at the median, peak device
+memory over the eager step, the graphs' capture time and pool bytes. Every
+config renders under count-then-allocate caps (``suggest_raster_config``) whose
 overflow flag one render must leave clear (:func:`honest`, as
 ``bench_configs._honest``; the JAX sheet uses them from config 3 on, here
 configs 1-2 take them too):
@@ -189,13 +191,11 @@ def config4(device):
     projection = matrices.perspective_projection(
         0.1, 20.0, 0.045, 1.0).to(device)
     one3 = torch.ones(3, device=device)
+    offset = torch.tensor([0.0, 0.0, -3.0], device=device)
 
     def forward(light, pose):
-        model_view = matrices.compose(
-            matrices.rodrigues(pose),
-            matrices.translation(torch.tensor([0.0, 0.0, -3.0],
-                                              device=device)),
-        )
+        model_view = matrices.compose(matrices.rodrigues(pose),
+                                      matrices.translation(offset))
         world = matrices.transform_homogeneous(verts_obj, model_view)[..., :3]
         normals = lighting.vertex_normals(world, faces)
         direction = light / torch.linalg.norm(light)
@@ -214,15 +214,15 @@ def config4(device):
                      forward, (light, pose), raster, 3, device)
 
 
-def config5(device):
+def config5(device, size=1024, n_lat=72, n_lon=72):
     """The deferred pipeline; ``forward(verts, pose, **kwargs)`` is
     ``entry.deferred_render`` (``with_gbuffer=True`` also returns the
-    G-buffer)."""
+    G-buffer). ``size`` and the sphere's ``n_lat`` x ``n_lon`` cut it down
+    for the CPU tests."""
     from dirt_tpu_torch import entry
 
-    size = 1024
     verts_obj, faces, uvs, texture, projection, raster = deferred_scene(
-        72, 72, size, device)
+        n_lat, n_lon, size, device)
     pose = torch.tensor(POSE, device=device)
 
     def forward(verts, pose, **kwargs):
@@ -247,24 +247,58 @@ def gradient_step(config):
     return step
 
 
-def report(config):
-    """The config's line: forward and gradient step, min and median ms,
-    Mpix/s at the median, peak memory over the step."""
-    from dirt_tpu_torch.utils.benchtime import device_time_stats
+def forward_step(config):
+    """``forward(*leaves)``: the image, without autograd."""
+    def forward(*leaves):
+        with torch.no_grad():
+            return config.forward(*leaves)
 
-    with torch.no_grad():
-        fwd = device_time_stats(config.forward, config.leaves,
-                                samples=SAMPLES)
+    return forward
+
+
+def graphed_steps(config):
+    """(forward, gradient step) of ``config`` as CUDA-graph replays
+    (``utils.graphstep.GraphedStep``, captured here on ``config.leaves``),
+    the port's counterpart of the JAX sheet's jitted device-side loop: the
+    forward returns the image, the step ``(loss, *gradients)``
+    (``graphstep.value_and_grad``). The outputs are the graphs' own
+    tensors, overwritten by the next call."""
+    from dirt_tpu_torch.utils.graphstep import GraphedStep, value_and_grad
+
+    return (GraphedStep(forward_step(config), config.leaves),
+            GraphedStep(value_and_grad(config.loss), config.leaves))
+
+
+def report(config):
+    """The config's line: forward and gradient step, eager and as
+    CUDA-graph replays (:func:`graphed_steps`), min and median ms, Mpix/s
+    at the median; peak memory over the eager step, the graphs' capture
+    time and the bytes their private pools hold."""
+    from dirt_tpu_torch.utils.benchtime import device_time_stats, timed
+
+    fwd = device_time_stats(forward_step(config), config.leaves,
+                            samples=SAMPLES)
     torch.cuda.reset_peak_memory_stats()
     step = device_time_stats(gradient_step(config), config.leaves,
                              samples=SAMPLES)
     peak = torch.cuda.max_memory_allocated()
+    (g_fwd, g_step), capture_s = timed(config.leaves[0].device,
+                                       graphed_steps, config)
+    fwd_g = device_time_stats(g_fwd, config.leaves, samples=SAMPLES)
+    step_g = device_time_stats(g_step, config.leaves, samples=SAMPLES)
+    pool = g_fwd.pool_bytes() + g_step.pool_bytes()
     mpix = config.size * config.size / 1e6
     return (f"{config.name:44s} fwd min {fwd[0] * 1e3:8.3f} median "
             f"{fwd[1] * 1e3:8.3f} ms ({mpix / fwd[1]:7.1f} Mpix/s)   "
             f"grad-step min {step[0] * 1e3:8.3f} median {step[1] * 1e3:8.3f}"
             f" ms ({mpix / step[1]:6.1f} Mpix/s)   peak {peak / 2**20:.1f} "
-            f"MiB; overflow clear under {config.raster}")
+            f"MiB; graphed fwd min {fwd_g[0] * 1e3:.3f} median "
+            f"{fwd_g[1] * 1e3:.3f} ms, grad-step min {step_g[0] * 1e3:.3f} "
+            f"median {step_g[1] * 1e3:.3f} ms ({mpix / step_g[1]:.1f} "
+            f"Mpix/s; eager median / graphed median {fwd[1] / fwd_g[1]:.2f} "
+            f"and {step[1] / step_g[1]:.2f}), both captured in "
+            f"{capture_s:.3f} s, pools {pool / 2**20:.1f} MiB; overflow "
+            f"clear under {config.raster}")
 
 
 def main():

@@ -8,7 +8,9 @@ by Rodrigues (0.3, 0.5, 0.1), 3 units down -z; its G-buffer of UVs and mask
 (the dense engine at this face count) sampled bilinearly. Then the texture
 is recovered from the rendered image by 60 steps of gradient descent (lr
 300) on the mean squared error, the gradient flowing through
-``core.texture.sample_texture`` into the texture. Writes
+``core.texture.sample_texture`` into the texture; on the card each step is
+one CUDA-graph replay (``trainer``), as the JAX loop runs its steps in one
+jitted ``lax.scan``. Writes
 ``demos/out_torch/demo3_textured.ppm`` and
 ``demo3_recovered_texture.ppm``. ``DIRT_DEMO_SIZE`` and
 ``DIRT_DEMO_STEPS`` set the defaults of :func:`main`'s arguments. Runs on
@@ -26,6 +28,7 @@ from dirt_tpu_torch.core import matrices, mesh  # noqa: E402
 from dirt_tpu_torch.core.texture import sample_texture  # noqa: E402
 from dirt_tpu_torch.render.gbuffer import render_gbuffer  # noqa: E402
 from dirt_tpu_torch.utils.benchtime import timed  # noqa: E402
+from dirt_tpu_torch.utils.graphstep import GraphedStep  # noqa: E402
 from dirt_tpu_torch.utils.image import save_ppm  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "out_torch")
@@ -67,18 +70,52 @@ def problem(size=SIZE, device="cuda"):
         texture
 
 
-def fit(loss_fn, params, steps):
-    """``steps`` steps of gradient descent on the texture. Returns (params,
-    the loss of every step before its update [steps])."""
-    texture = params["texture"].detach().clone().requires_grad_()
-    losses = []
-    for _ in range(steps):
-        loss = loss_fn(texture)
-        (grad,) = torch.autograd.grad(loss, [texture])
+def trainer(loss_fn, params):
+    """(step, texture): ``step()`` takes one step of gradient descent on
+    the texture from ``params`` (``texture`` is updated in place) and
+    returns its loss before the update, a 0-dim tensor that the next step
+    overwrites on the card.
+
+    On the card a step is one replay of a CUDA graph captured here
+    (``GraphedStep``: the render, the loss, its gradient and the update
+    with the Python rate ``LR``), the counterpart of the JAX demo's jitted
+    ``lax.scan``. The graph updates its own copy of the texture, which
+    each step hands back to the next, so the capture's warm-up steps leave
+    the start as it was."""
+    def descend(texture):
+        leaf = texture.detach().requires_grad_()
+        loss = loss_fn(leaf)
+        (grad,) = torch.autograd.grad(loss, [leaf])
         with torch.no_grad():
             texture -= LR * grad
-        losses.append(loss.detach())
-    return {"texture": texture.detach()}, torch.stack(losses)
+        return loss.detach(), texture
+
+    state = [params["texture"].detach().clone()]
+    graphed = GraphedStep(descend, tuple(state))
+
+    def step():
+        loss, state[0] = graphed(state[0])
+        return loss
+
+    return step, state
+
+
+def run(step, steps, device):
+    """``steps`` calls of ``trainer``'s ``step``: their losses [steps],
+    kept on ``device`` (one copy a step) and read once after."""
+    losses = torch.empty(steps, device=device)
+    for t in range(steps):
+        losses[t] = step()
+    return losses
+
+
+def fit(loss_fn, params, steps):
+    """``steps`` steps of gradient descent on the texture (``trainer`` and
+    ``run``). Returns (params, the loss of every step before its update
+    [steps])."""
+    step, state = trainer(loss_fn, params)
+    losses = run(step, steps, state[0].device)
+    return {"texture": state[0].detach()}, losses
 
 
 def main(size=SIZE, steps=STEPS, device="cuda", out=OUT):
@@ -93,11 +130,14 @@ def main(size=SIZE, steps=STEPS, device="cuda", out=OUT):
     with torch.no_grad():
         save_ppm(os.path.join(out, "demo3_textured.ppm"), render(texture))
     l0 = float(loss_fn(**params))
-    (params, losses), loop_s = timed(device, fit, loss_fn, params, steps)
+    (step, state), setup_s = timed(device, trainer, loss_fn, params)
+    losses, loop_s = timed(device, run, step, steps, device)
+    params = {"texture": state[0].detach()}
     l1 = float(loss_fn(**params))
     ms_per_step = loop_s / steps * 1e3
     print(f"texture recovery: loss {l0:.5f} -> {l1:.5f} ({steps} steps, "
-          f"{ms_per_step:.3f} ms/step on {device.type})")
+          f"{ms_per_step:.3f} ms/step on {device.type}; set-up and graph "
+          f"capture {setup_s * 1e3:.1f} ms)")
     save_ppm(os.path.join(out, "demo3_recovered_texture.ppm"),
              params["texture"])
     if not l1 < 0.3 * l0:

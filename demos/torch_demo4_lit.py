@@ -8,7 +8,9 @@ shininess 20, specular albedo 0.4, camera at the origin) and rasterised
 over black (the dense engine at this face count). Then the light direction
 and a pose offset are recovered from the rendered image by 80 steps of
 gradient descent on the mean squared error (lr 3 for the light, 0.5 for the
-pose). Writes ``demos/out_torch/demo4_lit.ppm``. ``DIRT_DEMO_SIZE`` and
+pose); on the card each step is one CUDA-graph replay (``trainer``), as the
+JAX loop runs its steps in one jitted ``lax.scan``. Writes
+``demos/out_torch/demo4_lit.ppm``. ``DIRT_DEMO_SIZE`` and
 ``DIRT_DEMO_STEPS`` set the defaults of :func:`main`'s arguments. Runs on
 the card (``device="cuda"``) and raises without one.
 """
@@ -23,6 +25,7 @@ import torch  # noqa: E402
 import dirt_tpu_torch  # noqa: E402
 from dirt_tpu_torch.core import lighting, matrices, mesh  # noqa: E402
 from dirt_tpu_torch.utils.benchtime import timed  # noqa: E402
+from dirt_tpu_torch.utils.graphstep import GraphedStep  # noqa: E402
 from dirt_tpu_torch.utils.image import save_ppm  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "out_torch")
@@ -49,13 +52,13 @@ def problem(size=SIZE, device="cuda"):
         0.1, 20.0, 0.045, 1.0).to(device)
     background = torch.zeros((size, size, 3), device=device)
     ones3 = torch.ones(3, device=device)
+    offset = torch.tensor([0.0, 0.0, -3.0], device=device)
 
     def render(light_dir_raw, pose):
         light_dir = light_dir_raw / torch.linalg.norm(light_dir_raw)
         model = matrices.compose(
             matrices.rodrigues(pose),
-            matrices.translation(torch.tensor([0.0, 0.0, -3.0],
-                                              device=device)),
+            matrices.translation(offset),
         )
         world = matrices.transform_homogeneous(verts_obj, model)[..., :3]
         normals = lighting.vertex_normals(world, faces)
@@ -82,21 +85,54 @@ def problem(size=SIZE, device="cuda"):
     return loss_fn, params, render, truth
 
 
+def trainer(loss_fn, params):
+    """(step, state): ``step()`` takes one step of gradient descent on
+    light and pose from ``params``, each with its own rate (``state``, the
+    current ``[light, pose]``, is updated in place), and returns its loss
+    before the update, a 0-dim tensor that the next step overwrites on the
+    card.
+
+    On the card a step is one replay of a CUDA graph captured here
+    (``GraphedStep``: the render, the loss, its gradients and the updates
+    with the Python rates ``LR``), the counterpart of the JAX demo's jitted
+    ``lax.scan``. The graph updates its own copies of the parameters,
+    which each step hands back to the next, so the capture's warm-up steps
+    leave the start as it was."""
+    def descend(*values):
+        leaves = [v.detach().requires_grad_() for v in values]
+        loss = loss_fn(*leaves)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for key, value, grad in zip(params, values, grads):
+                value -= LR[key] * grad
+        return (loss.detach(), *values)
+
+    state = [v.detach().clone() for v in params.values()]
+    graphed = GraphedStep(descend, tuple(state))
+
+    def step():
+        loss, *state[:] = graphed(*state)
+        return loss
+
+    return step, state
+
+
+def run(step, steps, device):
+    """``steps`` calls of ``trainer``'s ``step``: their losses [steps],
+    kept on ``device`` (one copy a step) and read once after."""
+    losses = torch.empty(steps, device=device)
+    for t in range(steps):
+        losses[t] = step()
+    return losses
+
+
 def fit(loss_fn, params, steps):
     """``steps`` steps of gradient descent on light and pose, each with its
-    own rate. Returns (params, the loss of every step before its update
-    [steps])."""
-    params = {k: v.detach().clone().requires_grad_()
-              for k, v in params.items()}
-    losses = []
-    for _ in range(steps):
-        loss = loss_fn(**params)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        with torch.no_grad():
-            for (key, value), grad in zip(params.items(), grads):
-                value -= LR[key] * grad
-        losses.append(loss.detach())
-    return {k: v.detach() for k, v in params.items()}, torch.stack(losses)
+    own rate (``trainer`` and ``run``). Returns (params, the loss of every
+    step before its update [steps])."""
+    step, state = trainer(loss_fn, params)
+    losses = run(step, steps, state[0].device)
+    return {k: v.detach() for k, v in zip(params, state)}, losses
 
 
 def main(size=SIZE, steps=STEPS, device="cuda", out=OUT):
@@ -112,12 +148,15 @@ def main(size=SIZE, steps=STEPS, device="cuda", out=OUT):
         save_ppm(os.path.join(out, "demo4_lit.ppm"),
                  render(truth["light"], truth["pose"]))
     l0 = float(loss_fn(**params))
-    (params, losses), loop_s = timed(device, fit, loss_fn, params, steps)
+    (step, state), setup_s = timed(device, trainer, loss_fn, params)
+    losses, loop_s = timed(device, run, step, steps, device)
+    params = {k: v.detach() for k, v in zip(params, state)}
     l1 = float(loss_fn(**params))
     ms_per_step = loop_s / steps * 1e3
     light = params["light"] / torch.linalg.norm(params["light"])
     print(f"light/pose recovery: loss {l0:.6f} -> {l1:.6f} ({steps} steps, "
-          f"{ms_per_step:.3f} ms/step on {device.type})")
+          f"{ms_per_step:.3f} ms/step on {device.type}; set-up and graph "
+          f"capture {setup_s * 1e3:.1f} ms)")
     print("  light", [round(x, 3) for x in light.tolist()],
           "(true", list(TRUE_LIGHT), ")")
     print("  pose ", [round(x, 3) for x in params["pose"].tolist()],

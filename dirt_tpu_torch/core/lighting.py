@@ -13,8 +13,12 @@ Conventions:
 * All functions broadcast over leading batch dimensions of the vertex
   tensors; ``faces`` is shared across the batch (``[F, 3]`` integers).
 
-The face -> vertex sums are ``index_add_`` calls; on a CUDA device they sum
-with atomics, so normals agree run to run to rounding, not bit for bit.
+The face -> vertex sums, and the backward of the vertex gathers, are
+``index_put_(accumulate=True)`` calls: on a CUDA device they sort the
+indices and sum each vertex's terms in that order, so normals and their
+gradients repeat bit for bit run to run. ``index_add_`` and
+``index_select``'s backward sum with atomics there, which made two eager
+gradient steps of demo 5 differ.
 """
 
 from __future__ import annotations
@@ -33,10 +37,15 @@ def _faces(faces, device):
 
 def _face_cross_products(vertices, faces):
     """Unnormalised face normals (2x face area magnitude), [..., F, 3]."""
-    v0 = vertices.index_select(-2, faces[:, 0])
-    v1 = vertices.index_select(-2, faces[:, 1])
-    v2 = vertices.index_select(-2, faces[:, 2])
+    v0, v1, v2 = (vertices[..., faces[:, k], :] for k in range(3))
     return torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
+
+
+def _add_at_vertices(acc, index, rows):
+    """``acc`` [..., V, D] with ``rows`` [..., F, D] added at the vertices
+    ``index`` [F], as a sorted (repeatable) sum."""
+    return acc.movedim(-2, 0).index_put(
+        (index,), rows.movedim(-2, 0), accumulate=True).movedim(0, -2)
 
 
 def vertex_normals(vertices, faces, epsilon: float = 1e-12):
@@ -57,7 +66,7 @@ def vertex_normals(vertices, faces, epsilon: float = 1e-12):
     cross = _face_cross_products(vertices, faces)  # [..., F, 3]
     acc = torch.zeros_like(vertices)
     for k in range(3):
-        acc = acc.index_add(-2, faces[:, k], cross)
+        acc = _add_at_vertices(acc, faces[:, k], cross)
     norm = torch.sqrt(torch.sum(acc * acc, dim=-1, keepdim=True) + epsilon)
     return acc / norm
 

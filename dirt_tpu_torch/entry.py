@@ -123,50 +123,26 @@ def entry_step(device="cuda", size: int = 256, n_lat: int = 24,
     return GraphedStep(value_and_grad(forward_step), args), args
 
 
-def dryrun_multichip(n_devices: int, device="cuda", steps: int = 1):
-    """Sharded training steps over ``n_devices`` slabs (tiny shapes).
+def dryrun_train_loss(n_devices: int, device="cuda"):
+    """(loss_fn, example_args, layout) of the dry run's data x tiles
+    training step (:func:`dryrun_multichip`'s variant 1).
 
-    Counterpart of ``__graft_entry__.dryrun_multichip`` (its four
-    variants). The layout is ``parallel.multihost.make_render_mesh``'s: the
-    ranks of ``torch.distributed`` where it is initialised (``n_devices``
-    must then be its world size), else local groups that play all
-    ``n_devices`` slabs in this process on ``device``.
-
-    1. A data x tiles training step: each scene of the batch (data axis)
-       renders a 6-channel G-buffer (normal | uv | mask) of a 64-face sphere
-       at 64 x 64 through ``slab_render`` on the packed engine, rows sharded
-       over the tiles axis with halo-exchanged silhouette gradients;
-       ``shade_deferred``; the squared error summed over both axes; one Adam
-       update of the per-vertex bump field (``steps`` of them; the JAX
-       dry run takes one).
-    2. For ``n_devices >= 4`` and even: ``rasterise_sharded`` of a 24-face
-       random scene at 64 x 128 on the dense engine over a two-level (dcn=2
-       x tiles) row group, value and vertex gradient.
-    3. For ``n_devices >= 2``: the same scene through
-       ``rasterise_sharded(overlap_chunks=2)`` over a row group of the first
-       two members, packed engine (``parallel.overlap``).
-    4. For ``n_devices >= 4``: the same scene through
-       ``rasterise_face_sharded`` over a face group of the first four
-       members, dense engine (``parallel.face_sharding``).
-
-    Variants 2-4 render one image, so their values agree. Under
-    ``torch.distributed`` every rank makes the groups of variants 3 and 4,
-    and a rank outside a group takes no part in its variant.
-
-    Prints one line per variant run and returns their numbers:
-    ``{"loss", "losses", "step", "loss_two_level", "grad_two_level",
-    "loss_overlap", "grad_overlap", "loss_face_sharded",
-    "grad_face_sharded"}``: the first step's loss, every step's, the
-    largest bump after the last step, and variants 2-4's value and largest
-    vertex gradient (None when the variant does not run, or runs without
-    this rank). Runs on the card unless ``device`` says otherwise.
+    ``loss_fn(params, poses)``: each scene of the batch (data axis) renders
+    a 6-channel G-buffer (normal | uv | mask) of a 64-face sphere bumped by
+    the per-vertex field ``params`` at 64 x 64 through ``slab_render`` on
+    the packed engine, rows sharded over the tiles axis with
+    halo-exchanged silhouette gradients; ``shade_deferred``; the squared
+    error against black summed over both axes, over 3 x 64 x 64 x the
+    scenes. ``example_args``: the zero field and the scenes' poses.
+    ``layout``: ``parallel.multihost.make_render_mesh``'s, over the ranks of
+    ``torch.distributed`` where it is initialised (``n_devices`` must then
+    be its world size), else local groups that play all ``n_devices`` slabs
+    and scenes in this process on ``device``. Every tensor the loss needs
+    is made here, once: the loss makes none from host data, so a
+    CUDA-graph capture takes it.
     """
-    import torch.distributed as dist
-
-    from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
-    from dirt_tpu_torch.parallel.group import DistGroup, LocalGroup
     from dirt_tpu_torch.parallel.multihost import make_render_mesh
-    from dirt_tpu_torch.parallel.sharding import rasterise_sharded, slab_render
+    from dirt_tpu_torch.parallel.sharding import slab_render
 
     device = torch.device(device)
 
@@ -190,16 +166,15 @@ def dryrun_multichip(n_devices: int, device="cuda", steps: int = 1):
                                                  1.0).to(device)
     light_dir = f32([0.35, 0.75, 0.56])
     light_dir = light_dir / torch.linalg.norm(light_dir)
+    offset = f32([0.0, 0.0, -3.0])
     poses = f32([[0.4, 0.3, 0.0], [0.1, 0.6, 0.2]][:data])
     held = len(layout.rows.local) * (size // tiles)
 
     def scene_error(bump, pose):
         """Squared error of one scene over the rows this process holds."""
         verts = verts_obj * (1.0 + bump[:, None])
-        model = matrices.compose(
-            matrices.rodrigues(pose),
-            matrices.translation(f32([0.0, 0.0, -3.0])),
-        )
+        model = matrices.compose(matrices.rodrigues(pose),
+                                 matrices.translation(offset))
         world = matrices.transform_homogeneous(verts, model)[..., :3]
         normals = lighting.vertex_normals(world, faces)
         ones = torch.ones_like(world[:, :1])
@@ -214,48 +189,56 @@ def dryrun_multichip(n_devices: int, device="cuda", steps: int = 1):
                              ambient=0.12, texture=texture)
         return torch.sum(img ** 2)                  # the target is black
 
-    params = torch.zeros(verts_obj.shape[0], device=device,
-                         requires_grad=True)        # per-vertex bump field
-    opt = torch.optim.Adam([params], lr=1e-2)
-    losses = []
-    for _ in range(steps):
-        opt.zero_grad()
+    def loss_fn(params, poses):
         bump = layout.data.replicated(params)
         total = sum(scene_error(bump, poses[d]) for d in layout.data.local)
         total = layout.data.all_reduce_sum(layout.rows.all_reduce_sum(total))
-        loss = total / (data * size * size * 3)
-        loss.backward()
-        opt.step()
-        losses.append(float(loss.detach()))
-    out = {"loss": losses[0], "losses": losses,
-           "step": float(params.detach().abs().max()),
-           "loss_two_level": None, "grad_two_level": None,
-           "loss_overlap": None, "grad_overlap": None,
-           "loss_face_sharded": None, "grad_face_sharded": None}
-    print(f"dryrun_multichip OK: {n_devices} devices (data={data} x "
-          f"tiles={tiles}), loss={out['loss']:.5f}, "
-          f"|grad step|={out['step']:.2e}")
+        return total / (data * size * size * 3)
 
-    # Small random scene shared by the remaining variants.
+    params = torch.zeros(verts_obj.shape[0], device=device)
+    return loss_fn, (params, poses), layout
+
+
+def dryrun_variants(n_devices: int, device="cuda"):
+    """Variants 2-4 of :func:`dryrun_multichip`: [(name, loss_fn,
+    vertices, group)], ``loss_fn(vertices)`` the value ``sum(image ** 2)``
+    over the whole image of a 24-face random scene at 64 x 128, summed
+    over ``group``, and ``group`` None on a rank outside it.
+
+    * "two-level" (``n_devices >= 4`` and even): ``rasterise_sharded`` on
+      the dense engine over a two-level (dcn=2 x tiles) row group;
+    * "overlap" (``n_devices >= 2``): ``rasterise_sharded(overlap_chunks=2)``
+      over a row group of the first two members, packed engine
+      (``parallel.overlap``);
+    * "face-sharded" (``n_devices >= 4``): ``rasterise_face_sharded`` over
+      a face group of the first four members, dense engine
+      (``parallel.face_sharding``).
+
+    They render one image, so their values agree. Under
+    ``torch.distributed`` every rank makes every group, in one order.
+    """
+    import torch.distributed as dist
+
+    from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
+    from dirt_tpu_torch.parallel.group import DistGroup, LocalGroup
+    from dirt_tpu_torch.parallel.multihost import make_render_mesh
+    from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+
+    device = torch.device(device)
     rng = np.random.RandomState(0)
-    verts2 = f32(np.concatenate(
+    verts = torch.as_tensor(np.concatenate(
         [rng.uniform(-0.8, 0.8, (30, 2)),
-         rng.uniform(-0.5, 0.5, (30, 1)), np.ones((30, 1))], axis=1))
-    faces2 = torch.as_tensor(rng.randint(0, 30, (24, 3)), device=device)
-    colors2 = f32(rng.rand(30, 3))
-    bg2 = torch.zeros((64, 128, 3), device=device)
+         rng.uniform(-0.5, 0.5, (30, 1)), np.ones((30, 1))],
+        axis=1).astype(np.float32), device=device)
+    faces = torch.as_tensor(rng.randint(0, 30, (24, 3)), device=device)
+    colors = torch.as_tensor(rng.rand(30, 3).astype(np.float32),
+                             device=device)
+    bg = torch.zeros((64, 128, 3), device=device)
     cfg2 = RasterConfig(tile_h=8, tile_w=128, bin_cap=64)
-
-    def value_and_grad(render, group):
-        """sum(image ** 2) over the whole image and its largest vertex
-        gradient, or (None, None) on a rank outside ``group``."""
-        if group is None:
-            return None, None
-        verts = verts2.clone().requires_grad_()
-        img = render(verts, group)
-        value = group.all_reduce_sum(torch.sum(img * img))
-        value.backward()
-        return float(value.detach()), float(verts.grad.abs().max())
+    # The overlapped backward: expand_cap covers the worst slab-local span
+    # (8 x 4 subtiles on a 32 x 128 slab): a cut would change the image.
+    cfg3 = RasterConfig(tile_h=8, tile_w=128, engine="packed",
+                        expand_cap=32, budget=1024)
 
     def first(count):
         """A group of the first ``count`` members (None on a rank outside
@@ -266,43 +249,124 @@ def dryrun_multichip(n_devices: int, device="cuda", steps: int = 1):
         made = dist.new_group(ranks)
         return DistGroup(ranks, made) if dist.get_rank() in ranks else None
 
+    def value(render, group):
+        def loss_fn(v):
+            img = render(v, group)
+            return group.all_reduce_sum(torch.sum(img * img))
+        return loss_fn
+
+    variants = []
     if n_devices >= 4 and n_devices % 2 == 0:
-        # Two-level variant: rows shard dcn-major over the flattened (dcn,
-        # tiles) group, so each host owns a contiguous band.
-        layout2 = make_render_mesh(tiles_per_host=n_devices // 2, data=1,
-                                   local_size=n_devices)
-        out["loss_two_level"], out["grad_two_level"] = value_and_grad(
-            lambda v, group: rasterise_sharded(bg2, v, colors2, faces2, group,
-                                               config=cfg2), layout2.rows)
-        print(f"dryrun_multichip two-level mesh OK: data=1 x dcn=2 x "
-              f"tiles={n_devices // 2}, loss={out['loss_two_level']:.4f}, "
-              f"|d verts|={out['grad_two_level']:.2e}")
-
+        # Rows shard dcn-major over the flattened (dcn, tiles) group, so
+        # each host owns a contiguous band.
+        group = make_render_mesh(tiles_per_host=n_devices // 2, data=1,
+                                 local_size=n_devices).rows
+        variants.append(("two-level", value(
+            lambda v, g: rasterise_sharded(bg, v, colors, faces, g,
+                                           config=cfg2), group),
+            verts, group))
     if n_devices >= 2:
-        # The overlapped backward: the packed backward in budget-chunk
-        # slices, each slice's parameter gradients summed at once.
-        # expand_cap covers the worst slab-local span (8 x 4 subtiles on a
-        # 32 x 128 slab): a cut would change the image.
-        cfg3 = RasterConfig(tile_h=8, tile_w=128, engine="packed",
-                            expand_cap=32, budget=1024)
-        out["loss_overlap"], out["grad_overlap"] = value_and_grad(
-            lambda v, group: rasterise_sharded(bg2, v, colors2, faces2, group,
-                                               config=cfg3, overlap_chunks=2),
-            first(2))
-        if out["loss_overlap"] is not None:
-            print(f"dryrun_multichip overlap_chunks=2 OK: tiles=2, "
-                  f"loss={out['loss_overlap']:.4f}, "
-                  f"|d verts|={out['grad_overlap']:.2e}")
-
+        group = first(2)
+        variants.append(("overlap", value(
+            lambda v, g: rasterise_sharded(bg, v, colors, faces, g,
+                                           config=cfg3, overlap_chunks=2),
+            group), verts, group))
     if n_devices >= 4:
-        # Face-list sharding: faces split over the group, min-depth
-        # composite, rows x faces backward.
-        out["loss_face_sharded"], out["grad_face_sharded"] = value_and_grad(
-            lambda v, group: rasterise_face_sharded(bg2, v, colors2, faces2,
-                                                    group, config=cfg2),
-            first(4))
-        if out["loss_face_sharded"] is not None:
-            print(f"dryrun_multichip face-sharded OK: faces=4, "
-                  f"loss={out['loss_face_sharded']:.4f}, "
-                  f"|d verts|={out['grad_face_sharded']:.2e}")
+        group = first(4)
+        variants.append(("face-sharded", value(
+            lambda v, g: rasterise_face_sharded(bg, v, colors, faces, g,
+                                                config=cfg2), group),
+            verts, group))
+    return variants
+
+
+def dryrun_multichip(n_devices: int, device="cuda", steps: int = 1,
+                     graphed: bool = True):
+    """Sharded training steps over ``n_devices`` slabs (tiny shapes).
+
+    Counterpart of ``__graft_entry__.dryrun_multichip`` (its four
+    variants). The layout is ``parallel.multihost.make_render_mesh``'s: the
+    ranks of ``torch.distributed`` where it is initialised (``n_devices``
+    must then be its world size), else local groups that play all
+    ``n_devices`` slabs in this process on ``device``.
+
+    1. ``steps`` Adam updates (the JAX dry run takes one) of the per-vertex
+       bump field on :func:`dryrun_train_loss`, the data x tiles training
+       step.
+    2-4. :func:`dryrun_variants`' value and vertex gradient: the two-level
+       row group (dense), the overlapped backward over two members
+       (packed) and face sharding over four (dense).
+
+    ``graphed`` (the default) runs each step as a CUDA-graph replay
+    (``utils.graphstep.GraphedStep``), the counterpart of the reference's
+    ``jax.jit`` of its train step and of each variant's
+    ``jax.value_and_grad``: the training step captures its forward,
+    backward and ``torch.optim.Adam(capturable=True)``'s update; the
+    capture's warm-up calls took Adam steps, so the field and the moments
+    are set back before the loop. Losses stay on the device until the loop
+    has run. On the CPU (``device="cpu"``) a graphed step is the call;
+    ``graphed=False`` runs every step eagerly on any device.
+
+    Prints one line per variant run and returns their numbers:
+    ``{"loss", "losses", "step", "loss_two_level", "grad_two_level",
+    "loss_overlap", "grad_overlap", "loss_face_sharded",
+    "grad_face_sharded"}``: the first step's loss, every step's, the
+    largest bump after the last step, and variants 2-4's value and largest
+    vertex gradient (None when the variant does not run, or runs without
+    this rank). Runs on the card unless ``device`` says otherwise.
+    """
+    device = torch.device(device)
+    loss_fn, (params, poses), layout = dryrun_train_loss(n_devices, device)
+    data = layout.shape[0]
+    tiles = n_devices // data
+    params.requires_grad_()
+    opt = torch.optim.Adam([params], lr=1e-2,
+                           capturable=device.type == "cuda")
+
+    def train_step(poses):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, poses)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    step = GraphedStep(train_step, (poses,)) if graphed else train_step
+    # The capture's warm-up calls took Adam steps: back to the start.
+    with torch.no_grad():
+        params.zero_()
+    for state in opt.state.values():
+        for value in state.values():
+            value.zero_()
+    losses = torch.empty(steps, device=device)
+    for t in range(steps):
+        losses[t] = step(poses)
+    losses = losses.tolist()
+    out = {"loss": losses[0], "losses": losses,
+           "step": float(params.detach().abs().max()),
+           "loss_two_level": None, "grad_two_level": None,
+           "loss_overlap": None, "grad_overlap": None,
+           "loss_face_sharded": None, "grad_face_sharded": None}
+    print(f"dryrun_multichip OK: {n_devices} devices (data={data} x "
+          f"tiles={tiles}), loss={out['loss']:.5f}, "
+          f"|grad step|={out['step']:.2e}")
+
+    lines = {
+        "two-level": f"two-level mesh OK: data=1 x dcn=2 x "
+                     f"tiles={n_devices // 2}",
+        "overlap": "overlap_chunks=2 OK: tiles=2",
+        "face-sharded": "face-sharded OK: faces=4"}
+    for name, variant_loss, verts, group in dryrun_variants(n_devices,
+                                                            device):
+        if group is None:
+            continue
+        value_grad = value_and_grad(variant_loss)
+        if graphed:
+            value_grad = GraphedStep(value_grad, (verts,))
+        value, grad = value_grad(verts)
+        key = name.replace("-", "_")
+        out[f"loss_{key}"] = float(value)
+        out[f"grad_{key}"] = float(grad.abs().max())
+        print(f"dryrun_multichip {lines[name]}, "
+              f"loss={out[f'loss_{key}']:.4f}, "
+              f"|d verts|={out[f'grad_{key}']:.2e}")
     return out

@@ -47,9 +47,10 @@ class ObjMesh:
         self.has_uv = bool(has_uv)
         self.has_normal = bool(has_normal)
 
-    def to_tensors(self, device="cpu"):
+    def to_tensors(self, device="cuda"):
         """(vertices [V, 3] f32, uvs [V, 2] f32, normals [V, 3] f32,
-        faces [F, 3] int64) as tensors on ``device``."""
+        faces [F, 3] int64) as tensors on ``device``: the card unless the
+        caller asks for another device."""
         def put(array, dtype):
             return torch.as_tensor(array, dtype=dtype, device=device)
 

@@ -180,6 +180,29 @@ def compact_clipped(verts2, attrs2, n_in, cap: int):
     return verts, attrs, torch.cat([fidx, idx]), overflow
 
 
+def clip_and_compact(face_verts_clip, face_attrs, cap: int,
+                     w_eps: float = W_CLIP_EPS):
+    """Near-plane clip + compaction in one pass: :func:`clip_faces` and
+    :func:`compact_clipped` without the intermediate [2F] arrays.
+
+    Primaries come back in place; the ``cap`` live secondaries are gathered
+    straight from the secondary slab, in :func:`clip_compact_screen`'s
+    order (live ones first, ascending face order).
+
+    Returns:
+        (verts [F + cap, 3, 4] clip space, attrs [F + cap, 3, C],
+         orig_id [F + cap] int64, overflow [] bool).
+    """
+    v, a = _channels_first(face_verts_clip, face_attrs)
+    num_faces = v.shape[2]
+    tri1_v, tri1_a, tri2_v, tri2_a, n_in = _clip_faces_cf(v, a, w_eps)
+    idx, overflow = _secondary_order(n_in, cap)
+    verts = torch.cat([_rows_first(tri1_v), _rows_first(tri2_v)[idx]])
+    attrs = torch.cat([_rows_first(tri1_a), _rows_first(tri2_a)[idx]])
+    fidx = torch.arange(num_faces, dtype=torch.int64, device=v.device)
+    return verts, attrs, torch.cat([fidx, idx]), overflow
+
+
 def _screen_cf(v, height, width, w_eps_screen):
     """Clip -> screen transform on a channels-first corner slab [4, F]
     (same semantics as ``triangle_setup.screen_from_clip``)."""

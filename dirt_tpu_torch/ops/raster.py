@@ -362,6 +362,14 @@ def _forward_impl(face_verts_screen, face_attrs, background, config):
     return pixels, fid[:height, :width], zbuf[:height, :width], bins, config
 
 
+def move_rows(face_verts, rows: float):
+    """Screen-space faces [..., 4] moved ``rows`` rows down: ``y_s + rows``,
+    with x, z and invw as they are. Column 1 alone, so no offset tensor is
+    made from host data (a copy a CUDA-graph capture refuses)."""
+    return torch.cat([face_verts[..., :1], face_verts[..., 1:2] + rows,
+                      face_verts[..., 2:]], dim=-1)
+
+
 def chain_through_setup(face_verts, face_attrs, need_fv: bool, need_fa: bool,
                         plane_cotangents, row_shift: float = 0.0):
     """Chain an engine's plane cotangents to the screen-space faces.
@@ -376,8 +384,7 @@ def chain_through_setup(face_verts, face_attrs, need_fv: bool, need_fa: bool,
     with torch.enable_grad():
         fv = face_verts.detach().requires_grad_(need_fv)
         fa = face_attrs.detach().requires_grad_(need_fa)
-        moved = fv + fv.new_tensor([0.0, row_shift, 0.0, 0.0]) \
-            if row_shift else fv
+        moved = move_rows(fv, row_shift) if row_shift else fv
         geo, att, _ = setup_planes(moved, fa)
     d_geo, d_att, d_bg = plane_cotangents(geo.detach(), att.detach())
     outs = [(o, d) for o, d in ((geo, d_geo), (att, d_att))

@@ -54,7 +54,7 @@ def _shift(arr, axis, offset, fill):
     shape = [1] * arr.ndim
     shape[axis] = arr.shape[axis]
     valid = valid.reshape(shape)
-    return torch.where(valid, rolled, torch.as_tensor(fill, dtype=arr.dtype))
+    return torch.where(valid, rolled, fill)
 
 
 def boundary_cases():

@@ -135,7 +135,7 @@ class _FaceShardOp(torch.autograd.Function):
         for i, m in enumerate(members):
             extended = _exchange_halo_rows(*bands[i], tops[i], bottoms[i])
             own_mask = torch.zeros_like(extended[0], dtype=torch.bool)
-            own_mask[1:-1] = True
+            own_mask[1:-1].fill_(True)
             geo_band = gathered[i][:, :GEO_WIDTH].clone()
             geo_band[:, GEO_AY] -= m * band_h - 1
             d_geo, d_att, _ = raster_bwd.backward_torch(

@@ -52,7 +52,7 @@ def _pack_row(fid, zbuf, pixels, grad_pixels, row: int):
 def _shift_rows(face_verts, rows: int):
     """Screen-space faces moved ``rows`` rows up: global rows in the
     coordinates of a slab whose first row is ``rows``."""
-    return face_verts - face_verts.new_tensor([0.0, float(rows), 0.0, 0.0])
+    return raster.move_rows(face_verts, -float(rows))
 
 
 def _split_rows(arrays, parts: int):
@@ -175,7 +175,7 @@ def _slab_backward(config, fv_local, fa, pixels, fid, zbuf, bins,
 
     fid_e = extended[0]
     own_mask = torch.zeros_like(fid_e, dtype=torch.bool)
-    own_mask[1:-1] = True
+    own_mask[1:-1].fill_(True)
     scatter_fn = raster.make_scatter_fn(config, bins, num_faces)
 
     def plane_cotangents(geo_shift, att_shift):
@@ -224,10 +224,8 @@ class _SlabOp(torch.autograd.Function):
 
         # Rows past the true image height are padding: take them out of
         # the pair graph (the single-device crop semantics).
-        first = torch.as_tensor([s * slab_h for s in slabs],
-                                device=fid.device).repeat_interleave(slab_h)
-        rows = first + torch.arange(slab_h, device=fid.device).repeat(
-            len(slabs))
+        rows = torch.cat([torch.arange(s * slab_h, (s + 1) * slab_h,
+                                       device=fid.device) for s in slabs])
         in_image = (rows < total_height)[:, None]
         fid = torch.where(in_image, fid, -2)
         zbuf = torch.where(in_image, zbuf, BIG_Z)

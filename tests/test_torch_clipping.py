@@ -7,6 +7,15 @@ and are finite, reach vertices behind the camera (only possible through
 the clip's interpolation), and match central finite differences through
 the whole clipped render (see the FD test for its scene and tolerances).
 
+``clip_and_compact`` (the fused clip and compaction, clip space) against
+``dirt_tpu.ops.clipping.clip_and_compact`` on the mixed crossing / in-front
+/ behind scene of tests/test_clipping.py (seed 11, 40 faces, 18 live
+secondaries) at cap 16 (overflowing) and 24: orig_id and overflow equal,
+vertices and attributes within 1e-6, gradients of a weighted sum to the
+clip-space faces within 1e-5; and in the port, ``clip_compact_screen``
+equal to ``screen_from_clip`` of ``clip_and_compact``, values and
+gradients.
+
 ``rasterise_batch`` (B = 2) against ``dirt_tpu.rasterise_batch``: images
 equal within 1e-5 absolute except on at most 0.5% of pixels (razor-edge
 fid flips, the policy of test_torch_pipeline.py); its gradients equal the
@@ -116,6 +125,79 @@ def test_clip_interior_gradient_matches_fd():
         assert np.sign(fd) == np.sign(an), (i, j, fd, an)
         if magnitude:
             assert abs(an - fd) / abs(fd) < 0.1, (i, j, fd, an)
+
+
+def _mixed_faces():
+    """tests/test_clipping.py's mix of crossing, in-front and behind faces
+    (numpy [40, 3, 4] clip space, [40, 3, 3] attributes), and random
+    weights for a loss over ``clip_and_compact``'s outputs at any cap."""
+    rng = np.random.RandomState(11)
+    fv = rng.randn(40, 3, 4).astype(np.float32)
+    fv[..., 3] = np.abs(fv[..., 3]) + np.float32(0.2)
+    fv[..., 2] -= np.float32(0.5)
+    fa = rng.rand(40, 3, 3).astype(np.float32)
+    weights = np.random.RandomState(12)
+    return fv, fa, (weights.rand(80, 3, 4).astype(np.float32),
+                    weights.rand(80, 3, 3).astype(np.float32))
+
+
+@pytest.mark.parametrize("cap", [16, 24])
+def test_clip_and_compact_matches_jax(cap):
+    import jax
+    import jax.numpy as jnp
+
+    from dirt_tpu.ops.clipping import clip_and_compact as jax_compact
+    from dirt_tpu_torch.ops.clipping import clip_and_compact
+
+    fv, fa, (wv, wa) = _mixed_faces()
+    wv, wa = wv[:40 + cap], wa[:40 + cap]
+    v_j, a_j, id_j, ovf_j = jax_compact(jnp.asarray(fv), jnp.asarray(fa),
+                                        cap)
+    leaf = torch.tensor(fv, requires_grad=True)
+    v_t, a_t, id_t, ovf_t = clip_and_compact(leaf, torch.tensor(fa), cap)
+    assert bool(ovf_t) == bool(ovf_j) == (cap < 18)
+    np.testing.assert_array_equal(id_t.numpy(), np.asarray(id_j))
+    np.testing.assert_allclose(v_t.detach().numpy(), np.asarray(v_j),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(a_t.detach().numpy(), np.asarray(a_j),
+                               rtol=1e-6, atol=1e-6)
+
+    def jax_loss(fv_):
+        v, a, _, _ = jax_compact(fv_, jnp.asarray(fa), cap)
+        return jnp.sum(v * wv) + jnp.sum(a * wa)
+
+    g_j = np.asarray(jax.grad(jax_loss)(jnp.asarray(fv)))
+    ((v_t * torch.tensor(wv)).sum() + (a_t * torch.tensor(wa)).sum()
+     ).backward()
+    np.testing.assert_allclose(leaf.grad.numpy(), g_j, rtol=1e-5, atol=1e-5)
+    assert np.abs(g_j).max() > 0
+
+
+@pytest.mark.parametrize("cap", [16, 24])
+def test_clip_compact_screen_is_screen_of_clip_and_compact(cap):
+    from dirt_tpu_torch.ops.clipping import (clip_and_compact,
+                                             clip_compact_screen)
+    from dirt_tpu_torch.ops.triangle_setup import screen_from_clip
+
+    fv, fa, (wv, wa) = _mixed_faces()
+    wv, wa = torch.tensor(wv[:40 + cap]), torch.tensor(wa[:40 + cap])
+    outs, grads = [], []
+    for fused in (False, True):
+        leaf = torch.tensor(fv, requires_grad=True)
+        if fused:
+            v, a, ids, ovf = clip_compact_screen(leaf, torch.tensor(fa), cap,
+                                                 64, 128)
+        else:
+            v, a, ids, ovf = clip_and_compact(leaf, torch.tensor(fa), cap)
+            v = screen_from_clip(v, 64, 128)
+        ((v * wv).sum() + (a * wa).sum()).backward()
+        outs.append((v.detach(), a.detach(), ids, ovf))
+        grads.append(leaf.grad)
+    (v1, a1, id1, ovf1), (v2, a2, id2, ovf2) = outs
+    torch.testing.assert_close(v1, v2, rtol=1e-6, atol=1e-6)
+    assert torch.equal(a1, a2) and torch.equal(id1, id2)
+    assert bool(ovf1) == bool(ovf2)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,6 +22,12 @@
    the capture replaced by a stand-in: one graph per signature (shapes,
    dtypes, devices, the values of non-tensor arguments), a failed capture
    raised with no eager call in its place.
+   Since the parallel paths are graphed too, the scan also covers one
+   step of the row-sharded renderer (dense, CSR, packed; four local
+   slabs), the overlapped one (k = 2), the face-sharded one (four
+   members), the dry run's training loss, demos 3 and 4 and configs 1-5
+   of the sheet; and the parallel glue rewritten for the capture is held
+   bit for bit to its earlier form.
 3. The bench step (``bench.py``'s ``sum(image * w)`` gradient, here at
    128 x 128 on the small sphere) through ``GraphedStep`` against
    ``jax.jit(jax.value_and_grad(...))`` of ``dirt_tpu``'s on the packed,
@@ -30,12 +36,15 @@
    with ``lru_cache``). Demo 5's ``fit``, which now runs its steps through
    ``GraphedStep``, keeps its trajectory against ``dirt_tpu``'s in
    ``tests/test_torch_demos.py``; here, that it makes one ``GraphedStep``
-   and calls it once a step with the bump rate switched at the midpoint.
+   and calls it once a step with the bump rate switched at the midpoint;
+   demos 3 and 4 likewise, with the plain descent's losses bit for bit.
 4. On the card (``cuda`` marker, skipped here): graphed against eager on
-   the three engines, the flagship step and demo 5's fit (fid, overflow
+   the three engines, the flagship step, demo 5's fit, the sharded,
+   overlapped and face-sharded steps, the dry run, demos 3 and 4 and the
+   sheet's five configs (fid, overflow
    and pixels equal, gradients within 1e-5 of max |gradient| of the eager
-   step's; demo 5's losses and parameters within 1e-4 or four times the
-   difference of two eager fits), a second replay
+   step's; the demo fits' losses and parameters within 1e-4, two eager
+   fits of demos 4 and 5 equal bit for bit), a second replay
    with other inputs against eager on those, and a capture that fails
    raising.
 """
@@ -74,12 +83,18 @@ ENGINES = {"packed": dict(engine="packed"), "dense": dict(engine="dense"),
            "csr": dict(streaming=True)}
 
 
-def _demo5():
-    spec = importlib.util.spec_from_file_location(
-        "_graphstep_demo5", DEMOS / "torch_demo5_deferred.py")
+def _demo(n):
+    name = {3: "torch_demo3_textured", 4: "torch_demo4_lit",
+            5: "torch_demo5_deferred"}[n]
+    spec = importlib.util.spec_from_file_location(f"_graphstep_demo{n}",
+                                                  DEMOS / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def _demo5():
+    return _demo(5)
 
 
 def _rel_err(got, want):
@@ -123,7 +138,8 @@ class _HostScan(TorchDispatchMode):
                 self.found.append((name, [
                     f"{Path(f.filename).name}:{f.lineno} {f.name}"
                     for f in frames if "dirt_tpu_torch" in f.filename
-                    or "demos" in f.filename][-4:]))
+                    or "demos" in f.filename
+                    or "bench_configs_torch" in f.filename][-4:]))
         return out
 
 
@@ -161,11 +177,73 @@ def _demo5_step():
     return lambda: value_and_grad(loss_fn)(*params.values())
 
 
+def _parallel_step(path, engine):
+    """One fwd+bwd of ``sum(image * w)`` through a parallel renderer on the
+    small sphere at SIZE over a local group: "sharded" (four slabs),
+    "overlap" (``overlap_chunks=2``, four slabs) or "face-sharded" (four
+    members), under the engine's ``suggest_raster_config`` caps with
+    8-row tiles."""
+    from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
+    from dirt_tpu_torch.parallel.group import LocalGroup
+    from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+
+    verts, colors, faces = sphere_scene()
+    bg, verts, colors, faces = convert.scene_from_numpy(
+        np.zeros((SIZE, SIZE, 3), np.float32), verts, colors, faces, "cpu")
+    weights = torch.rand(SIZE, SIZE, 3,
+                         generator=torch.Generator().manual_seed(1))
+    config = dirt_tpu_torch.suggest_raster_config(
+        verts, faces, SIZE, SIZE,
+        config=RasterConfig(tile_h=8, **ENGINES[engine]), clip=False)
+    render = {
+        "sharded": lambda b, v, c: rasterise_sharded(
+            b, v, c, faces, LocalGroup(4), config=config),
+        "overlap": lambda b, v, c: rasterise_sharded(
+            b, v, c, faces, LocalGroup(4), config=config, overlap_chunks=2),
+        "face-sharded": lambda b, v, c: rasterise_face_sharded(
+            b, v, c, faces, LocalGroup(4), config=config),
+    }[path]
+    loss = value_and_grad(lambda b, v, c: (render(b, v, c) * weights).sum())
+    return lambda: loss(bg, verts, colors)
+
+
+def _dryrun_step():
+    """The dry run's data x tiles training loss and its gradient over four
+    local slabs (the Adam update is torch's, capturable on the card)."""
+    loss_fn, args, _ = entry.dryrun_train_loss(4, "cpu")
+    return lambda: value_and_grad(loss_fn)(*args)
+
+
+def _demo_step(n):
+    loss_fn, params = _demo(n).problem(64, "cpu")[:2]
+    return lambda: value_and_grad(loss_fn)(*params.values())
+
+
+def _config_step(n):
+    import bench_configs_torch
+
+    make = bench_configs_torch.CONFIGS[n - 1]
+    config = (make("cpu", 64, 12, 12) if n == 5 else make("cpu"))
+    return lambda: value_and_grad(config.loss)(*config.leaves)
+
+
 _SCAN_CASES = {
     **{f"{engine} clip={clip}": functools.partial(_api_step, engine, clip)
        for engine in ENGINES for clip in (False, True)},
     "flagship": _flagship_step,
     "demo5": _demo5_step,
+    **{f"sharded {engine}": functools.partial(_parallel_step, "sharded",
+                                              engine)
+       for engine in ENGINES},
+    "overlap packed k=2": functools.partial(_parallel_step, "overlap",
+                                            "packed"),
+    "face-sharded dense": functools.partial(_parallel_step, "face-sharded",
+                                            "dense"),
+    "dryrun train step": _dryrun_step,
+    "demo3": functools.partial(_demo_step, 3),
+    "demo4": functools.partial(_demo_step, 4),
+    **{f"config{n}": functools.partial(_config_step, n)
+       for n in range(1, 6)},
 }
 
 
@@ -235,6 +313,80 @@ def test_capture_safe_glue_is_bit_equal(channels):
                      raster_fwd.pack_face_table_v2):
             assert torch.equal(pack(geo, att),
                                _table_by_assignment(pack, geo, att))
+
+
+def _shift_rows_by_offset(face_verts, rows):
+    """``sharding._shift_rows`` as it was before the capture: an offset
+    tensor made from Python data."""
+    return face_verts - face_verts.new_tensor([0.0, float(rows), 0.0, 0.0])
+
+
+def _slab_rows_by_repeat(slabs, slab_h):
+    """The image rows of the held slabs in ``_SlabOp.backward`` as they
+    were made before the capture: the slabs' first rows from a list."""
+    first = torch.as_tensor([s * slab_h for s in slabs]).repeat_interleave(
+        slab_h)
+    return first + torch.arange(slab_h).repeat(len(slabs))
+
+
+def _shift_by_tensor(arr, axis, offset, fill):
+    """``raster_bwd._shift`` as it was before the capture: the fill as a
+    0-dim tensor made from the Python value."""
+    rolled = torch.roll(arr, -offset, dims=axis)
+    idx = torch.arange(arr.shape[axis])
+    valid = (idx + offset >= 0) & (idx + offset <= arr.shape[axis] - 1)
+    shape = [1] * arr.ndim
+    shape[axis] = arr.shape[axis]
+    return torch.where(valid.reshape(shape), rolled,
+                       torch.as_tensor(fill, dtype=arr.dtype))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_capture_safe_parallel_glue_is_bit_equal(seed):
+    """The parallel renderers' glue rewritten for the capture gives the bits
+    it gave before: faces shifted into a slab's rows (column 1 alone, no
+    offset tensor; values from the scenes' range and beyond, negative
+    zeros included), the held slabs' image rows, the halo's own-rows mask
+    (``fill_`` on a slice, not a Python bool assigned by indexing) and the
+    neighbour shifts' fill (a Python scalar, not a 0-dim tensor)."""
+    from dirt_tpu_torch.ops import raster, raster_bwd
+    from dirt_tpu_torch.parallel import sharding
+
+    gen = torch.Generator().manual_seed(seed)
+    fv = torch.randn(300, 3, 4, generator=gen) * 10.0 ** torch.randint(
+        -3, 6, (300, 3, 4), generator=gen)
+    fv[::7] = -0.0
+    for rows in (0, 1, 7, 256, 768, 4095):
+        assert torch.equal(sharding._shift_rows(fv, rows),
+                           _shift_rows_by_offset(fv, rows))
+        assert torch.equal(
+            sharding._shift_rows(fv, rows).view(torch.int32),
+            _shift_rows_by_offset(fv, rows).view(torch.int32))
+    # chain_through_setup's move one row down: the earlier form added 0.0
+    # to x, z and invw, which keeps every value but turns -0.0 into 0.0.
+    no_neg_zero = fv + 0.0
+    assert torch.equal(
+        raster.move_rows(no_neg_zero, 1.0).view(torch.int32),
+        (no_neg_zero + no_neg_zero.new_tensor([0.0, 1.0, 0.0, 0.0]))
+        .view(torch.int32))
+    for slabs, slab_h in ((range(4), 256), (range(1), 64), ((2,), 32),
+                          (range(8), 8)):
+        rows = torch.cat([torch.arange(s * slab_h, (s + 1) * slab_h)
+                          for s in slabs])
+        assert torch.equal(rows, _slab_rows_by_repeat(slabs, slab_h))
+    mask = torch.zeros((34, 128), dtype=torch.bool)
+    mask[1:-1].fill_(True)
+    want = torch.zeros((34, 128), dtype=torch.bool)
+    want[1:-1] = True
+    assert torch.equal(mask, want)
+    fid = torch.randint(-2, 50, (33, 130), generator=gen, dtype=torch.int32)
+    zbuf = torch.randn(33, 130, generator=gen)
+    for arr, fill in ((fid, -2), (zbuf, raster_bwd.BIG_Z), (zbuf, 0.0)):
+        for axis, offset in ((0, 1), (0, -1), (1, 1), (1, -1)):
+            got = raster_bwd._shift(arr, axis, offset, fill)
+            assert got.dtype == arr.dtype
+            assert torch.equal(got, _shift_by_tensor(arr, axis, offset,
+                                                     fill))
 
 
 def test_scan_finds_a_host_read_and_a_copy():
@@ -422,6 +574,45 @@ def test_demo5_fit_steps_through_one_graphed_step(monkeypatch):
         < 2.5 * demo.LR_BUMP
 
 
+@pytest.mark.parametrize("n", [3, 4])
+def test_demo_fit_steps_through_one_graphed_step(monkeypatch, n):
+    """Demos 3 and 4: ``fit`` makes one ``GraphedStep`` and calls it once a
+    step, and its losses and final parameters are those of the plain
+    descent (here, on the CPU, the same ops: bit for bit); the parameters
+    handed in stay as they were."""
+    demo = _demo(n)
+    made = []
+
+    class Recorded(GraphedStep):
+        def __init__(self, fn, example_args):
+            super().__init__(fn, example_args)
+            self.calls = 0
+            made.append(self)
+
+        def __call__(self, *args):
+            self.calls += 1
+            return super().__call__(*args)
+
+    monkeypatch.setattr(demo, "GraphedStep", Recorded)
+    loss_fn, params = demo.problem(48, "cpu")[:2]
+    start = {k: v.clone() for k, v in params.items()}
+    final, losses = demo.fit(loss_fn, params, 4)
+    assert len(made) == 1 and made[0].calls == 4
+    rates = ({"texture": demo.LR} if n == 3 else demo.LR)
+    values, want = dict(start), []
+    for _ in range(4):
+        leaves = {k: v.detach().requires_grad_() for k, v in values.items()}
+        loss = loss_fn(**leaves)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        want.append(loss.detach())
+        values = {k: v - rates[k] * g
+                  for (k, v), g in zip(values.items(), grads)}
+    assert torch.equal(losses, torch.stack(want))
+    assert float(losses[-1]) < float(losses[0])
+    assert all(torch.equal(final[k], values[k].detach()) for k in values)
+    assert all(torch.equal(params[k], start[k]) for k in start)
+
+
 # --- 4. on the card -------------------------------------------------------------
 
 
@@ -496,9 +687,9 @@ def test_graphed_flagship_equals_eager_on_card(cuda):
 @pytest.mark.cuda
 def test_graphed_demo5_fit_equals_eager_on_card(cuda, monkeypatch):
     """Losses, pose and bump of the graphed fit against the eager fit
-    within the larger of 1e-4 and four times two eager fits' own
-    difference (torch's atomics make the eager fit vary, and Adam takes
-    full steps on gradients that are rounding noise)."""
+    within 1e-4, and two eager fits equal bit for bit (the vertex normals
+    sum in a sorted order; with atomics there, Adam took full steps on
+    gradients that were rounding noise and two fits parted)."""
     demo = _demo5()
     loss_fn, params = demo.problem(128, 12, 12, cuda)[:2]
 
@@ -510,8 +701,120 @@ def test_graphed_demo5_fit_equals_eager_on_card(cuda, monkeypatch):
     monkeypatch.setattr(demo, "GraphedStep", lambda fn, args: fn)
     eager, again = fit(), fit()
     for got, want, other in zip(graphed, eager, again):
-        limit = max(TOL_DEFERRED, 4 * _rel_err(other, want))
-        assert _rel_err(got, want) <= limit
+        assert torch.equal(other, want)
+        assert _rel_err(got, want) <= TOL_DEFERRED
+
+
+def _card_parallel_step(path, engine, device):
+    """(step, args): ``_parallel_step``'s renderers on the 24 x 32 sphere at
+    128 x 256 on the card, ``step(bg, verts, colors) -> (pixels, fid,
+    overflow, d_verts, d_colors, d_bg)``."""
+    from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
+    from dirt_tpu_torch.parallel.group import LocalGroup
+    from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+
+    verts, colors, faces = sphere_scene(24, 32)
+    bg, verts, colors, faces = convert.scene_from_numpy(
+        np.random.RandomState(4).rand(128, 256, 3).astype(np.float32), verts,
+        colors, faces, device)
+    weights = torch.rand(128, 256, 3, generator=torch.Generator()
+                         .manual_seed(1)).to(device)
+    config = dirt_tpu_torch.suggest_raster_config(
+        verts, faces, 128, 256,
+        config=RasterConfig(tile_h=8, **ENGINES[engine]), clip=False)
+    render = {
+        "sharded": lambda b, v, c: rasterise_sharded(
+            b, v, c, faces, LocalGroup(4), config=config, with_aux=True),
+        "overlap": lambda b, v, c: rasterise_sharded(
+            b, v, c, faces, LocalGroup(4), config=config, overlap_chunks=2,
+            with_aux=True),
+        "face-sharded": lambda b, v, c: rasterise_face_sharded(
+            b, v, c, faces, LocalGroup(4), config=config, with_aux=True),
+    }[path]
+
+    def step(b, v, c):
+        b, v, c = (t.detach().requires_grad_() for t in (b, v, c))
+        pixels, fid, _, overflow = render(b, v, c)
+        grads = torch.autograd.grad((pixels * weights).sum(), (v, c, b))
+        return (pixels.detach(), fid, overflow, *grads)
+
+    return step, (bg, verts, colors)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path, engine", [
+    ("sharded", "dense"), ("sharded", "csr"), ("sharded", "packed"),
+    ("overlap", "packed"), ("face-sharded", "dense")])
+def test_graphed_parallel_step_equals_eager_on_card(cuda, path, engine):
+    step, args = _card_parallel_step(path, engine, cuda)
+    graphed = GraphedStep(step, args)
+    _assert_same_step(graphed(*args), step(*args))
+    moved = (args[0], args[1] * 1.02, args[2].flip(0))
+    _assert_same_step(graphed(*moved), step(*moved))
+    assert len(graphed.graphs) == 1 and graphed.pool_bytes() > 0
+
+
+@pytest.mark.cuda
+def test_graphed_dryrun_equals_eager_on_card(cuda):
+    """``dryrun_multichip(4)``'s graphed Adam steps and variants against
+    the eager ones: the losses within TOL_DEFERRED (torch's atomics in the
+    vertex normals), variants 2-4 at 2128.7512 +- 1e-3."""
+    graphed = entry.dryrun_multichip(4, cuda, steps=3)
+    eager = entry.dryrun_multichip(4, cuda, steps=3, graphed=False)
+    assert graphed["losses"][-1] < graphed["losses"][0]
+    np.testing.assert_allclose(graphed["losses"], eager["losses"],
+                               rtol=TOL_DEFERRED)
+    for key in ("two_level", "overlap", "face_sharded"):
+        assert abs(graphed[f"loss_{key}"] - 2128.7512) <= 1e-3
+        assert graphed[f"grad_{key}"] == pytest.approx(eager[f"grad_{key}"],
+                                                       rel=TOL_GRAD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 4])
+def test_graphed_demo_fit_equals_eager_on_card(cuda, monkeypatch, n):
+    """Demos 3 and 4, as demo 5's test: losses and final parameters of the
+    graphed fit within 1e-4 of the eager fit's; two eager fits of demo 4
+    equal bit for bit (demo 3's texture gather sums its backward with
+    atomics)."""
+    demo = _demo(n)
+    loss_fn, params = demo.problem(128, cuda)[:2]
+
+    def fit():
+        final, losses = demo.fit(loss_fn, params, 6)
+        return [losses, *final.values()]
+
+    graphed = fit()
+    monkeypatch.setattr(demo, "GraphedStep", lambda fn, args: fn)
+    eager, again = fit(), fit()
+    for got, want, other in zip(graphed, eager, again):
+        assert n == 3 or torch.equal(other, want)
+        assert _rel_err(got, want) <= TOL_DEFERRED
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+def test_graphed_config_step_equals_eager_on_card(cuda, n):
+    """The sheet's graphed forward and gradient step against the eager
+    ones: images equal bit for bit (configs 4-5, whose vertex normals sum
+    with atomics in the forward too: within 1e-4), gradients within 1e-5
+    of max |gradient| (configs 3-5, whose texture gathers and vertex
+    normals sum with atomics: 1e-4)."""
+    import bench_configs_torch
+
+    make = bench_configs_torch.CONFIGS[n - 1]
+    config = make(cuda, 256, 24, 24) if n == 5 else make(cuda)
+    forward, step = bench_configs_torch.graphed_steps(config)
+    eager = value_and_grad(config.loss)
+    tol = TOL_GRAD if n < 3 else TOL_DEFERRED
+    for leaves in (config.leaves, tuple(t * 1.01 for t in config.leaves)):
+        image = forward(*leaves)
+        want = bench_configs_torch.forward_step(config)(*leaves)
+        assert (torch.equal(image, want) if n < 4
+                else _rel_err(image, want) <= TOL_DEFERRED)
+        got = [t.clone() for t in step(*leaves)]
+        for g, g_e in zip(got, eager(*leaves)):
+            assert _rel_err(g, g_e) <= tol
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ against the one ``bench.py:88-112`` builds with ``dirt_tpu``'s ``mesh`` and
 two frameworks; everything else equal).
 """
 
+import inspect
 import os
 
 import jax
@@ -174,6 +175,13 @@ def test_to_tensors(tmp_path):
     np.testing.assert_array_equal(verts.numpy(), m.vertices)
     np.testing.assert_array_equal(faces.numpy(), m.faces)
     assert isinstance(m, ObjMesh) and "F=4" in repr(m)
+
+
+def test_to_tensors_defaults_to_the_card():
+    """Like the port's entry points, ``to_tensors`` puts the mesh on the
+    card unless the caller asks for another device."""
+    default = inspect.signature(ObjMesh.to_tensors).parameters["device"]
+    assert default.default == "cuda"
 
 
 def test_loaded_mesh_renders(tmp_path):
