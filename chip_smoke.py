@@ -537,31 +537,20 @@ def _grads(rasterise, background, clip, colors, faces, weights, config, c):
 
 
 def _launch_counts():
-    """{kernel: launches so far} from the wrappers' counters."""
-    from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster_fwd, scatter
+    """{kernel: launches so far} from the registry's launch counters."""
+    from dirt_tpu_torch.utils import trace
 
-    return {
-        "scatter_faces": scatter.LAUNCHES,
-        "scatter_faces_csr": scatter.LAUNCHES_CSR,
-        "raster_fwd_packed": raster_fwd.LAUNCHES,
-        "packed_prologue": packed_bwd.LAUNCHES_PROLOGUE,
-        "packed_bwd": packed_bwd.LAUNCHES_BWD,
-        "raster_fwd_dense": raster_fwd.LAUNCHES_DENSE,
-        "fused_bwd": fused_bwd.LAUNCHES,
-        "raster_fwd_csr": raster_fwd.LAUNCHES_CSR,
-        "fused_bwd_csr": fused_bwd.LAUNCHES_CSR,
-        "subtile_swap": raster_fwd.LAUNCHES_SWAP,
-    }
+    counts = trace.counters()
+    return {kernel: counts.get(f"launch.{kernel}", 0) for kernel in (
+        "scatter_faces", "scatter_faces_csr", "raster_fwd_packed",
+        "packed_prologue", "packed_bwd", "raster_fwd_dense", "fused_bwd",
+        "raster_fwd_csr", "fused_bwd_csr", "subtile_swap")}
 
 
 def _reset_launch_counts():
-    from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster_fwd, scatter
+    from dirt_tpu_torch.utils import trace
 
-    scatter.LAUNCHES = scatter.LAUNCHES_CSR = 0
-    raster_fwd.LAUNCHES = raster_fwd.LAUNCHES_DENSE = 0
-    raster_fwd.LAUNCHES_CSR = raster_fwd.LAUNCHES_SWAP = 0
-    packed_bwd.LAUNCHES_PROLOGUE = packed_bwd.LAUNCHES_BWD = 0
-    fused_bwd.LAUNCHES = fused_bwd.LAUNCHES_CSR = 0
+    trace.reset()
 
 
 def _need_launches(path, counts, kernels, backwards=1):

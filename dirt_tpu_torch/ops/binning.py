@@ -31,6 +31,8 @@ from typing import NamedTuple
 
 import torch
 
+from dirt_tpu_torch.utils import trace
+
 CHUNK = 128  # CSR chunk granularity: every tile's run starts at a multiple
              # of CHUNK rows, and ``bin_cap`` is rounded to it
 
@@ -249,8 +251,11 @@ def bin_faces_packed(
     gymax = torch.clamp(_fdiv(bymax, SUB_H), 0, gy_max_all)
     span_x = torch.where(valid, gxmax - gxmin + 1, 0)
     span_y = torch.where(valid, gymax - gymin + 1, 0)
-    n_jobs = span_x * span_y
-    face_overflow = valid & (n_jobs > expand_cap)
+    n_jobs = span_x * span_y                          # 0 where not valid
+    # A face over expand_cap overflows; the most any face asks for is also
+    # the expand cap's fill.
+    max_jobs = (torch.amax(n_jobs) if nf else
+                torch.zeros((), dtype=_I64, device=device))
     njobs_c = torch.clamp(n_jobs, max=expand_cap)
 
     if pool_cap is None:
@@ -261,7 +266,8 @@ def bin_faces_packed(
 
     blocks = -_fdiv(-njobs_c, al)                     # [F], slot blocks
     boff = _exclusive_cumsum(blocks)                  # exclusive, blocks
-    pool_overflow = torch.sum(blocks) > pool_blocks
+    used_blocks = torch.sum(blocks)
+    pool_overflow = used_blocks > pool_blocks
 
     start_ok = (blocks > 0) & (boff < pool_blocks)
     fidx = arange(nf)
@@ -367,7 +373,8 @@ def bin_faces_packed(
     tile_iters = torch.sum(n_iter, dim=1)                    # [T]
     # Every tile owns >= 1 chunk (its init step), even when empty.
     raw_chunks = torch.clamp(-_fdiv(-tile_iters, PACK_ITERS), min=1)
-    cum_excl = _exclusive_cumsum(raw_chunks)
+    chunk_ends = torch.cumsum(raw_chunks, dim=0)
+    cum_excl = chunk_ends - raw_chunks
     t_idx = arange(total)
     # Water-fill: reserve one chunk per remaining tile so every tile owns
     # at least one chunk even under budget overflow.
@@ -397,7 +404,8 @@ def bin_faces_packed(
     # cummax spreads them over the run.
     r8 = budget_rows // GROUPS
     run_len = counts.reshape(-1) + 1                         # + header
-    a_start = _exclusive_cumsum(run_len)                     # [nsid]
+    run_ends = torch.cumsum(run_len, dim=0)
+    a_start = run_ends - run_len                             # [nsid]
     limit8_sid = (limit_rows // GROUPS)[:, None, None].expand(
         total, strips, groups).reshape(-1)
     x8_sid = (rowstart[:, :, 0] // GROUPS)[:, :, None].expand(
@@ -449,7 +457,7 @@ def bin_faces_packed(
         inverse = torch.empty_like(row_full)
         inverse[q_s] = row_full
         pair_rows = inverse[:pool_cap].to(_I32)
-        pool_offs = torch.cat([boff, torch.sum(blocks, 0, keepdim=True)])
+        pool_offs = torch.cat([boff, used_blocks[None]])
         pool_offs = pool_offs.to(_I32)
     else:
         pair_rows = None
@@ -467,10 +475,20 @@ def bin_faces_packed(
     chunk_tile = torch.clamp(torch.cumsum(cmarks, dim=0) - 1, 0, total - 1)
 
     overflow = (
-        torch.any(face_overflow)
+        (max_jobs > expand_cap)
         | torch.any(n_iters_eff < tile_iters)
         | pool_overflow
         | work_overflow
+    )
+    # What each cap holds of what this call asked of it, for the binning's
+    # closing marker (``utils/trace.py``): slot blocks, live sorted
+    # elements (run lengths plus headers; with a work cap), a face's jobs,
+    # chunks.
+    trace.fills(
+        pool=(used_blocks, pool_blocks),
+        work=None if work_cap is None else (run_ends[-1], c_live),
+        expand=(max_jobs, expand_cap),
+        budget=(chunk_ends[-1], budget_chunks),
     )
     return PackedBins(
         entries=entries.to(_I32),

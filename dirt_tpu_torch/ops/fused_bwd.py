@@ -46,11 +46,8 @@ from dirt_tpu_torch.ops.raster_bwd import (
 )
 from dirt_tpu_torch.ops.raster_fwd import check_boxes, check_tensor, need_boxes
 from dirt_tpu_torch.ops.triangle_setup import GEO_USED
+from dirt_tpu_torch.utils import trace
 
-# Launches of the CUDA kernel in this process: the wrapper adds one where it
-# launches, and nowhere else.
-LAUNCHES = 0
-LAUNCHES_CSR = 0
 
 _KERNEL = "fused_bwd"
 _CSR = "fused_bwd_csr"
@@ -169,7 +166,6 @@ def _kernel_fn():
 
 def _launch(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf, num_rows,
             tile_h, tile_w, bbox, cull):
-    global LAUNCHES
     device = fid.device
     channels, hp, wp = pix_cf.shape
     if hp % tile_h or wp % tile_w:
@@ -208,7 +204,7 @@ def _launch(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf, num_rows,
         )
     if err != 0:
         raise RuntimeError(f"{_KERNEL} launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    trace.count(f"launch.{_KERNEL}")
     return out
 
 
@@ -279,7 +275,6 @@ def _csr_fn():
 
 def _launch_csr(geo, entry_face, start_block, counts, fid, bits, sval,
                 pix_cf, grad_cf, num_faces, tile_h, tile_w, bbox, cull):
-    global LAUNCHES_CSR
     device = fid.device
     channels, hp, wp = pix_cf.shape
     if hp % tile_h or wp % tile_w:
@@ -317,5 +312,5 @@ def _launch_csr(geo, entry_face, start_block, counts, fid, bits, sval,
         )
     if err != 0:
         raise RuntimeError(f"{_CSR} launch failed: CUDA error {err}")
-    LAUNCHES_CSR += 1
+    trace.count(f"launch.{_CSR}")
     return out

@@ -68,11 +68,8 @@ from dirt_tpu_torch.ops.raster_fwd import (
     pack_face_table_v2,
 )
 from dirt_tpu_torch.ops.triangle_setup import GEO_USED
+from dirt_tpu_torch.utils import trace
 
-# Launches of each CUDA kernel in this process: a wrapper adds one where it
-# launches, and nowhere else.
-LAUNCHES_PROLOGUE = 0
-LAUNCHES_BWD = 0
 
 # The most cotangent columns one launch of packed_bwd stages: 12 + 3C up to
 # C = 14 in one launch, more in further launches over the same owners (the
@@ -235,7 +232,6 @@ def _launch_prologue(fid, zbuf, pixels, grad, hp: int, wp: int,
     """(fid_p, bits, sval, pix_cf, grad_cf) from one launch over the
     [H, W] fields (``pixels`` and ``grad`` [H, W, C]) at any strides;
     with ``copies`` False the padded copies are not written (None)."""
-    global LAUNCHES_PROLOGUE
     device = fid.device
     height, width = fid.shape
     channels = pixels.shape[-1]
@@ -279,7 +275,7 @@ def _launch_prologue(fid, zbuf, pixels, grad, hp: int, wp: int,
                          "not fit in 32 bits")
     if err != 0:
         raise RuntimeError(f"{_PROLOGUE} launch failed: CUDA error {err}")
-    LAUNCHES_PROLOGUE += 1
+    trace.count(f"launch.{_PROLOGUE}")
     return fid_p, bits, sval, pix_cf, grad_cf
 
 
@@ -487,7 +483,6 @@ def _bwd_fn():
 
 
 def _launch_bwd(prep, rows, c_lo, c_hi):
-    global LAUNCHES_BWD
     channels, tile_h = prep.channels, prep.tile_h
     _, hp, wp = _check_geometry(prep.pix_cf, tile_h, prep.tile_w)
     device = prep.fid_p.device
@@ -525,7 +520,7 @@ def _launch_bwd(prep, rows, c_lo, c_hi):
         )
     if err != 0:
         raise RuntimeError(f"{_BWD} launch failed: CUDA error {err}")
-    LAUNCHES_BWD += 1
+    trace.count(f"launch.{_BWD}")
     return out
 
 

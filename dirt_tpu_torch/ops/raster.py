@@ -37,6 +37,7 @@ from dirt_tpu_torch.ops.triangle_setup import (
     face_bboxes,
     setup_planes,
 )
+from dirt_tpu_torch.utils import trace
 
 class RasterConfig(NamedTuple):
     """Static kernel configuration (same fields as ``dirt_tpu``'s).
@@ -217,7 +218,9 @@ def prepare_dense(face_verts_screen, face_attrs, background, config):
     hp, wp = bg_chw.shape[1:]
     cap = resolve_bin_cap(config, num_faces,
                           (hp // tile_h) * (wp // tile_w))
+    trace.switch("setup", "binning", bbox)
     bins = binning.bin_faces(bbox, height, width, tile_h, tile_w, cap)
+    trace.switch("binning", "raster_fwd", bbox)
     table = raster_fwd.pack_face_table(geo, att)
     dense = DenseLists(bins.bins.contiguous(), bins.counts.contiguous(),
                        bins.overflow, bbox)
@@ -275,8 +278,10 @@ def prepare_csr(face_verts_screen, face_attrs, background, config):
     cap = _pad_to(resolve_bin_cap(config, num_faces, total, streaming=True),
                   binning.CHUNK)
     expand = config.expand_cap or binning.auto_expand_cap(num_faces, total)
+    trace.switch("setup", "binning", bbox)
     bins = binning.bin_faces_csr(bbox, height, width, tile_h, tile_w, cap,
                                  expand)
+    trace.switch("binning", "raster_fwd", bbox)
     table = raster_fwd.pack_face_table(geo, att)
     return table, StreamLists(*bins, bbox), bg_chw, config
 
@@ -304,10 +309,13 @@ def prepare_packed(face_verts_screen, face_attrs, background, config):
 
     expand, budget = _packed_caps(config, num_faces, hp, wp)
     edges = edge_filter_cols(face_verts_screen)
+    trace.switch("setup", "binning", bg_chw)
     bins = binning.bin_faces_packed(
         bbox, hp, wp, tile_h, tile_w, budget, expand,
         edges=edges, pool_cap=config.pool_cap, work_cap=config.work_cap,
     )
+    # The binning's closing marker also takes its cap fills.
+    trace.switch("binning", "raster_fwd", bg_chw)
     table2 = raster_fwd.pack_face_table_v2(geo, att)
     # Pre-set the backward's "ones" indicator column (ignored by the
     # forward kernel); fill_, not an assignment, which would copy the
@@ -332,32 +340,34 @@ def _forward_impl(face_verts_screen, face_attrs, background, config):
     engine = resolve_engine(config, num_faces)
     if engine not in ("packed", "dense", "csr"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "packed":
-        table2, bins, bg_chw, config = prepare_packed(
-            face_verts_screen, face_attrs, background, config
-        )
-        pixels_chw, fid, zbuf = raster_fwd.raster_forward_packed(
-            table2, bins, bg_chw, tile_h=config.tile_h, tile_w=config.tile_w,
-            rows=bins.rows,
-        )
-    elif streams(config, num_faces):
-        table, lists, bg_chw, config = prepare_csr(
-            face_verts_screen, face_attrs, background, config
-        )
-        pixels_chw, fid, zbuf, cull = raster_fwd.raster_forward_csr(
-            table, lists.entry_face, lists.start_block, lists.counts, bg_chw,
-            tile_h=config.tile_h, tile_w=config.tile_w,
-        )
-        bins = StreamBins(*lists, cull)
-    else:
-        table, lists, bg_chw, config = prepare_dense(
-            face_verts_screen, face_attrs, background, config
-        )
-        pixels_chw, fid, zbuf, cull = raster_fwd.raster_forward(
-            table, lists.bins, lists.counts, bg_chw, tile_h=config.tile_h,
-            tile_w=config.tile_w,
-        )
-        bins = DenseBins(*lists, cull)
+    # Stages: setup, binning (prepare_* moves the span on), raster_fwd.
+    with trace.span("setup", face_verts_screen):
+        if engine == "packed":
+            table2, bins, bg_chw, config = prepare_packed(
+                face_verts_screen, face_attrs, background, config
+            )
+            pixels_chw, fid, zbuf = raster_fwd.raster_forward_packed(
+                table2, bins, bg_chw, tile_h=config.tile_h,
+                tile_w=config.tile_w, rows=bins.rows,
+            )
+        elif streams(config, num_faces):
+            table, lists, bg_chw, config = prepare_csr(
+                face_verts_screen, face_attrs, background, config
+            )
+            pixels_chw, fid, zbuf, cull = raster_fwd.raster_forward_csr(
+                table, lists.entry_face, lists.start_block, lists.counts,
+                bg_chw, tile_h=config.tile_h, tile_w=config.tile_w,
+            )
+            bins = StreamBins(*lists, cull)
+        else:
+            table, lists, bg_chw, config = prepare_dense(
+                face_verts_screen, face_attrs, background, config
+            )
+            pixels_chw, fid, zbuf, cull = raster_fwd.raster_forward(
+                table, lists.bins, lists.counts, bg_chw,
+                tile_h=config.tile_h, tile_w=config.tile_w,
+            )
+            bins = DenseBins(*lists, cull)
     pixels = pixels_chw.permute(1, 2, 0)[:height, :width]
     return pixels, fid[:height, :width], zbuf[:height, :width], bins, config
 
@@ -456,44 +466,46 @@ class _RasterizeScreen(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_pixels, *_):
-        fv, fa, pixels, fid, zbuf = ctx.saved_tensors
-        need_fv, need_fa, need_bg, _ = ctx.needs_input_grad
-        d_bg = (torch.where((fid >= 0)[..., None], 0.0, grad_pixels)
-                if need_bg else None)
-        if not (need_fv or need_fa):
-            return None, None, d_bg, None
-        config = ctx.config
-        height, width = fid.shape
-        num_faces = fv.shape[0]
-        bins = ctx.bins
-        grad_pixels = grad_pixels.contiguous()
+        # The whole backward is the raster_bwd stage.
+        with trace.span("raster_bwd", grad_pixels):
+            fv, fa, pixels, fid, zbuf = ctx.saved_tensors
+            need_fv, need_fa, need_bg, _ = ctx.needs_input_grad
+            d_bg = (torch.where((fid >= 0)[..., None], 0.0, grad_pixels)
+                    if need_bg else None)
+            if not (need_fv or need_fa):
+                return None, None, d_bg, None
+            config = ctx.config
+            height, width = fid.shape
+            num_faces = fv.shape[0]
+            bins = ctx.bins
+            grad_pixels = grad_pixels.contiguous()
 
-        def plane_cotangents(geo, att):
-            if isinstance(bins, DenseBins):
-                return raster_bwd.backward_fused(
-                    geo, att, fid, zbuf, pixels, grad_pixels, bins.bins,
-                    bins.counts, config.tile_h, config.tile_w,
-                    bbox=bins.bbox, cull=bins.cull,
+            def plane_cotangents(geo, att):
+                if isinstance(bins, DenseBins):
+                    return raster_bwd.backward_fused(
+                        geo, att, fid, zbuf, pixels, grad_pixels, bins.bins,
+                        bins.counts, config.tile_h, config.tile_w,
+                        bbox=bins.bbox, cull=bins.cull,
+                    )
+                if isinstance(bins, StreamBins):
+                    return raster_bwd.backward_fused_csr(
+                        geo, att, fid, zbuf, pixels, grad_pixels,
+                        bins.entry_face, bins.start_block, bins.counts,
+                        config.tile_h, config.tile_w, bbox=bins.bbox,
+                        cull=bins.cull,
+                    )
+                expand, _ = _packed_caps(config, num_faces,
+                                         _pad_to(height, config.tile_h),
+                                         _pad_to(width, config.tile_w))
+                return packed_bwd.backward_packed(
+                    geo, att, fid, zbuf, pixels, grad_pixels, bins, num_faces,
+                    config.tile_h, config.tile_w,
+                    bmax=-(-expand // binning.POOL_ALIGN),
                 )
-            if isinstance(bins, StreamBins):
-                return raster_bwd.backward_fused_csr(
-                    geo, att, fid, zbuf, pixels, grad_pixels,
-                    bins.entry_face, bins.start_block, bins.counts,
-                    config.tile_h, config.tile_w, bbox=bins.bbox,
-                    cull=bins.cull,
-                )
-            expand, _ = _packed_caps(config, num_faces,
-                                     _pad_to(height, config.tile_h),
-                                     _pad_to(width, config.tile_w))
-            return packed_bwd.backward_packed(
-                geo, att, fid, zbuf, pixels, grad_pixels, bins, num_faces,
-                config.tile_h, config.tile_w,
-                bmax=-(-expand // binning.POOL_ALIGN),
-            )
 
-        d_fv, d_fa, _ = chain_through_setup(fv, fa, need_fv, need_fa,
-                                            plane_cotangents)
-        return d_fv, d_fa, d_bg, None
+            d_fv, d_fa, _ = chain_through_setup(fv, fa, need_fv, need_fa,
+                                                plane_cotangents)
+            return d_fv, d_fa, d_bg, None
 
 
 def rasterize_screen(face_verts_screen, face_attrs, background, config):

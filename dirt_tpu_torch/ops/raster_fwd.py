@@ -48,6 +48,7 @@ from dirt_tpu_torch.ops.binning import (
     PackedBins,
 )
 from dirt_tpu_torch.ops.triangle_setup import GEO_USED
+from dirt_tpu_torch.utils import trace
 
 BIG_Z = 3.0e38  # z-buffer clear value (acts as +inf in f32 compares)
 
@@ -55,13 +56,6 @@ COL_ID = GEO_USED          # float face id (exact for F < 2^24)
 COL_STRIP = GEO_USED + 1   # strip placeholder column
 COL_ATT = GEO_USED + 2     # 3 columns per channel
 
-# Launches of the CUDA kernel in this process: the wrapper adds one where
-# it launches, and nowhere else (the smoke script reads it to prove that
-# the main path went through the kernel).
-LAUNCHES = 0
-LAUNCHES_DENSE = 0
-LAUNCHES_CSR = 0
-LAUNCHES_SWAP = 0
 
 _KERNEL = "raster_fwd_packed"
 _SWAP = "subtile_swap"
@@ -214,7 +208,6 @@ def _kernel_fn():
 
 
 def _launch(rows, bins, background_chw, tile_h, tile_w):
-    global LAUNCHES
     channels, hp, wp = _check_geometry(background_chw, tile_h, tile_w)
     device = background_chw.device
     total = (hp // tile_h) * (wp // tile_w)
@@ -251,7 +244,7 @@ def _launch(rows, bins, background_chw, tile_h, tile_w):
         )
     if err != 0:
         raise RuntimeError(f"{_KERNEL} launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    trace.count(f"launch.{_KERNEL}")
     return pix, fid, zbuf
 
 
@@ -340,7 +333,6 @@ def _swap_fn():
 
 
 def _launch_swap(arrays, hp, wp, device):
-    global LAUNCHES_SWAP
     n = len(arrays)
     # The kernel moves 16-byte vectors: a contiguous view at an odd offset
     # of its storage is copied to an allocation of its own.
@@ -357,7 +349,7 @@ def _launch_swap(arrays, hp, wp, device):
         err = fn(srcs, dsts, planes, n, hp, wp, stream)
     if err != 0:
         raise RuntimeError(f"{_SWAP} launch failed: CUDA error {err}")
-    LAUNCHES_SWAP += 1
+    trace.count(f"launch.{_SWAP}")
     return outs
 
 
@@ -545,7 +537,6 @@ def _dense_fn():
 
 
 def _launch_dense(table, bins, counts, background_chw, tile_h, tile_w):
-    global LAUNCHES_DENSE
     channels, hp, wp, total = _check_dense(table, bins, counts,
                                            background_chw, tile_h, tile_w)
     _check_dense_tile(_DENSE, tile_h, tile_w)
@@ -573,7 +564,7 @@ def _launch_dense(table, bins, counts, background_chw, tile_h, tile_w):
         )
     if err != 0:
         raise RuntimeError(f"{_DENSE} launch failed: CUDA error {err}")
-    LAUNCHES_DENSE += 1
+    trace.count(f"launch.{_DENSE}")
     return pix, fid, zbuf, boxes
 
 
@@ -778,7 +769,6 @@ def _boxes_fn():
 
 def _launch_csr(table, entry_face, start_block, counts, background_chw,
                 tile_h, tile_w):
-    global LAUNCHES_CSR
     channels, hp, wp, total = _check_csr(
         table, entry_face, start_block, counts, background_chw, tile_h,
         tile_w)
@@ -809,7 +799,7 @@ def _launch_csr(table, entry_face, start_block, counts, background_chw,
         )
     if err != 0:
         raise RuntimeError(f"{_CSR} launch failed: CUDA error {err}")
-    LAUNCHES_CSR += 1
+    trace.count(f"launch.{_CSR}")
     return pix, fid, zbuf, boxes
 
 

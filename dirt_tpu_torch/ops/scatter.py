@@ -42,11 +42,8 @@ from dirt_tpu_torch.ops.raster_fwd import (
     need_boxes,
     on_device,
 )
+from dirt_tpu_torch.utils import trace
 
-# Launches of each CUDA kernel in this process: a wrapper adds one where it
-# launches, and nowhere else.
-LAUNCHES = 0
-LAUNCHES_CSR = 0
 
 _KERNEL = "scatter_faces"
 _CSR = "scatter_faces_csr"
@@ -131,7 +128,6 @@ def _kernel_fn():
 
 
 def _launch(cot_cf, fid, bins, counts, num_rows, tile_h, tile_w, bbox, cull):
-    global LAUNCHES
     device = fid.device
     num_faces = num_rows - 1
     k_cols, hp, wp, total = _check_image(cot_cf, fid, bbox, cull, num_faces,
@@ -163,7 +159,7 @@ def _launch(cot_cf, fid, bins, counts, num_rows, tile_h, tile_w, bbox, cull):
         )
     if err != 0:
         raise RuntimeError(f"{_KERNEL} launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    trace.count(f"launch.{_KERNEL}")
     return out
 
 
@@ -211,7 +207,6 @@ def _csr_fn():
 
 def _launch_csr(cot_cf, fid, entry_face, start_block, counts, num_faces,
                 tile_h, tile_w, bbox, cull):
-    global LAUNCHES_CSR
     device = fid.device
     k_cols, hp, wp, total = _check_image(cot_cf, fid, bbox, cull, num_faces,
                                          tile_h, tile_w)
@@ -241,5 +236,5 @@ def _launch_csr(cot_cf, fid, entry_face, start_block, counts, num_faces,
         )
     if err != 0:
         raise RuntimeError(f"{_CSR} launch failed: CUDA error {err}")
-    LAUNCHES_CSR += 1
+    trace.count(f"launch.{_CSR}")
     return out

@@ -28,6 +28,7 @@ from dirt_tpu_torch.ops.raster import (
     suggest_config,
 )
 from dirt_tpu_torch.ops.triangle_setup import screen_from_clip
+from dirt_tpu_torch.utils import trace
 
 
 def _auto_clip_cap(num_faces: int) -> int:
@@ -79,9 +80,10 @@ def _clip_space_faces(vertices, vertex_colors, faces, height, width,
         if cap is None:
             cap = _auto_clip_cap(num_faces)
         cap = min(cap, num_faces)
-        face_verts, fa_c, orig_id, clip_ovf = clip_compact_screen(
-            vertices[faces], vertex_colors[faces], cap, height, width
-        )
+        with trace.span("clip", vertices):
+            face_verts, fa_c, orig_id, clip_ovf = clip_compact_screen(
+                vertices[faces], vertex_colors[faces], cap, height, width
+            )
         if config.streaming is None:
             config = config._replace(streaming=num_faces > STREAMING_FACES)
         return face_verts, fa_c, config, orig_id, clip_ovf

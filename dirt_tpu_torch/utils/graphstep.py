@@ -20,7 +20,11 @@ before the step, as ``dirt_tpu``'s ``honest_config`` runs before its jit.
 
 from __future__ import annotations
 
+import time
+
 import torch
+
+from dirt_tpu_torch.utils import trace
 
 # Calls of the step on a side stream before its capture: the first builds
 # the kernels (``ops._build``), loads them and makes an optimiser's state,
@@ -81,12 +85,18 @@ class _Graph:
             with torch.cuda.graph(self.graph):
                 self.outputs = fn(*self.inputs)
 
-    def __call__(self, args):
+    def __call__(self, args, entry: int):
+        """Copy ``args`` into the static inputs and replay; ``entry`` is the
+        host clock (``time.time_ns()``) at the caller's entry, kept with the
+        launch and the return in the registry's ring."""
         with torch.no_grad():
             for static, arg in zip(self.inputs, args):
                 if isinstance(arg, torch.Tensor) and arg is not static:
                     static.copy_(arg)
+        launch = time.time_ns()
         self.graph.replay()
+        trace.replayed(entry, launch, time.time_ns())
+        trace.count("graphstep.replays")
         return self.outputs
 
 
@@ -116,6 +126,12 @@ class GraphedStep:
     tests pass), a call is ``fn(*args)``: there is no graph there, as the
     kernels' plain versions stand in for the kernels.
 
+    Each capture adds to the registry's ``graphstep.captures`` and
+    ``graphstep.capture_s`` (``utils/trace.py``), each replay to
+    ``graphstep.replays``, and keeps its host stamps in the registry's
+    ring: a loop whose static arguments change every call shows as many
+    captures as replays. The CPU path counts nothing.
+
     ``example_args`` with a CUDA tensor among them captures their
     signature at construction (warm-up calls included), so that a caller
     can time the capture apart from the replays, as ``dirt_tpu``'s demo 5
@@ -129,15 +145,27 @@ class GraphedStep:
             self._graph(example_args)
 
     def _graph(self, args):
+        """(the graph of ``args``' signature, whether this call captured
+        it)."""
         key = _signature(args)
-        if key not in self.graphs:
-            self.graphs[key] = _Graph(self.fn, args)
-        return self.graphs[key]
+        graph = self.graphs.get(key)
+        if graph is not None:
+            return graph, False
+        start = time.perf_counter()
+        graph = self.graphs[key] = _Graph(self.fn, args)
+        trace.count("graphstep.captures")
+        trace.count("graphstep.capture_s", time.perf_counter() - start)
+        return graph, True
 
     def __call__(self, *args):
         if not _on_card(args):
             return self.fn(*args)
-        return self._graph(args)(args)
+        entry = time.time_ns()
+        graph, captured = self._graph(args)
+        if captured:
+            # The host span is the replay's; the capture is counted apart.
+            entry = time.time_ns()
+        return graph(args, entry)
 
     def pool_bytes(self):
         """Bytes the graphs' private memory pools hold on the card: the

@@ -84,9 +84,16 @@ from dirt_tpu_torch.ops.triangle_setup import (
     screen_from_clip,
     setup_planes,
 )
+from dirt_tpu_torch.utils import trace
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 TOL_BWD = dict(rtol=1e-5, atol=1e-6)
+
+
+def _launches(kernel):
+    """Host launches of ``csrc/<kernel>.cu`` so far (the registry's
+    ``launch.<kernel>``)."""
+    return trace.counters().get(f"launch.{kernel}", 0)
 
 
 @pytest.fixture
@@ -144,12 +151,12 @@ def test_kernel_matches_plain_on_card(cuda, kind, height, width, channels,
     table2, bins, bg_chw, cfg = raster.prepare_packed(
         fv, torch.tensor(fa, device=cuda), bg, config)
     assert not bool(bins.overflow)
-    before = raster_fwd.LAUNCHES
+    before = _launches("raster_fwd_packed")
     pix_k, fid_k, z_k = raster_fwd.raster_forward_packed(
         table2, bins, bg_chw, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
         rows=bins.rows)
     torch.cuda.synchronize()
-    assert raster_fwd.LAUNCHES == before + 1
+    assert _launches("raster_fwd_packed") == before + 1
     pix_p, fid_p, z_p = raster_fwd.raster_forward_packed_plain(
         bins.rows, bins, bg_chw, tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     assert torch.equal(fid_k, fid_p)
@@ -237,10 +244,10 @@ def test_prologue_kernel_matches_plain_on_card(cuda, kind, height, width,
     prep = _backward_inputs(cuda, kind, height, width, channels, tile_h)
     args = (prep.fid_p, torch.rand_like(prep.fid_p, dtype=torch.float32),
             prep.pix_cf, prep.grad_cf)
-    before = packed_bwd.LAUNCHES_PROLOGUE
+    before = _launches("packed_prologue")
     bits_k, sval_k = packed_bwd.fused_neighbor_prologue(*args)
     torch.cuda.synchronize()
-    assert packed_bwd.LAUNCHES_PROLOGUE == before + 1
+    assert _launches("packed_prologue") == before + 1
     bits_p, sval_p = packed_bwd.fused_neighbor_prologue_plain(*args)
     assert torch.equal(bits_k, bits_p)
     assert torch.equal(sval_k, sval_p)
@@ -307,10 +314,10 @@ def test_padded_prologue_matches_plain_on_card(cuda, height, width,
     if layout == "float64":
         grad = grad.double()
     args = (fid, zbuf, pixels, grad, tile_h, tile_w)
-    before = packed_bwd.LAUNCHES_PROLOGUE
+    before = _launches("packed_prologue")
     got = packed_bwd.padded_prologue(*args)
     torch.cuda.synchronize()
-    assert packed_bwd.LAUNCHES_PROLOGUE == before + 1
+    assert _launches("packed_prologue") == before + 1
     want = packed_bwd.padded_prologue_plain(*args)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
@@ -336,13 +343,13 @@ def test_one_prologue_launch_per_backward_on_card(cuda, engine):
             scene[1], scene[3], 100, 130,
             config=dirt_tpu_torch.RasterConfig(**fields), clip=False)
         leaves = [t.clone().requires_grad_() for t in scene[:3]]
-        before = packed_bwd.LAUNCHES_PROLOGUE
+        before = _launches("packed_prologue")
         pixels = dirt_tpu_torch.rasterise(leaves[0], leaves[1], leaves[2],
                                           scene[3], config=config,
                                           clip=False)
         (pixels * torch.tensor(weights, device=device)).sum().backward()
         torch.cuda.synchronize()
-        assert packed_bwd.LAUNCHES_PROLOGUE == before + launches
+        assert _launches("packed_prologue") == before + launches
         grads.append([t.grad.cpu() for t in leaves])
     for g_cpu, g_card in zip(*grads):
         scale = float(g_cpu.abs().max())
@@ -354,10 +361,10 @@ def test_one_prologue_launch_per_backward_on_card(cuda, engine):
 def test_backward_kernel_matches_plain_on_card(cuda, kind, height, width,
                                                channels, tile_h):
     prep = _backward_inputs(cuda, kind, height, width, channels, tile_h)
-    before = packed_bwd.LAUNCHES_BWD
+    before = _launches("packed_bwd")
     rows_k = packed_bwd.packed_entry_rows(prep)
     torch.cuda.synchronize()
-    assert packed_bwd.LAUNCHES_BWD == before + 1
+    assert _launches("packed_bwd") == before + 1
     rows_p = packed_bwd.packed_entry_rows_plain(
         prep, prep.bins.rows, 0, prep.budget_chunks)
     torch.testing.assert_close(rows_k, rows_p, **TOL_BWD)
@@ -397,10 +404,10 @@ def test_swap_kernel_matches_plain_on_card(cuda, hp, wp, planes):
     odd = torch.empty(last.numel() + 1, dtype=last.dtype, device=cuda)[1:]
     arrays[-1] = odd.view(last.shape).copy_(last)
     assert arrays[-1].is_contiguous() and arrays[-1].data_ptr() % 16
-    before = raster_fwd.LAUNCHES_SWAP
+    before = _launches("subtile_swap")
     got = raster_fwd.flat_subtile_swap(arrays)
     torch.cuda.synchronize()
-    assert raster_fwd.LAUNCHES_SWAP == before + -(-len(planes) // 8)
+    assert _launches("subtile_swap") == before + -(-len(planes) // 8)
     for a, g in zip(arrays, got):
         want = raster_fwd.flat_subtile_swap_plain(a)
         assert g.dtype == a.dtype and g.shape == a.shape
@@ -441,10 +448,10 @@ def test_backward_kernel_takes_channels_beyond_one_pass(cuda, channels):
     111 (three)."""
     assert 12 + 3 * channels > packed_bwd.columns_per_pass(cuda)
     prep = _backward_inputs(cuda, "soup", 100, 130, channels, 32)
-    before = packed_bwd.LAUNCHES_BWD
+    before = _launches("packed_bwd")
     rows_k = packed_bwd.packed_entry_rows(prep)
     torch.cuda.synchronize()
-    assert packed_bwd.LAUNCHES_BWD == before + 1
+    assert _launches("packed_bwd") == before + 1
     rows_p = packed_bwd.packed_entry_rows_plain(
         prep, prep.bins.rows, 0, prep.budget_chunks)
     torch.testing.assert_close(rows_k, rows_p, **TOL_BWD)
@@ -579,11 +586,11 @@ def test_dense_kernel_matches_plain_on_card(cuda, kind, height, width,
     _, _, table, bins, bg_chw, cfg = _dense_forward(
         cuda, kind, height, width, channels, tile_h, tile_w)
     geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
-    before = raster_fwd.LAUNCHES_DENSE
+    before = _launches("raster_fwd_dense")
     pix_k, fid_k, z_k, boxes = raster_fwd.raster_forward(
         table, bins.bins, bins.counts, bg_chw, **geom)
     torch.cuda.synchronize()
-    assert raster_fwd.LAUNCHES_DENSE == before + 1
+    assert _launches("raster_fwd_dense") == before + 1
     pix_p, fid_p, z_p = raster_fwd.raster_forward_plain(
         table, bins.bins, bins.counts, bg_chw, **geom)
     assert torch.equal(fid_k, fid_p)
@@ -631,10 +638,10 @@ def test_fused_bwd_kernel_matches_plain_on_card(cuda, kind, height, width,
     geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     boxes = dict(bbox=bins.bbox,
                  cull=raster_fwd.csr_cull_boxes(table, hp, wp))
-    before = fused_bwd.LAUNCHES
+    before = _launches("fused_bwd")
     rows_k = fused_bwd.fused_backward_rows(*args, **boxes, **geom)
     torch.cuda.synchronize()
-    assert fused_bwd.LAUNCHES == before + 1
+    assert _launches("fused_bwd") == before + 1
     rows_p = fused_bwd.fused_backward_rows_plain(
         geo, fid, bits, sval, pix_cf, grad_cf, num_faces + 1)
     assert rows_k.shape == rows_p.shape
@@ -696,10 +703,10 @@ def test_fused_bwd_kernel_instances_on_card(cuda, kind, channels, height,
             num_faces + 1)
     boxes = dict(bbox=bins.bbox,
                  cull=raster_fwd.csr_cull_boxes(table, *fid.shape))
-    before = fused_bwd.LAUNCHES
+    before = _launches("fused_bwd")
     rows_k = fused_bwd.fused_backward_rows(*args, **boxes, **geom)
     torch.cuda.synchronize()
-    assert fused_bwd.LAUNCHES == before + 1
+    assert _launches("fused_bwd") == before + 1
     rows_p = fused_bwd.fused_backward_rows_plain(
         geo, fid, bits, sval, pix_cf, grad_cf, num_faces + 1)
     assert rows_k.shape == rows_p.shape
@@ -821,11 +828,11 @@ def test_csr_kernel_matches_plain_on_card(cuda, case):
     _, _, table, bins, bg_chw, cfg, _, _ = _csr_forward(cuda, case)
     geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     args = (bins.start_block, bins.counts, bg_chw)
-    before = raster_fwd.LAUNCHES_CSR
+    before = _launches("raster_fwd_csr")
     pix_k, fid_k, z_k, boxes = raster_fwd.raster_forward_csr(
         table, bins.entry_face, *args, **geom)
     torch.cuda.synchronize()
-    assert raster_fwd.LAUNCHES_CSR == before + 1
+    assert _launches("raster_fwd_csr") == before + 1
     assert torch.equal(boxes, raster_fwd.csr_cull_boxes_plain(
         table, *bg_chw.shape[1:]))
     pix_p, fid_p, z_p = raster_fwd.raster_forward_csr_plain(
@@ -1090,10 +1097,10 @@ def test_fused_bwd_csr_kernel_matches_plain_on_card(cuda, case):
             fid, bits, sval, pix_cf, grad_cf, num_faces)
     boxes = dict(bbox=bins.bbox,
                  cull=raster_fwd.csr_cull_boxes(table, hp, wp))
-    before = fused_bwd.LAUNCHES_CSR
+    before = _launches("fused_bwd_csr")
     rows_k = fused_bwd.fused_backward_rows_csr(*args, **boxes, **geom)
     torch.cuda.synchronize()
-    assert fused_bwd.LAUNCHES_CSR == before + 1
+    assert _launches("fused_bwd_csr") == before + 1
     rows_p = fused_bwd.fused_backward_rows_csr_plain(
         geo, fid, bits, sval, pix_cf, grad_cf, num_faces)
     assert rows_k.shape == rows_p.shape == (num_faces,
@@ -1127,12 +1134,12 @@ def test_streaming_gradients_on_card_match_cpu(cuda, distance, clip, fields):
         bg_t, v_t, c_t, f_t = convert.scene_from_numpy(bg, verts, colors,
                                                        faces, device)
         leaves = [t.clone().requires_grad_() for t in (v_t, c_t, bg_t)]
-        before = (raster_fwd.LAUNCHES_CSR, fused_bwd.LAUNCHES_CSR)
+        before = (_launches("raster_fwd_csr"), _launches("fused_bwd_csr"))
         pix, fid, zbuf, ovf = dirt_tpu_torch.rasterise_with_aux(
             leaves[2], leaves[0], leaves[1], f_t, config=config, clip=clip)
         (pix * torch.tensor(w, device=device)).sum().backward()
-        launched = (raster_fwd.LAUNCHES_CSR - before[0],
-                    fused_bwd.LAUNCHES_CSR - before[1])
+        launched = (_launches("raster_fwd_csr") - before[0],
+                    _launches("fused_bwd_csr") - before[1])
         assert launched == ((0, 0) if device == "cpu" else (1, 1))
         outs.append((pix.detach().cpu(), fid.cpu(), zbuf.cpu(), bool(ovf)))
         grads.append([t.grad.cpu() for t in leaves])
@@ -1331,10 +1338,10 @@ def test_scatter_kernel_matches_plain_on_card(cuda, case):
     # The scenes' faces own pixels inside their boxes only.
     boxes = dict(bbox=bbox, cull=bbox if isinstance(case, str) else cull)
     args = (cot, fid_p, *lists, num_faces + 1)
-    before = scatter.LAUNCHES
+    before = _launches("scatter_faces")
     rows_k = scatter.scatter_to_faces(*args, **boxes, **geom)
     torch.cuda.synchronize()
-    assert scatter.LAUNCHES == before + 1
+    assert _launches("scatter_faces") == before + 1
     _check_scatter_rows(
         rows_k, scatter.scatter_to_faces_plain(cot, fid_p, num_faces + 1),
         lambda: scatter.scatter_to_faces(*args, **boxes, **geom), mass)
@@ -1365,10 +1372,10 @@ def test_scatter_csr_kernel_matches_plain_on_card(cuda, case):
     # The scenes' faces own pixels inside their boxes only.
     boxes = dict(bbox=bbox, cull=bbox if case in _SCATTER_SCENES else cull)
     args = (cot, fid_p, *lists, num_faces)
-    before = scatter.LAUNCHES_CSR
+    before = _launches("scatter_faces_csr")
     rows_k = scatter.scatter_to_faces_csr(*args, **boxes, **geom)
     torch.cuda.synchronize()
-    assert scatter.LAUNCHES_CSR == before + 1
+    assert _launches("scatter_faces_csr") == before + 1
     _check_scatter_rows(
         rows_k, scatter.scatter_to_faces_csr_plain(cot, fid_p, num_faces),
         lambda: scatter.scatter_to_faces_csr(*args, **boxes, **geom), mass)
@@ -1378,10 +1385,11 @@ def test_scatter_csr_kernel_matches_plain_on_card(cuda, case):
 
 
 def _sharded_counts():
-    return {"packed": (raster_fwd.LAUNCHES, packed_bwd.LAUNCHES_BWD,
-                       raster_fwd.LAUNCHES_SWAP),
-            "dense": (raster_fwd.LAUNCHES_DENSE, scatter.LAUNCHES),
-            "csr": (raster_fwd.LAUNCHES_CSR, scatter.LAUNCHES_CSR)}
+    kernels = {"packed": ("raster_fwd_packed", "packed_bwd", "subtile_swap"),
+               "dense": ("raster_fwd_dense", "scatter_faces"),
+               "csr": ("raster_fwd_csr", "scatter_faces_csr")}
+    return {engine: tuple(_launches(k) for k in names)
+            for engine, names in kernels.items()}
 
 
 @pytest.mark.cuda

@@ -440,7 +440,7 @@ class _EagerGraph:
         type(self).made += 1
         self.fn = fn
 
-    def __call__(self, args):
+    def __call__(self, args, entry):
         return self.fn(*args)
 
 
