@@ -78,7 +78,8 @@ PEAK_FLOPS = 67e12
 TEST_FLOPS = 22
 # The kernels the measured paths launch (packed, dense, streaming).
 KERNELS = ("raster_fwd_packed", "packed_prologue", "packed_bwd",
-           "raster_fwd_dense", "fused_bwd", "raster_fwd_csr", "fused_bwd_csr")
+           "raster_fwd_dense", "fused_bwd", "raster_fwd_csr", "fused_bwd_csr",
+           "max_scan")
 
 
 def attr_flops(channels):

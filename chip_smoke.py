@@ -28,7 +28,8 @@ raises and exits non-zero; nothing is caught):
    w)`` and ``loss.backward()`` to vertices, colors and background:
    finite, nonzero vertex and color gradients, d_background equal to w
    on background and 0 on covered pixels, launch counts > 0 for all three
-   kernels and one prologue launch per backward, the kernel path's
+   kernels, one prologue launch per backward, two packed forwards and
+   their binnings' ten max_scan launches, the kernel path's
    gradients against the same path with every kernel replaced by its
    plain version (max |diff| <= 1e-5 max |grad|), and the times (median
    of 10, CUDA events) of the forward, the fwd+bwd step, the backward
@@ -210,12 +211,18 @@ raises and exits non-zero; nothing is caught):
     ``backward_packed`` bit for bit, on both scenes; ``bin_faces_packed(...,
     _stage=0)`` equal field by field to the call without ``_stage``; on the
     bench sphere the ten ``_stage`` checksums on the card equal to the
-    CPU's from the same inputs; the binning tool's A/B of each
-    ``torch.cummax`` call (a start-flag cumsum, a scatter, a gather) equal
-    to it; the parallel tool's variants (sharded, overlapped with 1, 2, 4
-    chunks, face-sharded, one member each) with the plain step's fid and
-    gradients within 1e-4 of max |gradient|; raster_fwd_packed,
-    packed_prologue and packed_bwd launched;
+    CPU's from the same inputs; the binning tool's five scans
+    (``binning._cummax``, the max_scan kernel) each on the input it gets,
+    beside ``torch.cummax``, the two equal; the parallel tool's variants
+    (sharded, overlapped with 1, 2, 4 chunks, face-sharded, one member
+    each) with the plain step's fid and gradients within 1e-4 of max
+    |gradient|;
+    raster_fwd_packed, packed_prologue, packed_bwd and max_scan launched;
+    then max_scan (the packed binning's running maxima, a kernel that
+    stands for XLA's ``lax.cummax``) against its plain version,
+    ``torch.cummax``, which is also its library yardstick, at 4,993,724
+    and 99,392 elements of runs: equal bit for bit, single calls, device
+    time alone, the bound of 16 B an element;
 19. the compiled steps: each path eager and as CUDA-graph replays
     (``dirt_tpu_torch.utils.graphstep.GraphedStep``, the counterpart of the
     reference's ``jax.jit`` and ``lax.scan``): the bench sphere at
@@ -262,8 +269,17 @@ phases 12, 19 and 20 of 10, to keep the whole run under four minutes (the
 ``[total]`` line gives each phase's seconds). The line before the last is
 the kernels' JSON record (``library_ms`` where phase 12 times one PyTorch
 call of the same function: ``index_add_`` for the scatters, a strided copy
-for the swap), the last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+for the swap; phase 18 ``torch.cummax`` for the max-scan), the last line
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
+
+Every launch count above counts max_scan too: the packed binning scans
+five times a call, and the port bins packed only in the packed forward,
+ahead of its one raster_fwd_packed launch, so each path must launch
+max_scan five times for each raster_fwd_packed launch (none on the dense
+and CSR paths, none on a plain path); phase 18's tools, which also bin
+without the forward, stop at ``_stage`` hooks and time single scans, at
+least five times for each raster_fwd_packed launch.
 """
 
 import hashlib
@@ -318,6 +334,18 @@ KERNELS = ("raster_fwd_packed", "packed_prologue", "packed_bwd",
            "raster_fwd_dense", "fused_bwd", "raster_fwd_csr", "fused_bwd_csr",
            "scatter_faces", "scatter_faces_csr", "subtile_swap")
 CSR_PATH = ("raster_fwd_csr", "packed_prologue", "fused_bwd_csr")
+# The port's kernel that stands for no Pallas kernel: the packed binning's
+# running maxima (XLA's lax.cummax in the reference), five launches a call.
+SCAN = "max_scan"
+SCAN_REPLACES = ("none: XLA's lax.cummax, dirt_tpu/ops/binning.py:514, "
+                 ":515, :626, :701, :702")
+# max_scan launches a bin_faces_packed call: its five running maxima.
+SCANS_PER_BINNING = 5
+# Every kernel the launch checks count.
+COUNTED = KERNELS + (SCAN,)
+# Lengths phase 18 times the scan at: the 1,001,112-face sphere's pool
+# (sphere1m_1024's pool_cap) and the bench sphere's.
+SCAN_SIZES = (4_993_724, 99_392)
 REPLACES = {
     "raster_fwd_packed": "dirt_tpu/ops/raster_fwd.py:413",
     "packed_prologue": "dirt_tpu/ops/packed_bwd.py:293",
@@ -541,10 +569,13 @@ def _launch_counts():
     from dirt_tpu_torch.utils import trace
 
     counts = trace.counters()
-    return {kernel: counts.get(f"launch.{kernel}", 0) for kernel in (
-        "scatter_faces", "scatter_faces_csr", "raster_fwd_packed",
-        "packed_prologue", "packed_bwd", "raster_fwd_dense", "fused_bwd",
-        "raster_fwd_csr", "fused_bwd_csr", "subtile_swap")}
+    return {kernel: counts.get(f"launch.{kernel}", 0) for kernel in COUNTED}
+
+
+def _with_scans(want):
+    """``want`` ({kernel: launches} of KERNELS) with max_scan's: one packed
+    binning, five scans, ahead of each raster_fwd_packed launch."""
+    return {**want, SCAN: SCANS_PER_BINNING * want["raster_fwd_packed"]}
 
 
 def _reset_launch_counts():
@@ -556,10 +587,14 @@ def _reset_launch_counts():
 def _need_launches(path, counts, kernels, backwards=1):
     """Every kernel of ``kernels`` launched; the prologue, where it is one
     of them, once per backward (it pads the fields itself: no copy before
-    it)."""
+    it); max_scan five times for each raster_fwd_packed launch."""
     missed = [k for k in kernels if counts[k] < 1]
     if missed:
         raise RuntimeError(f"{path} missed a kernel: {missed} of {counts}")
+    if counts[SCAN] != SCANS_PER_BINNING * counts["raster_fwd_packed"]:
+        raise RuntimeError(f"{path}: want {SCANS_PER_BINNING} {SCAN} "
+                           f"launches (one packed binning) for each "
+                           f"raster_fwd_packed launch, got {counts}")
     if ("packed_prologue" in kernels
             and counts["packed_prologue"] != backwards):
         raise RuntimeError(f"{path}: want {backwards} prologue launch(es), "
@@ -569,7 +604,13 @@ def _need_launches(path, counts, kernels, backwards=1):
 def _plain_patches():
     """Patches that put each kernel wrapper's plain version in its place
     (``start()`` / ``stop()`` them): the same path with no kernel."""
-    from dirt_tpu_torch.ops import fused_bwd, packed_bwd, raster_fwd, scatter
+    from dirt_tpu_torch.ops import (
+        fused_bwd,
+        packed_bwd,
+        raster_fwd,
+        scan,
+        scatter,
+    )
 
     def plain_scatter(cot_cf, fid, bins, counts, num_rows, *, tile_h, tile_w,
                       bbox=None, cull=None):
@@ -629,6 +670,7 @@ def _plain_patches():
             raster_fwd, "flat_subtile_swap",
             lambda arrays: [raster_fwd.flat_subtile_swap_plain(a)
                             for a in arrays]),
+        mock.patch.object(scan, "max_scan", scan.max_scan_plain),
     )
 
 
@@ -1212,11 +1254,12 @@ def _sharded_check(tag, engine, scene, config, weights, card, runs=5):
         (pix_n, fid_n, _, ovf_n), grads_n = step(sharded(n))
         _sync()
         counts = _launch_counts()
-        wrong = {k: v for k, v in counts.items()
-                 if v != (n if k in SHARDED_PATH[engine] else 0)}
-        if wrong:
-            raise RuntimeError(f"[{tag}] {n} slabs: want {n} launches of "
-                               f"{SHARDED_PATH[engine]} and no other, got "
+        want = _with_scans({k: (n if k in SHARDED_PATH[engine] else 0)
+                            for k in KERNELS})
+        if counts != want:
+            raise RuntimeError(f"[{tag}] {n} slabs: want launches {want} "
+                               f"({n} of {SHARDED_PATH[engine]}, the packed "
+                               f"slabs' binnings) and no other, got "
                                f"{counts}")
         pix_err = float((pix_n - pix_1).detach().abs().max())
         if (bool(ovf_n) or not torch.equal(fid_n, fid_1)
@@ -1382,7 +1425,7 @@ def _overlap_check(tag, scene, config, weights, card, runs=5):
 
     grads_1 = step(single)[1]
     times = {"single device": _median_ms(lambda: step(single), runs)}
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     for n in (1, 4):
         (pix_s, fid_s, _, _), grads_s = step(sharded(n))
         times[f"sharded n={n}"] = _median_ms(lambda: step(sharded(n)), runs)
@@ -1394,9 +1437,10 @@ def _overlap_check(tag, scene, config, weights, card, runs=5):
             _sync()
             counts = _launch_counts()
             patch.stop()
-            want = {"raster_fwd_packed": n, "subtile_swap": n,
-                    "packed_bwd": n * k}
-            if any(v != want.get(name, 0) for name, v in counts.items()):
+            want = _with_scans({name: 0 for name in KERNELS}
+                               | {"raster_fwd_packed": n, "subtile_swap": n,
+                                  "packed_bwd": n * k})
+            if counts != want:
                 raise RuntimeError(f"[{tag}] {n} slabs x {k} chunks: want "
                                    f"launches {want} and no other, got "
                                    f"{counts}")
@@ -1460,9 +1504,12 @@ def _face_sharded_check(tag, scene, config, weights, kernel):
                                                           weights, 4)
     _sync()
     counts = _launch_counts()
-    if any(v != (4 if name == kernel else 0) for name, v in counts.items()):
+    want = _with_scans({name: (4 if name == kernel else 0)
+                        for name in KERNELS})
+    if counts != want:
         raise RuntimeError(f"[{tag}] want 4 launches of {kernel} (one per "
-                           f"member) and no other, got {counts}")
+                           f"member), the packed members' binnings and no "
+                           f"other: {want}, got {counts}")
     pix_err = float((pix_4 - pix_1).detach().abs().max())
     if (bool(ovf_1) or bool(ovf_4) or not torch.equal(fid_4, fid_1)
             or pix_err > TOL_SLAB_PIXELS):
@@ -1884,8 +1931,8 @@ def _check_demo_fit(tag, module, kwargs, need, ratio, card, out):
     steps = result["steps"]
     per_kernel = {"fit": steps, "trainer": WARMUP + 1, "run": 0}
     wrong = {name: counts for name, counts in counted.items()
-             if any(n != (per_kernel[name] if k in need else 0)
-                    for k, n in counts.items())}
+             if counts != _with_scans({k: (per_kernel[name] if k in need
+                                           else 0) for k in KERNELS})}
     if wrong or sorted(counted) != sorted(names):
         raise RuntimeError(f"[{tag}] want {need} launched "
                            f"{[(n, per_kernel[n]) for n in names]} times and "
@@ -1907,7 +1954,7 @@ def _demos_check(device, card):
     demos 3-5's loops, summed."""
     from dirt_tpu_torch.utils.checkpoint import load_pytree
 
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     dense = ("raster_fwd_dense", "packed_prologue", "fused_bwd")
     demo5 = _demo("torch_demo5_deferred")
     with tempfile.TemporaryDirectory() as out:
@@ -1940,7 +1987,7 @@ def _demos_check(device, card):
               f"loads back equal; pose {result['pose'].tolist()} (true "
               f"{list(demo5.TRUE_POSE)})")
     for counts in runs:
-        for kernel_name in KERNELS:
+        for kernel_name in COUNTED:
             launches[kernel_name] += counts[kernel_name]
     return launches
 
@@ -1983,7 +2030,7 @@ def _huge_sphere_check(device, card, n=708):
         if any(counts[k] for k in KERNELS if k not in path):
             raise RuntimeError(f"[17] {engine}: another engine's kernel "
                                f"launched: {counts}")
-        for k in path:
+        for k in path + (SCAN,):
             launches[k] = launches.get(k, 0) + counts[k]
         (_, fid, _, overflow), grads = runs[engine]
         if bool(overflow):
@@ -2117,13 +2164,71 @@ def _tools_check(device, card, bench_config):
                             card=card)
     _sync()
     counts = _launch_counts()
-    missed = [k for k in KERNELS[:3] if counts[k] < 1]
+    missed = [k for k in KERNELS[:3] + (SCAN,) if counts[k] < 1]
     if missed:
         raise RuntimeError(f"[18 tools] missed a kernel: {missed} of "
                            f"{counts}")
+    # Each packed forward bins once; the tools also bin without it, stop a
+    # binning at a ``_stage`` hook and time single scans.
+    if counts[SCAN] < SCANS_PER_BINNING * counts["raster_fwd_packed"]:
+        raise RuntimeError(f"[18 tools] {SCAN} launched {counts[SCAN]} "
+                           f"times: fewer than {SCANS_PER_BINNING} for each "
+                           f"packed forward, of {counts}")
     print(f"[18 tools] launches {counts}; {time.perf_counter() - start:.1f} s "
           f"({card})")
     return counts
+
+
+def _check_max_scan(device, card, runs=10):
+    """Phase 18: max_scan against its plain version, ``torch.cummax(x,
+    0).values``, which is also the one PyTorch call of the same function
+    (``library_ms``; the port no longer calls it), at the lengths of
+    SCAN_SIZES, on runs as the binning scans them (-1 between run starts,
+    non-decreasing values at them). Returns {SCAN: record of the first
+    length, with the others under ``at``}; raises unless the two are equal
+    bit for bit."""
+    from dirt_tpu_torch.ops import scan
+
+    records = {}
+    for n in SCAN_SIZES:
+        rng = np.random.RandomState(n)
+        x = np.full(n, -1, np.int64)
+        starts = np.sort(rng.choice(n, n // 5, replace=False))
+        x[starts] = np.sort(rng.randint(0, 4 * n, starts.size))
+        x = torch.as_tensor(x, device=device)
+        before = _launch_counts()[SCAN]
+        got = scan.max_scan(x)
+        want = scan.max_scan_plain(x)
+        _sync()
+        if _launch_counts()[SCAN] != before + 1 or not torch.equal(got, want):
+            raise RuntimeError(f"[18 max_scan] {n} elements: the kernel "
+                               f"differs from torch.cummax or did not run")
+
+        def device_alone(fn):
+            by_name = _device_ms(fn, runs)
+            return sum(by_name.values()), sum(
+                ms for name, ms in by_name.items() if SCAN in name)
+
+        call_ms, kernel_ms = device_alone(lambda: scan.max_scan(x))
+        library_device_ms, _ = device_alone(lambda: scan.max_scan_plain(x))
+        rec = dict(elements=n, max_abs_err=0.0,
+                   ms=_median_ms(lambda: scan.max_scan(x), runs),
+                   plain_ms=_median_ms(lambda: scan.max_scan_plain(x), runs),
+                   device_ms=call_ms, kernel_device_ms=kernel_ms,
+                   library_device_ms=library_device_ms,
+                   **_bound(16 * n, 0))
+        rec["library_ms"] = rec["plain_ms"]
+        records[n] = rec
+        print(f"[18 max_scan] {n} elements: equal bit for bit to "
+              f"torch.cummax; kernel {rec['ms']:.4f} ms, plain version = "
+              f"torch.cummax {rec['plain_ms']:.4f} ms (single calls, medians "
+              f"of {runs}); device alone: the call {call_ms:.4f} ms (the "
+              f"scan {kernel_ms:.4f} + zeroing its status words), "
+              f"torch.cummax {library_device_ms:.4f} ms; bound "
+              f"{rec['bound_ms']:.4f} ms by bytes (16 B an element) ({card})")
+        del x, got, want
+    first, *rest = SCAN_SIZES
+    return {SCAN: dict(records[first], at={n: records[n] for n in rest})}
 
 
 # Timed calls per median of phases 19 and 20 (the 1,001,112-face step: 3),
@@ -2363,8 +2468,10 @@ def _graphed_demo5_check(device, card):
     final_g, setup_g, loop_g, setup_s, loop_s_g, prof_g, peak_g = \
         runs["graphed"]
     path = KERNELS[:3]
-    want_g = {k: (WARMUP + 1 if k in path else 0) for k in KERNELS}
-    want_e = {k: (DEMO5_STEPS if k in path else 0) for k in KERNELS}
+    want_g = _with_scans({k: (WARMUP + 1 if k in path else 0)
+                          for k in KERNELS})
+    want_e = _with_scans({k: (DEMO5_STEPS if k in path else 0)
+                          for k in KERNELS})
     if (setup_g != want_g or any(loop_g.values()) or loop_e != want_e
             or any(setup_e.values())):
         raise RuntimeError(f"[19 demo5] launches: graphed trainer {setup_g} "
@@ -2418,10 +2525,10 @@ def _graphed_check(device, card, scene, configs):
     from dirt_tpu_torch.utils.graphstep import value_and_grad
 
     start = time.perf_counter()
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
 
     def add(counts):
-        for k in KERNELS:
+        for k in COUNTED:
             launches[k] += counts[k]
 
     _, clip, colors, faces, background, _ = scene
@@ -2530,8 +2637,9 @@ def _graphed_demo_check(n, device, card):
     final_e, setup_e, loop_e, _, loop_s_e, prof_e, peak_e = runs["eager"]
     final_g, setup_g, loop_g, setup_s, loop_s_g, prof_g, peak_g = \
         runs["graphed"]
-    want_g = {k: (WARMUP + 1 if k in path else 0) for k in KERNELS}
-    want_e = {k: (steps if k in path else 0) for k in KERNELS}
+    want_g = _with_scans({k: (WARMUP + 1 if k in path else 0)
+                          for k in KERNELS})
+    want_e = _with_scans({k: (steps if k in path else 0) for k in KERNELS})
     if (setup_g != want_g or any(loop_g.values()) or loop_e != want_e
             or any(setup_e.values())):
         raise RuntimeError(f"[{tag}] launches: graphed trainer {setup_g} "
@@ -2602,10 +2710,10 @@ def _graphed_parallel_check(device, card, weights, scenes, configs):
     from dirt_tpu_torch.utils.graphstep import WARMUP, value_and_grad
 
     start = time.perf_counter()
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
 
     def add(counts):
-        for k in KERNELS:
+        for k in COUNTED:
             launches[k] += counts[k]
 
     def sharded(bg, verts, cols, *, faces, config, kwargs):
@@ -2733,13 +2841,13 @@ def main():
 
     # --- 2. build ---------------------------------------------------------
     start = time.perf_counter()
-    nvcc_s = _build.build(KERNELS)
-    for kernel_name in KERNELS:
+    nvcc_s = _build.build(KERNELS + (SCAN,))
+    for kernel_name in KERNELS + (SCAN,):
         _build.load(kernel_name)
     build_s = time.perf_counter() - start
-    print(f"[2 build] {len(KERNELS)} kernels built in parallel + loaded in "
-          f"{build_s:.2f} s")
-    for kernel_name in KERNELS:
+    print(f"[2 build] {len(KERNELS) + 1} kernels built in parallel + loaded "
+          f"in {build_s:.2f} s")
+    for kernel_name in KERNELS + (SCAN,):
         ptxas = [ln.strip() for ln in _build.build_log(kernel_name)
                  .splitlines() if "registers" in ln or "spill" in ln]
         built = (f"nvcc done after {nvcc_s[kernel_name]:.2f} s"
@@ -2777,6 +2885,11 @@ def main():
     _sync()
     launches = _launch_counts()
     _need_launches("packed main path", launches, KERNELS[:3], backwards=2)
+    if launches["raster_fwd_packed"] != 2:
+        raise RuntimeError(f"packed main path: want 2 packed forwards, one "
+                           f"a step, and their binnings' "
+                           f"{2 * SCANS_PER_BINNING} {SCAN} launches, got "
+                           f"{launches}")
 
     covered = {}
     for c, ((pixels, fid, zbuf, overflow), grads) in runs.items():
@@ -3382,7 +3495,7 @@ def main():
         times[f"face-sharded n={members}"] = _median_ms(
             lambda: face_sharded_step(bench3, configs[False], weights,
                                       members), 5)
-    for kernel_name in KERNELS:
+    for kernel_name in COUNTED:
         launches[kernel_name] += (counts[kernel_name]
                                   + counts_dense[kernel_name]
                                   + counts_packed[kernel_name])
@@ -3408,10 +3521,11 @@ def main():
         launches[kernel_name] += count
 
     laps.lap()
-    # --- 18. the stage, binning and parallel profilers ---------------------
+    # --- 18. the stage, binning and parallel profilers, the max-scan -------
     for kernel_name, count in _tools_check(device, card,
                                            configs[False]).items():
         launches[kernel_name] += count
+    record.update(_check_max_scan(device, card))
 
     laps.lap()
     # --- 19. the compiled steps: CUDA-graph replays against eager --------
@@ -3441,7 +3555,14 @@ def main():
         # One PyTorch call of the same function, where phase 12 times one
         # (index_add_ for the scatters, a strided copy for the swap).
         "library_ms": record[k].get("library_ms"),
-    } for k in KERNELS]}))
+    } for k in KERNELS] + [{
+        "name": SCAN,
+        "route": "cuda",
+        "source": f"dirt_tpu_torch/csrc/{SCAN}.cu",
+        "replaces": SCAN_REPLACES,
+        "launches": launches[SCAN],
+        **record[SCAN],
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count(),

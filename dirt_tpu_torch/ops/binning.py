@@ -4,8 +4,10 @@ Counterpart of ``dirt_tpu/ops/binning.py``: the packed half
 (``PackedBins`` .. ``bin_faces_packed``) and the dense engine's
 ``BinningResult`` / ``bin_faces`` and the streaming engine's ``CSRBins`` /
 ``bin_faces_csr`` (at the end of the module). Sorts, scans and scatters are
-plain torch ops; the layout, the static caps and the overflow flag are
-exactly the JAX package's, and the tests hold every integer field to it.
+plain torch ops, but for the packed binning's five running maxima, which
+launch the hand-written max-scan of ``ops/scan.py`` on CUDA tensors; the
+layout, the static caps and the overflow flag are exactly the JAX
+package's, and the tests hold every integer field to it.
 
 Translation rules kept throughout:
 
@@ -31,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from dirt_tpu_torch.ops import scan
 from dirt_tpu_torch.utils import trace
 
 CHUNK = 128  # CSR chunk granularity: every tile's run starts at a multiple
@@ -165,7 +168,7 @@ def _exclusive_cumsum(x, dim=0):
 
 
 def _cummax(x):
-    return torch.cummax(x, dim=0).values
+    return scan.max_scan(x)
 
 
 def _drop_index(idx, n):

@@ -112,3 +112,31 @@ SHARDING_CAPS = {
     "packed": dict(tile_h=8, tile_w=128, engine="packed", expand_cap=128,
                    budget=2048),
 }
+
+
+# Lengths of ``ops/scan.max_scan``'s cases: one and two elements, a tile
+# (4,096) and its neighbours, three tiles and a ragged end, and the
+# 1,001,112-face sphere's pool (``sphere1m_1024``'s ``pool_cap``).
+SCAN_LENGTHS = (1, 2, 4095, 4096, 4097, 3 * 4096 + 5, 4_993_724)
+# What fills them: int64 values over the whole range, INT64_MIN and
+# INT64_MAX planted; one value throughout; a strictly decreasing run, whose
+# every running maximum is the first element (on the card it reaches every
+# tile from tile 0 through the look-back).
+SCAN_KINDS = ("random", "constant", "decreasing")
+
+
+def scan_input(kind, n, seed=0):
+    """A 1-D int64 numpy array of ``n`` elements for the max-scan tests."""
+    rng = np.random.RandomState(seed)
+    if kind == "random":
+        info = np.iinfo(np.int64)
+        x = rng.randint(info.min, info.max, n, dtype=np.int64)
+        x[rng.randint(0, n, max(n // 1000, 1))] = info.min
+        x[rng.randint(0, n, max(n // 100_000, 1))] = info.max
+        return x
+    if kind == "constant":
+        return np.full(n, rng.randint(-2**62, 2**62, dtype=np.int64),
+                       np.int64)
+    if kind == "decreasing":
+        return np.int64(2**40) - np.arange(n, dtype=np.int64) * 3
+    raise ValueError(f"no scan input {kind!r}")

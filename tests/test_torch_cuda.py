@@ -58,8 +58,22 @@ same order; on the card the plain version's ``index_add_`` flushes
 subnormal sums to zero), and the fused dense backward at each of its
 compile-time instances and its general form with the dense engine's
 tolerance, on lists that reach their cap beside empty tiles.
+
+The max-scan kernel (``ops/scan.py``, the packed binning's running maxima)
+equal bit for bit to ``torch.cummax(x, 0).values``, twenty times in a row
+on each input (the look-back's races would show as a run that differs):
+lengths around a tile and up to the 1,001,112-face sphere's pool, the
+whole int64 range, constant and strictly decreasing inputs, an input off
+16-byte alignment, the five inputs the binning scans on the bench sphere
+and on the 1,001,112-face sphere; inside a CUDA graph replayed ten times on
+new inputs (its status words are zeroed by every replay). One eager
+``bin_faces_packed`` call launches it five times, and its fields and the
+ten ``_stage`` checksums on the card equal the CPU's.
 """
 
+import functools
+import sys
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -67,7 +81,14 @@ import pytest
 import torch
 
 import dirt_tpu_torch
-from _torch_port_scene import needle_soup, screen_soup, sphere_scene
+from _torch_port_scene import (
+    SCAN_KINDS,
+    SCAN_LENGTHS,
+    needle_soup,
+    scan_input,
+    screen_soup,
+    sphere_scene,
+)
 from dirt_tpu_torch import convert, entry
 from dirt_tpu_torch.ops import (
     binning,
@@ -75,6 +96,7 @@ from dirt_tpu_torch.ops import (
     packed_bwd,
     raster,
     raster_fwd,
+    scan,
     scatter,
 )
 from dirt_tpu_torch.parallel.group import LocalGroup
@@ -1430,3 +1452,129 @@ def test_sharded_renderer_on_card_matches_cpu(cuda, engine):
     for g_cpu, g_card in zip(*grads):
         assert torch.isfinite(g_card).all()
         assert _rel_err(g_card, g_cpu) <= 1e-4
+
+
+# --- max-scan ------------------------------------------------------------
+
+# Runs of each max-scan case: a race in the look-back would give a run that
+# differs from the others.
+SCAN_REPEATS = 20
+
+
+def _scan_repeats(x, repeats=SCAN_REPEATS):
+    """``scan.max_scan(x)`` ``repeats`` times, each bit-equal to
+    ``torch.cummax``, with one launch counted a run."""
+    want = torch.cummax(x, 0).values
+    before = _launches("max_scan")
+    for _ in range(repeats):
+        got = scan.max_scan(x)
+        assert got.dtype == torch.int64 and got.shape == x.shape
+        assert torch.equal(got, want)
+    assert _launches("max_scan") == before + repeats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SCAN_KINDS)
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+def test_max_scan_matches_cummax_on_card(cuda, n, kind):
+    _scan_repeats(torch.from_numpy(scan_input(kind, n, seed=n)).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SCAN_KINDS)
+def test_max_scan_matches_cummax_off_vector_alignment_on_card(cuda, kind):
+    """A view 8 bytes into its storage: no 16-byte vectors."""
+    n = 5 * scan.TILE + 3
+    buf = torch.from_numpy(scan_input(kind, n + 1, seed=3)).to(cuda)
+    x = buf[1:]
+    assert x.data_ptr() % 16 == 8 and x.is_contiguous()
+    _scan_repeats(x)
+
+
+@pytest.mark.cuda
+def test_max_scan_of_nothing_launches_nothing_on_card(cuda):
+    before = _launches("max_scan")
+    assert scan.max_scan(torch.zeros(0, dtype=torch.int64,
+                                     device=cuda)).shape == (0,)
+    assert _launches("max_scan") == before
+
+
+@pytest.mark.cuda
+def test_max_scan_in_a_cuda_graph_on_card(cuda):
+    """Captured once, replayed ten times on new inputs: the counter and the
+    tiles' flags start from zero on every replay."""
+    n = 50 * scan.TILE + 17
+    static = torch.from_numpy(scan_input("random", n, seed=0)).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        scan.max_scan(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = scan.max_scan(static)
+    for replay in range(10):
+        kind = SCAN_KINDS[replay % len(SCAN_KINDS)]
+        x = torch.from_numpy(scan_input(kind, n, seed=replay + 1)).to(cuda)
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.cummax(x, 0).values), (replay, kind)
+
+
+@functools.lru_cache(maxsize=None)
+def _binning_inputs(n_lat):
+    """(bbox, edges, geometry) of the bench sphere ``uv_sphere(n_lat,
+    n_lat)`` at 1024 x 1024 on the card under ``suggest_raster_config``'s
+    packed caps, as ``tools/prof_torch_binning.py`` bins it."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import prof_torch_stages
+    from bench_torch import bench_scene
+
+    _, clip, colors, faces, _, _ = bench_scene(1024, "cuda", n=n_lat)
+    config = dirt_tpu_torch.suggest_raster_config(
+        clip, faces, 1024, 1024, clip=False).concrete(1024)
+    assert raster.resolve_engine(config, faces.shape[0]) == "packed"
+    geom = prof_torch_stages.Geometry(config, faces.shape[0], 1024)
+    _, _, bbox, edges = prof_torch_stages.setup(clip, colors, faces, 1024)
+    return bbox, edges, geom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lat", [72, 708], ids=["10224", "1001112"])
+def test_max_scan_matches_cummax_on_binning_inputs_on_card(cuda, n_lat):
+    """The five arrays ``bin_faces_packed`` scans, captured from one call on
+    the bench sphere and on the 1,001,112-face sphere."""
+    bbox, edges, geom = _binning_inputs(n_lat)
+    import prof_torch_binning
+
+    seen = prof_torch_binning.capture_cummax(bbox, edges, geom)
+    assert len(seen) == 5
+    for x in seen:
+        _scan_repeats(x)
+
+
+@pytest.mark.cuda
+def test_packed_binning_on_card_scans_five_times_and_equals_cpu(cuda):
+    """One eager ``bin_faces_packed`` call of the bench sphere launches the
+    max-scan five times; its fields and the ten ``_stage`` checksums equal
+    the CPU's from the same inputs."""
+    bbox, edges, geom = _binning_inputs(72)
+    import prof_torch_binning
+    import prof_torch_stages
+
+    before = _launches("max_scan")
+    bins = prof_torch_stages.bin_faces(bbox, edges, geom)
+    torch.cuda.synchronize()
+    assert _launches("max_scan") == before + 5
+    bbox_cpu = tuple(c.cpu() for c in bbox)
+    edges_cpu = [c.cpu() for c in edges]
+    want = prof_torch_stages.bin_faces(bbox_cpu, edges_cpu, geom)
+    assert not bool(bins.overflow)
+    for field in binning.PackedBins._fields:
+        a, b = getattr(bins, field), getattr(want, field)
+        assert (a is None) == (b is None), field
+        if a is not None:
+            assert torch.equal(a.cpu(), b), field
+    assert prof_torch_binning.stage_checksums(bbox, edges, geom) == \
+        prof_torch_binning.stage_checksums(bbox_cpu, edges_cpu, geom)

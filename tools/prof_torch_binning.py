@@ -20,11 +20,11 @@ Counterpart of ``tools/prof_binning.py``, on the scene and caps of
   ``[pool, 16]`` row gather beside the port's 13 column gathers, the
   entries gather, scatter-add pool -> nsid and scatter-set F -> pool, on
   random data made from a seed with numpy;
-* each of the binning's five ``torch.cummax`` calls on the very input it
-  gets in this scene (captured from one call), and beside each the same
-  run propagation computed another way (:func:`run_fill`: a start-flag
-  ``cumsum``, a scatter of the run values, a gather), which must give
-  equal values.
+* each of the binning's five running maxima (``binning._cummax``: the
+  max-scan kernel of ``ops/scan.py`` on a card) on the very input it gets
+  in this scene (captured from one call), and beside each
+  ``torch.cummax``, which the binning ran before the kernel; the two must
+  give equal values.
 
 With a card, every line also gives the device busy ms a call from a
 profiler window (``prof_torch_steps._profile``). Prints the card's name
@@ -65,30 +65,16 @@ STAGES = ((11, "1a pool face_of / s0_of"), (12, "1b pool ey / ex + fields"),
           (4, "4 grid prefix math"), (5, "5 pair placement"),
           (6, "6 entries scatter"), (7, "7 pair_rows (bwd inverse)"))
 # The five ``_cummax`` calls of ``bin_faces_packed`` in call order: (name,
-# the array it scans, the value that fills the slots between run starts).
-CUMMAX_CALLS = (("face_of", "pool", -1), ("s0_of", "pool", -1),
-                ("run_start", "merged", 0), ("x8_run", "merged", -1),
-                ("lim8_run", "merged", -1))
+# the array it scans).
+CUMMAX_CALLS = (("face_of", "pool"), ("s0_of", "pool"),
+                ("run_start", "merged"), ("x8_run", "merged"),
+                ("lim8_run", "merged"))
 
 
 def stage_checksums(bbox, edges, geom):
     """{stage: checksum} of every ``_stage`` hook on these inputs."""
     return {stage: int(bin_faces(bbox, edges, geom, _stage=stage))
             for stage, _ in STAGES}
-
-
-def run_fill(x, fill):
-    """``torch.cummax(x, 0).values`` another way, for an ``x`` that holds
-    ``fill`` between run starts and non-decreasing values >= ``fill`` at
-    them (what each of the binning's cummax calls scans): a start-flag
-    ``cumsum`` numbers the runs, the start values are scattered to their
-    run's slot, and every element gathers its run's value."""
-    n = x.shape[0]
-    start = x != fill
-    run = torch.cumsum(start, 0) - 1
-    values = torch.full((n + 1,), fill, dtype=x.dtype, device=x.device)
-    values[torch.where(start, run, n)] = x
-    return torch.where(run >= 0, values[torch.clamp(run, min=0)], fill)
 
 
 def capture_cummax(bbox, edges, geom):
@@ -190,8 +176,9 @@ def run(device, size=1024, n_lat=72, samples=None, config=None,
     only), device busy ms a call); stage
     records also the increment over the stage before, primitive records
     ns per element; cummax records the name, the size, the time of
-    ``torch.cummax`` and of :func:`run_fill` beside it (``fill_*``).
-    Raises if :func:`run_fill` differs from ``torch.cummax``."""
+    ``binning._cummax`` and beside it that of ``torch.cummax``
+    (``library_*``). Raises if ``binning._cummax`` differs from
+    ``torch.cummax``."""
     device = torch.device(device)
     scene, config = scene_and_config(device, size, n_lat, config)
     _, clip, colors, faces, _, _ = scene
@@ -243,23 +230,25 @@ def run(device, size=1024, n_lat=72, samples=None, config=None,
         print(f"[{tag}] {label}: {text} ({card})")
         records.append(rec)
 
+    def library(v):
+        return torch.cummax(v, 0).values
+
     scans = []
-    for (name, kind, fill), x in zip(CUMMAX_CALLS,
-                                     capture_cummax(bbox, edges, geom)):
-        if not torch.equal(run_fill(x, fill), binning._cummax(x)):
-            raise RuntimeError(f"[{tag}] run_fill differs from cummax on "
-                               f"{name}'s input")
+    for (name, kind), x in zip(CUMMAX_CALLS,
+                               capture_cummax(bbox, edges, geom)):
+        if not torch.equal(binning._cummax(x), library(x)):
+            raise RuntimeError(f"[{tag}] binning._cummax differs from "
+                               f"torch.cummax on {name}'s input")
         rec, text = timed(f"cummax {name}", binning._cummax, (x,),
                           x.shape[0])
-        fill_rec, fill_text = timed(f"run_fill {name}",
-                                    lambda v, f=fill: run_fill(v, f), (x,),
-                                    x.shape[0])
+        other, other_text = timed(f"library {name}", library, (x,),
+                                  x.shape[0])
         rec.update(call=name, array=kind,
-                   **{f"fill_{k}": v for k, v in fill_rec.items()
+                   **{f"library_{k}": v for k, v in other.items()
                       if k.endswith("ms") or k == "ns_per_element"})
-        print(f"[{tag}] cummax {name} [{kind} {x.shape[0]}]: {text}; "
-              f"run_fill (cumsum + scatter + gather, equal values): "
-              f"{fill_text} ({card})")
+        print(f"[{tag}] cummax {name} [{kind} {x.shape[0]}]: "
+              f"binning._cummax {text}; torch.cummax {other_text} (equal "
+              f"values) ({card})")
         scans.append(rec)
         del x
     return dict(faces=num_faces, size=size, sizes=n, full=full,

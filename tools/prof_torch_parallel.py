@@ -51,7 +51,7 @@ from prof_torch_stages import (  # noqa: E402
 from prof_torch_steps import _profile  # noqa: E402
 
 KERNELS = ("raster_fwd_packed", "packed_prologue", "packed_bwd",
-           "subtile_swap", "raster_fwd_dense")
+           "subtile_swap", "raster_fwd_dense", "max_scan")
 
 
 def variants():

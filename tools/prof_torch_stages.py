@@ -70,7 +70,7 @@ SAMPLES_LARGE = 3
 PROFILE_STEPS = 5
 # Busy share of the median above which a stage counts as device-bound.
 DEVICE_BOUND = 0.5
-KERNELS = ("raster_fwd_packed", "packed_prologue", "packed_bwd")
+KERNELS = ("raster_fwd_packed", "packed_prologue", "packed_bwd", "max_scan")
 
 
 def scene_and_config(device, size=1024, n_lat=72, config=None):
