@@ -18,12 +18,12 @@
 // every graph that wrote it; ``dirt_trace_fills`` reads it and
 // ``dirt_trace_clear`` zeroes it.
 //
-// What bounds it: a launch. One thread, at most four 8-byte loads and four
+// What bounds it: a launch. One thread, at most five 8-byte loads and five
 // atomics; ~1-2 us of device time a marker inside a graph.
 
 #include <cuda_runtime.h>
 
-constexpr int FILLS = 4;  // trace.FILLS: pool, work, expand, budget
+constexpr int FILLS = 5;  // trace.FILLS: pool, work, expand, budget, tile
 
 struct Fills {
   const long long* used[FILLS];  // device int64 scalars, or null
@@ -72,7 +72,7 @@ const Mark kMarks[] = {
 //
 // One marker that closes span `close` and opens span `open` (a pair of
 // kMarks; any other is an invalid value) on `stream`; `used` and `caps` are
-// host arrays of 4 (device pointers to int64 scalars, null where a fill is
+// host arrays of FILLS (device pointers to int64 scalars, null where a fill is
 // not kept, and the caps they are shares of), or both null. No
 // synchronisation. Returns the CUDA error code (0 on success).
 extern "C" int dirt_span_mark(int close, int open,
@@ -92,7 +92,7 @@ extern "C" int dirt_span_mark(int close, int open,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The current device's fills into `out` (4 floats, host). Synchronous.
+// The current device's fills into `out` (FILLS floats, host). Synchronous.
 extern "C" int dirt_trace_fills(float* out) {
   return static_cast<int>(
       cudaMemcpyFromSymbol(out, g_fills, sizeof(float) * FILLS));
@@ -100,7 +100,7 @@ extern "C" int dirt_trace_fills(float* out) {
 
 // Zero the current device's fills. Synchronous.
 extern "C" int dirt_trace_clear() {
-  const float zeros[FILLS] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const float zeros[FILLS] = {};
   return static_cast<int>(
       cudaMemcpyToSymbol(g_fills, zeros, sizeof(float) * FILLS));
 }

@@ -640,7 +640,6 @@ def bin_faces_csr(bbox, height: int, width: int, tile_h: int, tile_w: int,
     span_x = torch.where(valid, txmax - txmin + 1, 0)
     span_y = torch.where(valid, tymax - tymin + 1, 0)
     n_e = span_x * span_y
-    face_overflow = n_e > expand_cap
 
     # Pair e of face f covers tile (tymin + e // span_x, txmin + e % span_x);
     # pairs past n_e (or expand_cap) get the sentinel tile id `total` and
@@ -661,7 +660,15 @@ def bin_faces_csr(bbox, height: int, width: int, tile_h: int, tile_w: int,
     tile_ids = torch.arange(total, dtype=_I64, device=device)
     starts_raw = torch.searchsorted(tile_s, tile_ids)
     counts_raw = torch.searchsorted(tile_s, tile_ids, right=True) - starts_raw
-    overflow = torch.any(counts_raw > cap) | torch.any(face_overflow & valid)
+    # The fullest tile's run and the widest face's pairs: an empty face has
+    # no pairs, so the widest is over the valid ones alone.
+    max_count = counts_raw.max()
+    max_pairs = n_e.max() if nf else torch.zeros((), dtype=_I64,
+                                                 device=device)
+    overflow = (max_count > cap) | (max_pairs > expand_cap)
+    # What each cap holds of what this call asked of it, for the binning's
+    # closing marker (``utils/trace.py``).
+    trace.fills(tile=(max_count, cap), expand=(max_pairs, expand_cap))
     counts = torch.clamp(counts_raw, max=cap)
     padded = -_fdiv(-counts, CHUNK) * CHUNK
     start_block = _fdiv(_exclusive_cumsum(padded), CHUNK)

@@ -40,12 +40,15 @@ each time the stage ran in the replay.
 - ``graphstep.captures``, ``graphstep.capture_s`` (warm-up calls plus the
   capture, summed over signatures) and ``graphstep.replays``: a loop whose
   static arguments change every call captures every call.
-- ``fill.pool``, ``fill.work``, ``fill.expand``, ``fill.budget``: device
-  counters, the largest share of ``bin_faces_packed``'s pool cap, work cap,
-  expand cap and iteration budget that any call used since the last
-  :func:`reset` (1 is full; above 1 the call overflowed). The binning's
-  closing marker folds them in, so they cost no graph node of their own and
-  outlive the graphs that wrote them. Present once a call wrote them.
+- ``fill.pool``, ``fill.work``, ``fill.expand``, ``fill.budget``,
+  ``fill.tile``: device counters, the largest share of a binning cap that
+  any call used since the last :func:`reset` (1 is full; above 1 the call
+  overflowed): ``bin_faces_packed``'s pool cap, work cap, expand cap (the
+  most jobs of one face) and iteration budget, and ``bin_faces_csr``'s
+  per-tile cap (the fullest tile's run) and expand cap (the most tiles of
+  one face). The binning's closing marker folds them in, so they cost no
+  graph node of their own and outlive the graphs that wrote them. Present
+  once a call wrote them.
 
 :func:`host_spans` holds ``GraphedStep``'s host stamps of the last
 :data:`RING` calls on the profiler's clock (Unix-time ns): entry to the
@@ -71,7 +74,7 @@ SPANS = ("clip", "setup", "binning", "raster_fwd", "raster_bwd")
 # step's order; ``csrc/trace_marks.cu``'s kMarks instantiates these alone.
 MARKS = ((0, 1), (1, 0), (0, 2), (2, 3), (3, 4), (4, 0), (0, 5), (5, 0))
 # The cap fills the binning's closing marker keeps, in the kernel's order.
-FILLS = ("pool", "work", "expand", "budget")
+FILLS = ("pool", "work", "expand", "budget", "tile")
 # GraphedStep calls whose host stamps are kept.
 RING = 8192
 
@@ -266,6 +269,9 @@ def _device_fills(devices):
     out = []
     for index in sorted(devices):
         buf = (ctypes.c_float * len(FILLS))()
+        # The copy waits for the legacy stream alone, and a marker may run
+        # on any stream (a replay on a side stream): wait for the device.
+        torch.cuda.synchronize(index)
         with torch.cuda.device(index):
             err = _lib().dirt_trace_fills(buf)
         if err != 0:
@@ -277,6 +283,8 @@ def _device_fills(devices):
 
 def _clear_fills(devices):
     for index in sorted(devices):
+        # No marker still in flight may fold a share in after the zeroing.
+        torch.cuda.synchronize(index)
         with torch.cuda.device(index):
             err = _lib().dirt_trace_clear()
         if err != 0:

@@ -178,6 +178,16 @@ def test_the_kernel_file_instantiates_the_markers_of_marks():
     assert [trace.marker(MARK.format(c, o)) for c, o in got] == STEP_MARKS
 
 
+def test_the_kernel_files_fill_block_is_fills():
+    source = (Path(trace.__file__).parents[1] / "csrc"
+              / "trace_marks.cu").read_text()
+    count, names = re.search(
+        r"constexpr int FILLS = (\d+);\s*// trace\.FILLS: ([\w, ]+)",
+        source).groups()
+    assert int(count) == len(trace.FILLS)
+    assert tuple(names.split(", ")) == trace.FILLS
+
+
 def test_a_marker_outside_marks_raises_before_any_launch():
     assert [trace.mark_ids(c, o) for c, o in STEP_MARKS] == \
         list(trace.MARKS)
@@ -200,23 +210,51 @@ def _scene(engine, clip):
     return bg, verts, colors, faces, config
 
 
+def csr_fills(args):
+    """{"tile", "expand"} shares of one ``bin_faces_csr`` call, counted on
+    the host from its arguments (bbox, height, width, tile_h, tile_w, cap,
+    expand_cap): the fullest tile's faces over the cap rounded up to
+    CHUNK, the most tiles of one face over the expand cap."""
+    bbox, height, width, tile_h, tile_w, cap, expand = args
+    tiles_x = -(-width // tile_w)
+    per_tile, widest = {}, 0
+    for xmin, xmax, ymin, ymax in np.asarray(bbox.cpu()).tolist():
+        if xmax < xmin or ymax < ymin:
+            continue
+        tiles = [(ty, tx) for ty in range(ymin // tile_h, ymax // tile_h + 1)
+                 for tx in range(xmin // tile_w, xmax // tile_w + 1)]
+        widest = max(widest, len(tiles))
+        for ty, tx in tiles:
+            per_tile[ty * tiles_x + tx] = per_tile.get(ty * tiles_x + tx,
+                                                       0) + 1
+    chunked = -(-cap // binning.CHUNK) * binning.CHUNK
+    return {"tile": max(per_tile.values()) / chunked,
+            "expand": widest / expand}
+
+
 @pytest.mark.parametrize("engine", list(ENGINES))
 @pytest.mark.parametrize("clip", [True, False])
 def test_raster_op_marks_its_stages(marks, monkeypatch, engine, clip):
     """A fwd+bwd step launches the stages' markers in order, eight with
-    the clip and six without, and the packed binning's closing marker
-    carries its cap fills: the pool's is sum(blocks) * POOL_ALIGN /
-    pool_cap."""
+    the clip and six without, and the binning's closing marker carries its
+    cap fills: the packed pool's is sum(blocks) * POOL_ALIGN / pool_cap;
+    the CSR binning's are its fullest tile and its widest face, as a host
+    count has them; the dense binning hands none."""
     bg, verts, colors, faces, config = _scene(engine, clip)
     marks.clear()                         # the counting's own clip
-    made = []
-    real = binning.bin_faces_packed
+    made, made_csr = [], []
+    real, real_csr = binning.bin_faces_packed, binning.bin_faces_csr
 
     def bin_packed(*args, **kwargs):
         made.append((real(*args, **kwargs), kwargs))
         return made[-1][0]
 
+    def bin_csr(*args):
+        made_csr.append(args)
+        return real_csr(*args)
+
     monkeypatch.setattr(raster.binning, "bin_faces_packed", bin_packed)
+    monkeypatch.setattr(raster.binning, "bin_faces_csr", bin_csr)
     verts = verts.clone().requires_grad_()
     pixels = dirt_tpu_torch.rasterise(bg, verts, colors, faces,
                                       config=config, clip=clip)
@@ -224,14 +262,22 @@ def test_raster_op_marks_its_stages(marks, monkeypatch, engine, clip):
     want = STEP_MARKS if clip else STEP_MARKS[2:]
     assert [(c, o) for c, o, _ in marks] == want
     fills = [shares for _, _, shares in marks if shares]
+    if engine == "csr":
+        (args,) = made_csr
+        assert made == []
+        assert marks[want.index(("binning", "raster_fwd"))][2] is fills[0]
+        assert fills == [pytest.approx(csr_fills(args))]
+        assert all(0 < share <= 1 for share in fills[0].values())
+        return
     if engine != "packed":
-        assert fills == [] and made == []
+        assert fills == [] and made == [] and made_csr == []
         return
     (bins, kwargs), = made
     assert marks[want.index(("binning", "raster_fwd"))][2] is fills[0]
     cap = -(-kwargs["pool_cap"] // binning.POOL_ALIGN) * binning.POOL_ALIGN
     assert fills[0]["pool"] == pytest.approx(
         float(bins.pool_offs[-1]) * binning.POOL_ALIGN / cap)
+    assert made_csr == []
     assert set(fills[0]) == ({"pool", "work", "expand", "budget"}
                              if kwargs["work_cap"] is not None
                              else {"pool", "expand", "budget"})
@@ -374,9 +420,19 @@ def test_pool_use_pct_reads_the_pool_fill(monkeypatch, snapshot, pct):
     assert _read("pool_use_pct", _window(steps=5)) is None
 
 
+@pytest.mark.parametrize("snapshot,pct", [({"fill.tile": 0.8}, 80.0),
+                                          ({"fill.pool": 0.5}, None),
+                                          ({}, None)])
+def test_tile_cap_use_pct_reads_the_tile_fill(monkeypatch, snapshot, pct):
+    monkeypatch.setattr(trace, "counters", lambda: dict(snapshot))
+    assert _read("tile_cap_use_pct", _window()) == pct
+    assert _read("tile_cap_use_pct", _window(steps=5)) is None
+
+
 def test_registry_readers_read_nothing_without_a_card():
     trace.reset()
     assert _read("pool_use_pct", _window()) is None
+    assert _read("tile_cap_use_pct", _window()) is None
 
 
 def test_readers_read_nothing_from_a_program_without_the_registry(
@@ -384,7 +440,7 @@ def test_readers_read_nothing_from_a_program_without_the_registry(
     monkeypatch.setitem(sys.modules, "dirt_tpu_torch.utils.trace", None)
     monkeypatch.delattr(dirt_tpu_torch.utils, "trace")
     for metric in ("clip_ms", "binning_ms", "raster_bwd_ms",
-                   "pool_use_pct"):
+                   "pool_use_pct", "tile_cap_use_pct"):
         assert _read(metric, _window()) is None
 
 
@@ -501,6 +557,41 @@ def test_pool_fill_is_the_eager_share_and_outlives_its_graph(cuda,
     assert counts["graphstep.replays"] == 1
     assert "graphstep.captures" not in counts
     assert "launch.raster_fwd_packed" not in counts   # a replay counts none
+
+
+@pytest.mark.cuda
+def test_csr_fills_are_the_host_counts_and_leave_the_packed_ones(
+        cuda, monkeypatch):
+    made = []
+    real = raster.binning.bin_faces_csr
+
+    def bin_csr(*args):
+        made.append(args)
+        return real(*args)
+
+    trace.reset()
+    step, args = _card_step(cuda, "csr")
+    with monkeypatch.context() as patch:
+        patch.setattr(raster.binning, "bin_faces_csr", bin_csr)
+        step(*args)
+    (call,) = made
+    want = csr_fills(call)
+    counts = trace.counters()
+    assert counts["fill.tile"] == pytest.approx(want["tile"], rel=1e-6)
+    assert counts["fill.expand"] == pytest.approx(want["expand"], rel=1e-6)
+    assert not {"fill.pool", "fill.work", "fill.budget"} & set(counts)
+    graphed = GraphedStep(step, args)
+    trace.reset()
+    graphed(*args)                        # a replay alone writes the fills
+    counts = trace.counters()
+    assert counts["fill.tile"] == pytest.approx(want["tile"], rel=1e-6)
+    # A packed step writes its four slots and leaves the tile's.
+    packed, packed_args = _card_step(cuda, clip=False)
+    trace.reset()
+    packed(*packed_args)
+    counts = trace.counters()
+    assert "fill.tile" not in counts
+    assert 0 < counts["fill.pool"] <= 1 and 0 < counts["fill.expand"] <= 1
 
 
 @pytest.mark.cuda
