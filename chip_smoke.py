@@ -222,7 +222,16 @@ raises and exits non-zero; nothing is caught):
     stands for XLA's ``lax.cummax``) against its plain version,
     ``torch.cummax``, which is also its library yardstick, at 4,993,724
     and 99,392 elements of runs: equal bit for bit, single calls, device
-    time alone, the bound of 16 B an element;
+    time alone, the bound of 16 B an element; and, on both scenes of the
+    tools at C = 3, and on the bench sphere at C = 9 too (the G-buffer's
+    channels, another register instance), setup_vjp (the setup's
+    vector-Jacobian product, which stands for XLA's fused autodiff of the
+    triangle setup) against its plain version with random cotangents
+    (``d_att`` a view of [F, 12 + 3C] rows): equal bit for bit, one
+    launch a call, its time over calls queued back to back (CUDA events)
+    beside its bound (164 + 36C B a face), the plain version's and
+    autograd through ``setup_planes``, the chain it replaced (its library
+    yardstick);
 19. the compiled steps: each path eager and as CUDA-graph replays
     (``dirt_tpu_torch.utils.graphstep.GraphedStep``, the counterpart of the
     reference's ``jax.jit`` and ``lax.scan``): the bench sphere at
@@ -269,7 +278,8 @@ phases 12, 19 and 20 of 10, to keep the whole run under four minutes (the
 ``[total]`` line gives each phase's seconds). The line before the last is
 the kernels' JSON record (``library_ms`` where phase 12 times one PyTorch
 call of the same function: ``index_add_`` for the scatters, a strided copy
-for the swap; phase 18 ``torch.cummax`` for the max-scan), the last line
+for the swap; phase 18 ``torch.cummax`` for the max-scan and autograd
+through ``setup_planes`` for the setup VJP), the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 
@@ -279,7 +289,11 @@ ahead of its one raster_fwd_packed launch, so each path must launch
 max_scan five times for each raster_fwd_packed launch (none on the dense
 and CSR paths, none on a plain path); phase 18's tools, which also bin
 without the forward, stop at ``_stage`` hooks and time single scans, at
-least five times for each raster_fwd_packed launch.
+least five times for each raster_fwd_packed launch. They count setup_vjp
+too: one launch a backward, so as many as the prologue's on a
+single-device path (none on a forward alone), one per slab of the
+row-sharded paths, per slab and chunk of the overlapped one and per member
+of the face-sharded one, none on a plain path.
 """
 
 import hashlib
@@ -341,8 +355,14 @@ SCAN_REPLACES = ("none: XLA's lax.cummax, dirt_tpu/ops/binning.py:514, "
                  ":515, :626, :701, :702")
 # max_scan launches a bin_faces_packed call: its five running maxima.
 SCANS_PER_BINNING = 5
+# The port's kernel that pulls the plane cotangents back through the
+# triangle setup, one launch a backward (a slab's, a chunk's or a member's
+# on the parallel paths); phase 18 holds it to its plain version.
+SETUP_VJP = "setup_vjp"
+SETUP_VJP_REPLACES = ("none: XLA's fused autodiff of "
+                      "dirt_tpu/ops/triangle_setup.py")
 # Every kernel the launch checks count.
-COUNTED = KERNELS + (SCAN,)
+COUNTED = KERNELS + (SCAN, SETUP_VJP)
 # Lengths phase 18 times the scan at: the 1,001,112-face sphere's pool
 # (sphere1m_1024's pool_cap) and the bench sphere's.
 SCAN_SIZES = (4_993_724, 99_392)
@@ -379,6 +399,11 @@ OVERLAP_CHUNKS = (1, 2, 4)
 # The loss that variants 2-4 of dryrun_multichip give (one image), as
 # __graft_entry__.dryrun_multichip prints it on four CPU devices.
 DRYRUN_LOSS = 2128.7512
+# setup_vjp launches of the dry run: a training step's four slab backwards
+# (data=2 x tiles=2), and its variants' (the two-level group's four slabs,
+# two slabs x two chunks overlapped, four face-sharded members).
+DRYRUN_STEP_VJPS = 4
+DRYRUN_VARIANT_VJPS = 4 + 2 * 2 + 4
 
 
 def packed_forward_bound(bins, tile_h, channels, fid):
@@ -564,6 +589,13 @@ def _grads(rasterise, background, clip, colors, faces, weights, config, c):
     return out, (verts.grad, cols.grad, bg.grad)
 
 
+def _launch_counts_of(kernel):
+    """Launches of ``kernel`` so far, from the registry's counters."""
+    from dirt_tpu_torch.utils import trace
+
+    return trace.counters().get(f"launch.{kernel}", 0)
+
+
 def _launch_counts():
     """{kernel: launches so far} from the registry's launch counters."""
     from dirt_tpu_torch.utils import trace
@@ -572,10 +604,13 @@ def _launch_counts():
     return {kernel: counts.get(f"launch.{kernel}", 0) for kernel in COUNTED}
 
 
-def _with_scans(want):
-    """``want`` ({kernel: launches} of KERNELS) with max_scan's: one packed
-    binning, five scans, ahead of each raster_fwd_packed launch."""
-    return {**want, SCAN: SCANS_PER_BINNING * want["raster_fwd_packed"]}
+def _want_launches(want, vjps=None):
+    """``want`` ({kernel: launches} of KERNELS) with max_scan's (one packed
+    binning, five scans, ahead of each raster_fwd_packed launch) and
+    setup_vjp's: ``vjps``, or on a single-device path (None) one a
+    backward, as many as the prologue's."""
+    return {**want, SCAN: SCANS_PER_BINNING * want["raster_fwd_packed"],
+            SETUP_VJP: want["packed_prologue"] if vjps is None else vjps}
 
 
 def _reset_launch_counts():
@@ -584,10 +619,12 @@ def _reset_launch_counts():
     trace.reset()
 
 
-def _need_launches(path, counts, kernels, backwards=1):
+def _need_launches(path, counts, kernels, backwards=1, vjps=None):
     """Every kernel of ``kernels`` launched; the prologue, where it is one
     of them, once per backward (it pads the fields itself: no copy before
-    it); max_scan five times for each raster_fwd_packed launch."""
+    it); max_scan five times for each raster_fwd_packed launch; setup_vjp
+    ``vjps`` times, or on a single-device path (None) once per backward,
+    as often as the prologue (none on a forward alone)."""
     missed = [k for k in kernels if counts[k] < 1]
     if missed:
         raise RuntimeError(f"{path} missed a kernel: {missed} of {counts}")
@@ -599,6 +636,10 @@ def _need_launches(path, counts, kernels, backwards=1):
             and counts["packed_prologue"] != backwards):
         raise RuntimeError(f"{path}: want {backwards} prologue launch(es), "
                            f"one per backward, got {counts}")
+    want_vjps = counts["packed_prologue"] if vjps is None else vjps
+    if counts[SETUP_VJP] != want_vjps:
+        raise RuntimeError(f"{path}: want {want_vjps} {SETUP_VJP} "
+                           f"launch(es), one per backward, got {counts}")
 
 
 def _plain_patches():
@@ -610,6 +651,7 @@ def _plain_patches():
         raster_fwd,
         scan,
         scatter,
+        triangle_setup,
     )
 
     def plain_scatter(cot_cf, fid, bins, counts, num_rows, *, tile_h, tile_w,
@@ -671,6 +713,8 @@ def _plain_patches():
             lambda arrays: [raster_fwd.flat_subtile_swap_plain(a)
                             for a in arrays]),
         mock.patch.object(scan, "max_scan", scan.max_scan_plain),
+        mock.patch.object(triangle_setup, "setup_planes_vjp",
+                          triangle_setup.setup_planes_vjp_plain),
     )
 
 
@@ -1254,13 +1298,13 @@ def _sharded_check(tag, engine, scene, config, weights, card, runs=5):
         (pix_n, fid_n, _, ovf_n), grads_n = step(sharded(n))
         _sync()
         counts = _launch_counts()
-        want = _with_scans({k: (n if k in SHARDED_PATH[engine] else 0)
-                            for k in KERNELS})
+        want = _want_launches({k: (n if k in SHARDED_PATH[engine] else 0)
+                               for k in KERNELS}, vjps=n)
         if counts != want:
             raise RuntimeError(f"[{tag}] {n} slabs: want launches {want} "
-                               f"({n} of {SHARDED_PATH[engine]}, the packed "
-                               f"slabs' binnings) and no other, got "
-                               f"{counts}")
+                               f"({n} of {SHARDED_PATH[engine]} and "
+                               f"{SETUP_VJP}, the packed slabs' binnings) "
+                               f"and no other, got {counts}")
         pix_err = float((pix_n - pix_1).detach().abs().max())
         if (bool(ovf_n) or not torch.equal(fid_n, fid_1)
                 or pix_err > TOL_SLAB_PIXELS):
@@ -1396,7 +1440,8 @@ def _check_grads(tag, grads, references):
 def _overlap_check(tag, scene, config, weights, card, runs=5):
     """``rasterise_sharded(overlap_chunks=k)`` with 1 and 4 local slabs at
     k = 1, 2, 4: launch counts (raster_fwd_packed and subtile_swap once per
-    slab, packed_bwd once per slab and chunk, no other kernel), every
+    slab, packed_bwd and setup_vjp once per slab and chunk, no other
+    kernel), every
     chunk slice of packed_bwd against its plain version, the image and fid
     equal to the non-overlapped sharded render's, gradients against the
     single-device step and the non-overlapped sharded one (TOL_GRAD);
@@ -1437,9 +1482,10 @@ def _overlap_check(tag, scene, config, weights, card, runs=5):
             _sync()
             counts = _launch_counts()
             patch.stop()
-            want = _with_scans({name: 0 for name in KERNELS}
-                               | {"raster_fwd_packed": n, "subtile_swap": n,
-                                  "packed_bwd": n * k})
+            want = _want_launches({name: 0 for name in KERNELS}
+                                  | {"raster_fwd_packed": n,
+                                     "subtile_swap": n,
+                                     "packed_bwd": n * k}, vjps=n * k)
             if counts != want:
                 raise RuntimeError(f"[{tag}] {n} slabs x {k} chunks: want "
                                    f"launches {want} and no other, got "
@@ -1491,8 +1537,8 @@ def _face_sharded_check(tag, scene, config, weights, kernel):
     """``rasterise_face_sharded`` with four local members against the
     single-device render under the same config: overflow clear, fid equal,
     pixels within TOL_SLAB_PIXELS, gradients within TOL_ENGINES, and the
-    members' forward kernel ``kernel`` launched once per member and no
-    other kernel. Returns the launch counts."""
+    members' forward kernel ``kernel`` and setup_vjp launched once per
+    member and no other kernel. Returns the launch counts."""
     import dirt_tpu_torch
 
     background, clip, colors, faces = scene
@@ -1504,12 +1550,13 @@ def _face_sharded_check(tag, scene, config, weights, kernel):
                                                           weights, 4)
     _sync()
     counts = _launch_counts()
-    want = _with_scans({name: (4 if name == kernel else 0)
-                        for name in KERNELS})
+    want = _want_launches({name: (4 if name == kernel else 0)
+                           for name in KERNELS}, vjps=4)
     if counts != want:
-        raise RuntimeError(f"[{tag}] want 4 launches of {kernel} (one per "
-                           f"member), the packed members' binnings and no "
-                           f"other: {want}, got {counts}")
+        raise RuntimeError(f"[{tag}] want 4 launches of {kernel} and of "
+                           f"{SETUP_VJP} (one per member), the packed "
+                           f"members' binnings and no other: {want}, got "
+                           f"{counts}")
     pix_err = float((pix_4 - pix_1).detach().abs().max())
     if (bool(ovf_1) or bool(ovf_4) or not torch.equal(fid_4, fid_1)
             or pix_err > TOL_SLAB_PIXELS):
@@ -1931,8 +1978,8 @@ def _check_demo_fit(tag, module, kwargs, need, ratio, card, out):
     steps = result["steps"]
     per_kernel = {"fit": steps, "trainer": WARMUP + 1, "run": 0}
     wrong = {name: counts for name, counts in counted.items()
-             if counts != _with_scans({k: (per_kernel[name] if k in need
-                                           else 0) for k in KERNELS})}
+             if counts != _want_launches({k: (per_kernel[name] if k in need
+                                              else 0) for k in KERNELS})}
     if wrong or sorted(counted) != sorted(names):
         raise RuntimeError(f"[{tag}] want {need} launched "
                            f"{[(n, per_kernel[n]) for n in names]} times and "
@@ -2030,7 +2077,7 @@ def _huge_sphere_check(device, card, n=708):
         if any(counts[k] for k in KERNELS if k not in path):
             raise RuntimeError(f"[17] {engine}: another engine's kernel "
                                f"launched: {counts}")
-        for k in path + (SCAN,):
+        for k in path + (SCAN, SETUP_VJP):
             launches[k] = launches.get(k, 0) + counts[k]
         (_, fid, _, overflow), grads = runs[engine]
         if bool(overflow):
@@ -2097,8 +2144,11 @@ def _tools_check(device, card, bench_config):
     bench sphere every ``_stage`` checksum on the card equals the one the
     CPU computes from the same inputs; the binning tool asserts its cummax
     A/B values equal and the parallel tool every variant's fid equal to the
-    plain step's and its gradients within TOL_ENGINES. Returns the launch
-    counts of the phase."""
+    plain step's and its gradients within TOL_ENGINES; on both scenes the
+    setup VJP (:func:`_check_setup_vjp`), on the bench sphere at C = 3 and
+    9. Returns (the launch counts of the phase, {SETUP_VJP: the bench
+    sphere's record at C = 3, with the big sphere's under ``at`` and the
+    C = 9 one under ``c9``})."""
     import dirt_tpu_torch
     from dirt_tpu_torch.ops import binning
 
@@ -2109,6 +2159,7 @@ def _tools_check(device, card, bench_config):
 
     start = time.perf_counter()
     _reset_launch_counts()
+    vjp = {}
     for n_lat in (72, 708):
         scene = bench_scene(SIZE, device, n=n_lat)
         _, clip, colors, faces, background, weights = scene
@@ -2158,6 +2209,10 @@ def _tools_check(device, card, bench_config):
                                    f"CPU's {on_cpu}")
             print(f"[{tag}] the ten _stage checksums on the card equal the "
                   f"CPU's from the same inputs")
+        vjp[n_lat] = _check_setup_vjp(clip, colors, faces, card)
+        if n_lat == 72:
+            vjp[9] = _check_setup_vjp(
+                clip, _rand(5, clip.shape[0], 9, device=device), faces, card)
         del scene, clip, colors, faces, background, weights, bbox, edges
     prof_torch_parallel.run(device, SIZE, samples=TOOL_SAMPLES,
                             config=bench_config, profile=TOOL_PROFILE,
@@ -2176,7 +2231,8 @@ def _tools_check(device, card, bench_config):
                            f"packed forward, of {counts}")
     print(f"[18 tools] launches {counts}; {time.perf_counter() - start:.1f} s "
           f"({card})")
-    return counts
+    return counts, {SETUP_VJP: dict(vjp[72], c9=vjp[9],
+                                    at={vjp[708]["faces"]: vjp[708]})}
 
 
 def _check_max_scan(device, card, runs=10):
@@ -2229,6 +2285,76 @@ def _check_max_scan(device, card, runs=10):
         del x, got, want
     first, *rest = SCAN_SIZES
     return {SCAN: dict(records[first], at={n: records[n] for n in rest})}
+
+
+def setup_vjp_bound(num_faces, channels):
+    """The setup VJP's least time: bytes, 164 + 36C a face (corners,
+    attributes, d_geo's 17 used columns, d_att in; the two cotangents
+    out), against ~130 + 50C float operations."""
+    return _bound((164 + 36 * channels) * num_faces,
+                  (130 + 50 * channels) * num_faces)
+
+
+def _check_setup_vjp(clip, colors, faces, card, runs=20):
+    """Phase 18: the setup VJP kernel against its plain version, bit for
+    bit, on the faces of one of the tools' scenes (the bench sphere, the
+    1,001,112-face sphere) with ``colors``' C channels (3, or 9 on the
+    bench sphere: the G-buffer's, another register instance) and random
+    cotangents (``d_att`` a view of [F, 12 + 3C] rows, as the engines hand
+    it). Times, ms a call of
+    ``runs`` calls queued back to back (CUDA events: the card's time where
+    the card is the limit, as for the kernel on the big sphere; the host's
+    launch rate where the host is): the kernel beside its bound, the plain
+    version and autograd through ``setup_planes``, the chain it replaced
+    (its library yardstick; the port no longer runs it). A profiler window
+    read the kernel below its bound at 1M (it loses records), so none is
+    taken. Returns the scene's record."""
+    from dirt_tpu_torch.ops import triangle_setup
+
+    fv = triangle_setup.screen_from_clip(clip, SIZE, SIZE)[faces]
+    fa = colors[faces]
+    num_faces, channels = fv.shape[0], fa.shape[-1]
+    gen = torch.Generator(device=fv.device).manual_seed(num_faces)
+    d_geo = torch.randn(num_faces, 24, device=fv.device, generator=gen)
+    rows = torch.randn(num_faces, 12 + 3 * channels, device=fv.device,
+                       generator=gen)
+    args = (fv, fa, d_geo, rows[:, 12:])
+    tag = f"18 setup_vjp {num_faces} faces C={channels}"
+    before = _launch_counts_of(SETUP_VJP)
+    got = triangle_setup.setup_planes_vjp(*args)
+    want = triangle_setup.setup_planes_vjp_plain(*args)
+    _sync()
+    if _launch_counts_of(SETUP_VJP) != before + 1 or not all(
+            torch.equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError(f"[{tag}] the kernel differs from its plain "
+                           f"version or did not run")
+
+    def autograd_chain():
+        with torch.enable_grad():
+            x = fv.detach().requires_grad_()
+            y = fa.detach().requires_grad_()
+            geo, att, _ = triangle_setup.setup_planes(x, y)
+            return torch.autograd.grad([geo, att], [x, y], [d_geo, args[3]])
+
+    queued_ms, host_ms = _queued_ms(
+        lambda: triangle_setup.setup_planes_vjp(*args), runs)
+    plain_ms, _ = _queued_ms(
+        lambda: triangle_setup.setup_planes_vjp_plain(*args), runs)
+    library_ms, _ = _queued_ms(autograd_chain, runs)
+    rec = dict(faces=num_faces, channels=channels, max_abs_err=0.0,
+               ms=_median_ms(lambda: triangle_setup.setup_planes_vjp(*args),
+                             10),
+               queued_ms=queued_ms, host_ms=host_ms,
+               plain_queued_ms=plain_ms, library_ms=library_ms,
+               **setup_vjp_bound(num_faces, channels))
+    print(f"[{tag}] equal bit for bit to its plain version; "
+          f"{runs} calls queued back to back (CUDA events), ms a call: the "
+          f"kernel {queued_ms:.4f} (the host {host_ms:.4f} ms to queue one), "
+          f"bound {rec['bound_ms']:.4f} by {rec['bound_by']}; the plain "
+          f"version {plain_ms:.4f}, autograd through setup_planes (the chain "
+          f"it replaced) {library_ms:.4f}; one call {rec['ms']:.4f} ms "
+          f"({card})")
+    return rec
 
 
 # Timed calls per median of phases 19 and 20 (the 1,001,112-face step: 3),
@@ -2317,12 +2443,14 @@ def _card_profile(tag, fn, card, steps=GRAPH_PROFILE):
 
 
 def _graph_pair(tag, step, args, kernels, card, exact, tol,
-                runs=GRAPH_RUNS, moved=None):
+                runs=GRAPH_RUNS, moved=None, vjps=None):
     """Phases 19 and 20: ``step(*args)`` eager and as a ``GraphedStep``.
 
     After a warm call, one eager call under
     ``torch.cuda.set_sync_debug_mode("error")`` (a host read or a blocking
-    copy raises), with ``kernels`` launched (the prologue once); then the capture (its ``WARMUP`` warm-up calls and the
+    copy raises), with ``kernels`` launched (the prologue once; setup_vjp
+    ``vjps`` times, None: once, as the prologue); then the capture (its
+    ``WARMUP`` warm-up calls and the
     captured call), which must launch every kernel of the eager call
     ``WARMUP + 1`` times: the captured call went through the path's
     kernels. The first replay's outputs against the eager call's: the first
@@ -2347,7 +2475,7 @@ def _graph_pair(tag, step, args, kernels, card, exact, tol,
         torch.cuda.set_sync_debug_mode(0)
     _sync()
     eager_counts = _launch_counts()
-    _need_launches(tag, eager_counts, kernels)
+    _need_launches(tag, eager_counts, kernels, vjps=vjps)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     eager_ms = _median_ms(lambda: step(*args), runs, warmup=1)
@@ -2468,10 +2596,10 @@ def _graphed_demo5_check(device, card):
     final_g, setup_g, loop_g, setup_s, loop_s_g, prof_g, peak_g = \
         runs["graphed"]
     path = KERNELS[:3]
-    want_g = _with_scans({k: (WARMUP + 1 if k in path else 0)
-                          for k in KERNELS})
-    want_e = _with_scans({k: (DEMO5_STEPS if k in path else 0)
-                          for k in KERNELS})
+    want_g = _want_launches({k: (WARMUP + 1 if k in path else 0)
+                             for k in KERNELS})
+    want_e = _want_launches({k: (DEMO5_STEPS if k in path else 0)
+                             for k in KERNELS})
     if (setup_g != want_g or any(loop_g.values()) or loop_e != want_e
             or any(setup_e.values())):
         raise RuntimeError(f"[19 demo5] launches: graphed trainer {setup_g} "
@@ -2637,9 +2765,10 @@ def _graphed_demo_check(n, device, card):
     final_e, setup_e, loop_e, _, loop_s_e, prof_e, peak_e = runs["eager"]
     final_g, setup_g, loop_g, setup_s, loop_s_g, prof_g, peak_g = \
         runs["graphed"]
-    want_g = _with_scans({k: (WARMUP + 1 if k in path else 0)
-                          for k in KERNELS})
-    want_e = _with_scans({k: (steps if k in path else 0) for k in KERNELS})
+    want_g = _want_launches({k: (WARMUP + 1 if k in path else 0)
+                             for k in KERNELS})
+    want_e = _want_launches({k: (steps if k in path else 0)
+                             for k in KERNELS})
     if (setup_g != want_g or any(loop_g.values()) or loop_e != want_e
             or any(setup_e.values())):
         raise RuntimeError(f"[{tag}] launches: graphed trainer {setup_g} "
@@ -2728,40 +2857,43 @@ def _graphed_parallel_check(device, card, weights, scenes, configs):
     cases = [
         (f"sharded bench sphere {SIZE}^2 dense, 4 slabs", "bench",
          functools.partial(sharded, config=configs["dense"], kwargs={}),
-         SHARDED_PATH["dense"]),
+         SHARDED_PATH["dense"], 4),
         (f"sharded bench sphere {SIZE}^2 csr, 4 slabs", "bench",
          functools.partial(sharded, config=configs["csr"], kwargs={}),
-         SHARDED_PATH["csr"]),
+         SHARDED_PATH["csr"], 4),
         (f"sharded bench sphere {SIZE}^2 packed, 4 slabs", "bench",
          functools.partial(sharded, config=configs["packed"], kwargs={}),
-         SHARDED_PATH["packed"]),
+         SHARDED_PATH["packed"], 4),
         (f"sharded {n_big}-face sphere {SIZE}^2 csr, 4 slabs", "big",
          functools.partial(sharded, config=configs["big csr"], kwargs={}),
-         SHARDED_PATH["csr"]),
+         SHARDED_PATH["csr"], 4),
         *((f"overlap bench sphere {SIZE}^2 packed, 4 slabs, k={k}", "bench",
            functools.partial(sharded, config=configs["packed"],
                              kwargs=dict(overlap_chunks=k)),
-           SHARDED_PATH["packed"]) for k in (2, 4)),
+           SHARDED_PATH["packed"], 4 * k) for k in (2, 4)),
         (f"face-sharded bench sphere {SIZE}^2 dense, 4 members", "bench",
          functools.partial(face_sharded, config=configs["dense"]),
-         ("raster_fwd_dense",)),
+         ("raster_fwd_dense",), 4),
         (f"face-sharded {n_big}-face sphere {SIZE}^2 packed, 4 members",
          "big", functools.partial(face_sharded, config=configs["big packed"]),
-         ("raster_fwd_packed",)),
+         ("raster_fwd_packed",), 4),
     ]
-    for tag, which, render, kernels in cases:
+    # The last item: setup_vjp's launches a step, one a slab's, a chunk's or
+    # a member's backward.
+    for tag, which, render, kernels, vjps in cases:
         bg, verts, cols, faces = scenes[which]
         add(_graph_pair(f"20 {tag}",
                         render_step(functools.partial(render, faces=faces),
                                     weights),
                         (bg, verts, cols), kernels, card, exact=3,
-                        tol=TOL_GRAD, moved=(bg, verts * 1.02, cols.flip(0))))
+                        tol=TOL_GRAD, moved=(bg, verts * 1.02, cols.flip(0)),
+                        vjps=vjps))
 
     train_loss, (params, poses), _ = entry.dryrun_train_loss(4, device)
     add(_graph_pair("20 dryrun_multichip(4) train step, data=2 x tiles=2",
                     value_and_grad(train_loss), (params, poses),
                     SHARDED_PATH["packed"], card, exact=0, tol=TOL_DEFERRED,
-                    moved=(params + 0.005, poses)))
+                    moved=(params + 0.005, poses), vjps=DRYRUN_STEP_VJPS))
     _reset_launch_counts()
     entry.dryrun_multichip(4, device, steps=1, graphed=False)
     _sync()
@@ -2841,13 +2973,14 @@ def main():
 
     # --- 2. build ---------------------------------------------------------
     start = time.perf_counter()
-    nvcc_s = _build.build(KERNELS + (SCAN,))
-    for kernel_name in KERNELS + (SCAN,):
+    built = COUNTED
+    nvcc_s = _build.build(built)
+    for kernel_name in built:
         _build.load(kernel_name)
     build_s = time.perf_counter() - start
-    print(f"[2 build] {len(KERNELS) + 1} kernels built in parallel + loaded "
+    print(f"[2 build] {len(built)} kernels built in parallel + loaded "
           f"in {build_s:.2f} s")
-    for kernel_name in KERNELS + (SCAN,):
+    for kernel_name in built:
         ptxas = [ln.strip() for ln in _build.build_log(kernel_name)
                  .splitlines() if "registers" in ln or "spill" in ln]
         built = (f"nvcc done after {nvcc_s[kernel_name]:.2f} s"
@@ -3404,7 +3537,8 @@ def main():
                            f"{DRYRUN_LOSS}: {dry}")
     _need_launches("dryrun_multichip", counts,
                    ("raster_fwd_packed", "subtile_swap", "packed_bwd",
-                    "raster_fwd_dense", "scatter_faces"))
+                    "raster_fwd_dense", "scatter_faces"),
+                   vjps=5 * DRYRUN_STEP_VJPS + DRYRUN_VARIANT_VJPS)
 
     # One step through a torch.distributed group of one rank (NCCL).
     def grads_of(group):
@@ -3522,10 +3656,11 @@ def main():
 
     laps.lap()
     # --- 18. the stage, binning and parallel profilers, the max-scan -------
-    for kernel_name, count in _tools_check(device, card,
-                                           configs[False]).items():
+    counts, vjp_record = _tools_check(device, card, configs[False])
+    for kernel_name, count in counts.items():
         launches[kernel_name] += count
     record.update(_check_max_scan(device, card))
+    record.update(vjp_record)
 
     laps.lap()
     # --- 19. the compiled steps: CUDA-graph replays against eager --------
@@ -3562,6 +3697,13 @@ def main():
         "replaces": SCAN_REPLACES,
         "launches": launches[SCAN],
         **record[SCAN],
+    }, {
+        "name": SETUP_VJP,
+        "route": "cuda",
+        "source": f"dirt_tpu_torch/csrc/{SETUP_VJP}.cu",
+        "replaces": SETUP_VJP_REPLACES,
+        "launches": launches[SETUP_VJP],
+        **record[SETUP_VJP],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

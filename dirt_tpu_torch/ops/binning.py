@@ -88,6 +88,10 @@ class PackedBins(NamedTuple):
     # [budget_rows, table_width] f32, or None: the gathered per-entry face
     # table rows, attached by the forward (``ops.raster._forward_impl``).
     rows: torch.Tensor | None = None
+    # geo [F, 24] and att [F, 3C] f32, or None: the setup's planes,
+    # attached by the forward for the backward.
+    geo: torch.Tensor | None = None
+    att: torch.Tensor | None = None
 
 
 def num_tiles(height: int, width: int, tile_h: int, tile_w: int):

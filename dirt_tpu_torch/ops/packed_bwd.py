@@ -542,7 +542,8 @@ def pool_reduce_rows(entry_rows, pair_rows, pool_offs, num_faces: int,
     idx = pair_rows.long() - row_base
     valid = (idx >= 0) & (idx < nrows)
     pool_rows = entry_rows[torch.clamp(idx, 0, max(nrows - 1, 0))]
-    pool_rows = torch.where(valid[:, None], pool_rows, 0.0)
+    # In place: a second pool-sized array would set the step's peak.
+    pool_rows.masked_fill_(~valid[:, None], 0.0)
     nblk = pool_rows.shape[0] // POOL_ALIGN
     blk = pool_rows.reshape(nblk, POOL_ALIGN, k_cols).sum(dim=1)
     blk = torch.cat([blk, blk.new_zeros((1, k_cols))])

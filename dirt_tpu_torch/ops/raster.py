@@ -11,10 +11,10 @@ Three engines: the packed engine (setup -> packed binning -> face table
 ``binning.bin_faces`` -> ``raster_fwd.raster_forward``; backward
 ``raster_bwd.backward_fused``) and the streaming (CSR) engine (setup ->
 ``binning.bin_faces_csr`` -> ``raster_fwd.raster_forward_csr``; backward
-``raster_bwd.backward_fused_csr``), all chained through ``setup_planes`` by
-autograd; ``RasterConfig``, engine resolution, ``resolve_bin_cap`` and the
-count-then-allocate helpers (``suggest_config``, ``count_bins_exact``,
-``count_packed_exact``).
+``raster_bwd.backward_fused_csr``), all chained to the faces through
+``triangle_setup.setup_planes_vjp``; ``RasterConfig``, engine resolution,
+``resolve_bin_cap`` and the count-then-allocate helpers
+(``suggest_config``, ``count_bins_exact``, ``count_packed_exact``).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from dirt_tpu_torch.ops import (
     raster_bwd,
     raster_fwd,
     scatter,
+    triangle_setup,
 )
 from dirt_tpu_torch.ops.triangle_setup import (
     edge_filter_cols,
@@ -191,9 +192,13 @@ class DenseBins(NamedTuple):
     # ``bbox`` does not bound for a needle whose far corners lie far off the
     # image. The backward kernels scan these.
     cull: torch.Tensor
+    # geo [F, 24] and att [F, 3C] of the forward's setup, for the backward.
+    geo: torch.Tensor | None = None
+    att: torch.Tensor | None = None
 
 
-def prepare_dense(face_verts_screen, face_attrs, background, config):
+def prepare_dense(face_verts_screen, face_attrs, background, config,
+                  planes=None):
     """The dense forward up to the raster kernel.
 
     Triangle setup, whole-tile binning and the face table. Returns (table
@@ -201,7 +206,9 @@ def prepare_dense(face_verts_screen, face_attrs, background, config):
     the concrete config); the forward adds its cull boxes to make the
     DenseBins. A config that streams (more faces than
     ``STREAMING_FACES``, or ``streaming=True``) belongs to
-    :func:`prepare_csr`, as in ``dirt_tpu``.
+    :func:`prepare_csr`, as in ``dirt_tpu``. ``planes``: the
+    ``setup_planes`` result where the caller has set it up (the forward),
+    else set up here; so in the other two.
     """
     height, width, _ = background.shape
     config = config.concrete(height)
@@ -212,7 +219,7 @@ def prepare_dense(face_verts_screen, face_attrs, background, config):
         raise ValueError(f"prepare_dense needs the dense engine, not "
                          f"streaming, got {config} for {num_faces} faces")
 
-    geo, att, valid = setup_planes(face_verts_screen, face_attrs)
+    geo, att, valid = planes or setup_planes(face_verts_screen, face_attrs)
     bbox = face_bboxes(face_verts_screen, valid, height, width).contiguous()
     bg_chw = _padded_background(background, tile_h, tile_w)
     hp, wp = bg_chw.shape[1:]
@@ -250,9 +257,12 @@ class StreamBins(NamedTuple):
                                # expand_cap
     bbox: torch.Tensor         # [F, 4] int32 (xmin, xmax, ymin, ymax)
     cull: torch.Tensor         # [Fp, 4] int32, as DenseBins.cull
+    geo: torch.Tensor | None = None  # the setup's planes, as DenseBins'
+    att: torch.Tensor | None = None
 
 
-def prepare_csr(face_verts_screen, face_attrs, background, config):
+def prepare_csr(face_verts_screen, face_attrs, background, config,
+                planes=None):
     """The streaming forward up to the raster kernel.
 
     Triangle setup, CSR binning and the face table. Returns (table
@@ -260,7 +270,8 @@ def prepare_csr(face_verts_screen, face_attrs, background, config):
     tiles, the concrete config; the forward adds its cull boxes to make the
     StreamBins). The per-tile cap is
     ``resolve_bin_cap(streaming=True)`` rounded up to ``binning.CHUNK``;
-    ``expand_cap`` None means ``binning.auto_expand_cap``.
+    ``expand_cap`` None means ``binning.auto_expand_cap``. ``planes`` as
+    :func:`prepare_dense`'s.
     """
     height, width, _ = background.shape
     config = config.concrete(height)
@@ -270,7 +281,7 @@ def prepare_csr(face_verts_screen, face_attrs, background, config):
         raise ValueError(f"prepare_csr needs a streaming config, got "
                          f"{config} for {num_faces} faces")
 
-    geo, att, valid = setup_planes(face_verts_screen, face_attrs)
+    geo, att, valid = planes or setup_planes(face_verts_screen, face_attrs)
     bbox = face_bboxes(face_verts_screen, valid, height, width).contiguous()
     bg_chw = _padded_background(background, tile_h, tile_w)
     hp, wp = bg_chw.shape[1:]
@@ -286,13 +297,15 @@ def prepare_csr(face_verts_screen, face_attrs, background, config):
     return table, StreamLists(*bins, bbox), bg_chw, config
 
 
-def prepare_packed(face_verts_screen, face_attrs, background, config):
+def prepare_packed(face_verts_screen, face_attrs, background, config,
+                   planes=None):
     """The packed forward up to the raster kernel.
 
     Triangle setup, packed binning and the face table, with the entry
     rows gathered once (they ride on ``bins.rows`` for the backward).
     Returns (table2 [F + 1, W], bins, background [C, Hp, Wp] padded to
-    whole tiles, the concrete config).
+    whole tiles, the concrete config). ``planes`` as
+    :func:`prepare_dense`'s.
     """
     height, width, channels = background.shape
     config = config.concrete(height)
@@ -302,7 +315,7 @@ def prepare_packed(face_verts_screen, face_attrs, background, config):
         raise ValueError(f"prepare_packed needs the packed engine, got "
                          f"{config} for {num_faces} faces")
 
-    geo, att, valid = setup_planes(face_verts_screen, face_attrs)
+    geo, att, valid = planes or setup_planes(face_verts_screen, face_attrs)
     bbox = face_bbox_cols(face_verts_screen, valid, height, width)
     bg_chw = _padded_background(background, tile_h, tile_w)
     hp, wp = bg_chw.shape[1:]
@@ -332,8 +345,9 @@ def _forward_impl(face_verts_screen, face_attrs, background, config):
 
     ``bins`` is the engine's own record (PackedBins, DenseBins or
     StreamBins); all carry ``overflow`` flags (dense: per tile, the others
-    0-dim); DenseBins and StreamBins also the forward's cull boxes
-    (``cull``).
+    0-dim) and the setup's planes (``geo``, ``att``), which the backward
+    hands the engine instead of setting them up again; DenseBins and
+    StreamBins also the forward's cull boxes (``cull``).
     """
     height, width, _ = background.shape
     num_faces = face_verts_screen.shape[0]
@@ -342,32 +356,36 @@ def _forward_impl(face_verts_screen, face_attrs, background, config):
         raise ValueError(f"unknown engine {engine!r}")
     # Stages: setup, binning (prepare_* moves the span on), raster_fwd.
     with trace.span("setup", face_verts_screen):
+        planes = setup_planes(face_verts_screen, face_attrs)
         if engine == "packed":
-            table2, bins, bg_chw, config = prepare_packed(
-                face_verts_screen, face_attrs, background, config
-            )
+            # K1 reads the gathered rows alone: the table goes before it
+            # runs, so the planes kept for the backward take its room.
+            bins, bg_chw, config = prepare_packed(
+                face_verts_screen, face_attrs, background, config, planes
+            )[1:]
             pixels_chw, fid, zbuf = raster_fwd.raster_forward_packed(
-                table2, bins, bg_chw, tile_h=config.tile_h,
+                None, bins, bg_chw, tile_h=config.tile_h,
                 tile_w=config.tile_w, rows=bins.rows,
             )
+            bins = bins._replace(geo=planes[0], att=planes[1])
         elif streams(config, num_faces):
             table, lists, bg_chw, config = prepare_csr(
-                face_verts_screen, face_attrs, background, config
+                face_verts_screen, face_attrs, background, config, planes
             )
             pixels_chw, fid, zbuf, cull = raster_fwd.raster_forward_csr(
                 table, lists.entry_face, lists.start_block, lists.counts,
                 bg_chw, tile_h=config.tile_h, tile_w=config.tile_w,
             )
-            bins = StreamBins(*lists, cull)
+            bins = StreamBins(*lists, cull, *planes[:2])
         else:
             table, lists, bg_chw, config = prepare_dense(
-                face_verts_screen, face_attrs, background, config
+                face_verts_screen, face_attrs, background, config, planes
             )
             pixels_chw, fid, zbuf, cull = raster_fwd.raster_forward(
                 table, lists.bins, lists.counts, bg_chw,
                 tile_h=config.tile_h, tile_w=config.tile_w,
             )
-            bins = DenseBins(*lists, cull)
+            bins = DenseBins(*lists, cull, *planes[:2])
     pixels = pixels_chw.permute(1, 2, 0)[:height, :width]
     return pixels, fid[:height, :width], zbuf[:height, :width], bins, config
 
@@ -381,31 +399,26 @@ def move_rows(face_verts, rows: float):
 
 
 def chain_through_setup(face_verts, face_attrs, need_fv: bool, need_fa: bool,
-                        plane_cotangents, row_shift: float = 0.0):
+                        plane_cotangents, row_shift: float = 0.0,
+                        planes=None):
     """Chain an engine's plane cotangents to the screen-space faces.
 
-    Recomputes ``setup_planes`` under autograd (on the faces moved
-    ``row_shift`` rows down, a translation with unit Jacobian),
-    hands the detached planes to ``plane_cotangents(geo, att) -> (d_geo,
-    d_att, d_background)`` and pulls ``d_geo`` / ``d_att`` back through the
-    setup. Returns (d_face_verts or None, d_face_attrs or None,
-    d_background).
+    Hands the planes of the faces moved ``row_shift`` rows down (a
+    translation with unit Jacobian) to ``plane_cotangents(geo, att) ->
+    (d_geo, d_att, d_background)`` and pulls ``d_geo`` / ``d_att`` back
+    through the setup with ``triangle_setup.setup_planes_vjp`` (one kernel
+    launch on the card). ``planes``: those planes (geo, att) as the
+    forward set them up; None sets them up here, without autograd.
+    Returns (d_face_verts or None, d_face_attrs or None, d_background).
     """
-    with torch.enable_grad():
-        fv = face_verts.detach().requires_grad_(need_fv)
-        fa = face_attrs.detach().requires_grad_(need_fa)
-        moved = move_rows(fv, row_shift) if row_shift else fv
-        geo, att, _ = setup_planes(moved, fa)
-    d_geo, d_att, d_bg = plane_cotangents(geo.detach(), att.detach())
-    outs = [(o, d) for o, d in ((geo, d_geo), (att, d_att))
-            if o.requires_grad]
-    wanted = [x for x, need in ((fv, need_fv), (fa, need_fa)) if need]
-    grads = iter(torch.autograd.grad(
-        [o for o, _ in outs], wanted, [d for _, d in outs],
-        allow_unused=True,
-    ))
-    d_fv = next(grads) if need_fv else None
-    d_fa = next(grads) if need_fa else None
+    if planes is None:
+        with torch.no_grad():
+            moved = (move_rows(face_verts, row_shift) if row_shift
+                     else face_verts)
+            planes = setup_planes(moved, face_attrs)[:2]
+    d_geo, d_att, d_bg = plane_cotangents(*planes)
+    d_fv, d_fa = triangle_setup.setup_planes_vjp(
+        face_verts, face_attrs, d_geo, d_att, row_shift, need_fv, need_fa)
     return d_fv, d_fa, d_bg
 
 
@@ -446,8 +459,10 @@ class _RasterizeScreen(torch.autograd.Function):
     the engine's bins (packed: with the gathered entry rows and the pool
     backpointers; dense and streaming: the per-tile lists and the boxes)
     for the backward, which picks the engine by the kind of bins it finds,
-    recomputes the plane coefficients under autograd and chains the
-    engine's plane cotangents through them.
+    hands it the forward's plane coefficients (``bins.geo``, ``bins.att``)
+    and chains
+    the engine's plane cotangents to the faces through the setup's VJP
+    (``chain_through_setup``).
     """
 
     @staticmethod
@@ -504,7 +519,8 @@ class _RasterizeScreen(torch.autograd.Function):
                 )
 
             d_fv, d_fa, _ = chain_through_setup(fv, fa, need_fv, need_fa,
-                                                plane_cotangents)
+                                                plane_cotangents,
+                                                planes=(bins.geo, bins.att))
             return d_fv, d_fa, d_bg, None
 
 

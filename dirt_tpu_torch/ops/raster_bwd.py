@@ -6,7 +6,7 @@ docstring for the semantics:
 
 * interior: the gradient of ``num_plane / den_plane`` with respect to the
   plane coefficients at fixed coverage (exact; chained to the screen
-  vertices and attributes through autograd of ``setup_planes``);
+  vertices and attributes through ``triangle_setup.setup_planes_vjp``);
 * boundary: for each adjacent pixel pair with differing face ids, the
   frontmost face's crossing edge receives the intensity-difference x
   edge-motion term ``d(a, b, c0) += S * (x* - ax, y* - ay, 1) / (|a|+|b|)``;

@@ -105,7 +105,8 @@ def raster_forward_packed(
     """Forward pass over packed subtile bins (``bin_faces_packed``).
 
     Args:
-        table2: [F + 1, W] from :func:`pack_face_table_v2`.
+        table2: [F + 1, W] from :func:`pack_face_table_v2`; not read
+            (may be None) when ``rows`` is given.
         bins: PackedBins.
         background_chw: [C, Hp, Wp] f32 padded to tile multiples.
         rows: optional precomputed ``table2[bins.entries // 8]``.

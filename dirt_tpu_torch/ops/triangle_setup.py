@@ -2,8 +2,16 @@
 
 Counterpart of ``dirt_tpu/ops/triangle_setup.py``; see its docstring for
 the anchored plane form and why it keeps f32 precision at 1024^2. Setup
-is plain differentiable PyTorch, so the raster op's backward only needs
-gradients with respect to these coefficients.
+is plain differentiable PyTorch. The raster op's backward computes
+gradients with respect to these coefficients and pulls them back to the
+faces with :func:`setup_planes_vjp`, the setup's vector-Jacobian product,
+where ``dirt_tpu`` calls ``jax.vjp`` of its ``setup_planes``:
+
+* CUDA tensors launch the hand-written kernel ``csrc/setup_vjp.cu`` (one
+  launch, a face a thread, no reduction across faces; see its note for
+  the bound and the design).
+* CPU tensors take :func:`setup_planes_vjp_plain`, the same arithmetic in
+  the kernel's order.
 
 Geometry layout of the ``geo`` array ([F, 24] f32):
 
@@ -23,7 +31,13 @@ to the last bit wherever neither compiler fuses a multiply into an add.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
+
+from dirt_tpu_torch.ops import _build
+from dirt_tpu_torch.utils import trace
 
 AREA_EPS = 1e-10
 W_EPS = 1e-9
@@ -158,6 +172,203 @@ def setup_planes(face_verts_screen, face_attrs):
         att_cols += [na, nb, nc]
     att = torch.stack(att_cols, dim=1)                      # [F, 3C]
     return geo, att, valid
+
+
+def setup_planes_vjp(face_verts, face_attrs, d_geo, d_att,
+                     row_shift: float = 0.0, need_fv: bool = True,
+                     need_fa: bool = True):
+    """Pull the plane cotangents back through :func:`setup_planes`.
+
+    Args:
+        face_verts: [F, 3, 4] f32 screen-space faces, as the raster op
+            saved them.
+        face_attrs: [F, 3, C] f32.
+        d_geo: [F, >= 17] f32 cotangent of ``geo`` (columns 17 on, the
+            padding, are not read), any row stride.
+        d_att: [F, 3C] f32 cotangent of ``att``, any row stride.
+        row_shift: the planes were set up on the faces moved ``row_shift``
+            rows down (``y + row_shift``, unit Jacobian).
+        need_fv, need_fa: which cotangents to return.
+    Returns:
+        (d_face_verts [F, 3, 4] or None, d_face_attrs [F, 3, C] or None),
+        what ``torch.autograd.grad`` through ``setup_planes`` gives, up to
+        rounding.
+    """
+    num_faces, channels = _check_vjp_args(face_verts, face_attrs, d_geo,
+                                          d_att)
+    device = face_verts.device
+    if device.type == "cpu":
+        return setup_planes_vjp_plain(face_verts, face_attrs, d_geo, d_att,
+                                      row_shift, need_fv, need_fa)
+    if device.type != "cuda":
+        raise ValueError(f"setup_planes_vjp: no kernel for device {device}")
+    return _launch_vjp(face_verts.contiguous(), face_attrs.contiguous(),
+                       _unit_columns(d_geo), _unit_columns(d_att),
+                       num_faces, channels, row_shift, need_fv, need_fa)
+
+
+def _check_vjp_args(face_verts, face_attrs, d_geo, d_att):
+    """(F, C) of the VJP's inputs; raises on a dtype, shape or device the
+    kernel does not take."""
+    args = dict(face_verts=face_verts, face_attrs=face_attrs, d_geo=d_geo,
+                d_att=d_att)
+    for name, t in args.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"setup_planes_vjp: {name} must be float32, "
+                             f"got {t.dtype}")
+        if t.device != face_verts.device:
+            raise ValueError(f"setup_planes_vjp: {name} is on {t.device}, "
+                             f"face_verts on {face_verts.device}")
+    num_faces = face_verts.shape[0]
+    channels = face_attrs.shape[-1] if face_attrs.ndim == 3 else 0
+    want = dict(face_verts=(num_faces, 3, 4),
+                face_attrs=(num_faces, 3, channels),
+                d_att=(num_faces, 3 * channels))
+    for name, shape in want.items():
+        if tuple(args[name].shape) != shape or channels < 1:
+            raise ValueError(f"setup_planes_vjp: want {name} of shape "
+                             f"{shape} (F, C >= 1), got "
+                             f"{tuple(args[name].shape)}")
+    if d_geo.ndim != 2 or d_geo.shape[0] != num_faces \
+            or d_geo.shape[1] < GEO_USED:
+        raise ValueError(f"setup_planes_vjp: want d_geo of shape "
+                         f"({num_faces}, >= {GEO_USED}), got "
+                         f"{tuple(d_geo.shape)}")
+    return num_faces, channels
+
+
+def _unit_columns(t):
+    """``t`` [F, K] as it is when each row's K floats are adjacent and the
+    rows apart (a view of wider rows, say), else a contiguous copy."""
+    if t.stride(1) == 1 and t.stride(0) >= t.shape[1]:
+        return t
+    return t.contiguous()
+
+
+def _row_stride(t):
+    """``t``'s row stride as the kernel reads it (a single row's stride,
+    which nothing reads, can be anything)."""
+    return max(t.stride(0), t.shape[1])
+
+
+def setup_planes_vjp_plain(face_verts, face_attrs, d_geo, d_att,
+                           row_shift: float = 0.0, need_fv: bool = True,
+                           need_fa: bool = True):
+    """Plain PyTorch version of the setup VJP kernel (any device): the
+    kernel's arithmetic on [F] columns, in its order."""
+    num_faces = face_verts.shape[0]
+    channels = face_attrs.shape[-1]
+    xs, ys, zs, ws = _corners(face_verts)
+    if row_shift:
+        ys = tuple(y + row_shift for y in ys)
+    x0, x1, x2 = xs
+    y0, y1, y2 = ys
+    ex1, ey2 = x1 - x0, y2 - y0
+    ey1, ex2 = y1 - y0, x2 - x0
+    area2 = ex1 * ey2 - ey1 * ex2
+    valid = (torch.abs(area2) > AREA_EPS) & (ws[0] > 0.0) & (ws[1] > 0.0) \
+        & (ws[2] > 0.0)
+    o = torch.where(area2 >= 0.0, 1.0, -1.0)
+    a = (o * (y1 - y2), o * (y2 - y0), o * (y0 - y1))
+    b = (o * (x2 - x1), o * (x0 - x2), o * (x1 - x0))
+    ia = torch.reciprocal(torch.where(valid, o * area2, 1.0))
+
+    def dot(u, v):
+        return (u[0] * v[0] + u[1] * v[1]) + u[2] * v[2]
+
+    # The z and denominator planes.
+    g = d_geo.T                                             # [>= 17, F]
+    gza, gzb = g[11] * ia, g[12] * ia
+    gwa, gwb = g[14] * ia, g[15] * ia
+    dia = g[11] * dot(zs, a)
+    dia = dia + g[12] * dot(zs, b)
+    dia = dia + g[14] * dot(ws, a)
+    dia = dia + g[15] * dot(ws, b)
+    dz = [gza * a[k] + gzb * b[k] for k in range(3)]
+    dw = [gwa * a[k] + gwb * b[k] for k in range(3)]
+    da = [(g[2 + 3 * k] + gza * zs[k]) + gwa * ws[k] for k in range(3)]
+    db = [(g[3 + 3 * k] + gzb * zs[k]) + gwb * ws[k] for k in range(3)]
+    dz[0] = dz[0] + g[13]
+    dw[0] = dw[0] + g[16]
+
+    # The attribute planes, a channel at a time.
+    faT = face_attrs.reshape(num_faces, 3 * channels).T     # [3C, F]
+    t = d_att.T                                             # [3C, F]
+    dfa = [None] * (3 * channels)
+    for c in range(channels):
+        attr = [faT[k * channels + c] for k in range(3)]
+        q = [attr[k] * ws[k] for k in range(3)]
+        gna, gnb = t[3 * c] * ia, t[3 * c + 1] * ia
+        dia = dia + t[3 * c] * dot(q, a)
+        dia = dia + t[3 * c + 1] * dot(q, b)
+        dq = []
+        for k in range(3):
+            dq.append(gna * a[k] + gnb * b[k])
+            da[k] = da[k] + gna * q[k]
+            db[k] = db[k] + gnb * q[k]
+        dq[0] = dq[0] + t[3 * c + 2]
+        for k in range(3):
+            dfa[k * channels + c] = dq[k] * ws[k]
+            dw[k] = dw[k] + dq[k] * attr[k]
+
+    # c0 of edge 0 is |area2|, and 1 / |area2| scales every slope.
+    darea = o * (g[4] - dia * (ia * ia))
+    pa = [o * d for d in da]
+    pb = [o * d for d in db]
+    dex1, dey2 = darea * ey2, darea * ex1
+    dey1, dex2 = -(darea * ex2), -(darea * ey1)
+    dx = (((g[0] + pb[1]) - pb[2]) - (dex1 + dex2),
+          (pb[2] - pb[0]) + dex1, (pb[0] - pb[1]) + dex2)
+    dy = (((g[1] + pa[2]) - pa[1]) - (dey1 + dey2),
+          (pa[0] - pa[2]) + dey1, (pa[1] - pa[0]) + dey2)
+    d_fv = d_fa = None
+    if need_fv:
+        cols = [d for k in range(3) for d in (dx[k], dy[k], dz[k], dw[k])]
+        d_fv = torch.where(valid[:, None], torch.stack(cols, dim=1), 0.0)
+        d_fv = d_fv.reshape(num_faces, 3, 4)
+    if need_fa:
+        d_fa = torch.where(valid[:, None], torch.stack(dfa, dim=1), 0.0)
+        d_fa = d_fa.reshape(num_faces, 3, channels)
+    return d_fv, d_fa
+
+
+_KERNEL = "setup_vjp"
+
+
+@functools.cache
+def _kernel_fn():
+    fn = _build.load(_KERNEL).dirt_setup_vjp
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
+def _launch_vjp(face_verts, face_attrs, d_geo, d_att, num_faces: int,
+                channels: int, row_shift: float, need_fv: bool,
+                need_fa: bool):
+    # raster_fwd imports this module.
+    from dirt_tpu_torch.ops.raster_fwd import on_device
+
+    d_fv = torch.empty_like(face_verts) if need_fv else None
+    d_fa = torch.empty_like(face_attrs) if need_fa else None
+    if num_faces == 0 or not (need_fv or need_fa):
+        return d_fv, d_fa
+    fn = _kernel_fn()
+    with on_device(face_verts.device):
+        stream = torch.cuda.current_stream(face_verts.device).cuda_stream
+        err = fn(face_verts.data_ptr(), face_attrs.data_ptr(),
+                 d_geo.data_ptr(), _row_stride(d_geo), d_att.data_ptr(),
+                 _row_stride(d_att),
+                 d_fv.data_ptr() if need_fv else None,
+                 d_fa.data_ptr() if need_fa else None,
+                 num_faces, channels, float(row_shift), stream)
+    if err != 0:
+        raise RuntimeError(f"{_KERNEL} launch failed: CUDA error {err}")
+    trace.count(f"launch.{_KERNEL}")
+    return d_fv, d_fa
 
 
 def edge_filter_cols(face_verts_screen):

@@ -19,10 +19,11 @@ per-pixel cotangents of its band over all global faces
 neighbour data only; its face sum is a float32 ``index_add_``, where
 ``dirt_tpu`` uses ``segment_sum``), and routes each face's row to the member
 that owns the face (``group.reduce_scatter``), which pulls it back through
-its own setup. The planes are set up in global screen space, as the forward
-renders; the band's arrays start at image row ``r0 - 1``, so the gathered
-planes are moved ``r0 - 1`` rows up (their anchor row, the only column a
-translation changes) to meet ``backward_torch``'s band-local pixel
+its own setup's VJP (``triangle_setup.setup_planes_vjp``). The planes are
+the forward's, set up in global screen space as it renders; the band's
+arrays start at image row ``r0 - 1``, so the gathered planes are moved
+``r0 - 1`` rows up (their anchor row, the only column a translation
+changes) to meet ``backward_torch``'s band-local pixel
 coordinates. A translation has unit Jacobian: the moved planes' cotangents
 are the global planes' ones. ``backward_torch`` adds the anchor cotangents
 before the reduce-scatter; they are linear in the face rows and read only
@@ -36,14 +37,13 @@ from __future__ import annotations
 
 import torch
 
-from dirt_tpu_torch.ops import raster, raster_bwd
+from dirt_tpu_torch.ops import raster, raster_bwd, triangle_setup
 from dirt_tpu_torch.ops.raster import RasterConfig
 from dirt_tpu_torch.ops.raster_fwd import BIG_Z
 from dirt_tpu_torch.ops.triangle_setup import (
     GEO_AY,
     GEO_WIDTH,
     screen_from_clip,
-    setup_planes,
 )
 from dirt_tpu_torch.parallel.sharding import (
     _exchange_halo_rows,
@@ -65,7 +65,7 @@ class _FaceShardOp(torch.autograd.Function):
     def forward(ctx, face_verts, face_attrs, background, config, group):
         f_local = face_verts.shape[0] // group.size
         neutral = torch.zeros_like(background)
-        zkeys, gids, parts, overflows = [], [], [], []
+        zkeys, gids, parts, overflows, planes = [], [], [], [], []
         for m in group.local:
             own = slice(m * f_local, (m + 1) * f_local)
             pixels, fid, zbuf, bins, _ = raster._forward_impl(
@@ -74,6 +74,7 @@ class _FaceShardOp(torch.autograd.Function):
             gids.append(torch.where(covered, fid + m * f_local, _BIG_ID))
             zkeys.append(torch.where(covered, zbuf, BIG_Z))
             parts.append(pixels)
+            planes.append((bins.geo, bins.att))
             overflows.append(torch.any(bins.overflow).to(torch.float32)
                              .reshape(1))
         zmins = group.all_reduce_min(zkeys)
@@ -97,6 +98,7 @@ class _FaceShardOp(torch.autograd.Function):
         ctx.save_for_backward(face_verts.detach(), face_attrs.detach(),
                               pixels, fid, zbuf)
         ctx.group = group
+        ctx.planes = planes
         return pixels, fid, zbuf, overflow
 
     @staticmethod
@@ -121,16 +123,8 @@ class _FaceShardOp(torch.autograd.Function):
             return None, None, d_bg, None, None
 
         tops, bottoms = _exchange_halos(group, bands)
-        setups = []
-        with torch.enable_grad():
-            for m in members:
-                own = slice(m * f_local, (m + 1) * f_local)
-                fv = face_verts[own].detach().requires_grad_(need_fv)
-                fa = face_attrs[own].detach().requires_grad_(need_fa)
-                setups.append((fv, fa, *setup_planes(fv, fa)[:2]))
         gathered = group.all_gather(
-            [torch.cat([geo.detach(), att.detach()], dim=1)
-             for _, _, geo, att in setups])
+            [torch.cat([geo, att], dim=1) for geo, att in ctx.planes])
         rows = []
         for i, m in enumerate(members):
             extended = _exchange_halo_rows(*bands[i], tops[i], bottoms[i])
@@ -146,17 +140,15 @@ class _FaceShardOp(torch.autograd.Function):
 
         d_fv = torch.zeros_like(face_verts) if need_fv else None
         d_fa = torch.zeros_like(face_attrs) if need_fa else None
-        for (fv, fa, geo, att), m, row in zip(setups, members, owned):
+        for m, row in zip(members, owned):
             own = slice(m * f_local, (m + 1) * f_local)
-            cots = ((geo, row[:, :GEO_WIDTH]), (att, row[:, GEO_WIDTH:]))
-            cots = [(o, d) for o, d in cots if o.requires_grad]
-            wanted = [x for x, need in ((fv, need_fv), (fa, need_fa)) if need]
-            grads = iter(torch.autograd.grad([o for o, _ in cots], wanted,
-                                             [d for _, d in cots]))
+            g_fv, g_fa = triangle_setup.setup_planes_vjp(
+                face_verts[own], face_attrs[own], row[:, :GEO_WIDTH],
+                row[:, GEO_WIDTH:], need_fv=need_fv, need_fa=need_fa)
             if need_fv:
-                d_fv[own] = next(grads)
+                d_fv[own] = g_fv
             if need_fa:
-                d_fa[own] = next(grads)
+                d_fa[own] = g_fa
         return d_fv, d_fa, d_bg, None, None
 
 

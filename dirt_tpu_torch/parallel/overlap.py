@@ -13,9 +13,10 @@ order of float32 additions.
   the forward is the slab op's (``sharding._slab_forwards``); the backward
   runs the packed engine's per-entry kernel (``packed_bwd.packed_entry_rows``)
   over ``n_chunks`` slices of each slab's budget chunks, then the pool
-  reduce, the anchors and the pull-back through the setup, which is built
-  once per slab and pulled back once per chunk. The packed engine must be
-  the resolved one. ``dirt_tpu`` re-derives the forward's bins in its
+  reduce, the anchors and the pull-back through the setup's VJP
+  (``triangle_setup.setup_planes_vjp``) once per chunk, on the forward's
+  planes of each slab (``bins.geo``, ``bins.att``). The packed engine must
+  be the resolved one. ``dirt_tpu`` re-derives the forward's bins in its
   backward (``_rebin``), because its custom VJP does not carry them; the
   autograd Function here keeps them in ``ctx``, so nothing is re-derived.
   The op takes the clip-space vertices and colors themselves and sums their
@@ -33,10 +34,10 @@ from __future__ import annotations
 
 import torch
 
-from dirt_tpu_torch.ops import packed_bwd, raster, raster_bwd
+from dirt_tpu_torch.ops import packed_bwd, raster, raster_bwd, triangle_setup
 from dirt_tpu_torch.ops.binning import PACK_CHUNK, POOL_ALIGN
 from dirt_tpu_torch.ops.raster import RasterConfig
-from dirt_tpu_torch.ops.triangle_setup import screen_from_clip, setup_planes
+from dirt_tpu_torch.ops.triangle_setup import screen_from_clip
 from dirt_tpu_torch.parallel.sharding import (
     _exchange_halo_rows,
     _exchange_halos,
@@ -49,10 +50,15 @@ from dirt_tpu_torch.parallel.sharding import (
 from dirt_tpu_torch.rasterise_ops import _as_inputs
 
 
-def _pull_back(geo, att, d_geo, d_att, wanted):
-    """Gradients of ``wanted`` from plane cotangents, through the setup graph
-    of ``geo`` / ``att``, which stays for the next chunk."""
-    outs = [(o, d) for o, d in ((geo, d_geo), (att, d_att))
+def _to_leaves(face_verts, face_attrs, rows: int, d_geo, d_att, wanted):
+    """Gradients of ``wanted`` from the cotangents of the planes of the
+    faces moved ``rows`` rows up (a slab's): the setup's VJP, then autograd
+    through the graph that made ``face_verts`` / ``face_attrs`` from the
+    leaves, which stays for the next chunk."""
+    d_fv, d_fa = triangle_setup.setup_planes_vjp(
+        face_verts.detach(), face_attrs.detach(), d_geo, d_att, -float(rows),
+        face_verts.requires_grad, face_attrs.requires_grad)
+    outs = [(o, d) for o, d in ((face_verts, d_fv), (face_attrs, d_fa))
             if o.requires_grad]
     return torch.autograd.grad([o for o, _ in outs], wanted,
                                [d for _, d in outs], retain_graph=True)
@@ -138,20 +144,15 @@ class _OverlapOp(torch.autograd.Function):
         fields = _split_rows((fid, zbuf, pixels, grad_pixels), len(slabs))
         tops, bottoms = _exchange_halos(group, fields)
         preps = []
-        for i, slab in enumerate(slabs):
-            # The setup, once per slab under autograd; each chunk pulls back
-            # through it.
-            with torch.enable_grad():
-                geo, att, _ = setup_planes(
-                    _shift_rows(face_verts, slab * slab_h), face_attrs)
+        for i, bins in enumerate(ctx.bins):
             nbrs = _halo_neighbor_stacks(
                 *_exchange_halo_rows(*fields[i], tops[i], bottoms[i]),
                 slab_h, wp)
-            preps.append((geo, att, packed_bwd.prepare_backward_packed(
-                geo.detach(), att.detach(), *fields[i], ctx.bins[i], tile_h,
-                tile_w, nbrs=nbrs)))
+            preps.append(packed_bwd.prepare_backward_packed(
+                bins.geo, bins.att, *fields[i], bins, tile_h, tile_w,
+                nbrs=nbrs))
 
-        budget_chunks = preps[0][2].budget_chunks
+        budget_chunks = preps[0].budget_chunks
         n_chunks = max(1, min(n_chunks, budget_chunks))
         bounds = [round(k * budget_chunks / n_chunks)
                   for k in range(n_chunks + 1)]
@@ -160,14 +161,16 @@ class _OverlapOp(torch.autograd.Function):
         sums = _ChunkSums(group, len(wanted))
         for c0, c1 in zip(bounds[:-1], bounds[1:]):
             per_slab = []
-            for (geo, att, prep), bins in zip(preps, ctx.bins):
+            for slab, prep, bins in zip(slabs, preps, ctx.bins):
                 face_rows = packed_bwd.pool_reduce_rows(
                     packed_bwd.packed_entry_rows(prep, c0, c1),
                     bins.pair_rows, bins.pool_offs, num_faces, bmax,
                     row_base=c0 * PACK_CHUNK)
                 d_geo, d_att = raster_bwd.assemble_face_gradients(
                     prep.geo, prep.att, face_rows, channels)
-                per_slab.append(_pull_back(geo, att, d_geo, d_att, wanted))
+                per_slab.append(_to_leaves(face_verts, face_attrs,
+                                           slab * slab_h, d_geo, d_att,
+                                           wanted))
             sums.add(per_slab)
         totals = iter(sums.wait())
         d_v = next(totals) if need_v else None
@@ -251,12 +254,10 @@ def overlapped_loss_and_grads(background, vertices, vertex_colors, faces,
     planes, fields, loss = [], [], 0.0
     for slab in slabs:
         rows = slice(slab * slab_h, (slab + 1) * slab_h)
-        with torch.enable_grad():
-            fv = _shift_rows(face_verts, slab * slab_h)
-            geo, att, _ = setup_planes(fv, face_attrs)
-        planes.append((geo, att))
-        pixels, fid, zbuf, _, _ = raster._forward_impl(
-            fv.detach(), face_attrs.detach(), background[rows], config)
+        pixels, fid, zbuf, bins, _ = raster._forward_impl(
+            _shift_rows(face_verts.detach(), slab * slab_h),
+            face_attrs.detach(), background[rows], config)
+        planes.append((bins.geo, bins.att))
         diff = pixels - target[rows]
         loss = loss + torch.sum(diff * diff)
         fields.append((fid, zbuf, pixels, 2.0 * diff))
@@ -275,22 +276,21 @@ def overlapped_loss_and_grads(background, vertices, vertex_colors, faces,
         yg = k * band_h + torch.arange(band_h, dtype=torch.float32,
                                        device=device) + 0.5
         per_slab = []
-        for (geo, att), (fid, zbuf, pixels, grad), stacks in zip(
-                planes, fields, nbrs):
+        for slab, (geo, att), (fid, zbuf, pixels, grad), stacks in zip(
+                slabs, planes, fields, nbrs):
             fid_b = fid[rows]
             covered = fid_b >= 0
             cols_geo, cols_att = raster_bwd.pixel_cotangents_core(
-                geo.detach()[torch.clamp(fid_b, min=0).long()].permute(
-                    2, 0, 1),
+                geo[torch.clamp(fid_b, min=0).long()].permute(2, 0, 1),
                 covered, fid_b, zbuf[rows], pixels[rows].permute(2, 0, 1),
                 grad[rows].permute(2, 0, 1),
                 [tuple(s[d, rows] for s in stacks) for d in range(4)],
                 *torch.broadcast_tensors(xg[None, :], yg[:, None]))
             d_geo, d_att = raster_bwd.sum_onto_faces(
                 cols_geo, cols_att, fid_b, covered, num_faces)
-            d_geo = raster_bwd.anchor_cotangents(geo.detach(), att.detach(),
-                                                 d_geo, d_att)
-            per_slab.append(_pull_back(geo, att, d_geo, d_att, wanted))
+            d_geo = raster_bwd.anchor_cotangents(geo, att, d_geo, d_att)
+            per_slab.append(_to_leaves(face_verts, face_attrs, slab * slab_h,
+                                       d_geo, d_att, wanted))
         sums.add(per_slab)
     d_v, d_c = sums.wait()
     d_bg = torch.cat([torch.where((f[0] >= 0)[..., None], 0.0, f[3])

@@ -171,7 +171,8 @@ def _slab_backward(config, fv_local, fa, pixels, fid, zbuf, bins,
                 bmax=-(-expand // binning.POOL_ALIGN))
 
         return raster.chain_through_setup(fv_local, fa, need_fv, need_fa,
-                                          plane_cotangents)
+                                          plane_cotangents,
+                                          planes=(bins.geo, bins.att))
 
     fid_e = extended[0]
     own_mask = torch.zeros_like(fid_e, dtype=torch.bool)

@@ -140,3 +140,75 @@ def scan_input(kind, n, seed=0):
     if kind == "decreasing":
         return np.int64(2**40) - np.arange(n, dtype=np.int64) * 3
     raise ValueError(f"no scan input {kind!r}")
+
+
+# --- the setup VJP (``ops/triangle_setup.setup_planes_vjp``) ----------------
+
+def _area_eps_legs():
+    """Legs (u, v) of two right triangles at the origin whose float32
+    area2 = u * v is ``float32(AREA_EPS)`` itself (invalid: the test is a
+    strict >) and the next float above it (valid, 1 / |area2| ~ 1e10)."""
+    from dirt_tpu_torch.ops.triangle_setup import AREA_EPS
+
+    eps = np.float32(AREA_EPS)
+    u = np.float32(1e-5)
+    v = u + np.arange(-64, 65, dtype=np.float32) * np.spacing(u)
+    area = u * v
+    return (u, v[area == eps][0]), (u, v[area > eps][0])
+
+
+def setup_vjp_scenes():
+    """{name: (screen-space faces [F, 3, 4], attributes [F, 3, C])}, numpy
+    f32, for the setup VJP's tests: random faces at C = 1, 3, 9 and 16
+    (both orientations, corners' depths and 1/w apart); invalid faces (zero
+    area, three corners on a line, |area2| at ``AREA_EPS`` and the next
+    float above it, a corner with invw 0 or below) among valid ones; the
+    10,224-face sphere at 1024 x 1024 with its pole slivers; the crossing
+    sphere's faces after the near-plane clip at 256 x 256."""
+    import torch
+
+    from dirt_tpu_torch.ops.clipping import clip_compact_screen
+    from dirt_tpu_torch.ops.triangle_setup import screen_from_clip
+
+    scenes = {}
+    for channels in (1, 3, 9, 16):
+        fv, fa = screen_soup(256, 1024, 1024, seed=40 + channels,
+                             channels=channels, spread=60.0)
+        rng = np.random.RandomState(channels)
+        fv[..., 2] = rng.uniform(-0.9, 0.9, fv.shape[:2])
+        fv[..., 3] = rng.uniform(0.2, 2.0, fv.shape[:2])
+        flip = rng.rand(len(fv)) < 0.5
+        fv[flip] = fv[flip][:, [0, 2, 1]]
+        fa[flip] = fa[flip][:, [0, 2, 1]]
+        scenes[f"soup C={channels}"] = (fv, fa)
+    fv, fa = screen_soup(16, 256, 256, seed=7)
+    fv[0, 2] = fv[0, 0]                                 # zero area
+    fv[1, 2, :2] = 2 * fv[1, 1, :2] - fv[1, 0, :2]      # on a line
+    at, above = _area_eps_legs()
+    for i, (legs, turn) in enumerate(((at, 1), (above, 1), (at, -1),
+                                      (above, -1)), start=2):
+        fv[i, :, :2] = 0.0
+        fv[i, 1, 0], fv[i, 2, 1] = legs                 # x1, y2
+        if turn < 0:
+            fv[i] = fv[i][[0, 2, 1]]
+    fv[6, 1, 3] = 0.0                                   # invw 0
+    fv[7, 2, 3] = -0.5                                  # behind the eye
+    scenes["invalid"] = (fv, fa)
+    clip, colors, faces = sphere_scene(72, 72)
+    fv = screen_from_clip(torch.tensor(clip), 1024, 1024).numpy()[faces]
+    scenes["sphere 10224"] = (fv, colors[faces])
+    clip, colors, faces = sphere_scene(distance=0.9)
+    fv, fa, _, _ = clip_compact_screen(torch.tensor(clip)[faces],
+                                       torch.tensor(colors)[faces],
+                                       len(faces), 256, 256)
+    scenes["clipped sphere"] = (fv.numpy(), fa.numpy())
+    return scenes
+
+
+def setup_vjp_cotangents(num_faces, channels, seed):
+    """Random cotangents (d_geo [F, 24], d_att [F, 3C]) numpy f32 for the
+    setup VJP, every column of d_geo filled (its padding too, which the VJP
+    must not read)."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(num_faces, 24).astype(np.float32),
+            rng.randn(num_faces, 3 * channels).astype(np.float32))

@@ -87,6 +87,8 @@ from _torch_port_scene import (
     needle_soup,
     scan_input,
     screen_soup,
+    setup_vjp_cotangents,
+    setup_vjp_scenes,
     sphere_scene,
 )
 from dirt_tpu_torch import convert, entry
@@ -101,6 +103,7 @@ from dirt_tpu_torch.ops import (
 )
 from dirt_tpu_torch.parallel.group import LocalGroup
 from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+from dirt_tpu_torch.ops import triangle_setup
 from dirt_tpu_torch.ops.triangle_setup import (
     face_bboxes,
     screen_from_clip,
@@ -1421,7 +1424,8 @@ def test_sharded_renderer_on_card_matches_cpu(cuda, engine):
     kernel and its sharded backward's reduction (the scatter kernels, or
     the layout swap and the packed backward on halo-spliced neighbour maps)
     run once per slab,
-    and no other engine's; image and gradients as on the CPU."""
+    and no other engine's; the setup VJP once per slab; image and
+    gradients as on the CPU."""
     verts, colors, faces = sphere_scene(24, 32)
     bg = np.random.RandomState(6).rand(256, 256, 3).astype(np.float32)
     w = np.random.RandomState(7).randn(256, 256, 3).astype(np.float32)
@@ -1434,6 +1438,7 @@ def test_sharded_renderer_on_card_matches_cpu(cuda, engine):
                                                        faces, device)
         leaves = [t.clone().requires_grad_() for t in (v_t, c_t, bg_t)]
         before = _sharded_counts()
+        vjp_before = _launches("setup_vjp")
         pix, fid, zbuf, ovf = rasterise_sharded(
             leaves[2], leaves[0], leaves[1], f_t, LocalGroup(4),
             config=config, with_aux=True)
@@ -1442,6 +1447,8 @@ def test_sharded_renderer_on_card_matches_cpu(cuda, engine):
         for name in after:
             n = 4 if (name == engine and device != "cpu") else 0
             assert after[name] == tuple(c + n for c in before[name])
+        assert _launches("setup_vjp") == vjp_before + (
+            4 if device != "cpu" else 0)
         outs.append((pix.detach().cpu(), fid.cpu(), zbuf.cpu(), bool(ovf)))
         grads.append([t.grad.cpu() for t in leaves])
     (pix_c, fid_c, z_c, ovf_c), (pix_g, fid_g, z_g, ovf_g) = outs
@@ -1578,3 +1585,186 @@ def test_packed_binning_on_card_scans_five_times_and_equals_cpu(cuda):
             assert torch.equal(a.cpu(), b), field
     assert prof_torch_binning.stage_checksums(bbox, edges, geom) == \
         prof_torch_binning.stage_checksums(bbox_cpu, edges_cpu, geom)
+
+
+# --- the setup VJP -------------------------------------------------------
+
+
+def _vjp_args(fv, fa, seed, device):
+    """(fv, fa, d_geo, d_att) on ``device``, ``d_att`` as the engines hand
+    it: a view of [F, 12 + 3C] face rows."""
+    d_geo, d_att = setup_vjp_cotangents(len(fv), fa.shape[-1], seed)
+    rows = torch.zeros(len(fv), 12 + d_att.shape[1], device=device)
+    rows[:, 12:] = torch.as_tensor(d_att, device=device)
+    return (torch.as_tensor(fv, device=device),
+            torch.as_tensor(fa, device=device),
+            torch.as_tensor(d_geo, device=device), rows[:, 12:])
+
+
+def _check_vjp_kernel(fv, fa, d_geo, d_att, row_shift=0.0, need=(True, True)):
+    """The kernel bit-equal to its plain version on the card, twice, with
+    one launch a call."""
+    want = triangle_setup.setup_planes_vjp_plain(fv, fa, d_geo, d_att,
+                                                 row_shift, *need)
+    for _ in range(2):
+        before = _launches("setup_vjp")
+        got = triangle_setup.setup_planes_vjp(fv, fa, d_geo, d_att,
+                                              row_shift, *need)
+        torch.cuda.synchronize()
+        assert _launches("setup_vjp") == before + 1
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_shift", [0.0, 1.0])
+@pytest.mark.parametrize("name", ["soup C=1", "soup C=3", "soup C=9",
+                                  "soup C=16", "invalid", "sphere 10224",
+                                  "clipped sphere"])
+def test_setup_vjp_kernel_bits_equal_plain_on_card(cuda, name, row_shift):
+    """On the CPU tests' scenes: the instances for C = 3 and 9 and the
+    general form (C = 1, 16), invalid faces of every kind."""
+    fv, fa = setup_vjp_scenes()[name]
+    _check_vjp_kernel(*_vjp_args(fv, fa, 3, cuda), row_shift)
+
+
+@functools.lru_cache(maxsize=None)
+def _sphere_faces(n_lat, clip):
+    """(faces [F, 3, 4], attributes [F, 3, 3]) of the bench sphere
+    ``uv_sphere(n_lat, n_lat)`` at 1024 x 1024 on the card, as the raster op
+    saves them: with ``clip`` through the near-plane clip and compaction
+    of the default API."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from bench_torch import bench_scene
+    from dirt_tpu_torch.ops.clipping import clip_compact_screen
+    from dirt_tpu_torch.rasterise_ops import _auto_clip_cap
+
+    _, clip_verts, colors, faces, _, _ = bench_scene(1024, "cuda", n=n_lat)
+    if clip:
+        fv, fa, _, _ = clip_compact_screen(
+            clip_verts[faces], colors[faces],
+            _auto_clip_cap(faces.shape[0]), 1024, 1024)
+        return fv, fa
+    return screen_from_clip(clip_verts, 1024, 1024)[faces], colors[faces]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lat,clip", [(72, False), (224, True),
+                                        (708, False)],
+                         ids=["10224", "99904 clipped", "1001112"])
+def test_setup_vjp_kernel_on_the_cells_spheres_on_card(cuda, n_lat, clip):
+    """The faces ``deferred10k``, ``sphere100k`` and ``sphere1m`` hand the
+    raster op (C = 3), random cotangents."""
+    fv, fa = _sphere_faces(n_lat, clip)
+    gen = torch.Generator(device=cuda).manual_seed(n_lat)
+    rows = torch.randn(fv.shape[0], 21, device=cuda, generator=gen)
+    d_geo = torch.randn(fv.shape[0], 24, device=cuda, generator=gen)
+    _check_vjp_kernel(fv, fa, d_geo, rows[:, 12:])
+
+
+def _layouts():
+    """{name: (channels, d_geo row stride, d_att row stride, offset of
+    every input from 16-byte alignment in floats, need)}."""
+    return {
+        "C=3 contiguous d_att": (3, 24, 9, 0, (True, True)),
+        "C=3 off alignment": (3, 24, 21, 1, (True, True)),
+        "C=9 odd d_geo stride": (9, 25, 39, 0, (True, True)),
+        "C=9 rows too wide to stage": (9, 24, 4096, 0, (True, True)),
+        "C=3 d_face_verts only": (3, 24, 21, 0, (True, False)),
+        "C=9 d_face_attrs only": (9, 24, 39, 0, (False, True)),
+        "C=16 off alignment": (16, 24, 60, 3, (True, True)),
+        "C=2 general": (2, 24, 18, 0, (True, True)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", list(_layouts()))
+def test_setup_vjp_kernel_takes_every_layout_on_card(cuda, layout):
+    """Row strides, alignment, the outputs asked for; a face count off
+    the block size."""
+    channels, gs, as_, off, need = _layouts()[layout]
+    fv, fa = screen_soup(1000 + 37, 512, 512, seed=channels,
+                         channels=channels, spread=40.0)
+    rng = np.random.RandomState(off)
+    fv[..., 3] = rng.uniform(0.2, 2.0, fv.shape[:2])
+    n = len(fv)
+
+    def placed(a, stride=None):
+        a = torch.as_tensor(a.reshape(n, -1), device=cuda)
+        stride = stride or a.shape[1]
+        buf = torch.randn(off + n * stride, device=cuda)
+        view = buf[off:].reshape(n, stride)[:, :a.shape[1]]
+        view.copy_(a)
+        return view
+
+    d_geo = placed(rng.randn(n, 24).astype(np.float32), gs)
+    d_att = placed(rng.randn(n, 3 * channels).astype(np.float32), as_)
+    face_verts = placed(fv).reshape(n, 3, 4)
+    face_attrs = placed(fa).reshape(n, 3, channels)
+    assert face_verts.data_ptr() % 16 == (4 * off) % 16
+    _check_vjp_kernel(face_verts, face_attrs, d_geo, d_att, 1.0, need)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["packed", "dense", "csr"])
+def test_one_setup_vjp_launch_per_backward_on_card(cuda, engine):
+    """Each engine's backward chains its plane cotangents to the faces in
+    one launch, with the gradients the CPU gives."""
+    verts, colors, faces = sphere_scene(24, 32)
+    bg = np.random.RandomState(6).rand(100, 130, 3).astype(np.float32)
+    weights = np.random.RandomState(7).randn(100, 130, 3).astype(np.float32)
+    fields = {"packed": dict(engine="packed"),
+              "dense": dict(engine="dense"),
+              "csr": dict(streaming=True)}[engine]
+    grads = []
+    for device, launches in (("cpu", 0), (cuda, 1)):
+        scene = convert.scene_from_numpy(bg, verts, colors, faces, device)
+        config = dirt_tpu_torch.suggest_raster_config(
+            scene[1], scene[3], 100, 130,
+            config=dirt_tpu_torch.RasterConfig(**fields), clip=True)
+        leaves = [t.clone().requires_grad_() for t in scene[:3]]
+        before = _launches("setup_vjp")
+        pixels = dirt_tpu_torch.rasterise(leaves[0], leaves[1], leaves[2],
+                                          scene[3], config=config)
+        (pixels * torch.tensor(weights, device=device)).sum().backward()
+        torch.cuda.synchronize()
+        assert _launches("setup_vjp") == before + launches
+        grads.append([t.grad.cpu() for t in leaves])
+    for g_cpu, g_card in zip(*grads):
+        assert _rel_err(g_card, g_cpu) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path, launches", [("overlap", 8),
+                                            ("face_sharded", 4)])
+def test_parallel_backwards_launch_setup_vjp_on_card(cuda, path, launches):
+    """The overlapped backward pulls its plane cotangents back through the
+    setup VJP kernel once per slab and chunk (4 x 2), the face-sharded
+    one once per member (4), with the gradients the CPU gives."""
+    from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
+
+    verts, colors, faces = sphere_scene(24, 32)
+    bg = np.random.RandomState(6).rand(256, 256, 3).astype(np.float32)
+    w = np.random.RandomState(7).randn(256, 256, 3).astype(np.float32)
+    config = dirt_tpu_torch.RasterConfig(engine="packed")
+    grads = []
+    for device, want in (("cpu", 0), (cuda, launches)):
+        bg_t, v_t, c_t, f_t = convert.scene_from_numpy(bg, verts, colors,
+                                                       faces, device)
+        leaves = [t.clone().requires_grad_() for t in (v_t, c_t, bg_t)]
+        before = _launches("setup_vjp")
+        if path == "overlap":
+            pixels = rasterise_sharded(leaves[2], leaves[0], leaves[1], f_t,
+                                       LocalGroup(4), config=config,
+                                       overlap_chunks=2)
+        else:
+            pixels = rasterise_face_sharded(leaves[2], leaves[0], leaves[1],
+                                            f_t, LocalGroup(4), config=config)
+        (pixels * torch.tensor(w, device=device)).sum().backward()
+        torch.cuda.synchronize()
+        assert _launches("setup_vjp") == before + want
+        grads.append([t.grad.cpu() for t in leaves])
+    for g_cpu, g_card in zip(*grads):
+        assert _rel_err(g_card, g_cpu) <= 1e-4

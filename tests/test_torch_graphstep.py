@@ -258,6 +258,25 @@ def test_step_is_capture_safe(case):
         for name, where in scan.found)
 
 
+def test_packed_scan_case_chains_through_the_setup_vjp():
+    """The packed cases of the scan reach ``setup_planes_vjp``, whose CUDA
+    path launches the setup VJP kernel (here, on the CPU, it takes the
+    plain version, which the scan exempts; the wrapper is scanned), once a
+    backward, and the scan records nothing."""
+    from unittest import mock
+
+    from dirt_tpu_torch.ops import triangle_setup
+
+    step = _SCAN_CASES["packed clip=False"]()
+    step()
+    with mock.patch.object(triangle_setup, "setup_planes_vjp",
+                           wraps=triangle_setup.setup_planes_vjp) as vjp, \
+            _HostScan() as scan:
+        step()
+    assert vjp.call_count == 1
+    assert not scan.found
+
+
 def _anchor_by_index(geo, att, d_geo, d_att):
     """``raster_bwd.anchor_cotangents`` as it was written before the
     capture: an index tensor of the five planes' ``a`` columns."""

@@ -24,9 +24,13 @@ card:
   entry-row gather  packed_bwd._entry_table_rows (bins without rows)
   entry rows (K2)   packed_entry_rows
   pool reduce       pool_reduce_rows
+  chain             raster.chain_through_setup on the backward core's
+                    cotangents and the forward's planes, as the raster
+                    op's backward calls it: the setup VJP and its checks
+  setup vjp         triangle_setup.setup_planes_vjp alone (its kernel)
 
-and the glue: fwd+bwd total minus setup+binning, the forward kernel and
-the backward core. For each stage: min and median ms of event-timed
+and the glue: fwd+bwd total minus setup+binning, the forward kernel, the
+backward core and the chain. For each stage: min and median ms of event-timed
 synchronised calls (``utils.benchtime.device_time_stats``, what a caller
 pays, host included) and, from one profiler window
 (``prof_torch_steps._profile``), device kernels and device busy ms per
@@ -51,7 +55,13 @@ if ROOT not in sys.path:
 import dirt_tpu_torch  # noqa: E402
 from bench_torch import bench_scene, card_line, honest  # noqa: E402
 from chip_smoke import _grads  # noqa: E402
-from dirt_tpu_torch.ops import binning, packed_bwd, raster, raster_fwd  # noqa: E402
+from dirt_tpu_torch.ops import (  # noqa: E402
+    binning,
+    packed_bwd,
+    raster,
+    raster_fwd,
+    triangle_setup,
+)
 from dirt_tpu_torch.ops.raster_bwd import assemble_face_gradients  # noqa: E402
 from dirt_tpu_torch.ops.triangle_setup import (  # noqa: E402
     edge_filter_cols,
@@ -70,7 +80,8 @@ SAMPLES_LARGE = 3
 PROFILE_STEPS = 5
 # Busy share of the median above which a stage counts as device-bound.
 DEVICE_BOUND = 0.5
-KERNELS = ("raster_fwd_packed", "packed_prologue", "packed_bwd", "max_scan")
+KERNELS = ("raster_fwd_packed", "packed_prologue", "packed_bwd", "max_scan",
+           "setup_vjp")
 
 
 def scene_and_config(device, size=1024, n_lat=72, config=None):
@@ -191,6 +202,10 @@ def stages(scene, config):
     prep = _prepared(prologue, bins, geo, att, geom)
     bare = _prepared(prologue, bins._replace(rows=None), geo, att, geom)
     entry_rows = packed_bwd.packed_entry_rows(prep)
+    fv = screen_from_clip(clip, size, size)[faces]
+    fa = colors[faces]
+    d_geo, d_att, _ = backward_core(geo, att, fid, zbuf, pixels, weights,
+                                    bins, geom)
     return [
         ("setup", lambda c, co: setup(c, co, faces, size), (clip, colors)),
         ("setup+binning",
@@ -221,6 +236,12 @@ def stages(scene, config):
          lambda r: packed_bwd.pool_reduce_rows(
              r, bins.pair_rows, bins.pool_offs, geo.shape[0], geom.bmax),
          (entry_rows,)),
+        ("chain",
+         lambda v, a, dg, da: raster.chain_through_setup(
+             v, a, True, True, lambda *_: (dg, da, None), planes=(geo, att)),
+         (fv, fa, d_geo, d_att)),
+        ("setup vjp", triangle_setup.setup_planes_vjp,
+         (fv, fa, d_geo, d_att)),
     ]
 
 
@@ -263,9 +284,9 @@ def run(device, size=1024, n_lat=72, samples=None, config=None,
         records.append(rec)
     med = {r["stage"]: r["median_ms"] for r in records}
     glue = (med["fwd+bwd total"] - med["setup+binning"]
-            - med["forward kernel"] - med["backward core"])
+            - med["forward kernel"] - med["backward core"] - med["chain"])
     print(f"[{tag}] glue (fwd+bwd total - setup+binning - forward kernel - "
-          f"backward core, medians): {glue:.4f} ms; binning ~"
+          f"backward core - chain, medians): {glue:.4f} ms; binning ~"
           f"{med['setup+binning'] - med['setup']:.4f} ms ({card})")
     return dict(faces=num_faces, size=size, config=config, stages=records,
                 glue_ms=glue)

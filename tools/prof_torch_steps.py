@@ -42,7 +42,8 @@ OURS = ("raster_fwd_packed_kernel", "packed_prologue_kernel",
         "raster_fwd_csr_kernel", "fused_bwd_csr_partial_kernel",
         "fused_bwd_csr_reduce_kernel", "scatter_faces_partial_kernel",
         "scatter_faces_reduce_kernel", "scatter_faces_csr_partial_kernel",
-        "scatter_faces_csr_reduce_kernel", "subtile_swap_kernel")
+        "scatter_faces_csr_reduce_kernel", "subtile_swap_kernel",
+        "max_scan_kernel", "setup_vjp_staged", "setup_vjp_general")
 
 
 def _profile(label, step, card, steps=STEPS, echo=True):
