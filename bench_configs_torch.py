@@ -25,23 +25,19 @@ configs 1-2 take them too):
    texture, Phong), 1024 x 1024, gradients to the vertices and the pose
    (packed engine).
 
-The scenes live here once: ``chip_smoke.py`` and ``tools/`` import
-:data:`CONFIGS`, and ``demos/torch_demo5_deferred.py`` builds config 5's
-scene and caps through :func:`deferred_scene`. Without a CUDA device the
-script exits non-zero and measures nothing.
+The scenes live here once: the card tests and ``tools/`` import
+:data:`CONFIGS` and pose their scenes with :func:`camera_clip`, and
+``demos/torch_demo5_deferred.py`` builds config 5's scene and caps through
+:func:`deferred_scene`. Without a CUDA device the script exits non-zero
+and measures nothing.
 """
 
 import sys
 import time
-from pathlib import Path
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
-
-sys.path.insert(0, str(Path(__file__).resolve().parent))
-
-import bench_torch  # noqa: E402
 
 SAMPLES = 20
 POSE = (0.4, 0.3, 0.0)
@@ -82,11 +78,28 @@ def honest(clip, faces, size):
     return config
 
 
+def camera_clip(verts_obj, rot, device):
+    """Clip-space vertices [V, 4] under the camera of ``bench.py``:
+    Rodrigues ``rot``, 3 units down -z, perspective (near 0.1, far 20,
+    focal 0.045, aspect 1)."""
+    from dirt_tpu_torch.core import matrices
+
+    def t(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    mv = matrices.compose(
+        matrices.rodrigues(rot),
+        matrices.translation(t([0.0, 0.0, -3.0])),
+    )
+    proj = matrices.perspective_projection(t(0.1), t(20.0), t(0.045), t(1.0))
+    return matrices.transform_homogeneous(verts_obj,
+                                          matrices.compose(mv, proj))
+
+
 def posed(verts_obj, device):
     """Clip-space vertices at :data:`POSE` under the bench camera
-    (``bench_torch.camera_clip``, as ``bench_configs._posed``)."""
-    return bench_torch.camera_clip(
-        verts_obj, torch.tensor(POSE, device=device), device)
+    (:func:`camera_clip`, as ``bench_configs._posed``)."""
+    return camera_clip(verts_obj, torch.tensor(POSE, device=device), device)
 
 
 def deferred_scene(n_lat, n_lon, size, device):
@@ -158,12 +171,12 @@ def config2(device):
                      forward, (clip, colors), raster, 3, device)
 
 
-def config3(device):
+def config3(device, size=512):
+    """The textured sphere; ``size`` cuts it down for the CPU tests."""
     from dirt_tpu_torch.core import mesh
     from dirt_tpu_torch.core.texture import sample_texture
     from dirt_tpu_torch.render.gbuffer import render_gbuffer
 
-    size = 512
     verts_obj, faces, uvs = _sphere(24, 48, device)
     clip = posed(verts_obj, device)
     texture = torch.as_tensor(mesh.checkerboard_texture(128, 10, 3),
@@ -178,11 +191,11 @@ def config3(device):
                      forward, (clip, texture), raster, 3, device)
 
 
-def config4(device):
+def config4(device, size=512):
+    """The lit sphere; ``size`` cuts it down for the CPU tests."""
     import dirt_tpu_torch
     from dirt_tpu_torch.core import lighting, matrices
 
-    size = 512
     verts_obj, faces, _ = _sphere(24, 48, device)
     pose = torch.tensor(POSE, device=device)
     raster = honest(posed(verts_obj, device), faces, size)
@@ -307,12 +320,13 @@ def main():
                  "(torch.cuda.is_available() is False); it runs on the card "
                  "only")
     from dirt_tpu_torch.ops import _build
+    from dirt_tpu_torch.utils.benchtime import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
     start = time.perf_counter()
-    _build.build(bench_torch.KERNELS)
-    print(f"# card: {bench_torch.card_line()}; torch {torch.__version__} "
+    _build.build(_build.KERNELS)
+    print(f"# card: {card_line()}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}; kernels built in "
           f"{time.perf_counter() - start:.1f} s; {SAMPLES} samples each",
           flush=True)

@@ -38,7 +38,7 @@ import torch  # noqa: E402
 
 import bench_configs_torch  # noqa: E402
 from dirt_tpu_torch import entry  # noqa: E402
-from dirt_tpu_torch.utils.benchtime import timed  # noqa: E402
+from dirt_tpu_torch.utils.benchtime import card_line, timed  # noqa: E402
 from dirt_tpu_torch.utils.checkpoint import load_pytree, save_pytree  # noqa: E402
 from dirt_tpu_torch.utils.graphstep import GraphedStep  # noqa: E402
 from dirt_tpu_torch.utils.image import save_ppm  # noqa: E402
@@ -195,11 +195,7 @@ def main(size=SIZE, steps=STEPS, n_lat=N_LAT, n_lon=N_LON, device="cuda",
         raise RuntimeError("demo 5 runs on a CUDA card, and none is "
                            "available (torch.cuda.is_available() is False)")
     os.makedirs(out, exist_ok=True)
-    where = device.type
-    if where == "cuda":
-        import bench_torch
-
-        where = bench_torch.card_line()
+    where = card_line() if device.type == "cuda" else device.type
     t0 = time.perf_counter()
     loss_fn, params, render, target, verts_obj = problem(size, n_lat, n_lon,
                                                          device)

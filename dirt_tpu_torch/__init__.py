@@ -22,10 +22,11 @@ run), the row-sharded renderer (``parallel.sharding``,
 (``parallel.face_sharding``), OBJ loading (``io``) and the utilities
 (``utils``: device timing, the store of honest caps, PPM images, scalar
 logging, checkpoints in ``dirt_tpu``'s file layout). Beside the package:
-the bench and the five-config sheet (``bench_torch.py``,
-``bench_configs_torch.py``), the demos (``demos/torch_demo*.py``) and the
-profilers (``tools/prof_torch_*.py``). Nothing of ``dirt_tpu`` is left to
-port.
+the benchmark's cells (``benchmark/``), the five-config sheet
+(``bench_configs_torch.py``), the demos (``demos/torch_demo*.py``), the
+profilers and A/B benches (``tools/prof_torch_*.py``, ``tools/bench_*.py``,
+sharing ``tools/card_common.py``) and the card tests (the ``cuda`` marker
+of ``tests/test_torch_*.py``). Nothing of ``dirt_tpu`` is left to port.
 """
 
 from dirt_tpu_torch.ops.raster import RasterConfig

@@ -1,7 +1,7 @@
 // Neighbor prologue of the backward for Hopper (sm_90a).
 //
 // Replaces dirt_tpu/ops/packed_bwd.py::_prologue_kernel (the fused
-// neighbor prologue, called by fused_neighbor_prologue): "one pass:
+// neighbor prologue, called by padded_prologue): "one pass:
 // neighbor shifts -> (pair & front) bit plane + per-direction sval + the
 // fields in the backward's layout". For every pixel of the tile-padded
 // image and each of the four boundary_cases() directions (right, left,
@@ -18,8 +18,7 @@
 // cropped view of the forward's [C, Hp, Wp] output, the gradient is
 // usually [H, W, C]), so nothing is padded or copied before it. A pixel
 // outside the image, padding or beyond, reads as fid -2, z BIG_Z and pix /
-// grad 0; no padded z plane is ever built. With null copy outputs it is
-// the prologue alone over fields that are already padded (H = Hp, W = Wp).
+// grad 0; no padded z plane is ever built.
 //
 // Work decomposition. A 2-D grid of blocks of 8 warps; a warp takes 128
 // consecutive pixels of one padded row, four consecutive pixels a lane.
@@ -209,7 +208,7 @@ packed_prologue_kernel(Image im, int channels, int hp, int wp, bool vec,
             | ((me != fb[k] && fb[k] != -2 && z[k] < zb[k]) ? 4 : 0)
             | ((me != fa[k] && fa[k] != -2 && z[k] <= za[k]) ? 8 : 0);
   }
-  if (fid_out != nullptr) store4(fid_out + row, x0, wp, vec, f);
+  store4(fid_out + row, x0, wp, vec, f);
   store4(bits_out + row, x0, wp, vec, bits);
 
   // sval, all four directions in one pass over the channels.
@@ -226,10 +225,8 @@ packed_prologue_kernel(Image im, int channels, int hp, int wp, bool vec,
     float p[LANE_PIX], g[LANE_PIX];
     row4<float4>(pc, st.pix_y, st.pix_x, vp, y, x0, h, w, 0.0f, p);
     row4<float4>(gc, st.grad_y, st.grad_x, vg, y, x0, h, w, 0.0f, g);
-    if (pix_out != nullptr) {
-      store4(pix_out + c * plane + row, x0, wp, vec, p);
-      store4(grad_out + c * plane + row, x0, wp, vec, g);
-    }
+    store4(pix_out + c * plane + row, x0, wp, vec, p);
+    store4(grad_out + c * plane + row, x0, wp, vec, g);
     float pr[LANE_PIX], pl[LANE_PIX], gr[LANE_PIX], gl[LANE_PIX];
     sideways(p, lane, last ? im.p(c, y, x0 + LANE_PIX) : 0.0f,
              first ? im.p(c, y, x0 - 1) : 0.0f, pr, pl);
@@ -276,9 +273,8 @@ long long last_offset(int h, int w, int c, int sy, int sx, int sc) {
 }  // namespace
 
 // Plain C entry point (bound with ctypes). All pointers are device
-// pointers; the strides are in elements; fid_out, pix_out and grad_out may
-// all be null (the prologue alone). The launch goes on `stream` and does
-// not synchronise. Returns -1 without a launch if an offset does not fit
+// pointers; the strides are in elements. The launch goes on `stream` and
+// does not synchronise. Returns -1 without a launch if an offset does not fit
 // in 32 bits, else the cudaGetLastError() code of the launch (0 on
 // success).
 extern "C" int dirt_packed_prologue(

@@ -7,9 +7,10 @@ hash covers the source, every header it includes from ``csrc/`` (such as
 ``cotangent_core.cuh``, shared by the backward kernels) and the
 compiler flags, so an edited source or header rebuilds what uses it and an
 unchanged one loads the library already built;
-:func:`build` compiles several sources at once, one nvcc each. A missing
-``nvcc`` or a failed build raises with the compiler's output; nothing is
-downloaded.
+:func:`build` compiles several sources at once, one nvcc each, and
+:data:`KERNELS` names them all (every tool and card test builds from it).
+A missing ``nvcc`` or a failed build raises with the compiler's output;
+nothing is downloaded.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, ``-fmad=false`` (no multiply-add
 contraction, so a kernel's rounding matches its plain PyTorch version) and
@@ -35,6 +36,17 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+# Every library of the package: the stems of ``csrc/*.cu``.
+KERNELS = tuple(sorted(path.stem for path in CSRC_DIR.glob("*.cu")))
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                     r"(\w+)\s*\(")
+
+
+def global_names() -> frozenset:
+    """The ``__global__`` functions that ``csrc/`` defines, its headers
+    included: the names the profiler gives the package's kernels."""
+    return frozenset(name for path in sorted(CSRC_DIR.glob("*.cu*"))
+                     for name in _GLOBAL.findall(path.read_text()))
 
 
 def find_nvcc() -> str:

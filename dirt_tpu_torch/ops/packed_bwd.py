@@ -144,8 +144,8 @@ def padded_prologue(fid, zbuf, pixels, grad_pixels, tile_h: int,
     Returns:
         (fid_p [Hp, Wp] int32 padded with -2, bits [Hp, Wp] int32, sval
         [4, Hp, Wp] f32, pix_cf and grad_cf [C, Hp, Wp] f32 padded with 0):
-        :func:`pad_fields` followed by :func:`fused_neighbor_prologue` on
-        its output (its padded depth is read, never built).
+        :func:`pad_fields` followed by :func:`fused_neighbor_prologue_plain`
+        on its output (its padded depth is read, never built).
     """
     device = fid.device
     if device.type == "cpu":
@@ -156,7 +156,7 @@ def padded_prologue(fid, zbuf, pixels, grad_pixels, tile_h: int,
     height, width = fid.shape
     return _launch_prologue(fid, zbuf, pixels, grad_pixels,
                             -(-height // tile_h) * tile_h,
-                            -(-width // tile_w) * tile_w, copies=True)
+                            -(-width // tile_w) * tile_w)
 
 
 def padded_prologue_plain(fid, zbuf, pixels, grad_pixels, tile_h: int,
@@ -169,9 +169,10 @@ def padded_prologue_plain(fid, zbuf, pixels, grad_pixels, tile_h: int,
     return fid_p, bits, sval, pix_cf, grad_cf
 
 
-def fused_neighbor_prologue(fid_p, zbuf_p, pix_cf, grad_cf):
+def fused_neighbor_prologue_plain(fid_p, zbuf_p, pix_cf, grad_cf):
     """Boundary-pair bit plane and per-direction sval of padded fields, in
-    image layout.
+    image layout: the prologue kernel's arithmetic in plain PyTorch (any
+    device).
 
     Args:
         fid_p: [Hp, Wp] int32 (padding = -2).
@@ -182,26 +183,6 @@ def fused_neighbor_prologue(fid_p, zbuf_p, pix_cf, grad_cf):
         ``pair & front`` with pair = (fid != nfid) & (nfid != -2);
         sval [4, Hp, Wp] f32 — ``0.5 * sum_c (g + g_n)(p - p_n)``).
         Out-of-image neighbors get fid -2, z BIG_Z and pix/grad 0.
-    The kernel is :func:`padded_prologue`'s, with nothing to pad and its
-    copies left out.
-    """
-    device = fid_p.device
-    if device.type == "cpu":
-        return fused_neighbor_prologue_plain(fid_p, zbuf_p, pix_cf, grad_cf)
-    if device.type != "cuda":
-        raise ValueError(
-            f"fused_neighbor_prologue: no kernel for device {device}"
-        )
-    _, hp, wp = pix_cf.shape
-    _, bits, sval, _, _ = _launch_prologue(
-        fid_p, zbuf_p, pix_cf.permute(1, 2, 0), grad_cf.permute(1, 2, 0),
-        hp, wp, copies=False)
-    return bits, sval
-
-
-def fused_neighbor_prologue_plain(fid_p, zbuf_p, pix_cf, grad_cf):
-    """Plain PyTorch version of the prologue kernel (any device).
-
     The shifts of ``raster_bwd.neighbor_maps``, with sval summed over
     channels one at a time in channel order, as the kernel does.
     """
@@ -227,11 +208,9 @@ def _prologue_fn():
     return fn
 
 
-def _launch_prologue(fid, zbuf, pixels, grad, hp: int, wp: int,
-                     copies: bool):
+def _launch_prologue(fid, zbuf, pixels, grad, hp: int, wp: int):
     """(fid_p, bits, sval, pix_cf, grad_cf) from one launch over the
-    [H, W] fields (``pixels`` and ``grad`` [H, W, C]) at any strides;
-    with ``copies`` False the padded copies are not written (None)."""
+    [H, W] fields (``pixels`` and ``grad`` [H, W, C]) at any strides."""
     device = fid.device
     height, width = fid.shape
     channels = pixels.shape[-1]
@@ -256,19 +235,19 @@ def _launch_prologue(fid, zbuf, pixels, grad, hp: int, wp: int,
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=device)
 
-    fid_p = empty(hp, wp, dtype=torch.int32) if copies else None
+    fid_p = empty(hp, wp, dtype=torch.int32)
     bits = empty(hp, wp, dtype=torch.int32)
     sval = empty(4, hp, wp)
-    pix_cf = empty(channels, hp, wp) if copies else None
-    grad_cf = empty(channels, hp, wp) if copies else None
+    pix_cf = empty(channels, hp, wp)
+    grad_cf = empty(channels, hp, wp)
     fn = _prologue_fn()
     with raster_fwd.on_device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*(t.data_ptr() for t in (fid, zbuf, pixels, grad)),
                  *fid.stride(), *zbuf.stride(), *pixels.stride(),
                  *grad.stride(), height, width, channels, hp, wp,
-                 *(None if t is None else t.data_ptr()
-                   for t in (fid_p, bits, sval, pix_cf, grad_cf)), stream)
+                 *(t.data_ptr() for t in (fid_p, bits, sval, pix_cf, grad_cf)),
+                 stream)
     if err == -1:
         raise ValueError(f"{_PROLOGUE}: an offset of the {height}x{width} "
                          f"fields or of the padded {hp}x{wp} planes does "

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import math
 import statistics
+import subprocess
 import time
 
 import torch
@@ -79,3 +80,14 @@ def device_time_stats(fn, args, warmup: int = 3,
 def device_time(fn, args, warmup: int = 3, samples: int = 10) -> float:
     """Median seconds of one call of ``fn(*args)``."""
     return device_time_stats(fn, args, warmup, samples)[1]
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them: written
+    beside every time measured on the card (a card set below its power
+    limit's maximum runs slower under load)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()

@@ -270,8 +270,9 @@ def test_fused_backward_rows_csr_plain_matches_jax(channels):
         *(jnp.stack([n[k] for n in nbrs]) for k in range(3)),
         num_faces, tile_h=tile_h, tile_w=tile_w, max_chunks=cap // 128)
 
-    bits, sval = tpb.fused_neighbor_prologue(_t(fid_p), _t(zbuf_p),
-                                             _t(pix_cf), _t(grad_cf))
+    _, bits, sval, _, _ = tpb.padded_prologue(
+        _t(fid_p), _t(zbuf_p), _t(pix_cf).permute(1, 2, 0),
+        _t(grad_cf).permute(1, 2, 0), tile_h, tile_w)
     got = tfb.fused_backward_rows_csr(
         _t(a["geo"]), _t(a["entry_face"]), _t(a["start_block"]),
         _t(a["counts"]), _t(fid_p), bits, sval, _t(pix_cf), _t(grad_cf),

@@ -44,14 +44,20 @@ bins, cut lists included, and equal on two runs; also on scenes made for
 what their enumeration of live list entries can get wrong (boxes placed
 directly, so a tile lists exactly 0, 1, 128 or 129 faces; see
 ``_SCATTER_SCENES``), there also value by value within 1e-5 of the sum of
-the magnitudes the value adds up, so one dropped pixel shows. The sharded renderer with
+the magnitudes the value adds up, so one dropped pixel shows; and on what
+a row-sharded slab's backward hands them at 1024 x 1024 (the bench sphere
+at 3, 9 and 16 channels, the 99,904-face sphere). The sharded renderer with
 four local slabs on the card against the same on the CPU as above, with
-each slab's kernels counted. The packed backward above one launch's column
-count (16, 32 and 33 channels) like the packed backward below it.
+each slab's kernels counted; at 1024 x 1024 with one and four slabs
+against the single device (face ids equal, pixels within 3e-5, gradients
+within 1e-4) and against its plain path (gradients within 1e-5). The
+packed backward above one launch's column count (16, 32 and 33 channels)
+like the packed backward below it.
 
 The layout swap kernel against its plain version (a permutation: equal bit
 for bit, float32 and int32 alike), and the packed backward kernel on
-flat-subtile fields bit-equal to itself on image-layout fields. The packed
+flat-subtile fields bit-equal to itself on image-layout fields; both also
+on the fields a packed slab's halo backward swaps at 1024 x 1024. The packed
 backward at 3, 9 and 16 channels on image and flat-subtile fields also bit
 for bit against its plain version run on the CPU (the same sums in the
 same order; on the card the plain version's ``index_add_`` flushes
@@ -71,6 +77,7 @@ new inputs (its status words are zeroed by every replay). One eager
 ten ``_stage`` checksums on the card equal the CPU's.
 """
 
+import contextlib
 import functools
 import sys
 from pathlib import Path
@@ -93,6 +100,7 @@ from _torch_port_scene import (
 )
 from dirt_tpu_torch import convert, entry
 from dirt_tpu_torch.ops import (
+    _build,
     binning,
     fused_bwd,
     packed_bwd,
@@ -110,6 +118,11 @@ from dirt_tpu_torch.ops.triangle_setup import (
     setup_planes,
 )
 from dirt_tpu_torch.utils import trace
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+
+import card_common  # noqa: E402
+import bench_configs_torch  # noqa: E402  (card_common puts it on the path)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 TOL_BWD = dict(rtol=1e-5, atol=1e-6)
@@ -262,21 +275,30 @@ def _backward_inputs(cuda, kind, height, width, channels, tile_h):
         geo, att, fid, zbuf, pixels, grad, bins, cfg.tile_h, cfg.tile_w)
 
 
+def _check_prologue_on_padded(fid, zbuf, pix_cf, grad_cf, tile_h, tile_w):
+    """``padded_prologue`` on fields that are padded already (nothing left
+    to pad): its five outputs bit for bit against its plain version's,
+    in one launch; returns the bits."""
+    args = (fid, zbuf, pix_cf.permute(1, 2, 0), grad_cf.permute(1, 2, 0),
+            tile_h, tile_w)
+    before = _launches("packed_prologue")
+    got = packed_bwd.padded_prologue(*args)
+    torch.cuda.synchronize()
+    assert _launches("packed_prologue") == before + 1
+    for g, w in zip(got, packed_bwd.padded_prologue_plain(*args)):
+        assert torch.equal(g, w)
+    return got[1]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,height,width,channels,tile_h", _KERNEL_CASES)
 def test_prologue_kernel_matches_plain_on_card(cuda, kind, height, width,
                                                channels, tile_h):
     prep = _backward_inputs(cuda, kind, height, width, channels, tile_h)
-    args = (prep.fid_p, torch.rand_like(prep.fid_p, dtype=torch.float32),
-            prep.pix_cf, prep.grad_cf)
-    before = _launches("packed_prologue")
-    bits_k, sval_k = packed_bwd.fused_neighbor_prologue(*args)
-    torch.cuda.synchronize()
-    assert _launches("packed_prologue") == before + 1
-    bits_p, sval_p = packed_bwd.fused_neighbor_prologue_plain(*args)
-    assert torch.equal(bits_k, bits_p)
-    assert torch.equal(sval_k, sval_p)
-    assert (bits_k != 0).any()
+    bits = _check_prologue_on_padded(
+        prep.fid_p, torch.rand_like(prep.fid_p, dtype=torch.float32),
+        prep.pix_cf, prep.grad_cf, prep.tile_h, prep.tile_w)
+    assert (bits != 0).any()
 
 
 @pytest.mark.cuda
@@ -294,12 +316,8 @@ def test_prologue_kernel_keeps_the_tie_rule_on_card(cuda, kind, height,
     ties = ((fid[:, 1:] != fid[:, :-1]) & (fid[:, 1:] >= 0)
             & (fid[:, :-1] >= 0) & (zbuf[:, 1:] == zbuf[:, :-1]))
     assert ties.any()
-    args = (fid, zbuf, prep.pix_cf, prep.grad_cf)
-    bits_k, sval_k = packed_bwd.fused_neighbor_prologue(*args)
-    torch.cuda.synchronize()
-    bits_p, sval_p = packed_bwd.fused_neighbor_prologue_plain(*args)
-    assert torch.equal(bits_k, bits_p)
-    assert torch.equal(sval_k, sval_p)
+    _check_prologue_on_padded(fid, zbuf, prep.pix_cf, prep.grad_cf,
+                              prep.tile_h, prep.tile_w)
 
 
 # (height, width, channels, tile_h, tile_w, layout): sizes off the tile
@@ -545,15 +563,7 @@ def test_packed_gradients_with_16_channels_on_card_match_cpu(cuda):
         grads.append([t.grad.cpu() for t in leaves])
     for g_cpu, g_card in zip(*grads):
         assert torch.isfinite(g_card).all()
-        assert _rel_err(g_card, g_cpu) <= 1e-4
-
-
-def _rel_err(got, want):
-    """max |got - want| / max |want| (the difference itself when want is
-    0, as d_background is where the mesh covers the whole image)."""
-    scale = float(want.abs().max())
-    diff = float((got - want).abs().max())
-    return diff / scale if scale else diff
+        assert card_common.rel_err(g_card, g_cpu) <= 1e-4
 
 
 @pytest.mark.cuda
@@ -577,7 +587,7 @@ def test_gradients_on_card_match_cpu(cuda, distance, clip):
         grads.append([t.grad.cpu() for t in leaves])
     for g_cpu, g_card in zip(*grads):
         assert torch.isfinite(g_card).all()
-        assert _rel_err(g_card, g_cpu) <= 1e-4
+        assert card_common.rel_err(g_card, g_cpu) <= 1e-4
 
 
 # --- the dense engine ---------------------------------------------------------
@@ -769,7 +779,7 @@ def test_dense_gradients_on_card_match_cpu(cuda, distance, clip, engine):
     torch.testing.assert_close(z_g, z_c, **TOL)
     for g_cpu, g_card in zip(*grads):
         assert torch.isfinite(g_card).all()
-        assert _rel_err(g_card, g_cpu) <= 1e-4
+        assert card_common.rel_err(g_card, g_cpu) <= 1e-4
 
 
 @pytest.mark.cuda
@@ -787,7 +797,8 @@ def test_entry_step_on_card_matches_cpu(cuda):
         results.append((loss.item(), verts.grad.cpu(), pose.grad.cpu()))
     (loss_c, dv_c, dp_c), (loss_g, dv_g, dp_g) = results
     assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
-    assert _rel_err(dv_g, dv_c) <= 1e-4 and _rel_err(dp_g, dp_c) <= 1e-4
+    assert card_common.rel_err(dv_g, dv_c) <= 1e-4
+    assert card_common.rel_err(dp_g, dp_c) <= 1e-4
 
 
 # --- the streaming (CSR) engine -----------------------------------------------
@@ -972,20 +983,6 @@ def _needle_scene(device, seed, engine):
             config)
 
 
-def _calls(module, name, run):
-    """[(args, kwargs)] of every call of ``module.name`` during ``run()``."""
-    seen = []
-    inner = getattr(module, name)
-
-    def record(*args, **kwargs):
-        seen.append((args, kwargs))
-        return inner(*args, **kwargs)
-
-    with mock.patch.object(module, name, record):
-        run()
-    return seen
-
-
 def _past_binning_boxes(fid, bbox):
     """Covered pixels outside their owner's binning box grown by one."""
     ys, xs = torch.nonzero(fid >= 0, as_tuple=True)
@@ -1034,7 +1031,7 @@ def test_fused_bwd_kernels_match_plain_on_far_needles_on_card(cuda, seed,
         out.extend(raster.rasterize_screen(verts, fa, bg, config))
         (out[0] * w).sum().backward()
 
-    ((args, kwargs),) = _calls(fused_bwd, name, step)
+    ((args, kwargs),) = card_common.calls(fused_bwd, name, step)
     assert not bool(out[3])
     assert _past_binning_boxes(out[1], kwargs["bbox"]) > 0
     geo, *_, fid, bits, sval, pix_cf, grad_cf, n_rows = args
@@ -1086,7 +1083,7 @@ def test_scatter_kernels_match_plain_on_far_needles_on_card(cuda, seed,
         assert not bool(overflow)
         (pixels * w).sum().backward()
 
-    calls = _calls(scatter, name, step)
+    calls = card_common.calls(scatter, name, step)
     assert len(calls) == 2
     kernel = getattr(scatter, name)
     plain = getattr(scatter, name + "_plain")
@@ -1175,7 +1172,7 @@ def test_streaming_gradients_on_card_match_cpu(cuda, distance, clip, fields):
     torch.testing.assert_close(z_g, z_c, **TOL)
     for g_cpu, g_card in zip(*grads):
         assert torch.isfinite(g_card).all()
-        assert _rel_err(g_card, g_cpu) <= 1e-4
+        assert card_common.rel_err(g_card, g_cpu) <= 1e-4
 
 
 # --- the scatter kernels and the row-sharded renderer ---------------------------
@@ -1458,7 +1455,7 @@ def test_sharded_renderer_on_card_matches_cpu(cuda, engine):
     torch.testing.assert_close(z_g, z_c, **TOL)
     for g_cpu, g_card in zip(*grads):
         assert torch.isfinite(g_card).all()
-        assert _rel_err(g_card, g_cpu) <= 1e-4
+        assert card_common.rel_err(g_card, g_cpu) <= 1e-4
 
 
 # --- max-scan ------------------------------------------------------------
@@ -1534,16 +1531,13 @@ def _binning_inputs(n_lat):
     """(bbox, edges, geometry) of the bench sphere ``uv_sphere(n_lat,
     n_lat)`` at 1024 x 1024 on the card under ``suggest_raster_config``'s
     packed caps, as ``tools/prof_torch_binning.py`` bins it."""
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
-    import prof_torch_stages
-    from bench_torch import bench_scene
-
-    _, clip, colors, faces, _, _ = bench_scene(1024, "cuda", n=n_lat)
+    _, clip, colors, faces, _, _ = card_common.bench_scene(1024, "cuda",
+                                                           n=n_lat)
     config = dirt_tpu_torch.suggest_raster_config(
         clip, faces, 1024, 1024, clip=False).concrete(1024)
     assert raster.resolve_engine(config, faces.shape[0]) == "packed"
-    geom = prof_torch_stages.Geometry(config, faces.shape[0], 1024)
-    _, _, bbox, edges = prof_torch_stages.setup(clip, colors, faces, 1024)
+    geom = card_common.Geometry(config, faces.shape[0], 1024)
+    _, _, bbox, edges = card_common.setup(clip, colors, faces, 1024)
     return bbox, edges, geom
 
 
@@ -1568,15 +1562,14 @@ def test_packed_binning_on_card_scans_five_times_and_equals_cpu(cuda):
     the CPU's from the same inputs."""
     bbox, edges, geom = _binning_inputs(72)
     import prof_torch_binning
-    import prof_torch_stages
 
     before = _launches("max_scan")
-    bins = prof_torch_stages.bin_faces(bbox, edges, geom)
+    bins = card_common.bin_faces(bbox, edges, geom)
     torch.cuda.synchronize()
     assert _launches("max_scan") == before + 5
     bbox_cpu = tuple(c.cpu() for c in bbox)
     edges_cpu = [c.cpu() for c in edges]
-    want = prof_torch_stages.bin_faces(bbox_cpu, edges_cpu, geom)
+    want = card_common.bin_faces(bbox_cpu, edges_cpu, geom)
     assert not bool(bins.overflow)
     for field in binning.PackedBins._fields:
         a, b = getattr(bins, field), getattr(want, field)
@@ -1636,12 +1629,11 @@ def _sphere_faces(n_lat, clip):
     ``uv_sphere(n_lat, n_lat)`` at 1024 x 1024 on the card, as the raster op
     saves them: with ``clip`` through the near-plane clip and compaction
     of the default API."""
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    from bench_torch import bench_scene
     from dirt_tpu_torch.ops.clipping import clip_compact_screen
     from dirt_tpu_torch.rasterise_ops import _auto_clip_cap
 
-    _, clip_verts, colors, faces, _, _ = bench_scene(1024, "cuda", n=n_lat)
+    _, clip_verts, colors, faces, _, _ = card_common.bench_scene(
+        1024, "cuda", n=n_lat)
     if clip:
         fv, fa, _, _ = clip_compact_screen(
             clip_verts[faces], colors[faces],
@@ -1733,7 +1725,7 @@ def test_one_setup_vjp_launch_per_backward_on_card(cuda, engine):
         assert _launches("setup_vjp") == before + launches
         grads.append([t.grad.cpu() for t in leaves])
     for g_cpu, g_card in zip(*grads):
-        assert _rel_err(g_card, g_cpu) <= 1e-4
+        assert card_common.rel_err(g_card, g_cpu) <= 1e-4
 
 
 @pytest.mark.cuda
@@ -1767,4 +1759,1033 @@ def test_parallel_backwards_launch_setup_vjp_on_card(cuda, path, launches):
         assert _launches("setup_vjp") == before + want
         grads.append([t.grad.cpu() for t in leaves])
     for g_cpu, g_card in zip(*grads):
-        assert _rel_err(g_card, g_cpu) <= 1e-4
+        assert card_common.rel_err(g_card, g_cpu) <= 1e-4
+
+
+# --- the port at the cells' size ------------------------------------------
+#
+# The bench sphere (10,224 faces), the 99,904-face and the 1,001,112-face
+# spheres at 1024 x 1024 under the bench camera (``tools/card_common.py``),
+# the sheet's configs, the flagship step and the demos, each as a user runs
+# it. Launch expectations count the package's kernels from the registry
+# (the tracing markers apart).
+
+SIZE = card_common.SIZE
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Every kernel wrapper's plain version in its place: the same path
+    with no kernel."""
+    def plain_scatter(cot_cf, fid, bins, counts, num_rows, *, tile_h, tile_w,
+                      bbox=None, cull=None):
+        return scatter.scatter_to_faces_plain(cot_cf, fid, num_rows)
+
+    def plain_scatter_csr(cot_cf, fid, entry_face, start_block, counts,
+                          num_faces, *, tile_h, tile_w, bbox=None, cull=None):
+        return scatter.scatter_to_faces_csr_plain(cot_cf, fid, num_faces)
+
+    def plain_dense(table, bins, counts, background_chw, *, tile_h, tile_w):
+        return (*raster_fwd.raster_forward_plain(
+            table, bins, counts, background_chw, tile_h=tile_h,
+            tile_w=tile_w), raster_fwd.csr_cull_boxes_plain(
+                table, *background_chw.shape[1:]))
+
+    def plain_csr(table, entry_face, start_block, counts, background_chw, *,
+                  tile_h, tile_w):
+        return (*raster_fwd.raster_forward_csr_plain(
+            table, entry_face, start_block, counts, background_chw,
+            tile_h=tile_h, tile_w=tile_w), raster_fwd.csr_cull_boxes_plain(
+                table, *background_chw.shape[1:]))
+
+    def plain_forward(table2, bins, background_chw, *, tile_h, tile_w,
+                      rows=None):
+        return raster_fwd.raster_forward_packed_plain(
+            rows, bins, background_chw, tile_h=tile_h, tile_w=tile_w)
+
+    def plain_rows(prep, c_lo=0, c_hi=None):
+        return packed_bwd.packed_entry_rows_plain(
+            prep, packed_bwd._entry_table_rows(prep), c_lo,
+            prep.budget_chunks if c_hi is None else c_hi)
+
+    def plain_fused(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf,
+                    num_rows, *, tile_h, tile_w, bbox=None, cull=None):
+        return fused_bwd.fused_backward_rows_plain(
+            geo, fid, bits, sval, pix_cf, grad_cf, num_rows)
+
+    def plain_fused_csr(geo, entry_face, start_block, counts, fid, bits,
+                        sval, pix_cf, grad_cf, num_faces, *, tile_h, tile_w,
+                        bbox=None, cull=None):
+        return fused_bwd.fused_backward_rows_csr_plain(
+            geo, fid, bits, sval, pix_cf, grad_cf, num_faces)
+
+    with contextlib.ExitStack() as stack:
+        for module, name, plain in (
+                (scatter, "scatter_to_faces", plain_scatter),
+                (scatter, "scatter_to_faces_csr", plain_scatter_csr),
+                (raster_fwd, "raster_forward", plain_dense),
+                (raster_fwd, "raster_forward_csr", plain_csr),
+                (raster_fwd, "raster_forward_packed", plain_forward),
+                (raster_fwd, "flat_subtile_swap",
+                 lambda arrays: [raster_fwd.flat_subtile_swap_plain(a)
+                                 for a in arrays]),
+                (packed_bwd, "padded_prologue",
+                 packed_bwd.padded_prologue_plain),
+                (packed_bwd, "packed_entry_rows", plain_rows),
+                (fused_bwd, "fused_backward_rows", plain_fused),
+                (fused_bwd, "fused_backward_rows_csr", plain_fused_csr),
+                (scan, "max_scan", scan.max_scan_plain),
+                (triangle_setup, "setup_planes_vjp",
+                 triangle_setup.setup_planes_vjp_plain)):
+            stack.enter_context(mock.patch.object(module, name, plain))
+        yield
+
+
+def _bench_scene(n=72):
+    return card_common.bench_scene(SIZE, "cuda", n=n)
+
+
+@functools.lru_cache(maxsize=None)
+def _bench_config(n=72, clip=False, **fields):
+    _, verts, _, faces, _, _ = _bench_scene(n)
+    return dirt_tpu_torch.suggest_raster_config(
+        verts, faces, SIZE, SIZE,
+        config=dirt_tpu_torch.RasterConfig(**fields), clip=clip)
+
+
+def _check_padded_prologue(fid, zbuf, pixels, grad, tile_h, tile_w):
+    """The prologue on what a backward hands it, its five outputs bit for
+    bit against its plain version's; returns them."""
+    args = (fid, zbuf, pixels, grad, tile_h, tile_w)
+    got = packed_bwd.padded_prologue(*args)
+    for g, w in zip(got, packed_bwd.padded_prologue_plain(*args)):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [3, 9, 16])
+def test_packed_kernels_at_full_size_on_card(cuda, channels):
+    """K1, K3 and K2 on the bench sphere's real bins, rows and outputs at
+    1024 x 1024 under its packed caps, at the bench's 3 channels, the
+    G-buffer's 9 and 16 (two K2 launches' worth): K1 and K3 bit for bit,
+    K2's rows within its tolerance and equal on a second run."""
+    _, verts, colors, faces, _, weights = _bench_scene()
+    if channels != 3:
+        colors = card_common.rand(channels, verts.shape[0], channels,
+                                  device=cuda)
+        weights = card_common.rand(channels + 1, SIZE, SIZE, channels,
+                                   device=cuda)
+    face_verts = screen_from_clip(verts, SIZE, SIZE)[faces]
+    background = torch.zeros((SIZE, SIZE, channels), device=cuda)
+    table2, bins, bg_chw, cfg = raster.prepare_packed(
+        face_verts, colors[faces], background, _bench_config())
+    assert not bool(bins.overflow)
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    pix_k, fid_k, z_k = raster_fwd.raster_forward_packed(
+        table2, bins, bg_chw, rows=bins.rows, **geom)
+    for got, want in zip((pix_k, fid_k, z_k),
+                         raster_fwd.raster_forward_packed_plain(
+                             bins.rows, bins, bg_chw, **geom)):
+        assert torch.equal(got, want)
+    assert (fid_k >= 0).any()
+    _check_padded_prologue(fid_k[:SIZE, :SIZE], z_k[:SIZE, :SIZE],
+                           pix_k.permute(1, 2, 0)[:SIZE, :SIZE], weights,
+                           cfg.tile_h, cfg.tile_w)
+    geo, att, _ = setup_planes(face_verts, colors[faces])
+    prep = packed_bwd.prepare_backward_packed(
+        geo, att, fid_k, z_k, pix_k.permute(1, 2, 0), weights, bins,
+        cfg.tile_h, cfg.tile_w)
+    rows_k = packed_bwd.packed_entry_rows(prep)
+    rows_p = packed_bwd.packed_entry_rows_plain(prep, bins.rows, 0,
+                                                prep.budget_chunks)
+    torch.testing.assert_close(rows_k, rows_p, **TOL_BWD)
+    assert (rows_k != 0).any()
+    assert torch.equal(rows_k, packed_bwd.packed_entry_rows(prep))
+
+
+def _tile_case(case, device):
+    """(engine, face_verts, face_attrs, size, config, upstream gradient) of
+    one whole-tile kernel case: the faces its path's own render hands the
+    raster op."""
+    if case.startswith("bench"):
+        _, verts, colors, faces, _, weights = _bench_scene()
+        fields = (dict(engine="dense") if case.endswith("dense")
+                  else dict(streaming=True))
+        return (fields.get("engine", "csr"),
+                screen_from_clip(verts, SIZE, SIZE)[faces], colors[faces],
+                SIZE, _bench_config(**fields), weights)
+    if case.startswith("99904"):
+        channels = 9 if case.endswith("C=9") else 3
+        loss_fn, (bg, verts, colors), (faces, config) = \
+            card_common.big_sphere_step(device)
+        if channels == 9:
+            colors = card_common.rand(3, verts.shape[0], 9, device=device)
+            bg = torch.zeros((SIZE, SIZE, 9), device=device)
+        with torch.no_grad():
+            fv, fa, _, cfg = card_common.raster_inputs(
+                lambda: dirt_tpu_torch.rasterise(bg, verts, colors, faces,
+                                                 config=config))
+        return ("csr", fv, fa, SIZE, cfg,
+                card_common.rand(channels + 1, SIZE, SIZE, channels,
+                                 device=device))
+    if case == "config4 512^2":
+        config = bench_configs_torch.config4(device)
+        run = functools.partial(config.loss, *config.leaves)
+        size, weights = 512, card_common.rand(1, 512, 512, 3, device=device)
+    else:
+        forward_step, args = entry.entry(device)
+        run = functools.partial(forward_step, *args)
+        size, weights = 256, card_common.rand(5, 256, 256, 9, device=device)
+    with torch.no_grad():
+        fv, fa, _, cfg = card_common.raster_inputs(run)
+    return "dense", fv, fa, size, cfg, weights
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "config4 512^2", "bench 1024^2 dense", "flagship 256^2 C=9",
+    "99904 1024^2 C=3", "99904 1024^2 C=9", "bench 1024^2 csr"])
+def test_tile_kernels_at_full_size_on_card(cuda, case):
+    """K5 or K7, the prologue and K6 or K8 on the faces each path hands
+    the raster op (config 4's and the flagship's after the near-plane
+    clip, the default API's 99,904 faces at 3 and 9 channels) and on the
+    bench sphere under the engine's own caps: the forward against the
+    plain (un-culled) walk on the whole padded arrays, its cull boxes, the
+    prologue bit for bit, the rows within the row tolerance and equal on
+    a second run."""
+    engine, fv, fa, size, config, weights = _tile_case(case, cuda)
+    background = torch.zeros((size, size, fa.shape[-1]), device=cuda)
+    if engine == "csr":
+        table, bins, bg_chw, cfg = raster.prepare_csr(fv, fa, background,
+                                                      config)
+        lists = (bins.entry_face, bins.start_block, bins.counts)
+        forward, forward_plain = (raster_fwd.raster_forward_csr,
+                                  raster_fwd.raster_forward_csr_plain)
+        rows_fn, rows_plain = (fused_bwd.fused_backward_rows_csr,
+                               fused_bwd.fused_backward_rows_csr_plain)
+        n_rows = fv.shape[0]
+    else:
+        table, bins, bg_chw, cfg = raster.prepare_dense(fv, fa, background,
+                                                        config)
+        lists = (bins.bins, bins.counts)
+        forward, forward_plain = (raster_fwd.raster_forward,
+                                  raster_fwd.raster_forward_plain)
+        rows_fn, rows_plain = (fused_bwd.fused_backward_rows,
+                               fused_bwd.fused_backward_rows_plain)
+        n_rows = fv.shape[0] + 1
+    assert not bool(bins.overflow.any())
+    geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    pix_k, fid_k, z_k, cull = forward(table, *lists, bg_chw, **geom)
+    pix_p, fid_p, z_p = forward_plain(table, *lists, bg_chw, **geom)
+    assert torch.equal(fid_k, fid_p) and torch.equal(z_k, z_p)
+    torch.testing.assert_close(pix_k, pix_p, **TOL)
+    assert torch.equal(cull, raster_fwd.csr_cull_boxes_plain(
+        table, *bg_chw.shape[1:]))
+    assert (fid_k >= 0).any()
+    fields = _check_padded_prologue(fid_k, z_k, pix_k.permute(1, 2, 0),
+                                    weights, cfg.tile_h, cfg.tile_w)
+    geo = setup_planes(fv, fa)[0].contiguous()
+    rows_k = rows_fn(geo, *lists, *fields, n_rows, bbox=bins.bbox, cull=cull,
+                     **geom)
+    want = rows_plain(geo, *fields, n_rows)
+    scale = want.abs().amax(dim=0, keepdim=True)
+    assert ((rows_k - want).abs() <= card_common.TOL_ROWS * scale
+            + 1e-6).all()
+    assert (rows_k != 0).any()
+    assert torch.equal(rows_k, rows_fn(geo, *lists, *fields, n_rows,
+                                       bbox=bins.bbox, cull=cull, **geom))
+
+
+def _demo(name):
+    """The module of ``demos/<name>.py``."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "demos" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _bench_loss(clip):
+    _, verts, colors, faces, background, weights = _bench_scene()
+    config = _bench_config(clip=clip)
+
+    def loss_fn(bg, v, c):
+        return (dirt_tpu_torch.rasterise(bg, v, c, faces, config=config,
+                                         clip=clip) * weights).sum()
+
+    return loss_fn, (background, verts, colors)
+
+
+def _config_loss(n):
+    config = bench_configs_torch.CONFIGS[n - 1]("cuda")
+    return config.loss, config.leaves
+
+
+def _config5_loss():
+    config = bench_configs_torch.config5("cuda")
+    weights = card_common.rand(1, SIZE, SIZE, 3, device="cuda")
+    return (lambda v, p: (config.forward(v, p) * weights).sum(),
+            config.leaves)
+
+
+def _demo_loss(name, *args):
+    loss_fn, params = _demo(name).problem(*args, device="cuda")[:2]
+    return loss_fn, tuple(params.values())
+
+
+# (case, (loss_fn, leaves) maker, the kernels one step launches, the
+# gradients' tolerance against the plain path's: 1e-4 where torch's own
+# scatter-adds (vertex normals, texture and vertex gathers) sum with
+# atomics). A packed step bins once (five scans); every backward runs the
+# prologue and the setup VJP once.
+_STEPS = [
+    ("bench packed clip=False", functools.partial(_bench_loss, False),
+     {"raster_fwd_packed": 1, "max_scan": 5, "packed_prologue": 1,
+      "packed_bwd": 1, "setup_vjp": 1}, 1e-5),
+    ("bench packed clip=True", functools.partial(_bench_loss, True),
+     {"raster_fwd_packed": 1, "max_scan": 5, "packed_prologue": 1,
+      "packed_bwd": 1, "setup_vjp": 1}, 1e-5),
+    ("99904 default API", lambda: card_common.big_sphere_step("cuda")[:2],
+     {"raster_fwd_csr": 1, "packed_prologue": 1, "fused_bwd_csr": 1,
+      "setup_vjp": 1}, 1e-5),
+    *((f"config{n}", functools.partial(_config_loss, n),
+       {"raster_fwd_dense": 1, "packed_prologue": 1, "fused_bwd": 1,
+        "setup_vjp": 1}, 1e-4) for n in (1, 2, 3, 4)),
+    ("config5", _config5_loss,
+     {"raster_fwd_packed": 1, "max_scan": 5, "packed_prologue": 1,
+      "packed_bwd": 1, "setup_vjp": 1}, 1e-4),
+    ("flagship", lambda: entry.entry("cuda"),
+     {"raster_fwd_dense": 1, "packed_prologue": 1, "fused_bwd": 1,
+      "setup_vjp": 1}, 1e-4),
+    ("demo3", functools.partial(_demo_loss, "torch_demo3_textured", 512),
+     {"raster_fwd_dense": 1}, 1e-4),
+    ("demo4", functools.partial(_demo_loss, "torch_demo4_lit", 512),
+     {"raster_fwd_dense": 1, "packed_prologue": 1, "fused_bwd": 1,
+      "setup_vjp": 1}, 1e-4),
+    ("demo5", functools.partial(_demo_loss, "torch_demo5_deferred", SIZE, 72,
+                                72),
+     {"raster_fwd_packed": 1, "max_scan": 5, "packed_prologue": 1,
+      "packed_bwd": 1, "setup_vjp": 1}, 1e-4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [case for case, *_ in _STEPS])
+def test_step_matches_plain_path_on_card(cuda, case):
+    """One gradient step of each path at its own size against the same
+    step with every kernel replaced by its plain version: the loss within
+    1e-5, gradients finite, nonzero and within the case's tolerance of max
+    |gradient|. The kernel step launches each of its kernels once (the
+    packed binning's five scans), the plain step none. (Demo 3 trains the
+    texture alone: no gradient reaches the raster op.)"""
+    make, launches, tol = next((m, n, t) for c, m, n, t in _STEPS
+                               if c == case)
+    loss_fn, leaves = make()
+
+    def step():
+        fresh = [t.detach().clone().requires_grad_() for t in leaves]
+        loss = loss_fn(*fresh)
+        loss.backward()
+        return loss.detach(), [t.grad for t in fresh]
+
+    step()                              # builds kernels, fills caches
+    (loss_k, grads_k), counts = card_common.launched(step)
+    assert counts == launches
+    with _plain_kernels():
+        (loss_p, grads_p), counts = card_common.launched(step)
+    assert counts == {}
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for g_k, g_p in zip(grads_k, grads_p):
+        assert g_k is not None and torch.isfinite(g_k).all()
+        assert g_k.abs().sum() > 0
+        assert card_common.rel_err(g_k, g_p) <= tol
+
+
+@pytest.mark.cuda
+def test_bench_sphere_renders_and_trains_on_card(cuda):
+    """The bench step with the near-plane clip off and on: overflow clear,
+    face ids in range and equal both ways, depths in [-1, 1], colors in
+    [0, 1], d_background w off the mesh and 0 on it; then 10 Adam steps on
+    pose and colors towards the render, whose L2 loss falls."""
+    verts_obj, verts, colors, faces, background, weights = _bench_scene()
+    fids = []
+    for clip in (False, True):
+        (pixels, fid, zbuf, overflow), (d_v, d_c, d_bg) = \
+            card_common.render_grads(dirt_tpu_torch.rasterise_with_aux,
+                                     background, verts, colors, faces,
+                                     weights, _bench_config(clip=clip), clip)
+        hit = fid >= 0
+        assert not bool(overflow) and hit.any()
+        assert int(fid.max()) < faces.shape[0]
+        assert ((zbuf[hit] >= -1) & (zbuf[hit] <= 1)).all()
+        assert ((pixels >= -1e-5) & (pixels <= 1 + 1e-5)).all()
+        assert torch.isfinite(d_v).all() and d_v.abs().sum() > 0
+        assert torch.isfinite(d_c).all() and d_c.abs().sum() > 0
+        assert torch.equal(d_bg[~hit], weights[~hit])
+        assert (d_bg[hit] == 0).all()
+        fids.append(fid)
+    assert torch.equal(*fids)
+
+    config = _bench_config()
+    target = dirt_tpu_torch.rasterise(background, verts, colors, faces,
+                                      config=config, clip=False)
+    rot = torch.tensor(bench_configs_torch.POSE, device=cuda)
+    d_rot = torch.tensor([0.03, -0.02, 0.02], device=cuda,
+                         requires_grad=True)
+    d_col = (0.15 * torch.randn(colors.shape, generator=torch.Generator(
+        cuda).manual_seed(2), device=cuda)).requires_grad_()
+    opt = torch.optim.Adam([d_rot, d_col], lr=0.01)
+    losses = []
+    for _ in range(10):
+        opt.zero_grad()
+        image = dirt_tpu_torch.rasterise(
+            background, bench_configs_torch.camera_clip(
+                verts_obj, rot + d_rot, cuda),
+            colors + d_col, faces, config=config, clip=False)
+        loss = ((image - target) ** 2).mean()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+
+@pytest.mark.cuda
+def test_deferred_renders_and_the_flagship_trains_on_card(cuda):
+    """The deferred pipeline at full width with its G-buffer, config 5
+    (10,224 faces, 1024 x 1024, packed) and the flagship's scene (2,208
+    faces, 256 x 256, dense): overflow clear, finite, black off the mesh,
+    nine G-buffer channels; then 10 Adam steps of the flagship loss over
+    vertices and pose, whose first loss is the step's and which falls."""
+    config5 = bench_configs_torch.config5(cuda)
+    obj, faces, uvs, texture, projection = entry.deferred_scene(device=cuda)
+    pose = torch.tensor(bench_configs_torch.POSE, device=cuda)
+    for render, leaves, size in (
+            (config5.forward, config5.leaves, SIZE),
+            (lambda v, p, **kw: entry.deferred_render(
+                v, p, faces, uvs, texture, projection, 256, None, **kw),
+             (obj, pose), 256)):
+        with torch.no_grad():
+            image, gbuffer = render(*leaves, with_gbuffer=True)
+        covered = gbuffer["fid"] >= 0
+        assert not bool(gbuffer["overflow"]) and covered.any()
+        assert image.shape == (size, size, 3) and torch.isfinite(image).all()
+        assert (image[~covered] == 0).all()
+        assert sum(gbuffer[k].shape[-1]
+                   for k in ("position", "normal", "uv", "mask")) == 9
+
+    step_fn, (verts, pose) = entry.entry(cuda)
+    first = float(step_fn(verts, pose))
+    verts = verts.clone().requires_grad_()
+    pose = pose.clone().requires_grad_()
+    opt = torch.optim.Adam([verts, pose], lr=0.01)
+    losses = []
+    for _ in range(10):
+        opt.zero_grad()
+        loss = step_fn(verts, pose)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    assert abs(losses[0] - first) <= 1e-5 * first
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+@pytest.mark.cuda
+def test_default_api_streams_the_99904_face_sphere_on_card(cuda):
+    """``suggest_raster_config`` picks the csr engine for the 99,904-face
+    sphere (``big_sphere_step`` raises otherwise); its render stays clear
+    of overflow, d_background is w off the mesh and 0 on it, and the
+    packed engine under its own caps agrees: differing face ids at most
+    1e-4 of the covered pixels, gradients within 1e-4 of max |gradient|.
+    A two-triangle quad over every tile of 64 x 256 streams whole."""
+    _, (bg, verts, colors), (faces, config) = \
+        card_common.big_sphere_step(cuda)
+    weights = card_common.rand(1, SIZE, SIZE, 3, device=cuda)
+    packed = dirt_tpu_torch.suggest_raster_config(
+        verts, faces, SIZE, SIZE,
+        config=dirt_tpu_torch.RasterConfig(engine="packed"))
+    runs = {}
+    for engine, cfg in (("csr", config), ("packed", packed)):
+        runs[engine] = card_common.render_grads(
+            dirt_tpu_torch.rasterise_with_aux, bg, verts, colors, faces,
+            weights, cfg, True)
+    (pixels, fid, zbuf, overflow), (_, _, d_bg) = runs["csr"]
+    hit = fid >= 0
+    assert not bool(overflow) and not bool(runs["packed"][0][3])
+    assert hit.any() and int(fid.max()) < faces.shape[0]
+    assert ((zbuf[hit] >= -1) & (zbuf[hit] <= 1)).all()
+    assert torch.equal(d_bg[~hit], weights[~hit]) and (d_bg[hit] == 0).all()
+    covered = int(hit.sum())
+    assert int((runs["packed"][0][1] != fid).sum()) <= \
+        card_common.TOL_ENGINES * covered
+    for g_s, g_p in zip(runs["csr"][1], runs["packed"][1]):
+        assert card_common.rel_err(g_s, g_p) <= card_common.TOL_ENGINES
+
+    from dirt_tpu_torch.core import mesh
+
+    quad_v, quad_f = mesh.unit_quad()
+    quad = dirt_tpu_torch.rasterise(
+        None, torch.cat([torch.as_tensor(quad_v, device=cuda) * 2.0,
+                         torch.ones((4, 1), device=cuda)], dim=1),
+        torch.ones((4, 1), device=cuda),
+        torch.as_tensor(quad_f.astype(np.int64), device=cuda),
+        height=64, width=256, channels=1,
+        config=dirt_tpu_torch.RasterConfig(streaming=True))
+    assert float(quad.min()) > 0.99
+
+
+@pytest.mark.cuda
+def test_packed_and_csr_agree_on_the_1001112_face_sphere_on_card(cuda):
+    """The 1,001,112-face sphere at 1024 x 1024, clip off, one step under
+    the packed engine (``suggest_raster_config``'s pick) and one under the
+    streaming engine, each under its own caps and launching its own
+    kernels: overflow clear, gradients finite and nonzero, face ids equal,
+    pixels within 3e-5 and gradients within 1e-4 of max |gradient|."""
+    scene = _bench_scene(708)
+    _, verts, colors, faces, background, weights = scene
+    runs = {}
+    for engine, fields, launches in (
+            ("packed", {}, {"raster_fwd_packed": 1, "max_scan": 5,
+                            "packed_prologue": 1, "packed_bwd": 1,
+                            "setup_vjp": 1}),
+            ("csr", dict(streaming=True), {"raster_fwd_csr": 1,
+                                           "packed_prologue": 1,
+                                           "fused_bwd_csr": 1,
+                                           "setup_vjp": 1})):
+        config = _bench_config(708, **fields)
+        assert card_common.engine_of(config, faces.shape[0]) == engine
+        runs[engine], counts = card_common.launched(
+            lambda: card_common.render_grads(
+                dirt_tpu_torch.rasterise_with_aux, background, verts, colors,
+                faces, weights, config, False))
+        assert counts == launches
+        (_, _, _, overflow), grads = runs[engine]
+        assert not bool(overflow)
+        assert all(torch.isfinite(g).all() for g in grads)
+        assert grads[0].abs().sum() > 0
+    (pix_p, fid_p, _, _), grads_p = runs["packed"]
+    (pix_c, fid_c, _, _), grads_c = runs["csr"]
+    assert torch.equal(fid_p, fid_c)
+    assert float((pix_p - pix_c).detach().abs().max()) <= 3e-5
+    for g_c, g_p in zip(grads_c, grads_p):
+        assert card_common.rel_err(g_c, g_p) <= card_common.TOL_ENGINES
+
+
+def _packed_grads(render):
+    """``card_common.render_grads`` of the bench sphere under its packed
+    caps through ``render(background, vertices, colors, faces, config)``."""
+    _, verts, colors, faces, background, weights = _bench_scene()
+    return card_common.render_grads(
+        lambda bg, v, c, f, config, clip: render(bg, v, c, f, config),
+        background, verts, colors, faces, weights, _bench_config(), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slabs,chunks", [(1, 1), (1, 2), (1, 4), (4, 1),
+                                          (4, 2), (4, 4)])
+def test_overlapped_backward_on_card(cuda, slabs, chunks):
+    """``rasterise_sharded(overlap_chunks=k)`` on the bench sphere under
+    its packed caps: K1 and K4 once a slab, K2 and the setup VJP once a
+    slab and chunk, no other kernel; every K2 launch on a chunk slice
+    bit-equal to its plain version on the slice (values below the
+    smallest normal float apart: on the card the plain version's
+    ``index_add_`` flushes those), each slab's slices tiling its budget
+    and, concatenated, equal to one launch over all of it; image and face
+    ids equal to the non-overlapped render's, gradients within 1e-5 of max
+    |gradient| of it and of the single device's."""
+    def sharded(k):
+        return lambda bg, v, c, f, config: rasterise_sharded(
+            bg, v, c, f, LocalGroup(slabs), config=config, overlap_chunks=k,
+            with_aux=True)
+
+    (pix_s, fid_s, _, _), grads_s = _packed_grads(sharded(None))
+    grads_1 = _packed_grads(
+        lambda bg, v, c, f, config: dirt_tpu_torch.rasterise_with_aux(
+            bg, v, c, f, config=config, clip=False))[1]
+    calls, rows_fn = [], packed_bwd.packed_entry_rows
+
+    def capture(prep, c_lo=0, c_hi=None):
+        rows = rows_fn(prep, c_lo, c_hi)
+        calls.append((prep, c_lo, prep.budget_chunks if c_hi is None
+                      else c_hi, rows))
+        return rows
+
+    with mock.patch.object(packed_bwd, "packed_entry_rows", capture):
+        ((pix_o, fid_o, _, overflow), grads_o), counts = card_common.launched(
+            lambda: _packed_grads(sharded(chunks)))
+    assert counts == {"raster_fwd_packed": slabs, "max_scan": 5 * slabs,
+                      "subtile_swap": slabs, "packed_bwd": slabs * chunks,
+                      "setup_vjp": slabs * chunks}
+    assert not bool(overflow)
+    assert torch.equal(fid_o, fid_s) and torch.equal(pix_o, pix_s)
+    for g, g_s, g_1 in zip(grads_o, grads_s, grads_1):
+        assert card_common.rel_err(g, g_s) <= 1e-5
+        assert card_common.rel_err(g, g_1) <= 1e-5
+    by_prep = {}
+    for prep, c_lo, c_hi, rows in calls:
+        by_prep.setdefault(id(prep), (prep, []))[1].append((c_lo, c_hi, rows))
+    assert len(by_prep) == slabs and len(calls) == slabs * chunks
+    tiny = torch.finfo(torch.float32).tiny
+    for prep, slices in by_prep.values():
+        table_rows = packed_bwd._entry_table_rows(prep)
+        for c_lo, c_hi, rows in slices:
+            plain = packed_bwd.packed_entry_rows_plain(prep, table_rows, c_lo,
+                                                       c_hi)
+            differ = rows.view(torch.int32) != plain.view(torch.int32)
+            assert not (differ & ((rows - plain).abs() >= tiny)).any()
+        bounds = [c for c_lo, c_hi, _ in slices for c in (c_lo, c_hi)]
+        assert bounds[0] == 0 and bounds[-1] == prep.budget_chunks
+        assert bounds[1:-1:2] == bounds[2::2]
+        assert torch.equal(torch.cat([rows for *_, rows in slices]),
+                           rows_fn(prep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bench dense", "99904 packed"])
+def test_face_sharded_renderer_on_card(cuda, case):
+    """``rasterise_face_sharded`` over four local members, dense on the
+    bench sphere and packed on the 99,904-face sphere (clip off), against
+    the single device under the same caps: the members' forward kernel and
+    the setup VJP once a member and no other kernel, overflow clear, face
+    ids equal, pixels within 3e-5, gradients within 1e-4 of max
+    |gradient|."""
+    from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
+
+    if case == "bench dense":
+        n, fields, launches = 72, dict(engine="dense"), {
+            "raster_fwd_dense": 4}
+    else:
+        n, fields, launches = 224, dict(engine="packed"), {
+            "raster_fwd_packed": 4, "max_scan": 20}
+    _, verts, colors, faces, background, weights = _bench_scene(n)
+    config = _bench_config(n, **fields)
+
+    def single(bg, v, c, f, config, clip):
+        return dirt_tpu_torch.rasterise_with_aux(bg, v, c, f, config=config,
+                                                 clip=False)
+
+    def members(bg, v, c, f, config, clip):
+        return rasterise_face_sharded(bg, v, c, f, LocalGroup(4),
+                                      config=config, with_aux=True)
+
+    (pix_1, fid_1, _, ovf_1), grads_1 = card_common.render_grads(
+        single, background, verts, colors, faces, weights, config, False)
+    ((pix_4, fid_4, _, ovf_4), grads_4), counts = card_common.launched(
+        lambda: card_common.render_grads(members, background, verts, colors,
+                                         faces, weights, config, False))
+    assert counts == {**launches, "setup_vjp": 4}
+    assert not bool(ovf_1) and not bool(ovf_4)
+    assert torch.equal(fid_4, fid_1)
+    assert float((pix_4 - pix_1).detach().abs().max()) <= 3e-5
+    for g_4, g_1 in zip(grads_4, grads_1):
+        assert torch.isfinite(g_4).all()
+        assert card_common.rel_err(g_4, g_1) <= card_common.TOL_ENGINES
+
+
+# The row-sharded cases at full size: (sphere's n, caps' fields). The
+# bench sphere on each engine, and the 99,904-face sphere streamed.
+_SHARDED_SCENES = {"bench dense": (72, dict(engine="dense")),
+                   "bench csr": (72, dict(streaming=True)),
+                   "bench packed": (72, dict(engine="packed")),
+                   "99904 csr": (224, dict(streaming=True))}
+
+
+def _sharded(slabs):
+    """``rasterise_sharded`` over ``slabs`` local slabs, as
+    ``card_common.render_grads`` calls a renderer."""
+    return lambda bg, v, c, f, config, clip: rasterise_sharded(
+        bg, v, c, f, LocalGroup(slabs), config=config, with_aux=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_SHARDED_SCENES))
+def test_sharded_renderer_at_full_size_on_card(cuda, case):
+    """``rasterise_sharded`` with one and four local slabs at 1024 x 1024
+    (clip off) against the single device under the same caps: each slab
+    launches the engine's forward kernel, its sharded backward's reduction
+    (the scatter kernel, or the layout swap and the packed backward) and
+    the setup VJP once, and no other kernel (a packed slab's binning its
+    five scans); overflow clear, face ids equal, pixels within 3e-5,
+    gradients finite, nonzero and within 1e-4 of max |gradient|. The
+    four-slab step against the same step with every kernel replaced by its
+    plain version: face ids equal, pixels within the forward's tolerance,
+    gradients within 1e-5."""
+    n, fields = _SHARDED_SCENES[case]
+    engine = case.split()[-1]
+    _, verts, colors, faces, background, weights = _bench_scene(n)
+    config = _bench_config(n, **fields)
+    assert card_common.engine_of(config, faces.shape[0]) == engine
+
+    def step(render):
+        return card_common.render_grads(render, background, verts, colors,
+                                        faces, weights, config, False)
+
+    (pix_1, fid_1, _, ovf_1), grads_1 = step(dirt_tpu_torch.rasterise_with_aux)
+    assert not bool(ovf_1) and (fid_1 >= 0).any()
+    for slabs in (1, 4):
+        ((pix_n, fid_n, _, ovf_n), grads_n), counts = card_common.launched(
+            lambda: step(_sharded(slabs)))
+        want = {"dense": {"raster_fwd_dense": slabs, "scatter_faces": slabs},
+                "csr": {"raster_fwd_csr": slabs, "scatter_faces_csr": slabs},
+                "packed": {"raster_fwd_packed": slabs, "max_scan": 5 * slabs,
+                           "subtile_swap": slabs, "packed_bwd": slabs}}
+        assert counts == {**want[engine], "setup_vjp": slabs}
+        assert not bool(ovf_n)
+        assert torch.equal(fid_n, fid_1)
+        assert float((pix_n - pix_1).detach().abs().max()) <= 3e-5
+        for g_n, g_1 in zip(grads_n, grads_1):
+            assert torch.isfinite(g_n).all()
+            assert card_common.rel_err(g_n, g_1) <= card_common.TOL_ENGINES
+        assert all(g.abs().sum() > 0 for g in grads_n[:2])
+    with _plain_kernels():
+        ((pix_p, fid_p, _, _), grads_p), counts = card_common.launched(
+            lambda: step(_sharded(4)))
+    assert counts == {}
+    assert torch.equal(fid_p, fid_n)
+    torch.testing.assert_close(pix_p.detach(), pix_n.detach(), **TOL)
+    for g_n, g_p in zip(grads_n, grads_p):
+        assert card_common.rel_err(g_n, g_p) <= 1e-5
+
+
+def _one_slab_step(n, channels, fields):
+    """One step of ``rasterise_sharded`` over one local slab at 1024 x 1024
+    (clip off), as a thunk: the sphere of ``n`` under its caps with
+    ``fields``, the bench's colors and upstream gradient at 3 channels,
+    random ones at ``channels`` otherwise."""
+    _, verts, colors, faces, background, weights = _bench_scene(n)
+    if channels != 3:
+        colors = card_common.rand(channels, verts.shape[0], channels,
+                                  device="cuda")
+        background = torch.zeros((SIZE, SIZE, channels), device="cuda")
+        weights = card_common.rand(channels + 1, SIZE, SIZE, channels,
+                                   device="cuda")
+    return lambda: card_common.render_grads(
+        _sharded(1), background, verts, colors, faces, weights,
+        _bench_config(n, **fields), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ("dense", 72, 3), ("dense", 72, 9), ("dense", 72, 16), ("csr", 72, 3),
+    ("csr", 72, 9), ("csr", 72, 16), ("csr", 224, 3)], ids=_case_id)
+def test_scatter_kernels_on_a_slabs_inputs_on_card(cuda, case):
+    """K9 (dense) or K10 (csr) on the cotangent planes, owners, lists and
+    boxes a row-sharded slab's backward hands it at 1024 x 1024: the bench
+    sphere at 3, 9 and 16 channels, the 99,904-face sphere at 3. Rows
+    within 1e-5 of the column's largest magnitude plus 1e-6 of the plain
+    version, value by value within 1e-5 of the sum of the magnitudes it
+    adds up, nonzero, and equal on a second run."""
+    engine, n, channels = case
+    fields, name, kernel = {
+        "dense": (dict(engine="dense"), "scatter_to_faces", "scatter_faces"),
+        "csr": (dict(streaming=True), "scatter_to_faces_csr",
+                "scatter_faces_csr")}[engine]
+    ((args, kwargs),) = card_common.calls(
+        scatter, name, _one_slab_step(n, channels, fields))
+    cot, fid_p, *_, num_rows = args
+    assert cot.shape[0] == 12 + 3 * channels
+    plain = getattr(scatter, name + "_plain")
+    before = _launches(kernel)
+    rows_k = getattr(scatter, name)(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert _launches(kernel) == before + 1
+    _check_scatter_rows(
+        rows_k, plain(cot, fid_p, num_rows),
+        lambda: getattr(scatter, name)(*args, **kwargs),
+        plain(cot.abs(), fid_p, num_rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [3, 9, 16])
+def test_swap_kernel_on_a_slabs_inputs_on_card(cuda, channels):
+    """K4 on the five fields a packed slab's halo backward hands it (the
+    bench sphere at 1024 x 1024, 3, 9 and 16 channels): equal bit for bit
+    to its plain version, some words moved, swapped back equal to its
+    inputs; the backward got the swapped fields, and K2 on them gives the
+    rows it gives on the same fields in image layout, bit for bit and
+    nonzero."""
+    run = _one_slab_step(72, channels, dict(engine="packed"))
+    rows_calls = []
+    ((arrays,), _), = card_common.calls(
+        raster_fwd, "flat_subtile_swap", lambda: rows_calls.extend(
+            card_common.calls(packed_bwd, "packed_entry_rows", run)))
+    ((prep, *_), _), = rows_calls
+    before = _launches("subtile_swap")
+    got = raster_fwd.flat_subtile_swap(arrays)
+    torch.cuda.synchronize()
+    assert _launches("subtile_swap") == before + 1
+    moved = 0
+    for a, g in zip(arrays, got):
+        want = raster_fwd.flat_subtile_swap_plain(a)
+        assert torch.equal(g.view(torch.int32), want.view(torch.int32))
+        moved += int((g.view(torch.int32) != a.view(torch.int32)).sum())
+    assert moved > 0
+    for g, again in zip(got, raster_fwd.flat_subtile_swap(arrays)):
+        assert torch.equal(g.view(torch.int32), again.view(torch.int32))
+    for a, b in zip(arrays, raster_fwd.flat_subtile_swap(got)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert prep.flat and torch.equal(prep.fid_p, got[0])
+    fid, bits, pix_cf, grad_cf, sval = arrays
+    image = packed_bwd._PackedBwdPrep(
+        fid, bits, sval, pix_cf, grad_cf, prep.bins, prep.geo, prep.att,
+        prep.channels, prep.k_cols, prep.tile_h, prep.tile_w)
+    rows = packed_bwd.packed_entry_rows(prep)
+    assert torch.equal(rows, packed_bwd.packed_entry_rows(image))
+    assert (rows != 0).any()
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_group_matches_local_group_on_card(cuda, tmp_path):
+    """One step of the row-sharded (dense), the overlapped (packed, two
+    chunks) and the face-sharded (packed) renderer on the bench sphere
+    through a ``torch.distributed`` group of one rank over NCCL, eager and
+    as a CUDA-graph replay (the capture takes NCCL's collectives), against
+    the same step over ``LocalGroup(1)``: gradients within 1e-5 of max
+    |gradient|. One NCCL group a process: this test forms the only one."""
+    from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
+    from dirt_tpu_torch.parallel.group import DistGroup
+    from dirt_tpu_torch.utils.graphstep import GraphedStep
+
+    _, verts, colors, faces, background, weights = _bench_scene()
+    leaves = (background, verts, colors)
+    configs = {"sharded dense": _bench_config(engine="dense"),
+               "overlap": _bench_config(), "face-sharded": _bench_config()}
+
+    def step(path, group):
+        config = configs[path]
+
+        def render(bg, v, c):
+            if path == "face-sharded":
+                return rasterise_face_sharded(bg, v, c, faces, group,
+                                              config=config, with_aux=True)
+            return rasterise_sharded(
+                bg, v, c, faces, group, config=config, with_aux=True,
+                overlap_chunks=2 if path == "overlap" else None)
+
+        def run(bg, v, c):
+            bg, v, c = (t.detach().requires_grad_() for t in (bg, v, c))
+            pixels = render(bg, v, c)[0]
+            return torch.autograd.grad((pixels * weights).sum(), (v, c, bg))
+
+        return run
+
+    want = {path: step(path, LocalGroup(1))(*leaves) for path in configs}
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{tmp_path}/store", rank=0, world_size=1,
+        device_id=cuda)
+    try:
+        for path in configs:
+            eager = step(path, DistGroup())
+            graphed = GraphedStep(eager, leaves)
+            for got in (eager(*leaves), graphed(*leaves)):
+                for g, w in zip(got, want[path]):
+                    assert card_common.rel_err(g, w) <= 1e-5, path
+        torch.cuda.synchronize()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_configstore_keeps_and_replaces_caps_on_card(cuda, tmp_path):
+    """A RasterConfig through ``utils.configstore`` on the bench sphere:
+    equal after the round trip, kept by ``cached_config`` after one
+    overflow-checked render on the card, and a stale entry (caps of 1)
+    replaced by caps that do not overflow."""
+    from dirt_tpu_torch.utils import configstore
+
+    _, verts, _, faces, _, _ = _bench_scene()
+    config = _bench_config()
+    store = tmp_path / "configs_torch.json"
+    configstore.save_config("bench", config, store)
+    assert configstore.load_config("bench", store) == config
+    assert configstore.cached_config("bench", verts, faces, SIZE, SIZE,
+                                     path=store) == config
+    stale = config._replace(bin_cap=1, expand_cap=1)
+    configstore.save_config("bench", stale, store)
+    fresh = configstore.cached_config("bench", verts, faces, SIZE, SIZE,
+                                      path=store)
+    assert fresh != stale and configstore.load_config("bench", store) == fresh
+    assert not configstore.overflows(verts, faces, SIZE, SIZE, fresh)
+
+
+@pytest.mark.cuda
+def test_obj_mesh_renders_on_card_as_the_plain_path(cuda, tmp_path):
+    """A 1,472-face UV sphere written as OBJ, loaded by the native parser
+    (equal to the Python one) and rendered at 1024 x 1024 by the packed
+    engine on the card: face ids and depths equal to the plain path's,
+    pixels within 1e-6."""
+    from dirt_tpu_torch.core import mesh
+    from dirt_tpu_torch.io import objloader
+
+    verts, tris, uvs = (np.asarray(a) for a in mesh.uv_sphere(n_lat=24,
+                                                              n_lon=32))
+    path = tmp_path / "sphere.obj"
+    path.write_text("\n".join(
+        [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts]
+        + [f"vt {u:.6f} {v:.6f}" for u, v in uvs]
+        + [f"f {a}/{a} {b}/{b} {c}/{c}" for a, b, c in tris + 1]) + "\n")
+    loaded = objloader.load_obj(str(path), native=True)
+    python = objloader.load_obj(str(path), native=False)
+    assert loaded.has_uv and np.array_equal(loaded.faces, python.faces)
+    np.testing.assert_allclose(loaded.vertices, python.vertices, atol=1e-6)
+    v_obj, uv_obj, _, f_obj = loaded.to_tensors(cuda)
+    clip = bench_configs_torch.posed(v_obj, cuda)
+    colors = torch.cat([uv_obj, 0.5 + 0.5 * v_obj[:, :1]], dim=1)
+    config = dirt_tpu_torch.suggest_raster_config(
+        clip, f_obj, SIZE, SIZE,
+        config=dirt_tpu_torch.RasterConfig(engine="packed"), clip=False)
+    background = torch.zeros((SIZE, SIZE, 3), device=cuda)
+
+    def render():
+        return dirt_tpu_torch.rasterise_with_aux(
+            background, clip, colors, f_obj, config=config, clip=False)
+
+    (pixels, fid, zbuf, overflow), counts = card_common.launched(render)
+    assert counts == {"raster_fwd_packed": 1, "max_scan": 5}
+    with _plain_kernels():
+        pix_p, fid_p, z_p, _ = render()
+    assert not bool(overflow) and (fid >= 0).any()
+    assert torch.equal(fid, fid_p) and torch.equal(zbuf, z_p)
+    torch.testing.assert_close(pixels, pix_p, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["torch_demo1_square", "torch_demo2_cube"])
+def test_demo_render_main_on_card(cuda, tmp_path, name):
+    """Demos 1 and 2 through ``main``: the dense forward alone launched,
+    face ids and image equal to the same render with every kernel
+    replaced by its plain version."""
+    module = _demo(name)
+    (image, fid), counts = card_common.launched(
+        lambda: module.main(cuda, str(tmp_path)))
+    assert set(counts) == {"raster_fwd_dense"}
+    with _plain_kernels():
+        image_p, fid_p = module.render(cuda)
+    assert torch.equal(fid, fid_p) and torch.equal(image, image_p)
+
+
+# Demos 3-5 as their ``main`` runs them: (arguments, the kernels of one of
+# its loop's steps). Demo 3 trains the texture alone, so no gradient
+# reaches the raster op.
+_DEMO_FITS = {
+    "torch_demo3_textured": (dict(size=512, steps=60),
+                             {"raster_fwd_dense": 1}),
+    "torch_demo4_lit": (dict(size=512, steps=80),
+                        {"raster_fwd_dense": 1, "packed_prologue": 1,
+                         "fused_bwd": 1, "setup_vjp": 1}),
+    "torch_demo5_deferred": (dict(size=SIZE, steps=80, n_lat=72, n_lon=72),
+                             {"raster_fwd_packed": 1, "max_scan": 5,
+                              "packed_prologue": 1, "packed_bwd": 1,
+                              "setup_vjp": 1}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_DEMO_FITS))
+def test_demo_fit_main_on_card(cuda, tmp_path, name):
+    """Demos 3-5 through ``main`` (which raises unless the loss falls by
+    the demo's own ratio), the loop's launches counted: each kernel of a
+    step ``WARMUP + 1`` times in ``trainer`` (the capture's warm-up calls
+    and the captured one) and none in ``run``, whose steps are graph
+    replays; demo 5's checkpoint loads back equal."""
+    from dirt_tpu_torch.utils.checkpoint import load_pytree
+    from dirt_tpu_torch.utils.graphstep import WARMUP
+
+    module = _demo(name)
+    kwargs, launches = _DEMO_FITS[name]
+    counted = {}
+
+    def counting(fn_name):
+        inner = getattr(module, fn_name)
+
+        def wrapper(*args):
+            torch.cuda.synchronize()
+            result, counted[fn_name] = card_common.launched(
+                lambda: inner(*args))
+            return result
+
+        return mock.patch.object(module, fn_name, wrapper)
+
+    with counting("trainer"), counting("run"):
+        result = module.main(device=cuda, out=str(tmp_path), **kwargs)
+    assert counted == {"trainer": {k: (WARMUP + 1) * n
+                                   for k, n in launches.items()},
+                       "run": {}}
+    assert result["l1"] < result["l0"]
+    if name == "torch_demo5_deferred":
+        restored = load_pytree(result["checkpoint"])
+        assert sorted(restored) == ["m", "params", "step", "v"]
+        assert int(restored["step"]) == result["steps"]
+        assert np.array_equal(restored["params"]["pose"],
+                              result["pose"].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lat", [72, 708], ids=["10224", "1001112"])
+def test_profilers_time_the_work_the_api_does_on_card(cuda, n_lat):
+    """The stage tool's staged forward (setup, binning, K1) gives pixels,
+    face ids and depths equal bit for bit to ``rasterise_with_aux``'s, its
+    backward pieces (K3, K2, the pool reduce) the output of
+    ``backward_packed``, and ``_stage=0`` the bins of a call without it,
+    field by field; on the bench sphere the stage, binning and parallel
+    tools' ``run`` goes through on the card (one sample a line, no
+    profiler window: the trace tests read a replay's markers from a
+    profile later in the same process, and one such profile taken after
+    these windows lost its first record)."""
+    import prof_torch_binning
+    import prof_torch_parallel
+    import prof_torch_stages
+
+    scene = _bench_scene(n_lat)
+    _, verts, colors, faces, background, weights = scene
+    config = _bench_config(n_lat)
+    pixels, fid, zbuf, geo, att, bins, geom = \
+        prof_torch_stages.staged_forward(scene, config)
+    want = dirt_tpu_torch.rasterise_with_aux(background, verts, colors,
+                                             faces, config=config, clip=False)
+    assert not bool(want[3])
+    for got, ref in zip((pixels, fid, zbuf), want):
+        assert torch.equal(got, ref)
+    for got, ref in zip(
+            prof_torch_stages.staged_backward(geo, att, fid, zbuf, pixels,
+                                              weights, bins, geom),
+            prof_torch_stages.backward_core(geo, att, fid, zbuf, pixels,
+                                            weights, bins, geom)):
+        assert torch.equal(got, ref)
+    _, _, bbox, edges = card_common.setup(verts, colors, faces, SIZE)
+    plain = card_common.bin_faces(bbox, edges, geom)
+    zero = card_common.bin_faces(bbox, edges, geom, _stage=0)
+    for field in binning.PackedBins._fields:
+        a, b = getattr(plain, field), getattr(zero, field)
+        assert (a is None) == (b is None), field
+        assert a is None or torch.equal(a, b), field
+    if n_lat == 72:
+        prof_torch_stages.run(cuda, SIZE, n_lat, 1, config, 0)
+        record = prof_torch_binning.run(cuda, SIZE, n_lat, 1, config, 0)
+        assert len(record["cummax"]) == 5
+        prof_torch_parallel.run(cuda, SIZE, n_lat, 1, config, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _build.KERNELS)
+def test_every_kernel_builds_on_card(cuda, name):
+    """Every library of ``csrc/`` builds (one nvcc each, started together)
+    and loads; ptxas reports its registers."""
+    _build.build(_build.KERNELS)
+    assert _build.load(name)
+    assert "registers" in _build.build_log(name)
+
+
+def test_the_kernel_list_is_the_sources_of_csrc():
+    """Each source of ``_build.KERNELS`` has a C entry point, and the
+    ``__global__`` names that the tools match in a profile are those the
+    benchmark's trace counts as the port's."""
+    from benchmark import trace as bench_trace
+
+    assert "packed_prologue" in _build.KERNELS
+    for name in _build.KERNELS:
+        assert 'extern "C"' in (_build.CSRC_DIR / f"{name}.cu").read_text()
+    assert _build.global_names() == bench_trace.program_kernels()
+    assert "packed_prologue_kernel" in _build.global_names()

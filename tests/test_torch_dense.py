@@ -284,8 +284,9 @@ def test_fused_backward_rows_plain_matches_jax(kind):
                                 for k in range(3)),
         num_faces + 1, tile_h=tile_h, tile_w=tile_w)
 
-    bits, sval = tpb.fused_neighbor_prologue(_t(fid_p), _t(zbuf_p),
-                                             _t(pix_cf), _t(grad_cf))
+    _, bits, sval, _, _ = tpb.padded_prologue(
+        _t(fid_p), _t(zbuf_p), _t(pix_cf).permute(1, 2, 0),
+        _t(grad_cf).permute(1, 2, 0), tile_h, tile_w)
     got = tfb.fused_backward_rows(
         _t(geo), _t(bins), _t(counts), _t(fid_p), bits, sval, _t(pix_cf),
         _t(grad_cf), num_faces + 1, tile_h=tile_h, tile_w=tile_w)

@@ -40,7 +40,10 @@
    demos 3 and 4 likewise, with the plain descent's losses bit for bit.
 4. On the card (``cuda`` marker, skipped here): graphed against eager on
    the three engines, the flagship step, demo 5's fit, the sharded,
-   overlapped and face-sharded steps, the dry run, demos 3 and 4 and the
+   overlapped and face-sharded steps (the engines' and the parallel
+   renderers' on a small sphere and at 1024 x 1024 on the bench sphere,
+   the 99,904-face sphere's sharded CSR and face-sharded packed steps),
+   the 1,001,112-face sphere's step, the dry run, demos 3 and 4 and the
    sheet's five configs (fid, overflow
    and pixels equal, gradients within 1e-5 of max |gradient| of the eager
    step's; the demo fits' losses and parameters within 1e-4, two eager
@@ -51,8 +54,10 @@
 
 import functools
 import importlib.util
+import sys
 import traceback
 from pathlib import Path
+from unittest import mock
 
 import jax
 import numpy as np
@@ -71,6 +76,10 @@ from dirt_tpu_torch.ops import raster_fwd
 from dirt_tpu_torch.ops.raster import RasterConfig
 from dirt_tpu_torch.utils import graphstep
 from dirt_tpu_torch.utils.graphstep import GraphedStep, value_and_grad
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+
+import card_common  # noqa: E402
 
 DEMOS = Path(__file__).resolve().parents[1] / "demos"
 RAZOR = 0.005
@@ -219,11 +228,18 @@ def _demo_step(n):
     return lambda: value_and_grad(loss_fn)(*params.values())
 
 
+# The sheet's configs the scan cuts down, as ``make(device, *args)``:
+# config 5 to a 12 x 12 sphere at 64 x 64, configs 3 and 4 to 128 x 128
+# (their 2,208-face sphere as it is, on the dense engine they run at
+# 512 x 512).
+_CONFIG_CUTS = {3: (128,), 4: (128,), 5: (64, 12, 12)}
+
+
 def _config_step(n):
     import bench_configs_torch
 
     make = bench_configs_torch.CONFIGS[n - 1]
-    config = (make("cpu", 64, 12, 12) if n == 5 else make("cpu"))
+    config = make("cpu", *_CONFIG_CUTS.get(n, ()))
     return lambda: value_and_grad(config.loss)(*config.leaves)
 
 
@@ -251,11 +267,16 @@ _SCAN_CASES = {
 def test_step_is_capture_safe(case):
     step = _SCAN_CASES[case]()
     step()                              # first calls may build caches
-    with _HostScan() as scan:
+    with mock.patch.object(raster_fwd, "raster_forward",
+                           wraps=raster_fwd.raster_forward) as dense, \
+            _HostScan() as scan:
         step()
     assert not scan.found, "\n".join(
         f"{name} at {' <- '.join(reversed(where))}"
         for name, where in scan.found)
+    if case in ("config3", "config4"):
+        # Cut down, the step still walks the dense engine's path.
+        assert dense.call_count == 1
 
 
 def test_packed_scan_case_chains_through_the_setup_vjp():
@@ -263,8 +284,6 @@ def test_packed_scan_case_chains_through_the_setup_vjp():
     path launches the setup VJP kernel (here, on the CPU, it takes the
     plain version, which the scan exempts; the wrapper is scanned), once a
     backward, and the scan records nothing."""
-    from unittest import mock
-
     from dirt_tpu_torch.ops import triangle_setup
 
     step = _SCAN_CASES["packed clip=False"]()
@@ -644,29 +663,73 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _card_step(engine, clip, device):
-    """(step, args): the bench step on the 24 x 32 sphere at 128 x 256,
-    ``step(bg, verts, colors) -> (pixels, fid, overflow, d_verts,
-    d_colors, d_bg)``."""
-    verts, colors, faces = sphere_scene(24, 32, distance=0.9 if clip
-                                        else 3.0)
+def _render_step(render, weights):
+    """``step(bg, verts, colors) -> (pixels, fid, overflow, d_verts,
+    d_colors, d_bg)`` of ``sum(pixels * weights)`` through ``render(bg,
+    verts, colors) -> (pixels, fid, zbuf, overflow)``."""
+    def step(b, v, c):
+        b, v, c = (t.detach().requires_grad_() for t in (b, v, c))
+        pixels, fid, _, overflow = render(b, v, c)
+        grads = torch.autograd.grad((pixels * weights).sum(), (v, c, b))
+        return (pixels.detach(), fid, overflow, *grads)
+
+    return step
+
+
+def _card_scene(scene, device, distance=3.0):
+    """(background, vertices, colors, faces, weights, size) of a card case:
+    ``"small"`` the 24 x 32 sphere at 128 x 256, the camera ``distance``
+    from it (0.9 reaches through the near plane), or at 1024 x 1024 under
+    the bench camera the bench sphere (``"bench"``) or the 99,904-face
+    sphere (``"99904"``)."""
+    if scene != "small":
+        n = {"bench": 72, "99904": 224}[scene]
+        _, verts, colors, faces, bg, weights = card_common.bench_scene(
+            1024, device, n=n)
+        return bg, verts, colors, faces, weights, (1024, 1024)
+    verts, colors, faces = sphere_scene(24, 32, distance=distance)
     bg, verts, colors, faces = convert.scene_from_numpy(
         np.random.RandomState(4).rand(128, 256, 3).astype(np.float32), verts,
         colors, faces, device)
     weights = torch.rand(128, 256, 3, generator=torch.Generator()
                          .manual_seed(1)).to(device)
+    return bg, verts, colors, faces, weights, (128, 256)
+
+
+def _card_step(engine, clip, device, scene="small"):
+    """(step, args): the bench step (:func:`_render_step`) on
+    :func:`_card_scene`'s scene under the engine's caps (the small
+    sphere's camera at 0.9 when ``clip``)."""
+    bg, verts, colors, faces, weights, size = _card_scene(
+        scene, device, 0.9 if clip else 3.0)
     config = dirt_tpu_torch.suggest_raster_config(
-        verts, faces, 128, 256, config=RasterConfig(**ENGINES[engine]),
+        verts, faces, *size, config=RasterConfig(**ENGINES[engine]),
         clip=clip)
+    return _render_step(
+        lambda b, v, c: dirt_tpu_torch.rasterise_with_aux(
+            b, v, c, faces, config=config, clip=clip), weights), \
+        (bg, verts, colors)
 
-    def step(b, v, c):
-        b, v, c = (t.detach().requires_grad_() for t in (b, v, c))
-        pixels, fid, _, overflow = dirt_tpu_torch.rasterise_with_aux(
-            b, v, c, faces, config=config, clip=clip)
-        grads = torch.autograd.grad((pixels * weights).sum(), (v, c, b))
-        return (pixels.detach(), fid, overflow, *grads)
 
-    return step, (bg, verts, colors)
+def _captured(step, args):
+    """``GraphedStep(step, args)``, after one eager call of ``step`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host read or a blocking
+    copy raises): the capture launches each kernel of that call ``WARMUP +
+    1`` times (its warm-up calls and the captured one), so the captured
+    call went through the path's kernels."""
+    def strict():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    step(*args)                         # builds kernels, fills caches
+    _, eager = card_common.launched(strict)
+    graphed, capture = card_common.launched(lambda: GraphedStep(step, args))
+    assert eager and capture == {name: (graphstep.WARMUP + 1) * n
+                                 for name, n in eager.items()}
+    return graphed
 
 
 def _assert_same_step(got, want):
@@ -679,11 +742,18 @@ def _assert_same_step(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("engine", list(ENGINES))
-@pytest.mark.parametrize("clip", [False, True])
-def test_graphed_step_equals_eager_on_card(cuda, engine, clip):
-    step, args = _card_step(engine, clip, cuda)
-    graphed = GraphedStep(step, args)
+@pytest.mark.parametrize("clip,engine,scene", [
+    pytest.param(clip, engine, scene,
+                 id=f"{clip}-{engine}" + ("" if scene == "small"
+                                          else f"-{scene} 1024^2"))
+    for scene in ("small", "bench") for clip in (False, True)
+    for engine in ENGINES])
+def test_graphed_step_equals_eager_on_card(cuda, clip, engine, scene):
+    """Each engine's step, clip off and on, on the small sphere and on the
+    bench sphere at 1024 x 1024: the graph replay against the eager call,
+    on the capture's inputs and on others."""
+    step, args = _card_step(engine, clip, cuda, scene)
+    graphed = _captured(step, args)
     _assert_same_step(graphed(*args), step(*args))
     moved = (args[0], args[1] * 1.02, args[2].flip(0))
     _assert_same_step(graphed(*moved), step(*moved))
@@ -724,49 +794,59 @@ def test_graphed_demo5_fit_equals_eager_on_card(cuda, monkeypatch):
         assert _rel_err(got, want) <= TOL_DEFERRED
 
 
-def _card_parallel_step(path, engine, device):
-    """(step, args): ``_parallel_step``'s renderers on the 24 x 32 sphere at
-    128 x 256 on the card, ``step(bg, verts, colors) -> (pixels, fid,
-    overflow, d_verts, d_colors, d_bg)``."""
+def _card_parallel_step(path, engine, device, scene="small"):
+    """(step, args): ``_parallel_step``'s renderers (and the overlapped one
+    with four chunks) over four local members on :func:`_card_scene`'s
+    scene, as :func:`_render_step`: on the small sphere under the engine's
+    caps at ``tile_h=8``, at 1024 x 1024 under its own caps (clip off)."""
     from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded
     from dirt_tpu_torch.parallel.group import LocalGroup
     from dirt_tpu_torch.parallel.sharding import rasterise_sharded
 
-    verts, colors, faces = sphere_scene(24, 32)
-    bg, verts, colors, faces = convert.scene_from_numpy(
-        np.random.RandomState(4).rand(128, 256, 3).astype(np.float32), verts,
-        colors, faces, device)
-    weights = torch.rand(128, 256, 3, generator=torch.Generator()
-                         .manual_seed(1)).to(device)
+    bg, verts, colors, faces, weights, size = _card_scene(scene, device)
+    fields = dict(ENGINES[engine], **({"tile_h": 8} if scene == "small"
+                                      else {}))
     config = dirt_tpu_torch.suggest_raster_config(
-        verts, faces, 128, 256,
-        config=RasterConfig(tile_h=8, **ENGINES[engine]), clip=False)
+        verts, faces, *size, config=RasterConfig(**fields), clip=False)
     render = {
         "sharded": lambda b, v, c: rasterise_sharded(
             b, v, c, faces, LocalGroup(4), config=config, with_aux=True),
         "overlap": lambda b, v, c: rasterise_sharded(
             b, v, c, faces, LocalGroup(4), config=config, overlap_chunks=2,
             with_aux=True),
+        "overlap k=4": lambda b, v, c: rasterise_sharded(
+            b, v, c, faces, LocalGroup(4), config=config, overlap_chunks=4,
+            with_aux=True),
         "face-sharded": lambda b, v, c: rasterise_face_sharded(
             b, v, c, faces, LocalGroup(4), config=config, with_aux=True),
     }[path]
+    return _render_step(render, weights), (bg, verts, colors)
 
-    def step(b, v, c):
-        b, v, c = (t.detach().requires_grad_() for t in (b, v, c))
-        pixels, fid, _, overflow = render(b, v, c)
-        grads = torch.autograd.grad((pixels * weights).sum(), (v, c, b))
-        return (pixels.detach(), fid, overflow, *grads)
 
-    return step, (bg, verts, colors)
+_PARALLEL_CASES = [
+    ("sharded", "dense"), ("sharded", "csr"), ("sharded", "packed"),
+    ("overlap", "packed"), ("overlap k=4", "packed"),
+    ("face-sharded", "dense"), ("face-sharded", "packed")]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path, engine", [
-    ("sharded", "dense"), ("sharded", "csr"), ("sharded", "packed"),
-    ("overlap", "packed"), ("face-sharded", "dense")])
-def test_graphed_parallel_step_equals_eager_on_card(cuda, path, engine):
-    step, args = _card_parallel_step(path, engine, cuda)
-    graphed = GraphedStep(step, args)
+@pytest.mark.parametrize("path,engine,scene", [
+    *(pytest.param(path, engine, "small", id=f"{path}-{engine}")
+      for path, engine in _PARALLEL_CASES),
+    *(pytest.param(path, engine, "bench", id=f"{path}-{engine}-bench 1024^2")
+      for path, engine in _PARALLEL_CASES if path != "face-sharded"
+      or engine == "dense"),
+    pytest.param("sharded", "csr", "99904", id="sharded-csr-99904 1024^2"),
+    pytest.param("face-sharded", "packed", "99904",
+                 id="face-sharded-packed-99904 1024^2")])
+def test_graphed_parallel_step_equals_eager_on_card(cuda, path, engine,
+                                                    scene):
+    """Each parallel renderer over four local members, on the small sphere
+    and at 1024 x 1024 (the bench sphere; the 99,904-face sphere streamed
+    row-sharded and packed face-sharded): the graph replay against the
+    eager call, on the capture's inputs and on others."""
+    step, args = _card_parallel_step(path, engine, cuda, scene)
+    graphed = _captured(step, args)
     _assert_same_step(graphed(*args), step(*args))
     moved = (args[0], args[1] * 1.02, args[2].flip(0))
     _assert_same_step(graphed(*moved), step(*moved))
@@ -779,12 +859,22 @@ def test_graphed_dryrun_equals_eager_on_card(cuda):
     the eager ones: the losses within TOL_DEFERRED (torch's atomics in the
     vertex normals), variants 2-4 at 2128.7512 +- 1e-3."""
     graphed = entry.dryrun_multichip(4, cuda, steps=3)
-    eager = entry.dryrun_multichip(4, cuda, steps=3, graphed=False)
+    eager, launches = card_common.launched(lambda: entry.dryrun_multichip(
+        4, cuda, steps=3, graphed=False))
+    # The setup VJP once a slab's backward: four a training step (data=2 x
+    # tiles=2), and the variants' 4 + 2 x 2 + 4 (the two-level group's
+    # slabs, two slabs x two chunks overlapped, four face-sharded members).
+    assert launches["setup_vjp"] == 3 * 4 + 4 + 2 * 2 + 4
+    for kernel in ("raster_fwd_packed", "subtile_swap", "packed_bwd",
+                   "raster_fwd_dense", "scatter_faces"):
+        assert launches[kernel] > 0
     assert graphed["losses"][-1] < graphed["losses"][0]
+    assert eager["losses"][-1] < eager["losses"][0]
     np.testing.assert_allclose(graphed["losses"], eager["losses"],
                                rtol=TOL_DEFERRED)
     for key in ("two_level", "overlap", "face_sharded"):
         assert abs(graphed[f"loss_{key}"] - 2128.7512) <= 1e-3
+        assert abs(eager[f"loss_{key}"] - 2128.7512) <= 1e-3
         assert graphed[f"grad_{key}"] == pytest.approx(eager[f"grad_{key}"],
                                                        rel=TOL_GRAD)
 
@@ -848,3 +938,19 @@ def test_failed_capture_raises_on_card(cuda):
         GraphedStep(reads_the_card, (torch.ones(8, device=cuda),))
     assert len(calls) == graphstep.WARMUP + 1
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_graphed_1001112_face_step_equals_eager_on_card(cuda):
+    """The bench step on the 1,001,112-face sphere at 1024 x 1024 (the
+    ``sphere1m_1024`` cell's scene; the packed engine, clip off), eager and
+    as a replay, with the small scene's checks."""
+    _, verts, colors, faces, bg, weights = card_common.bench_scene(
+        1024, cuda, n=708)
+    config = dirt_tpu_torch.suggest_raster_config(verts, faces, 1024, 1024,
+                                                  clip=False)
+    step = _render_step(lambda b, v, c: dirt_tpu_torch.rasterise_with_aux(
+        b, v, c, faces, config=config, clip=False), weights)
+    args = (bg, verts, colors)
+    graphed = _captured(step, args)
+    _assert_same_step(graphed(*args), step(*args))

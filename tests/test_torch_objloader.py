@@ -5,7 +5,8 @@ negative indices, trailing comments, native parser equal to the Python
 one, a loaded mesh renders) and holds the port's loader equal to
 ``dirt_tpu.io.load_obj`` on the same files: every array equal. Also the
 library's place (``build/dirt_tpu_torch/``), ``native=True`` raising when
-the build fails, ``ObjMesh.to_tensors``, and ``bench_torch.py``'s scene
+the build fails, ``ObjMesh.to_tensors``, and ``tools/card_common.py``'s
+bench scene
 against the one ``bench.py:88-112`` builds with ``dirt_tpu``'s ``mesh`` and
 ``matrices`` (vertices within 1e-6 of their scale: one float32 transform in
 two frameworks; everything else equal).
@@ -13,6 +14,8 @@ two frameworks; everything else equal).
 
 import inspect
 import os
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -20,13 +23,16 @@ import numpy as np
 import pytest
 import torch
 
-import bench_torch
 import dirt_tpu_torch
 from dirt_tpu.core import matrices as jmatrices
 from dirt_tpu.core import mesh as jmesh
 from dirt_tpu.io import load_obj as jax_load_obj
 from dirt_tpu_torch.io import ObjMesh, load_obj
 from dirt_tpu_torch.io import objloader
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+
+import card_common  # noqa: E402
 
 CUBE_OBJ = """\
 # comment line
@@ -214,7 +220,7 @@ def _jax_bench_scene(size):
 def test_bench_scene_matches_bench_py():
     size = 64
     want = _jax_bench_scene(size)
-    got = [t.numpy() for t in bench_torch.bench_scene(size, "cpu")]
+    got = [t.numpy() for t in card_common.bench_scene(size, "cpu")]
     assert got[3].dtype == np.int64 and len(got[3]) == 10224
     np.testing.assert_array_equal(got[0], want[0])
     scale = np.abs(want[1]).max()

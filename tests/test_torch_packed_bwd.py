@@ -74,7 +74,10 @@ def test_prologue_plain_matches_jax_kernel():
     args = _prologue_inputs()
     _, bits_f, _, _, sval_f = jp.fused_neighbor_prologue(
         *(jnp.asarray(a) for a in args))
-    bits, sval = tp.fused_neighbor_prologue(*(torch.tensor(a) for a in args))
+    fid_p, zbuf_p, pix_cf, grad_cf = (torch.tensor(a) for a in args)
+    _, bits, sval, _, _ = tp.padded_prologue(
+        fid_p, zbuf_p, pix_cf.permute(1, 2, 0), grad_cf.permute(1, 2, 0),
+        *fid_p.shape)
     assert bits.dtype == torch.int32 and sval.shape == (4, 32, 256)
     # flat_subtile_swap is an involution: it takes the kernel's outputs
     # back to image layout.
@@ -92,7 +95,8 @@ def test_prologue_tie_rule_and_image_border():
     fid = torch.tensor([[0, 1], [2, 2]], dtype=torch.int32)
     zbuf = torch.full((2, 2), 0.25)
     pix = torch.rand(1, 2, 2)
-    bits, sval = tp.fused_neighbor_prologue(fid, zbuf, pix, torch.ones(1, 2, 2))
+    _, bits, sval, _, _ = tp.padded_prologue(
+        fid, zbuf, pix.permute(1, 2, 0), torch.ones(2, 2, 1), 2, 2)
     # Pixel (0, 0) pairs right with face 1 (strict: tie -> not front) and
     # below with face 2 (strict: not front); pixel (0, 1) pairs left with
     # face 0 (non-strict: front) and below; pixel (1, 0) pairs above.
@@ -106,7 +110,8 @@ def test_other_devices_raise():
     fid, zbuf, pix, grad = (torch.tensor(a).to("meta")
                             for a in _prologue_inputs())
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        tp.fused_neighbor_prologue(fid, zbuf, pix, grad)
+        tp.padded_prologue(fid, zbuf, pix.permute(1, 2, 0),
+                           grad.permute(1, 2, 0), 32, 128)
     ints = fid.new_zeros(512)
     bins = tbin.PackedBins(ints, ints[:1], ints[:1], ints[:1],
                            ints[:1].bool(), ints[:4], ints[:4],

@@ -171,7 +171,8 @@ def _copy_then_prologue(fid, zbuf, pixels, grad_pixels, tile_h, tile_w):
     padded arrays."""
     fid_p, zbuf_p, pix_cf, grad_cf = tp.pad_fields(
         fid, zbuf, pixels, grad_pixels, tile_h, tile_w)
-    bits, sval = tp.fused_neighbor_prologue(fid_p, zbuf_p, pix_cf, grad_cf)
+    bits, sval = tp.fused_neighbor_prologue_plain(fid_p, zbuf_p, pix_cf,
+                                                  grad_cf)
     return fid_p, bits, sval, pix_cf, grad_cf
 
 

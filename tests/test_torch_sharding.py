@@ -214,19 +214,19 @@ def test_default_config_resolves_tile_height_from_the_slab():
 
 
 def _port_sources():
-    """Every file of the port: the package, the smoke script, the bench and
-    the sheet, the demos and the tools."""
-    tools = ("prof_torch_steps", "prof_torch_stages", "prof_torch_binning",
-             "prof_torch_parallel", "bench_scatter", "bench_raster_ab")
+    """Every file of the port: the package, the sheet, the demos and the
+    card tools with the module they share."""
+    tools = ("card_common", "prof_torch_steps", "prof_torch_stages",
+             "prof_torch_binning", "prof_torch_parallel", "prof_torch_repeat",
+             "bench_scatter", "bench_raster_ab")
     return (sorted((REPO / "dirt_tpu_torch").rglob("*.py"))
             + sorted((REPO / "demos").glob("torch_demo*.py"))
-            + [REPO / name for name in ("chip_smoke.py", "bench_torch.py",
-                                        "bench_configs_torch.py")]
+            + [REPO / "bench_configs_torch.py"]
             + [REPO / "tools" / f"{name}.py" for name in tools])
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():
-    assert len(_port_sources()) >= 52
+    assert len(_port_sources()) >= 55
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
@@ -241,9 +241,10 @@ def test_no_port_source_imports_jax_or_the_jax_package():
 
 def test_importing_every_port_module_loads_no_jax():
     code = (
-        "import importlib, pkgutil, sys, dirt_tpu_torch, chip_smoke\n"
+        "import importlib, pkgutil, sys, dirt_tpu_torch\n"
         "sys.path.insert(0, 'tools')\n"
-        "import prof_torch_stages, prof_torch_binning, prof_torch_parallel\n"
+        "import card_common, prof_torch_stages, prof_torch_binning\n"
+        "import prof_torch_parallel\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "dirt_tpu_torch.__path__, 'dirt_tpu_torch.')]\n"
         "assert 'dirt_tpu_torch.parallel.sharding' in names, names\n"

@@ -42,7 +42,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import prof_torch_binning  # noqa: E402
 import prof_torch_parallel  # noqa: E402
 import prof_torch_stages  # noqa: E402
-from bench_torch import bench_scene  # noqa: E402
+from card_common import bench_scene  # noqa: E402
 
 STAGES = (11, 12, 13, 1, 2, 3, 4, 5, 6, 7)
 # The tools' scene on the CPU: a 1,104-face bench sphere at 64 x 64 under

@@ -18,8 +18,10 @@ tests/test_torch_trace.py``): a profiled replay of a graphed packed fwd+bwd
 step shows each marker once, in the stages' order; a replay's host span
 encloses its ``cudaGraphLaunch`` on the profiler's clock; the pool fill
 equals ``sum(blocks) * POOL_ALIGN / pool_cap`` of an eager call and
-outlives the graph that wrote it; and a step with the markers stubbed out
-gives the same bits.
+outlives the graph that wrote it; a step with the markers stubbed out
+gives the same bits; and after the stage tool's profiler windows, every
+whole replay of a three-replay session shows each marker once, and a
+session counts as complete only when no replay in it lost a record.
 """
 
 import gc
@@ -603,3 +605,51 @@ def test_markers_change_no_bits(cuda, monkeypatch, engine):
     bare = GraphedStep(step, args)(*args)
     for got, want in zip(bare, marked):
         assert torch.equal(got, want)
+
+
+# Last in the file: the profiler windows it takes come after every other
+# profile the card tests read.
+@pytest.mark.cuda
+def test_replays_profiled_after_a_tools_windows_keep_or_flag_markers(cuda):
+    """The stage tool's run with its profiler windows (one a stage, host
+    and device activity, on the bench sphere at 1024 x 1024), then three
+    sessions of three replays each as the benchmark traces them (device
+    activity): in each session every replay with the most operations
+    shows each marker once, in order, and the window counts as complete
+    only when all three show that many. A single-replay profile taken
+    after such windows once lost its first marker record, and one replay
+    has nothing to be held against; in a session of several, a replay
+    that loses a record shows fewer operations, and the benchmark sets
+    the session aside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import card_common
+    import prof_torch_stages
+
+    _, verts, _, faces, _, _ = card_common.bench_scene(1024, cuda)
+    config = dirt_tpu_torch.suggest_raster_config(verts, faces, 1024, 1024,
+                                                  clip=False)
+    prof_torch_stages.run(cuda, 1024, 72, 1, config,
+                          card_common.PROFILE_STEPS)
+    step, args = _card_step(cuda)
+    graphed = GraphedStep(step, args)
+    for _ in range(3):
+        graphed(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                graphed(*args)
+            torch.cuda.synchronize()
+        window = Window.from_profile(prof, 3, 0.0)
+        counts = window.replays()
+        assert len(counts) == 3
+        replays = {}
+        for op in window.ops:
+            if window.launches.get(op[3]) == "cudaGraphLaunch":
+                replays.setdefault(op[3], []).append(op)
+        for ops in replays.values():
+            if len(ops) == max(counts):
+                assert [trace.marker(op[0]) for op in ops
+                        if trace.marker(op[0]) is not None] == STEP_MARKS
+        assert window.complete() == (min(counts) == max(counts))

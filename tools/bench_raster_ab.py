@@ -14,18 +14,18 @@ default API's own render hands the raster op; ``--spheres`` adds the
 default API's ``uv_sphere(n, n)`` of 2 n (n - 1) faces at 3 channels for
 each other n listed) and on the 10,224-face bench sphere under
 ``RasterConfig(streaming=True)`` (K8 on the forward's
-outputs, the prologue's planes and ``chip_smoke.py``'s upstream gradients);
+outputs, the prologue's planes and the bench's upstream gradients);
 ``ops.raster_fwd.raster_forward`` (raster_fwd_dense.cu) on the bench sphere
 at 1024 x 1024 under ``RasterConfig(engine="dense")``, on config 4's faces
 at 512 x 512 and on the flagship step's G-buffer faces at 256 x 256 with 9
-channels (both as ``chip_smoke.py`` phase 7 captures them), and
+channels (both as the paths' own renders hand them to the raster op), and
 ``ops.fused_bwd.fused_backward_rows`` (fused_bwd.cu) on those three dense
 forwards' outputs; and
 ``ops.raster_fwd.flat_subtile_swap`` (subtile_swap.cu) on the five
 per-pixel fields the sharded packed halo backward hands it (one slab of
 ``rasterise_sharded``, the bench sphere at 3 and 9 channels: 12 and 24
-planes of 1024 x 1024), as ``chip_smoke.py`` phases 10 and 12 capture
-them; and ``ops.packed_bwd.packed_entry_rows`` (packed_bwd.cu) on what the
+planes of 1024 x 1024), captured from one run; and
+``ops.packed_bwd.packed_entry_rows`` (packed_bwd.cu) on what the
 packed backward hands it on four shapes: the bench sphere at 1024 x 1024
 with ``clip=False`` and 3 channels (the bench's main path), config 5's
 9-channel G-buffer at 1024 x 1024, the bench sphere with 16 channels (two
@@ -41,16 +41,12 @@ shapes: the bench sphere packed with ``clip=False`` and 3 channels, config
 5 (9 channels), the bench sphere with 16 channels, the default API's
 99,904-face sphere (CSR engine), config 4 at 512 x 512 and the flagship
 step at 256 x 256 with 9 channels (dense).
-A tree from before the prologue took the padding in is timed as that
-tree's backward ran it: its pad and layout copies
-(``pad_fields``, copied into this tool as ``_copies_then_prologue``), then
-its ``fused_neighbor_prologue`` on the padded arrays, all in one call and
-in one profiler window. For each shape and variant it prints
+For each shape and variant it prints
 
 * the check: K5's and K7's fid and zbuf equal to the plain (un-culled)
-  version's on the whole padded arrays and pixels within ``chip_smoke.TOL``,
+  version's on the whole padded arrays and pixels within ``card_common.TOL``,
   and every output bit-equal across variants; K6's and K8's rows within
-  ``chip_smoke.TOL_ROWS`` of the column's largest magnitude + 1e-6 of the
+  ``card_common.TOL_ROWS`` of the column's largest magnitude + 1e-6 of the
   plain version's and equal on a second run (the variants sum in other
   orders, so their rows are compared with the plain version's, not with
   each other's); K4 bit-equal to its plain version; K2 bit-equal to its
@@ -61,8 +57,8 @@ in one profiler window. For each shape and variant it prints
   their plain versions (a tree whose kernel differs is reported and timed,
   not refused, like a tree with a part of K1 cut out to split its time);
 * K5's and K7's faces tested per pixel without the cull and with it
-  (``chip_smoke.tests_per_pixel``, this tree's cull boxes) and the bounds
-  of ``chip_smoke.py``;
+  (``card_common.tests_per_pixel``, this tree's cull boxes) and the bounds
+  of ``card_common``;
 * single-call time: the median of synchronised calls of the wrapper (CUDA
   events), allocation and launches included;
 * device time: the device kernels of one call, by kernel (each launch of a
@@ -109,13 +105,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 sys.path.insert(0, str(ROOT / "tests"))
 
-NAMES = ("subtile_swap", "raster_fwd_csr", "raster_fwd_dense",
-         "fused_bwd", "fused_bwd_csr", "scatter_faces", "scatter_faces_csr",
-         "packed_bwd", "raster_fwd_packed", "packed_prologue")
+import card_common  # noqa: E402
 
 
 def _parent_module(root, label="parent"):
@@ -125,13 +118,11 @@ def _parent_module(root, label="parent"):
     builds ``csrc/<name>.cu`` of that tree at first use (into a library
     named after ``label``): its wrappers, host code and all, around its
     kernels."""
-    from bench_scatter import build_lib
-
     libs = {}
 
     def load(name):
         if name not in libs:
-            libs[name] = build_lib(root, name, label)
+            libs[name] = card_common.build_lib(root, name, label)
         return libs[name]
 
     modules = {}
@@ -160,23 +151,21 @@ def _time(tag, card, variants, runs, kernel_key):
     names) picks the device kernels that belong to a hand-written kernel by
     name."""
     keys = (kernel_key,) if isinstance(kernel_key, str) else kernel_key
-    import chip_smoke
-    from bench_scatter import short_name
 
     order = [k for k in variants if k != "strided copy"]
     order = order + order[::-1] + [k for k in variants if k not in order]
     single, queued, host = {}, {}, {}
     for label in order:
         single.setdefault(label, []).append(
-            chip_smoke._median_ms(variants[label], runs))
-        q, h = chip_smoke._queued_ms(variants[label], runs)
+            card_common.median_ms(variants[label], runs))
+        q, h = card_common.queued_ms(variants[label], runs)
         queued.setdefault(label, []).append(q)
         host.setdefault(label, []).append(h)
     for label, fn in variants.items():
-        device = chip_smoke._device_ms(fn, runs)
+        device = card_common.device_ms(fn, runs)
         mine = sum(ms for n, ms in device.items()
                    if any(k in n for k in keys))
-        parts = ", ".join(f"{short_name(n)} {ms:.4f}"
+        parts = ", ".join(f"{card_common.short_name(n)} {ms:.4f}"
                           for n, ms in sorted(device.items(),
                                               key=lambda kv: -kv[1]))
         print(f"[{tag}] {label}: single call "
@@ -193,7 +182,6 @@ def _bench_forward(tag, engine, inputs, card, runs, parent):
     """K5 (``engine`` "dense") or K7 ("csr") on one scene, new and old;
     returns (table, bins, bg_chw, concrete config, the plain version's
     outputs, this tree's cull boxes) for the backward."""
-    import chip_smoke
     from dirt_tpu_torch.ops import raster, raster_fwd
 
     face_verts, face_attrs, background, config = inputs
@@ -226,21 +214,21 @@ def _bench_forward(tag, engine, inputs, card, runs, parent):
     if not torch.equal(cull, raster_fwd.csr_cull_boxes_plain(table, hp, wp)):
         raise RuntimeError(f"[{tag}] the cull boxes differ from the plain "
                            "ones")
-    before, after = chip_smoke.tests_per_pixel(
+    before, after = card_common.tests_per_pixel(
         bins, cull, cfg.tile_h, cfg.tile_w, hp, wp)
-    _, rows32 = chip_smoke.tests_per_pixel(
+    _, rows32 = card_common.tests_per_pixel(
         bins, cull, cfg.tile_h, cfg.tile_w, hp, wp, warp=(1, 32))
     box = bins.bbox.long()
     box_px = int((torch.clamp(box[:, 1] - box[:, 0] + 1, min=0)
                   * torch.clamp(box[:, 3] - box[:, 2] + 1, min=0)).sum())
     covered = int((want[1] >= 0).sum())
     listed = int(bins.counts.sum())
-    bound = chip_smoke._bound(
+    bound = card_common.bound(
         4 * table.numel() + 4 * (listed + (len(lists) - 3)
                                  * bins.counts.numel())
         + 16 * table.shape[0] + 4 * hp * wp * (2 * channels + 2),
-        box_px * chip_smoke.TEST_FLOPS
-        + covered * chip_smoke._attr_flops(channels))
+        box_px * card_common.TEST_FLOPS
+        + covered * card_common.attr_flops(channels))
     print(f"[{tag}] {name} table {tuple(table.shape)}, listed {listed}, "
           f"largest tile {int(bins.counts.max())}, tiles "
           f"{cfg.tile_h}x{cfg.tile_w}, padded {hp}x{wp}: faces tested per "
@@ -254,7 +242,7 @@ def _bench_forward(tag, engine, inputs, card, runs, parent):
         fid_bad = int((got[1] != want[1]).sum())
         z_bad = int((got[2] != want[2]).sum())
         pix_bad = int((~torch.isclose(got[0], want[0],
-                                      **chip_smoke.TOL)).sum())
+                                      **card_common.TOL)).sum())
         first = first or got
         same = all(torch.equal(a, b) for a, b in zip(got, first))
         print(f"[{tag}] {label}: fid mismatches {fid_bad}, zbuf mismatches "
@@ -270,17 +258,15 @@ def _bench_fused(tag, engine, face_verts, face_attrs, weights, forward,
                  card, runs, parents):
     """K6 (``engine`` "dense") or K8 ("csr") on the outputs of one forward
     (``_bench_forward``'s return), this tree's and each parent's."""
-    import chip_smoke
     from dirt_tpu_torch.ops import fused_bwd, packed_bwd
     from dirt_tpu_torch.ops.triangle_setup import setup_planes
 
     table, bins, bg_chw, cfg, (pix, fid, zbuf), cull = forward
     num_faces = face_verts.shape[0]
     channels, hp, wp = pix.shape
-    grad_cf = weights.permute(2, 0, 1).contiguous()
-    bits, sval = packed_bwd.fused_neighbor_prologue(fid, zbuf, pix, grad_cf)
+    fields = packed_bwd.padded_prologue(fid, zbuf, pix.permute(1, 2, 0),
+                                        weights, cfg.tile_h, cfg.tile_w)
     geo = setup_planes(face_verts, face_attrs)[0].contiguous()
-    fields = (fid, bits, sval, pix, grad_cf)
     if engine == "csr":
         name, wrapper, n_rows = ("fused_bwd_csr", "fused_backward_rows_csr",
                                  num_faces)
@@ -303,10 +289,10 @@ def _bench_fused(tag, engine, face_verts, face_attrs, weights, forward,
     covered = int((fid >= 0).sum())
     listed = int(bins.counts.sum())
     lists = len(args) - len(fields) - 2
-    bound = chip_smoke._bound(
+    bound = card_common.bound(
         4 * 17 * num_faces + 4 * (listed + (lists - 1) * bins.counts.numel())
         + 4 * hp * wp * (6 + 2 * channels)
-        + 4 * want.numel(), covered * chip_smoke._core_flops(channels))
+        + 4 * want.numel(), covered * card_common.core_flops(channels))
     print(f"[{tag}] {name} rows {tuple(want.shape)}, listed {listed} of "
           f"{args[1].numel()} slots, covered {covered} px: bound "
           f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({card})")
@@ -315,12 +301,12 @@ def _bench_fused(tag, engine, face_verts, face_attrs, weights, forward,
         got = fn()
         again = fn()
         torch.cuda.synchronize()
-        bad = int(((got - want).abs() > chip_smoke.TOL_ROWS * scale
+        bad = int(((got - want).abs() > card_common.TOL_ROWS * scale
                    + 1e-6).sum())
         same = torch.equal(got, again)
         print(f"[{tag}] {label}: values outside the row limit {bad}, max "
               f"|diff| {float((got - want).abs().max()):.3g}, second run "
-              f"equal {same}, sha256 of the rows {chip_smoke._digest(got)}")
+              f"equal {same}, sha256 of the rows {card_common.digest(got)}")
         if bad or not same:
             raise RuntimeError(f"[{tag}] {label} {name} is wrong")
     _time(tag, card, variants, runs, name + "_")
@@ -337,7 +323,6 @@ def _bench_packed(tag, prep, card, runs, parents):
     pass cut out, timed to split the kernel's time, gives other rows).
     Returns the failures of this tree's kernel (an empty list when it
     passes)."""
-    import chip_smoke
     from dirt_tpu_torch.ops import packed_bwd
 
     rows = packed_bwd._entry_table_rows(prep)
@@ -355,13 +340,13 @@ def _bench_packed(tag, prep, card, runs, parents):
         prep_cpu, rows.cpu(), 0, prep.budget_chunks).to(want.device)
     channels, hp, wp = prep.pix_cf.shape
     bins = prep.bins
-    live = chip_smoke._packed_live(bins, prep.tile_h)
+    live = card_common.packed_live(bins, prep.tile_h)
     covered = int((prep.fid_p >= 0).sum())
-    bound = chip_smoke._bound(
+    bound = card_common.bound(
         live * 8 * rows.shape[1] * 4
         + 4 * (2 * bins.n_iters.numel() + 2 * bins.iter_off.numel())
         + 4 * hp * wp * (6 + 2 * channels) + 4 * want.numel(),
-        covered * chip_smoke._core_flops(channels))
+        covered * card_common.core_flops(channels))
     passes = -(-prep.k_cols // packed_bwd.columns_per_pass(prep.fid_p.device))
     print(f"[{tag}] packed_bwd rows {tuple(want.shape)}, "
           f"{'flat-subtile' if prep.flat else 'image'} layout, live "
@@ -414,7 +399,6 @@ def _bench_packed_forward(tag, call, card, runs, parents):
     (``call``: (args, kwargs)), this tree's and each parent's; fid, zbuf and
     pixels held bit for bit against the plain version. Returns the
     failures of this tree's kernel."""
-    import chip_smoke
     from dirt_tpu_torch.ops import raster_fwd
 
     (table2, bins, bg_chw), kwargs = call
@@ -422,11 +406,11 @@ def _bench_packed_forward(tag, call, card, runs, parents):
     rows = kwargs["rows"]
     want = raster_fwd.raster_forward_packed_plain(rows, bins, bg_chw, **geom)
     covered = int((want[1] >= 0).sum())
-    bound = chip_smoke.packed_forward_bound(
+    bound = card_common.packed_forward_bound(
         bins, geom["tile_h"], bg_chw.shape[0], want[1])
     print(f"[{tag}] raster_fwd_packed rows {tuple(rows.shape)}, bg "
           f"{tuple(bg_chw.shape)}, tile_h {geom['tile_h']}, live iterations "
-          f"{chip_smoke._packed_live(bins, geom['tile_h'])}, covered "
+          f"{card_common.packed_live(bins, geom['tile_h'])}, covered "
           f"{covered} px: bound {bound['bound_ms']:.4f} ms by "
           f"{bound['bound_by']} ({card})")
     variants = {"new": functools.partial(
@@ -451,55 +435,28 @@ def _bench_packed_forward(tag, call, card, runs, parents):
     return failures
 
 
-def _copies_then_prologue(module, fid, zbuf, pixels, grad_pixels, tile_h,
-                          tile_w):
-    """A tree's prologue call as its backwards make it: one launch that
-    pads (``padded_prologue``), or, in a tree from before it took the
-    padding in, the pad and layout copies of that tree's
-    ``prepare_backward_packed`` and then its ``fused_neighbor_prologue``."""
-    if hasattr(module, "padded_prologue"):
-        return module.padded_prologue(fid, zbuf, pixels, grad_pixels, tile_h,
-                                      tile_w)
-    height, width = fid.shape
-    hp = -(-height // tile_h) * tile_h
-    wp = -(-width // tile_w) * tile_w
-    pad2 = (0, wp - width, 0, hp - height)
-    pad = torch.nn.functional.pad
-    fid_p = pad(fid.to(torch.int32), pad2, value=-2).contiguous()
-    zbuf_p = pad(zbuf, pad2, value=3.0e38).contiguous()
-    pix_cf = pad(pixels.permute(2, 0, 1), pad2).contiguous()
-    grad_cf = pad(grad_pixels.to(torch.float32).permute(2, 0, 1),
-                  pad2).contiguous()
-    bits, sval = module.fused_neighbor_prologue(fid_p, zbuf_p, pix_cf,
-                                                grad_cf)
-    return fid_p, bits, sval, pix_cf, grad_cf
-
-
 def _bench_prologue(tag, args, card, runs, parents):
     """K3 on what one backward hands ``padded_prologue`` (``args``), this
-    tree's and each parent's (with the copies in front of it where that
-    tree made them); the five outputs held bit for bit against the plain
-    version. Returns the failures of this tree's kernel."""
-    import chip_smoke
+    tree's and each parent's; the five outputs held bit for bit against
+    the plain version. Returns the failures of this tree's kernel."""
     from dirt_tpu_torch.ops import packed_bwd
 
     fid, _, pixels, grad, tile_h, tile_w = args
     want = packed_bwd.padded_prologue_plain(*args)
     height, width, channels = pixels.shape
     _, hp, wp = want[3].shape
-    bound = chip_smoke.prologue_bound(height, width, hp, wp, channels)
-    old_bound = chip_smoke._bound(4 * hp * wp * (2 + 2 * channels + 5), 0)
+    bound = card_common.prologue_bound(height, width, hp, wp, channels)
+    old_bound = card_common.bound(4 * hp * wp * (2 + 2 * channels + 5), 0)
     print(f"[{tag}] packed_prologue {height}x{width} -> {hp}x{wp}, "
           f"{channels} channels, pixels strides {pixels.stride()}, grad "
           f"strides {grad.stride()} {grad.dtype}: bound of the call "
           f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (of the "
           f"prologue alone on padded fields, 2 + 2C planes read and 5 "
           f"written: {old_bound['bound_ms']:.4f} ms) ({card})")
-    variants = {"new": functools.partial(
-        _copies_then_prologue, packed_bwd, *args)}
+    variants = {"new": functools.partial(packed_bwd.padded_prologue, *args)}
     for label, parent in parents.items():
-        variants[label] = functools.partial(
-            _copies_then_prologue, parent.packed_bwd, *args)
+        variants[label] = functools.partial(parent.packed_bwd.padded_prologue,
+                                            *args)
     failures = []
     names = ("fid_p", "bits", "sval", "pix_cf", "grad_cf")
     for label, fn in variants.items():
@@ -520,22 +477,8 @@ def _packed_calls(step):
     ``packed_entry_rows``."""
     from dirt_tpu_torch.ops import packed_bwd
 
-    return [args[0] for args, _ in _calls(packed_bwd, "packed_entry_rows",
-                                          step)]
-
-
-def _calls(module, name, run):
-    """[(args, kwargs)] of every call of ``module.name`` during ``run()``."""
-    seen = []
-    inner = getattr(module, name)
-
-    def record(*args, **kwargs):
-        seen.append((args, kwargs))
-        return inner(*args, **kwargs)
-
-    with mock.patch.object(module, name, record):
-        run()
-    return seen
+    return [args[0] for args, _ in card_common.calls(
+        packed_bwd, "packed_entry_rows", step)]
 
 
 def _bench_needles(card, parent):
@@ -546,7 +489,6 @@ def _bench_needles(card, parent):
     ``rasterise_sharded``. Prints the values outside the card tests' limits
     (the row limit, and 1e-5 of the sum of the value's terms' magnitudes +
     1e-9, which one dropped pixel exceeds)."""
-    import chip_smoke
     from _torch_port_scene import needle_soup
     from dirt_tpu_torch.ops import fused_bwd, raster, scatter
     from dirt_tpu_torch.parallel.group import LocalGroup
@@ -586,7 +528,8 @@ def _bench_needles(card, parent):
                  ).sum().backward()
 
             cases = []
-            for (args, kwargs) in _calls(fused_bwd, fused, op_step):
+            for args, kwargs in card_common.calls(fused_bwd, fused,
+                                                  op_step):
                 geo, *_, fid, bits, sval, pix, grad, n_rows = args
                 rows = n_rows + 1 if engine == "csr" else n_rows
                 want = fused_bwd.fused_backward_rows_plain(
@@ -601,7 +544,7 @@ def _bench_needles(card, parent):
                 cases.append((fused, fused_bwd, parent and parent.fused_bwd,
                               args, kwargs, want, mass.float()))
             for slab, (args, kwargs) in enumerate(
-                    _calls(scatter, scat, sharded_step)):
+                    card_common.calls(scatter, scat, sharded_step)):
                 cot, fid_p, *_, n_out = args
                 plain = getattr(scatter, scat + "_plain")
                 cases.append((f"{scat} slab {slab}", scatter,
@@ -621,9 +564,9 @@ def _bench_needles(card, parent):
                     got, ref = got[:want.shape[0]], want[:got.shape[0]]
                     diff = (got - ref).abs()
                     scale = ref.abs().amax(dim=0, keepdim=True)
-                    rows_bad = int((diff > chip_smoke.TOL_ROWS * scale
+                    rows_bad = int((diff > card_common.TOL_ROWS * scale
                                     + 1e-6).sum())
-                    value_bad = int((diff > chip_smoke.TOL_ROWS
+                    value_bad = int((diff > card_common.TOL_ROWS
                                      * mass[:got.shape[0]] + 1e-9).sum())
                     print(f"[needles far-needles-{seed} {engine}] {name} "
                           f"{label}: values outside the row limit "
@@ -649,7 +592,6 @@ def _swap_arrays(step):
 
 
 def _bench_swap(tag, arrays, card, runs, parent):
-    import chip_smoke
     from dirt_tpu_torch.ops import raster_fwd
 
     hp, wp = arrays[0].shape[-2:]
@@ -660,7 +602,7 @@ def _bench_swap(tag, arrays, card, runs, parent):
     if parent is not None:
         variants["old"] = lambda: parent.raster_fwd.flat_subtile_swap(arrays)
     variants["strided copy"] = view.contiguous
-    bound = chip_smoke._bound(2 * 4 * stacked.numel(), 0)
+    bound = card_common.bound(2 * 4 * stacked.numel(), 0)
     print(f"[{tag}] {len(arrays)} arrays, {stacked.shape[0]} planes of "
           f"{hp}x{wp}: bound {bound['bound_ms']:.4f} ms by "
           f"{bound['bound_by']} ({card})")
@@ -699,20 +641,21 @@ def main():
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_raster_ab: torch.cuda.is_available() is False")
-    import chip_smoke
+    import bench_configs_torch
     import dirt_tpu_torch
     from dirt_tpu_torch import entry
     from dirt_tpu_torch.ops import _build
     from dirt_tpu_torch.ops.triangle_setup import screen_from_clip
     from dirt_tpu_torch.parallel.group import LocalGroup
     from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+    from dirt_tpu_torch.utils.benchtime import card_line
 
     kernels = opts.kernels.split(",")
     device = torch.device("cuda", 0)
-    card = chip_smoke.card_line()
+    card = card_line()
     print(card)
-    _build.build(NAMES)
-    for name in NAMES:
+    _build.build(_build.KERNELS)
+    for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build {name}] {line.strip()}")
@@ -722,28 +665,28 @@ def main():
                for i, root in enumerate(roots)}
     parent = next(iter(parents.values()), None)
 
-    size = chip_smoke.SIZE
-    _, clip, colors, faces, background, weights = chip_smoke._bench_scene(
-        device)
+    size = card_common.SIZE
+    _, clip, colors, faces, background, weights = card_common.bench_scene(
+        size, device)
     if "K7" in kernels or "K8" in kernels:
-        weights9 = chip_smoke._rand(4, size, size, 9, device=device)
+        weights9 = card_common.rand(4, size, size, 9, device=device)
         scenes = []
         for n in (int(v) for v in opts.spheres.split(",")):
             big_loss, (big_bg, big_clip, big_colors), (big_faces, big_cfg) = \
-                chip_smoke.big_sphere_step(device, n)
+                card_common.big_sphere_step(device, n)
             n_big = big_faces.shape[0]
             with torch.no_grad():
                 scenes.append((f"{n_big}-face sphere {size}^2 C=3",
-                               chip_smoke._raster_inputs(
+                               card_common.raster_inputs(
                                    lambda: big_loss(big_bg, big_clip,
                                                     big_colors)), weights))
                 if n == 224:
                     scenes.append((
                         f"{n_big}-face sphere {size}^2 C=9",
-                        chip_smoke._raster_inputs(
+                        card_common.raster_inputs(
                             lambda: dirt_tpu_torch.rasterise(
                                 torch.zeros((size, size, 9), device=device),
-                                big_clip, chip_smoke._rand(
+                                big_clip, card_common.rand(
                                     3, big_clip.shape[0], 9, device=device),
                                 big_faces, config=big_cfg)), weights9))
         with torch.no_grad():
@@ -751,7 +694,7 @@ def main():
                 clip, faces, size, size,
                 config=dirt_tpu_torch.RasterConfig(streaming=True),
                 clip=False)
-            bench = chip_smoke._raster_inputs(
+            bench = card_common.raster_inputs(
                 lambda: dirt_tpu_torch.rasterise(
                     background, clip, colors, faces, config=stream_cfg,
                     clip=False))
@@ -767,26 +710,27 @@ def main():
         del scenes, bench
 
     if "K5" in kernels or "K6" in kernels:
-        # chip_smoke.py phase 7's three shapes, faces and upstream
-        # gradients.
+        # Three shapes, each with the faces its path's own render hands
+        # the raster op, and their upstream gradients.
         dense_cfg = dirt_tpu_torch.suggest_raster_config(
             clip, faces, size, size,
             config=dirt_tpu_torch.RasterConfig(engine="dense"), clip=False)
         face_verts = screen_from_clip(clip, size, size)[faces]
-        c4_loss, c4_leaves = chip_smoke.config4_loss(device)
+        config4 = bench_configs_torch.config4(device)
+        c4_loss, c4_leaves = config4.loss, config4.leaves
         step_fn, (e_verts, e_pose) = entry.entry()
         with torch.no_grad():
-            c4 = chip_smoke._raster_inputs(lambda: c4_loss(*c4_leaves))
-            flagship = chip_smoke._raster_inputs(
+            c4 = card_common.raster_inputs(lambda: c4_loss(*c4_leaves))
+            flagship = card_common.raster_inputs(
                 lambda: step_fn(e_verts, e_pose))
         for tag, inputs, w in (
                 (f"bench sphere {size}^2 dense",
                  (face_verts, colors[faces], background, dense_cfg),
                  weights),
                 ("config 4 512^2", c4,
-                 chip_smoke._rand(1, 512, 512, 3, device=device)),
+                 card_common.rand(1, 512, 512, 3, device=device)),
                 ("flagship G-buffer 256^2 C=9", flagship,
-                 chip_smoke._rand(5, 256, 256, 9, device=device))):
+                 card_common.rand(5, 256, 256, 9, device=device))):
             forward = _bench_forward(f"K5 {tag}", "dense", inputs, card,
                                      opts.runs, parent)
             if "K6" in kernels:
@@ -802,29 +746,30 @@ def main():
         # slab of the sharded packed path (flat-subtile fields).
         packed_cfg = dirt_tpu_torch.suggest_raster_config(
             clip, faces, size, size, clip=False)
-        render5, leaves5 = chip_smoke.config5_render(device)
-        w5 = chip_smoke._rand(1, size, size, 3, device=device)
+        config5 = bench_configs_torch.config5(device)
+        render5, leaves5 = config5.forward, config5.leaves
+        w5 = card_common.rand(1, size, size, 3, device=device)
 
         def config5_step():
             fresh = [t.detach().clone().requires_grad_() for t in leaves5]
             (render5(*fresh) * w5).sum().backward()
 
-        colors16 = chip_smoke._rand(5, clip.shape[0], 16, device=device)
+        colors16 = card_common.rand(5, clip.shape[0], 16, device=device)
         scenes16 = (torch.zeros((size, size, 16), device=device), clip,
                     colors16, faces,
-                    chip_smoke._rand(6, size, size, 16, device=device))
+                    card_common.rand(6, size, size, 16, device=device))
         shapes = [
             (f"bench sphere {size}^2 packed clip=False C=3",
-             lambda: chip_smoke._grads(
+             lambda: card_common.render_grads(
                  dirt_tpu_torch.rasterise_with_aux, background, clip, colors,
                  faces, weights, packed_cfg, False)),
             (f"config 5 {size}^2 C=9", config5_step),
             (f"bench sphere {size}^2 packed C=16",
-             lambda: chip_smoke._grads(
+             lambda: card_common.render_grads(
                  dirt_tpu_torch.rasterise_with_aux, *scenes16[:4],
                  scenes16[4], packed_cfg, False)),
             (f"sharded packed slab {size}^2 C=3 (flat layout)",
-             lambda: chip_smoke._grads(
+             lambda: card_common.render_grads(
                  lambda bg, v, c, f, config, clip: rasterise_sharded(
                      bg, v, c, f, LocalGroup(1), config=config,
                      with_aux=True),
@@ -846,8 +791,9 @@ def main():
 
         packed_cfg = dirt_tpu_torch.suggest_raster_config(
             clip, faces, size, size, clip=False)
-        render5, leaves5 = chip_smoke.config5_render(device)
-        colors16 = chip_smoke._rand(5, clip.shape[0], 16, device=device)
+        config5 = bench_configs_torch.config5(device)
+        render5, leaves5 = config5.forward, config5.leaves
+        colors16 = card_common.rand(5, clip.shape[0], 16, device=device)
         shapes = [
             (f"bench sphere {size}^2 packed clip=False C=3",
              lambda: dirt_tpu_torch.rasterise(
@@ -866,7 +812,8 @@ def main():
         failures = []
         for tag, run in shapes:
             with torch.no_grad():
-                (call,) = _calls(raster_fwd, "raster_forward_packed", run)
+                (call,) = card_common.calls(
+                    raster_fwd, "raster_forward_packed", run)
             failures += _bench_packed_forward(f"K1 {tag}", call, card,
                                               opts.runs, parents)
             del call
@@ -881,8 +828,9 @@ def main():
 
         packed_cfg = dirt_tpu_torch.suggest_raster_config(
             clip, faces, size, size, clip=False)
-        render5, leaves5 = chip_smoke.config5_render(device)
-        w5 = chip_smoke._rand(1, size, size, 3, device=device)
+        config5 = bench_configs_torch.config5(device)
+        render5, leaves5 = config5.forward, config5.leaves
+        w5 = card_common.rand(1, size, size, 3, device=device)
 
         def grad_step(loss_fn, leaves):
             def step():
@@ -890,31 +838,31 @@ def main():
                 loss_fn(*fresh).backward()
             return step
 
-        big_loss, big_leaves, _ = chip_smoke.big_sphere_step(device)
-        colors16 = chip_smoke._rand(5, clip.shape[0], 16, device=device)
+        big_loss, big_leaves, _ = card_common.big_sphere_step(device)
+        colors16 = card_common.rand(5, clip.shape[0], 16, device=device)
         shapes = [
             (f"bench sphere {size}^2 packed clip=False C=3",
-             lambda: chip_smoke._grads(
+             lambda: card_common.render_grads(
                  dirt_tpu_torch.rasterise_with_aux, background, clip, colors,
                  faces, weights, packed_cfg, False)),
             (f"config 5 {size}^2 C=9", grad_step(
                 lambda v, p: (render5(v, p) * w5).sum(), leaves5)),
             (f"bench sphere {size}^2 packed C=16",
-             lambda: chip_smoke._grads(
+             lambda: card_common.render_grads(
                  dirt_tpu_torch.rasterise_with_aux,
                  torch.zeros((size, size, 16), device=device), clip,
                  colors16, faces,
-                 chip_smoke._rand(6, size, size, 16, device=device),
+                 card_common.rand(6, size, size, 16, device=device),
                  packed_cfg, False)),
             (f"default API 99,904 faces {size}^2 csr C=3",
              grad_step(big_loss, big_leaves)),
             ("config 4 512^2 dense C=3",
-             grad_step(*chip_smoke.config4_loss(device))),
+             grad_step(config4.loss, config4.leaves)),
             ("flagship 256^2 dense C=9", grad_step(*entry.entry())),
         ]
         failures = []
         for tag, step in shapes:
-            (call,) = _calls(packed_bwd, "padded_prologue", step)
+            (call,) = card_common.calls(packed_bwd, "padded_prologue", step)
             failures += _bench_prologue(f"K3 {tag}", call[0], card,
                                         opts.runs, parents)
             del call
@@ -924,12 +872,12 @@ def main():
     if "K4" in kernels:
         packed_cfg = dirt_tpu_torch.suggest_raster_config(
             clip, faces, size, size, clip=False)
-        colors9 = chip_smoke._rand(3, clip.shape[0], 9, device=device)
+        colors9 = card_common.rand(3, clip.shape[0], 9, device=device)
         for c, cols, bg, w in (
                 (3, colors, background, weights),
                 (9, colors9, torch.zeros((size, size, 9), device=device),
-                 chip_smoke._rand(4, size, size, 9, device=device))):
-            arrays = _swap_arrays(lambda: chip_smoke._grads(
+                 card_common.rand(4, size, size, 9, device=device))):
+            arrays = _swap_arrays(lambda: card_common.render_grads(
                 lambda bg, v, c, f, config, clip: rasterise_sharded(
                     bg, v, c, f, LocalGroup(1), config=config,
                     with_aux=True),

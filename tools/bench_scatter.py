@@ -6,14 +6,14 @@
 Times ``ops.scatter.scatter_to_faces`` (scatter_faces.cu) and
 ``scatter_to_faces_csr`` (scatter_faces_csr.cu) on what the row-sharded
 backward hands them (captured from one run of ``rasterise_sharded`` with one
-slab, as ``chip_smoke.py`` phase 12 does): the bench sphere at 1024 x 1024
+slab): the bench sphere at 1024 x 1024
 under the dense and the streaming engine with 3, 9 and 16 channels (21, 39
 and 60 cotangent columns) and the 99,904-face sphere on its CSR bins. For
 each shape it prints
 
-* the check of ``chip_smoke.py`` phase 12 (rows against the plain version,
-  value by value against the sum of the terms' magnitudes, a second run
-  bit-equal) and the number of owned pixels that lie outside their face's
+* the check of the card tests (rows against the plain version, value by
+  value against the sum of the terms' magnitudes, a second run bit-equal)
+  and the number of owned pixels that lie outside their face's
   box (the scan is trimmed to the box, so this must be 0);
 * the share of list slots that are live (dense: ``sum(counts) / (T * cap)``;
   CSR: listed pairs over padded rows);
@@ -27,7 +27,7 @@ each shape it prints
   host's time to queue one call;
 * the same four figures for one float32 ``index_add_`` of the owned pixels'
   rows (PyTorch's own scatter, which sums with atomics) and the bound by
-  bytes of ``chip_smoke.py``.
+  bytes (``card_common.bound``).
 
 With ``--define NAME=VALUE,...`` (may be repeated) this tree's two sources
 are also built with those ``-D`` flags, the tuning constants of
@@ -46,42 +46,19 @@ import contextlib
 import ctypes
 import functools
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 from unittest import mock
 
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import card_common  # noqa: E402
+from card_common import build_lib, short_name  # noqa: E402
+
 ENTRY = {"scatter_faces": "dirt_scatter_faces",
-             "scatter_faces_csr": "dirt_scatter_faces_csr"}
-
-
-def short_name(name):
-    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
-    return name.split("(")[0].split("<")[0].split("::")[-1][:40]
-
-
-def build_lib(root, name, label, defines=()):
-    """Build ``csrc/<name>.cu`` of the tree at ``root`` with this tree's
-    compiler flags plus ``-D`` for each of ``defines`` into this tree's
-    build directory; print its registers and spills and return the loaded
-    library."""
-    from dirt_tpu_torch.ops import _build
-
-    src = Path(root) / "dirt_tpu_torch" / "csrc" / f"{name}.cu"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / f"lib{label}_{name}.so"
-    done = subprocess.run(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
-         "-o", str(out), str(src)], capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{done.stdout}"
-                           f"{done.stderr}")
-    for line in (done.stdout + done.stderr).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build {label} {name}] {line.strip()}")
-    return ctypes.CDLL(str(out))
+         "scatter_faces_csr": "dirt_scatter_faces_csr"}
 
 
 def _build_other(root, name, label, defines=()):
@@ -154,12 +131,11 @@ def _old_wrapper(fn, name, args, kwargs):
 
 
 def _bench(tag, name, step, card, runs, old_fns, tuned):
-    import chip_smoke
     from dirt_tpu_torch.ops import scatter
 
     wrapper = {"scatter_faces": "scatter_to_faces",
                "scatter_faces_csr": "scatter_to_faces_csr"}[name]
-    args, kwargs = chip_smoke._scatter_call(step, wrapper)
+    ((args, kwargs),) = card_common.calls(scatter, wrapper, step)
     cot, fid, *lists, n_out = args
     bbox = kwargs["bbox"]
     k_cols = cot.shape[0]
@@ -193,7 +169,7 @@ def _bench(tag, name, step, card, runs, old_fns, tuned):
     owned = int(own_px.numel())
     nbytes = (4 * owned * k_cols + 4 * fid.numel() + 4 * rows_p.numel()
               + 4 * (listed + (len(lists) - 1) * counts.numel()))
-    bound = chip_smoke._bound(nbytes, owned * k_cols)
+    bound = card_common.bound(nbytes, owned * k_cols)
     mass = plain_fn(cot.abs(), fid, n_out)
     scale = rows_p.abs().amax(dim=0, keepdim=True)
     print(f"[{tag}] {name} cot {tuple(cot.shape)} lists "
@@ -218,8 +194,8 @@ def _bench(tag, name, step, card, runs, old_fns, tuned):
             rows_k = fn()
             again = fn()
         diff = (rows_k - rows_p).abs()
-        rows_bad = int((diff > chip_smoke.TOL_ROWS * scale + 1e-6).sum())
-        value_bad = int((diff > chip_smoke.TOL_ROWS * mass + 1e-9).sum())
+        rows_bad = int((diff > card_common.TOL_ROWS * scale + 1e-6).sum())
+        value_bad = int((diff > card_common.TOL_ROWS * mass + 1e-9).sum())
         same = torch.equal(rows_k, again)
         print(f"[{tag}] {label}: values outside the row limit {rows_bad}, "
               f"outside the per-value limit {value_bad}, max |diff| "
@@ -234,13 +210,13 @@ def _bench(tag, name, step, card, runs, old_fns, tuned):
         fn = variants[label]
         with within(label):
             single.setdefault(label, []).append(
-                chip_smoke._median_ms(fn, runs))
-            q, h = chip_smoke._queued_ms(fn, runs)
+                card_common.median_ms(fn, runs))
+            q, h = card_common.queued_ms(fn, runs)
         queued.setdefault(label, []).append(q)
         host.setdefault(label, []).append(h)
     for label, fn in variants.items():
         with within(label):
-            device = chip_smoke._device_ms(fn, runs)
+            device = card_common.device_ms(fn, runs)
         parts = ", ".join(f"{short_name(n)} {ms:.4f}"
                           for n, ms in sorted(device.items(),
                                               key=lambda kv: -kv[1]))
@@ -266,15 +242,14 @@ def main():
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_scatter: torch.cuda.is_available() is False")
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    import chip_smoke
     import dirt_tpu_torch
     from dirt_tpu_torch.ops import _build
     from dirt_tpu_torch.parallel.group import LocalGroup
     from dirt_tpu_torch.parallel.sharding import rasterise_sharded
+    from dirt_tpu_torch.utils.benchtime import card_line
 
     device = torch.device("cuda", 0)
-    card = chip_smoke.card_line()
+    card = card_line()
     print(card)
     names = ("scatter_faces", "scatter_faces_csr")
     _build.build(names)
@@ -289,12 +264,12 @@ def main():
                     for n in names}
              for i, spec in enumerate(opts.define)}
 
-    size = chip_smoke.SIZE
-    _, clip, colors, faces, background, weights = chip_smoke._bench_scene(
-        device)
+    size = card_common.SIZE
+    _, clip, colors, faces, background, weights = card_common.bench_scene(
+        size, device)
 
     def one_slab_step(scene, config, w):
-        return lambda: chip_smoke._grads(
+        return lambda: card_common.render_grads(
             lambda bg, v, c, f, config, clip: rasterise_sharded(
                 bg, v, c, f, LocalGroup(1), config=config, with_aux=True),
             scene[0], scene[1], scene[2], scene[3], w, config, False)
@@ -309,11 +284,11 @@ def main():
     scenes = {3: ((background, clip, colors, faces), weights)}
     for seed, c in ((3, 9), (5, 16)):
         scenes[c] = ((torch.zeros((size, size, c), device=device), clip,
-                      chip_smoke._rand(seed, clip.shape[0], c, device=device),
+                      card_common.rand(seed, clip.shape[0], c, device=device),
                       faces),
-                     chip_smoke._rand(seed + 1, size, size, c, device=device))
+                     card_common.rand(seed + 1, size, size, c, device=device))
     _, (big_bg, big_clip, big_colors), (big_faces, _) = \
-        chip_smoke.big_sphere_step(device)
+        card_common.big_sphere_step(device)
     big_cfg = suggest(big_clip, big_faces, streaming=True)
 
     for c, (scene, w) in scenes.items():

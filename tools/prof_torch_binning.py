@@ -27,7 +27,7 @@ Counterpart of ``tools/prof_binning.py``, on the scene and caps of
   give equal values.
 
 With a card, every line also gives the device busy ms a call from a
-profiler window (``prof_torch_steps._profile``). Prints the card's name
+profiler window (``card_common.profile``). Prints the card's name
 and power limit; exits non-zero without a CUDA device. ``run`` returns
 the records.
 """
@@ -40,23 +40,20 @@ from unittest import mock
 import numpy as np
 import torch
 
-ROOT = str(Path(__file__).resolve().parents[1])
-if ROOT not in sys.path:
-    sys.path.insert(0, ROOT)
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from bench_torch import card_line  # noqa: E402
-from dirt_tpu_torch.ops import binning  # noqa: E402
-from dirt_tpu_torch.utils.benchtime import device_time_stats  # noqa: E402
-from prof_torch_stages import (  # noqa: E402
+import card_common  # noqa: E402
+from card_common import (  # noqa: E402
+    PROFILE_STEPS,
     SAMPLES,
     SAMPLES_LARGE,
-    PROFILE_STEPS,
     Geometry,
     bin_faces,
     scene_and_config,
     setup,
 )
-from prof_torch_steps import _profile  # noqa: E402
+from dirt_tpu_torch.ops import binning  # noqa: E402
+from dirt_tpu_torch.utils.benchtime import device_time_stats  # noqa: E402
 
 # The ``_stage`` hooks of ``bin_faces_packed`` in pipeline order.
 STAGES = ((11, "1a pool face_of / s0_of"), (12, "1b pool ey / ex + fields"),
@@ -203,8 +200,9 @@ def run(device, size=1024, n_lat=72, samples=None, config=None,
                        ns_per_element=rec["median_ms"] * 1e6 / elements)
             text += f" ({rec['ns_per_element']:.3f} ns/element of {elements})"
         if profile:
-            rec["device_ms"] = _profile(label, lambda: fn(*args), card,
-                                        steps=profile, echo=False)["busy_ms"]
+            rec["device_ms"] = card_common.profile(
+                label, lambda: fn(*args), card, steps=profile,
+                echo=False)["busy_ms"]
             text += f", device busy {rec['device_ms']:.4f} ms a call"
         return rec, text
 
@@ -264,6 +262,10 @@ def main():
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("prof_torch_binning: torch.cuda.is_available() is False")
+    from dirt_tpu_torch.ops import _build
+    from dirt_tpu_torch.utils.benchtime import card_line
+
+    _build.build(_build.KERNELS)
     card = card_line()
     print(card)
     run("cuda", args.size, args.n_lat, args.samples, card=card)

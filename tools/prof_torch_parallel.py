@@ -8,8 +8,8 @@ group of one member runs its whole code path (halo rows, sums and
 all-gathers over one member, the bins kept for the backward, the band
 backward) without any communication, so its time beside the plain
 gradient step is the tax the path adds on one card. On the bench sphere
-(``bench_torch.bench_scene(size)``, 1024 by default) under the honest
-caps of ``bench_torch.honest`` (the packed engine), ``clip=False``, loss
+(``card_common.bench_scene(size)``, 1024 by default) under the honest
+caps of ``card_common.honest`` (the packed engine), ``clip=False``, loss
 ``sum(pixels * w)`` back to vertices, colors and background:
 
   plain             dirt_tpu_torch.rasterise_with_aux (the bench step)
@@ -21,9 +21,10 @@ For each: min and median ms of event-timed synchronised steps
 (``utils.benchtime.device_time_stats``), the tax (median minus the plain
 step's) and, from a profiler window, device kernels and device busy ms a
 step. Each variant's fid must equal the plain step's and its gradients lie
-within 1e-4 of max |gradient| of the plain step's (``chip_smoke.py`` phase
-15's limit); ``run`` raises otherwise. Prints the card's name and power
-limit beside the numbers; exits non-zero without a CUDA device.
+within 1e-4 of max |gradient| of the plain step's
+(``card_common.TOL_ENGINES``); ``run`` raises otherwise. Prints the
+card's name and power limit beside the numbers; exits non-zero without a
+CUDA device.
 """
 
 import argparse
@@ -32,32 +33,28 @@ from pathlib import Path
 
 import torch
 
-ROOT = str(Path(__file__).resolve().parents[1])
-if ROOT not in sys.path:
-    sys.path.insert(0, ROOT)
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+import card_common  # noqa: E402
 import dirt_tpu_torch  # noqa: E402
-from bench_torch import card_line  # noqa: E402
-from chip_smoke import TOL_ENGINES, _grads, _rel_err  # noqa: E402
+from card_common import (  # noqa: E402
+    PROFILE_STEPS,
+    SAMPLES,
+    TOL_ENGINES,
+    rel_err,
+    render_grads,
+    scene_and_config,
+)
 from dirt_tpu_torch.parallel.face_sharding import rasterise_face_sharded  # noqa: E402
 from dirt_tpu_torch.parallel.group import LocalGroup  # noqa: E402
 from dirt_tpu_torch.parallel.sharding import rasterise_sharded  # noqa: E402
 from dirt_tpu_torch.utils.benchtime import device_time_stats  # noqa: E402
-from prof_torch_stages import (  # noqa: E402
-    PROFILE_STEPS,
-    SAMPLES,
-    scene_and_config,
-)
-from prof_torch_steps import _profile  # noqa: E402
-
-KERNELS = ("raster_fwd_packed", "packed_prologue", "packed_bwd",
-           "subtile_swap", "raster_fwd_dense", "max_scan")
 
 
 def variants():
     """[(label, render)] of the plain path and the parallel paths, each
     ``render(background, vertices, colors, faces, config=, clip=)`` as
-    ``chip_smoke._grads`` calls it, giving (pixels, fid, zbuf,
+    ``card_common.render_grads`` calls it, giving (pixels, fid, zbuf,
     overflow)."""
     def sharded(chunks=None):
         return lambda bg, v, c, f, config, clip: rasterise_sharded(
@@ -91,12 +88,13 @@ def run(device, size=1024, n_lat=72, samples=SAMPLES, config=None,
     records, plain = [], None
     for label, render in variants():
         def step(bg, v, c, render=render):
-            return _grads(render, bg, v, c, faces, weights, config, False)
+            return render_grads(render, bg, v, c, faces, weights, config,
+                                False)
 
         (_, fid, _, overflow), grads = step(*args)
         if plain is None:
             plain = fid, grads
-        errs = [_rel_err(g, w) for g, w in zip(grads, plain[1])]
+        errs = [rel_err(g, w) for g, w in zip(grads, plain[1])]
         if (bool(overflow) or not torch.equal(fid, plain[0])
                 or not all(e <= TOL_ENGINES for e in errs)):
             raise RuntimeError(
@@ -113,8 +111,8 @@ def run(device, size=1024, n_lat=72, samples=SAMPLES, config=None,
                 f"{rec['median_ms']:.4f} ms, tax {rec['tax_ms']:+.4f} ms; fid "
                 f"equal, max |grad diff| / max |grad| {rec['grad_err']:.3g}")
         if profile:
-            prof = _profile(label, lambda: step(*args), card,
-                            steps=profile, echo=False)
+            prof = card_common.profile(label, lambda: step(*args), card,
+                                       steps=profile, echo=False)
             rec.update(kernels=prof["kernels"], busy_ms=prof["busy_ms"])
             line += (f"; {rec['kernels']:.1f} device kernels, device busy "
                      f"{rec['busy_ms']:.4f} ms a step")
@@ -132,9 +130,10 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("prof_torch_parallel: torch.cuda.is_available() is False")
     from dirt_tpu_torch.ops import _build
+    from dirt_tpu_torch.utils.benchtime import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build(KERNELS)
+    _build.build(_build.KERNELS)
     card = card_line()
     print(card)
     run("cuda", args.size, samples=args.samples, card=card)

@@ -166,10 +166,10 @@ def main():
         sys.exit("prof_torch_repeat: no CUDA device "
                  "(torch.cuda.is_available() is False)")
     sys.path.insert(0, str(ROOT))
-    import bench_torch
+    from dirt_tpu_torch.utils.benchtime import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = bench_torch.card_line()
+    card = card_line()
     sources, ops = run(torch.device("cuda", 0), opts.demo, opts.size)
     print(f"[repeat demo {opts.demo}] {ops} operators a step; "
           f"{len(sources)} source(s) of a difference between two eager "

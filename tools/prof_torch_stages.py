@@ -4,12 +4,12 @@
     python3 tools/prof_torch_stages.py [size] [--n-lat N] [--samples S]
 
 Counterpart of ``tools/prof_stages.py``. Times each stage of a gradient
-step of the bench sphere (``bench_torch.bench_scene(size)``: the camera,
+step of the bench sphere (``card_common.bench_scene(size)``: the camera,
 colors and upstream gradient of ``bench.py``, ``mesh.uv_sphere(n_lat,
 n_lat)``; 72 gives 10,224 faces, ``--n-lat 708`` the 1,001,112-face sphere
-of ``bench_torch.py``'s line 6) at ``size`` x ``size`` (1024 by default)
-under the packed engine's honest caps (``bench_torch.honest``, the keys of
-the bench), ``clip=False``. The stages, each a function of tensors on the
+of the ``sphere1m_1024`` cell) at ``size`` x ``size`` (1024 by default)
+under the packed engine's honest caps (``card_common.honest``),
+``clip=False``. The stages, each a function of tensors on the
 card:
 
   setup             screen_from_clip + face gather + setup_planes +
@@ -33,13 +33,13 @@ and the glue: fwd+bwd total minus setup+binning, the forward kernel, the
 backward core and the chain. For each stage: min and median ms of event-timed
 synchronised calls (``utils.benchtime.device_time_stats``, what a caller
 pays, host included) and, from one profiler window
-(``prof_torch_steps._profile``), device kernels and device busy ms per
+(``card_common.profile``), device kernels and device busy ms per
 call and the hand-written kernels' share of the busy time; a stage is
 device-bound when its busy time is at least half its median, else
 host-bound. Prints the card's name and power limit beside the numbers;
 exits non-zero without a CUDA device. ``run`` returns the records, and
 ``staged_forward`` / ``staged_backward`` give the staged path's outputs,
-which ``chip_smoke.py`` holds bit for bit to the API's.
+which the card tests hold bit for bit to the API's.
 """
 
 import argparse
@@ -48,87 +48,28 @@ from pathlib import Path
 
 import torch
 
-ROOT = str(Path(__file__).resolve().parents[1])
-if ROOT not in sys.path:
-    sys.path.insert(0, ROOT)
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+import card_common  # noqa: E402
 import dirt_tpu_torch  # noqa: E402
-from bench_torch import bench_scene, card_line, honest  # noqa: E402
-from chip_smoke import _grads  # noqa: E402
-from dirt_tpu_torch.ops import (  # noqa: E402
-    binning,
-    packed_bwd,
-    raster,
-    raster_fwd,
-    triangle_setup,
+from card_common import (  # noqa: E402
+    PROFILE_STEPS,
+    SAMPLES,
+    SAMPLES_LARGE,
+    Geometry,
+    bin_faces,
+    render_grads,
+    scene_and_config,
+    setup,
 )
+from dirt_tpu_torch.ops import packed_bwd, raster, raster_fwd  # noqa: E402
+from dirt_tpu_torch.ops import triangle_setup  # noqa: E402
 from dirt_tpu_torch.ops.raster_bwd import assemble_face_gradients  # noqa: E402
-from dirt_tpu_torch.ops.triangle_setup import (  # noqa: E402
-    edge_filter_cols,
-    face_bbox_cols,
-    screen_from_clip,
-    setup_planes,
-)
+from dirt_tpu_torch.ops.triangle_setup import screen_from_clip  # noqa: E402
 from dirt_tpu_torch.utils.benchtime import device_time_stats  # noqa: E402
-from prof_torch_steps import _profile  # noqa: E402
 
-# Samples per stage on the bench sphere and on the 1,001,112-face sphere
-# (tools/bench_large.py:61-63 takes three there).
-SAMPLES = 10
-SAMPLES_LARGE = 3
-# Calls in one profiler window.
-PROFILE_STEPS = 5
 # Busy share of the median above which a stage counts as device-bound.
 DEVICE_BOUND = 0.5
-KERNELS = ("raster_fwd_packed", "packed_prologue", "packed_bwd", "max_scan",
-           "setup_vjp")
-
-
-def scene_and_config(device, size=1024, n_lat=72, config=None):
-    """(``bench_torch.bench_scene(size, device, n_lat)``, its packed
-    config): ``config`` if given, else the honest caps under the bench's
-    key. Raises unless the config runs the packed engine."""
-    scene = bench_scene(size, device, n=n_lat)
-    if config is None:
-        config = honest(f"torch_sphere{n_lat}_{size}_auto", scene, False)
-    config = config.concrete(size)
-    faces = scene[3]
-    if raster.resolve_engine(config, faces.shape[0]) != "packed":
-        raise ValueError(f"{config} does not run the packed engine on "
-                         f"{faces.shape[0]} faces")
-    return scene, config
-
-
-class Geometry:
-    """The packed binning's static arguments for one scene and config."""
-
-    def __init__(self, config, num_faces, size):
-        self.size = size
-        self.tile_h, self.tile_w = config.tile_h, config.tile_w
-        self.hp = -(-size // self.tile_h) * self.tile_h
-        self.wp = -(-size // self.tile_w) * self.tile_w
-        self.expand, self.budget = raster._packed_caps(
-            config, num_faces, self.hp, self.wp)
-        self.pool_cap, self.work_cap = config.pool_cap, config.work_cap
-        self.bmax = -(-self.expand // binning.POOL_ALIGN)
-
-
-def setup(clip, colors, faces, size):
-    """(geo, att, bbox, edges): screen_from_clip, the face gather,
-    setup_planes, face_bbox_cols and edge_filter_cols, as the API runs them
-    with ``clip=False``."""
-    fv = screen_from_clip(clip, size, size)[faces]
-    geo, att, valid = setup_planes(fv, colors[faces])
-    return geo, att, face_bbox_cols(fv, valid, size, size), \
-        edge_filter_cols(fv)
-
-
-def bin_faces(bbox, edges, geom, _stage=0):
-    """``bin_faces_packed`` under ``geom`` (a :class:`Geometry`)."""
-    return binning.bin_faces_packed(
-        bbox, geom.hp, geom.wp, geom.tile_h, geom.tile_w, geom.budget,
-        geom.expand, edges=edges, pool_cap=geom.pool_cap,
-        work_cap=geom.work_cap, _stage=_stage)
 
 
 def forward_kernel(geo, att, bins, bg_chw, geom):
@@ -219,8 +160,8 @@ def stages(scene, config):
              b, c, co, faces, config=config, clip=False),
          (background, clip, colors)),
         ("fwd+bwd total",
-         lambda b, c, co: _grads(dirt_tpu_torch.rasterise_with_aux, b, c,
-                                 co, faces, weights, config, False),
+         lambda b, c, co: render_grads(dirt_tpu_torch.rasterise_with_aux, b,
+                                       c, co, faces, weights, config, False),
          (background, clip, colors)),
         ("backward core",
          lambda g, a, *f: backward_core(g, a, *f, bins, geom),
@@ -268,8 +209,8 @@ def run(device, size=1024, n_lat=72, samples=None, config=None,
         line = (f"[{tag}] {name}: min {rec['min_ms']:.4f} ms, median "
                 f"{rec['median_ms']:.4f} ms")
         if profile:
-            prof = _profile(name, lambda: fn(*args), card,
-                            steps=profile, echo=False)
+            prof = card_common.profile(name, lambda: fn(*args), card,
+                                       steps=profile, echo=False)
             ours = sum(ms for ms, _ in prof["ours"].values())
             rec.update(kernels=prof["kernels"], busy_ms=prof["busy_ms"],
                        ours_share=ours / prof["busy_ms"],
@@ -301,9 +242,10 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("prof_torch_stages: torch.cuda.is_available() is False")
     from dirt_tpu_torch.ops import _build
+    from dirt_tpu_torch.utils.benchtime import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build(KERNELS)
+    _build.build(_build.KERNELS)
     card = card_line()
     print(card)
     run("cuda", args.size, args.n_lat, args.samples, card=card)

@@ -27,104 +27,26 @@ limit beside the numbers; exits non-zero without a CUDA device.
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
-STEPS = 5
-# Profiler windows to try before giving up, each with twice the calls of
-# the last. The tracer now and then hands back no device record for a
-# short window of few kernels: on an H100, three windows in a row of 2, 4
-# and 8 calls of the prologue kernel alone on the 1,001,112-face scene.
-WINDOWS = 6
-OURS = ("raster_fwd_packed_kernel", "packed_prologue_kernel",
-        "packed_bwd_kernel", "raster_fwd_dense_kernel",
-        "fused_bwd_partial_kernel", "fused_bwd_reduce_kernel",
-        "raster_fwd_csr_kernel", "fused_bwd_csr_partial_kernel",
-        "fused_bwd_csr_reduce_kernel", "scatter_faces_partial_kernel",
-        "scatter_faces_reduce_kernel", "scatter_faces_csr_partial_kernel",
-        "scatter_faces_csr_reduce_kernel", "subtile_swap_kernel",
-        "max_scan_kernel", "setup_vjp_staged", "setup_vjp_general")
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-
-def _profile(label, step, card, steps=STEPS, echo=True):
-    """A ``torch.profiler`` window of ``steps`` calls of ``step`` (after
-    three warm-up calls, synchronised inside the window; a window without
-    device records is taken again with twice the calls, up to ``WINDOWS``
-    windows). Prints its lines
-    when ``echo`` and returns the record: device kernels per step, device
-    busy and span per step (ms), busy share, the hand-written kernels'
-    {name: (ms per step, launches per step)}, the five largest device items
-    and the five largest host operations as (name, ms per step, count per
-    step)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        step()
-    for _ in range(WINDOWS):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if kernels:
-            break
-        steps *= 2
-    else:
-        raise RuntimeError("the profiler recorded no device activity")
-    busy = sum(e.device_time for e in kernels) / 1e3          # ms
-    begin = min(e.time_range.start for e in kernels)
-    end = max(e.time_range.end for e in kernels)
-    span = (end - begin) / 1e3
-    by_name = {}
-    for e in kernels:
-        total, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (total + e.device_time / 1e3, count + 1)
-    ours = {o: v for n, v in by_name.items() for o in OURS if o in n}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    host = sorted(prof.key_averages(),
-                  key=lambda op: -op.self_cpu_time_total)[:5]
-    record = dict(
-        label=label, kernels=len(kernels) / steps, busy_ms=busy / steps,
-        span_ms=span / steps, busy_share=busy / span,
-        ours={name: (total / steps, count / steps)
-              for name, (total, count) in sorted(ours.items())},
-        top=[(name, total / steps, count / steps)
-             for name, (total, count) in top],
-        host=[(op.key, op.self_cpu_time_total / 1e3 / steps,
-               op.count / steps) for op in host])
-    if echo:
-        print(f"[{label}] device kernels per step {record['kernels']:.1f}, "
-              f"device busy per step {record['busy_ms']:.4f} ms, device span "
-              f"per step {record['span_ms']:.4f} ms, busy share "
-              f"{record['busy_share']:.3f} (window of {steps} steps, {card})")
-        for name, (ms, count) in record["ours"].items():
-            print(f"[{label}]   kernel {name}: {ms:.4f} ms per step "
-                  f"({count:.0f} launches)")
-        for name, ms, count in record["top"]:
-            print(f"[{label}]   top: {ms:.4f} ms per step x{count:.0f} "
-                  f"{name[:70]}")
-        for key, ms, count in record["host"]:
-            print(f"[{label}]   host: {ms:.4f} ms per step x{count:.0f} "
-                  f"{key[:70]}")
-    return record
+import card_common  # noqa: E402
 
 
 def main():
     if not torch.cuda.is_available():
         sys.exit("prof_torch_steps: torch.cuda.is_available() is False")
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    # The scenes and losses are chip_smoke.py's own, so both scripts time
-    # the same steps.
-    import chip_smoke
+    import bench_configs_torch
     from dirt_tpu_torch import entry
+    from dirt_tpu_torch.ops import _build
+    from dirt_tpu_torch.utils.benchtime import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
-    card = chip_smoke.card_line()
+    _build.build(_build.KERNELS)
+    card = card_line()
     print(card)
 
     def grad_step(loss_fn, leaves):
@@ -133,31 +55,33 @@ def main():
             loss_fn(*fresh).backward()
         return step
 
-    _profile("flagship 256^2 dense", grad_step(*entry.entry()), card)
+    profile = card_common.profile
+    profile("flagship 256^2 dense", grad_step(*entry.entry()), card)
 
-    render, leaves = chip_smoke.config5_render(device)
-    w5 = torch.as_tensor(
-        np.random.RandomState(1).rand(chip_smoke.SIZE, chip_smoke.SIZE, 3)
-        .astype(np.float32), device=device)
-    _profile("config5 1024^2 packed", grad_step(
-        lambda v, p: (render(v, p) * w5).sum(), leaves), card)
+    config5 = bench_configs_torch.config5(device)
+    w5 = card_common.rand(1, card_common.SIZE, card_common.SIZE, 3,
+                          device=device)
+    profile("config5 1024^2 packed", grad_step(
+        lambda v, p: (config5.forward(v, p) * w5).sum(), config5.leaves),
+        card)
 
-    _profile("config4 512^2 dense",
-             grad_step(*chip_smoke.config4_loss(device)), card)
+    config4 = bench_configs_torch.config4(device)
+    profile("config4 512^2 dense", grad_step(config4.loss, config4.leaves),
+            card)
 
-    big_loss, big_leaves, _ = chip_smoke.big_sphere_step(device)
-    _profile("default API 99,904 faces 1024^2 csr",
-             grad_step(big_loss, big_leaves), card)
+    big_loss, big_leaves, _ = card_common.big_sphere_step(device)
+    profile("default API 99,904 faces 1024^2 csr",
+            grad_step(big_loss, big_leaves), card)
 
-    _profile("sharded 4 slabs 1024^2 dense",
-             grad_step(*chip_smoke.sharded_dense_step(device)), card)
+    profile("sharded 4 slabs 1024^2 dense",
+            grad_step(*card_common.sharded_dense_step(device)), card)
 
     for chunks in (1, 4):
-        _profile(f"overlap 4 slabs x {chunks} chunks 1024^2 packed",
-                 grad_step(*chip_smoke.overlap_loss(device, 4, chunks)), card)
+        profile(f"overlap 4 slabs x {chunks} chunks 1024^2 packed",
+                grad_step(*card_common.overlap_loss(device, 4, chunks)), card)
 
-    _profile("face-sharded 4 members 1024^2 dense",
-             grad_step(*chip_smoke.face_sharded_loss(device)), card)
+    profile("face-sharded 4 members 1024^2 dense",
+            grad_step(*card_common.face_sharded_loss(device)), card)
 
 
 if __name__ == "__main__":
