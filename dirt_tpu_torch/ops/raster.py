@@ -34,7 +34,6 @@ from dirt_tpu_torch.ops import (
 )
 from dirt_tpu_torch.ops.triangle_setup import (
     edge_filter_cols,
-    face_bbox_cols,
     face_bboxes,
     setup_planes,
 )
@@ -207,8 +206,9 @@ def prepare_dense(face_verts_screen, face_attrs, background, config,
     DenseBins. A config that streams (more faces than
     ``STREAMING_FACES``, or ``streaming=True``) belongs to
     :func:`prepare_csr`, as in ``dirt_tpu``. ``planes``: the
-    ``setup_planes`` result where the caller has set it up (the forward),
-    else set up here; so in the other two.
+    ``triangle_setup.setup_faces`` result for this engine where the caller
+    has set the faces up (the forward), else set up here; so in the other
+    two.
     """
     height, width, _ = background.shape
     config = config.concrete(height)
@@ -219,8 +219,8 @@ def prepare_dense(face_verts_screen, face_attrs, background, config,
         raise ValueError(f"prepare_dense needs the dense engine, not "
                          f"streaming, got {config} for {num_faces} faces")
 
-    geo, att, valid = planes or setup_planes(face_verts_screen, face_attrs)
-    bbox = face_bboxes(face_verts_screen, valid, height, width).contiguous()
+    geo, att, _, bbox, _ = _face_setup(planes, face_verts_screen, face_attrs,
+                                       height, width, "dense")
     bg_chw = _padded_background(background, tile_h, tile_w)
     hp, wp = bg_chw.shape[1:]
     cap = resolve_bin_cap(config, num_faces,
@@ -281,8 +281,8 @@ def prepare_csr(face_verts_screen, face_attrs, background, config,
         raise ValueError(f"prepare_csr needs a streaming config, got "
                          f"{config} for {num_faces} faces")
 
-    geo, att, valid = planes or setup_planes(face_verts_screen, face_attrs)
-    bbox = face_bboxes(face_verts_screen, valid, height, width).contiguous()
+    geo, att, _, bbox, _ = _face_setup(planes, face_verts_screen, face_attrs,
+                                       height, width, "csr")
     bg_chw = _padded_background(background, tile_h, tile_w)
     hp, wp = bg_chw.shape[1:]
     total = (hp // tile_h) * (wp // tile_w)
@@ -315,13 +315,12 @@ def prepare_packed(face_verts_screen, face_attrs, background, config,
         raise ValueError(f"prepare_packed needs the packed engine, got "
                          f"{config} for {num_faces} faces")
 
-    geo, att, valid = planes or setup_planes(face_verts_screen, face_attrs)
-    bbox = face_bbox_cols(face_verts_screen, valid, height, width)
+    geo, att, _, bbox, edges = _face_setup(
+        planes, face_verts_screen, face_attrs, height, width, "packed")
     bg_chw = _padded_background(background, tile_h, tile_w)
     hp, wp = bg_chw.shape[1:]
 
     expand, budget = _packed_caps(config, num_faces, hp, wp)
-    edges = edge_filter_cols(face_verts_screen)
     trace.switch("setup", "binning", bg_chw)
     bins = binning.bin_faces_packed(
         bbox, hp, wp, tile_h, tile_w, budget, expand,
@@ -340,6 +339,18 @@ def prepare_packed(face_verts_screen, face_attrs, background, config,
     return table2, bins._replace(rows=rows), bg_chw, config
 
 
+def _face_setup(planes, face_verts_screen, face_attrs, height: int,
+                width: int, engine: str):
+    """``planes`` (a ``triangle_setup.FaceSetup`` for ``engine``), or the
+    faces set up for ``engine`` here."""
+    if planes is not None:
+        return planes
+    return triangle_setup.setup_faces(
+        torch.as_tensor(face_verts_screen, dtype=torch.float32),
+        torch.as_tensor(face_attrs, dtype=torch.float32), height, width,
+        engine)
+
+
 def _forward_impl(face_verts_screen, face_attrs, background, config):
     """(pixels, fid, zbuf, bins, concrete config) of the forward.
 
@@ -354,38 +365,42 @@ def _forward_impl(face_verts_screen, face_attrs, background, config):
     engine = resolve_engine(config, num_faces)
     if engine not in ("packed", "dense", "csr"):
         raise ValueError(f"unknown engine {engine!r}")
+    if engine != "packed" and streams(config, num_faces):
+        engine, prepare = "csr", prepare_csr
+    else:
+        prepare = prepare_packed if engine == "packed" else prepare_dense
     # Stages: setup, binning (prepare_* moves the span on), raster_fwd.
     with trace.span("setup", face_verts_screen):
-        planes = setup_planes(face_verts_screen, face_attrs)
+        # One setup a forward. The packed engine's boxes and edge columns
+        # go when prepare_packed returns, after its binning; the planes
+        # stay for the backward, as do the other engines' boxes (lists).
+        setup = triangle_setup.setup_faces(face_verts_screen, face_attrs,
+                                           height, width, engine)
+        planes = setup.geo, setup.att
+        table, lists, bg_chw, config = prepare(
+            face_verts_screen, face_attrs, background, config, setup)
+        del setup
         if engine == "packed":
             # K1 reads the gathered rows alone: the table goes before it
             # runs, so the planes kept for the backward take its room.
-            bins, bg_chw, config = prepare_packed(
-                face_verts_screen, face_attrs, background, config, planes
-            )[1:]
+            del table
             pixels_chw, fid, zbuf = raster_fwd.raster_forward_packed(
-                None, bins, bg_chw, tile_h=config.tile_h,
-                tile_w=config.tile_w, rows=bins.rows,
+                None, lists, bg_chw, tile_h=config.tile_h,
+                tile_w=config.tile_w, rows=lists.rows,
             )
-            bins = bins._replace(geo=planes[0], att=planes[1])
-        elif streams(config, num_faces):
-            table, lists, bg_chw, config = prepare_csr(
-                face_verts_screen, face_attrs, background, config, planes
-            )
+            bins = lists._replace(geo=planes[0], att=planes[1])
+        elif engine == "csr":
             pixels_chw, fid, zbuf, cull = raster_fwd.raster_forward_csr(
                 table, lists.entry_face, lists.start_block, lists.counts,
                 bg_chw, tile_h=config.tile_h, tile_w=config.tile_w,
             )
-            bins = StreamBins(*lists, cull, *planes[:2])
+            bins = StreamBins(*lists, cull, *planes)
         else:
-            table, lists, bg_chw, config = prepare_dense(
-                face_verts_screen, face_attrs, background, config, planes
-            )
             pixels_chw, fid, zbuf, cull = raster_fwd.raster_forward(
                 table, lists.bins, lists.counts, bg_chw,
                 tile_h=config.tile_h, tile_w=config.tile_w,
             )
-            bins = DenseBins(*lists, cull, *planes[:2])
+            bins = DenseBins(*lists, cull, *planes)
     pixels = pixels_chw.permute(1, 2, 0)[:height, :width]
     return pixels, fid[:height, :width], zbuf[:height, :width], bins, config
 
@@ -408,14 +423,15 @@ def chain_through_setup(face_verts, face_attrs, need_fv: bool, need_fa: bool,
     (d_geo, d_att, d_background)`` and pulls ``d_geo`` / ``d_att`` back
     through the setup with ``triangle_setup.setup_planes_vjp`` (one kernel
     launch on the card). ``planes``: those planes (geo, att) as the
-    forward set them up; None sets them up here, without autograd.
+    forward set them up; None sets them up here
+    (``triangle_setup.setup_faces``, one launch on the card).
     Returns (d_face_verts or None, d_face_attrs or None, d_background).
     """
     if planes is None:
         with torch.no_grad():
             moved = (move_rows(face_verts, row_shift) if row_shift
                      else face_verts)
-            planes = setup_planes(moved, face_attrs)[:2]
+            planes = triangle_setup.setup_faces(moved, face_attrs)[:2]
     d_geo, d_att, d_bg = plane_cotangents(*planes)
     d_fv, d_fa = triangle_setup.setup_planes_vjp(
         face_verts, face_attrs, d_geo, d_att, row_shift, need_fv, need_fa)

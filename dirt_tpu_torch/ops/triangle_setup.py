@@ -13,6 +13,13 @@ where ``dirt_tpu`` calls ``jax.vjp`` of its ``setup_planes``:
 * CPU tensors take :func:`setup_planes_vjp_plain`, the same arithmetic in
   the kernel's order.
 
+The raster op's forward sets its faces up with :func:`setup_faces`: the
+planes, the validity, the binning boxes and, for the packed engine, the
+edge-filter columns, in one call. CUDA tensors launch
+``csrc/setup_fwd.cu`` (one launch, a face a thread); CPU tensors take
+:func:`setup_faces_plain`, which composes :func:`setup_planes`,
+:func:`face_bbox_cols` / :func:`face_bboxes` and :func:`edge_filter_cols`.
+
 Geometry layout of the ``geo`` array ([F, 24] f32):
 
     0, 1    ax, ay (vertex-0 screen position — the anchor)
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -425,7 +433,154 @@ def face_bbox_cols(face_verts_screen, valid, height: int, width: int):
 
 
 def face_bboxes(face_verts_screen, valid, height: int, width: int):
-    """[F, 4] stacked variant of :func:`face_bbox_cols` (tests/tooling)."""
+    """[F, 4] stacked variant of :func:`face_bbox_cols` (the layout the
+    dense and streaming binnings read)."""
     return torch.stack(
         face_bbox_cols(face_verts_screen, valid, height, width), dim=-1
     )
+
+
+class FaceSetup(NamedTuple):
+    """What :func:`setup_faces` hands the raster op's forward."""
+
+    geo: torch.Tensor        # [F, 24] f32, as setup_planes'
+    att: torch.Tensor        # [F, 3C] f32
+    valid: torch.Tensor      # [F] bool
+    # The binning boxes (xmin, xmax, ymin, ymax), inclusive pixel indices:
+    # four [F] int32 columns for the packed engine, [F, 4] int32 rows for
+    # the dense and streaming engines, None without an engine.
+    bbox: tuple | torch.Tensor | None
+    # The packed engine's edge-filter columns (edge_filter_cols'), else None.
+    edges: tuple | None
+
+
+# The engines whose binnings take the boxes: as columns with the edge
+# filter (packed), as [F, 4] rows (dense, csr).
+_ENGINES = ("packed", "dense", "csr")
+
+
+def setup_faces(face_verts, face_attrs, height: int = 1, width: int = 1,
+                engine: str | None = None) -> FaceSetup:
+    """The forward's triangle setup of screen-space faces, in one call.
+
+    Args:
+        face_verts: [F, 3, 4] f32 (x_s, y_s, z_ndc, invw).
+        face_attrs: [F, 3, C] f32, C >= 1.
+        height, width: the image the boxes are culled and clipped to.
+        engine: the resolved engine, which picks the boxes' layout (see
+            :class:`FaceSetup`); None sets the planes up alone.
+    Returns:
+        :class:`FaceSetup`. Not differentiable: :func:`setup_planes` is the
+        differentiable form, :func:`setup_planes_vjp` its pull-back.
+
+    CUDA tensors launch the kernel ``csrc/setup_fwd.cu`` once; CPU tensors
+    take :func:`setup_faces_plain`. Raises on a dtype, shape, device or
+    engine the kernel does not take.
+    """
+    num_faces, channels = _check_setup_args(face_verts, face_attrs, height,
+                                            width, engine)
+    device = face_verts.device
+    if device.type == "cpu":
+        return setup_faces_plain(face_verts, face_attrs, height, width,
+                                 engine)
+    if device.type != "cuda":
+        raise ValueError(f"setup_faces: no kernel for device {device}")
+    return _launch_setup(face_verts.contiguous(), face_attrs.contiguous(),
+                         num_faces, channels, height, width, engine)
+
+
+def _check_setup_args(face_verts, face_attrs, height, width, engine):
+    """(F, C) of the setup's inputs; raises on what the kernel does not
+    take."""
+    for name, t in (("face_verts", face_verts), ("face_attrs", face_attrs)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+            raise ValueError(f"setup_faces: {name} must be a float32 tensor, "
+                             f"got {getattr(t, 'dtype', type(t))}")
+    if face_attrs.device != face_verts.device:
+        raise ValueError(f"setup_faces: face_attrs is on {face_attrs.device}, "
+                         f"face_verts on {face_verts.device}")
+    num_faces = face_verts.shape[0]
+    channels = face_attrs.shape[-1] if face_attrs.ndim == 3 else 0
+    if (tuple(face_verts.shape) != (num_faces, 3, 4)
+            or tuple(face_attrs.shape) != (num_faces, 3, channels)
+            or channels < 1):
+        raise ValueError(f"setup_faces: want face_verts [F, 3, 4] and "
+                         f"face_attrs [F, 3, C >= 1], got "
+                         f"{tuple(face_verts.shape)} and "
+                         f"{tuple(face_attrs.shape)}")
+    if engine not in (None, *_ENGINES):
+        raise ValueError(f"setup_faces: unknown engine {engine!r}")
+    if engine is not None and not (height >= 1 and width >= 1):
+        raise ValueError(f"setup_faces: want an image of at least one "
+                         f"pixel, got {height} x {width}")
+    return num_faces, channels
+
+
+def setup_faces_plain(face_verts, face_attrs, height: int = 1,
+                      width: int = 1, engine: str | None = None) -> FaceSetup:
+    """Plain PyTorch version of :func:`setup_faces` (any device):
+    :func:`setup_planes`, then the boxes of :func:`face_bbox_cols` (packed)
+    or :func:`face_bboxes` (dense, streaming) and, for the packed engine,
+    :func:`edge_filter_cols`."""
+    face_verts = face_verts.detach()
+    geo, att, valid = setup_planes(face_verts, face_attrs.detach())
+    bbox = edges = None
+    if engine == "packed":
+        bbox = face_bbox_cols(face_verts, valid, height, width)
+        edges = edge_filter_cols(face_verts)
+    elif engine is not None:
+        bbox = face_bboxes(face_verts, valid, height, width).contiguous()
+    return FaceSetup(geo, att, valid, bbox, edges)
+
+
+_SETUP_KERNEL = "setup_fwd"
+
+
+@functools.cache
+def _setup_fn():
+    fn = _build.load(_SETUP_KERNEL).dirt_setup_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def _launch_setup(face_verts, face_attrs, num_faces: int, channels: int,
+                  height: int, width: int, engine):
+    # raster_fwd imports this module.
+    from dirt_tpu_torch.ops.raster_fwd import on_device
+
+    device = face_verts.device
+    geo = torch.empty((num_faces, GEO_WIDTH), dtype=torch.float32,
+                      device=device)
+    att = torch.empty((num_faces, 3 * channels), dtype=torch.float32,
+                      device=device)
+    valid = torch.empty((num_faces,), dtype=torch.bool, device=device)
+    columns = engine == "packed"
+    boxes = edges = None
+    if engine is not None:
+        boxes = torch.empty((4, num_faces) if columns else (num_faces, 4),
+                            dtype=torch.int32, device=device)
+    if columns:
+        edges = torch.empty((9, num_faces), dtype=torch.float32,
+                            device=device)
+    if num_faces:
+        fn = _setup_fn()
+        with on_device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(face_verts.data_ptr(), face_attrs.data_ptr(),
+                     geo.data_ptr(), att.data_ptr(), valid.data_ptr(),
+                     None if boxes is None else boxes.data_ptr(),
+                     0 if columns else 1,
+                     None if edges is None else edges.data_ptr(),
+                     num_faces, channels, max(int(height), 1),
+                     max(int(width), 1), stream)
+        if err != 0:
+            raise RuntimeError(f"{_SETUP_KERNEL} launch failed: CUDA error "
+                               f"{err}")
+        trace.count(f"launch.{_SETUP_KERNEL}")
+    bbox = tuple(boxes.unbind(0)) if columns else boxes
+    return FaceSetup(geo, att, valid, bbox,
+                     tuple(edges.unbind(0)) if columns else None)

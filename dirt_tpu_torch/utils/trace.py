@@ -17,9 +17,10 @@ The raster op's stages, in a replay's order:
 
 - ``clip``: the per-face gather and the near-plane clip
   (``rasterise_ops._clip_space_faces``; none with ``clip=False``);
-- ``setup``: triangle setup and boxes, up to the binning call
-  (``ops/raster.py``, ``prepare_packed`` / ``prepare_dense`` /
-  ``prepare_csr``);
+- ``setup``: triangle setup, boxes and edge columns
+  (``triangle_setup.setup_faces``, one kernel on the card), up to the
+  binning call (``ops/raster.py``, ``prepare_packed`` / ``prepare_dense``
+  / ``prepare_csr``);
 - ``binning``: ``bin_faces_packed``, ``bin_faces`` or ``bin_faces_csr``;
 - ``raster_fwd``: the face table, the entry-row gather and the forward
   kernel (K1, K5 or K7);

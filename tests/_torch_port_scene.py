@@ -212,3 +212,97 @@ def setup_vjp_cotangents(num_faces, channels, seed):
     rng = np.random.RandomState(seed)
     return (rng.randn(num_faces, 24).astype(np.float32),
             rng.randn(num_faces, 3 * channels).astype(np.float32))
+
+
+# --- the forward setup (``ops/triangle_setup.setup_faces``) -----------------
+
+# The image the forward setup's scenes are culled and clipped to: not
+# square, so a swapped height and width shows.
+SETUP_IMAGE = (200, 312)
+
+
+def setup_fwd_scenes():
+    """{name: (screen-space faces [F, 3, 4], attributes [F, 3, C])}, numpy
+    f32, for the forward setup's tests. ``hazards C=...``: 301 random faces
+    over and around the ``SETUP_IMAGE`` (both orientations, every corner's
+    depth in [-1.5, 1.5] and 1/w in [-0.2, 2]), then the faces each rule of
+    the setup singles out: zero area, three corners on a line, |area2| at
+    ``AREA_EPS`` and the next float above it, invw 0 and below, a NaN in
+    each corner field, corners far off the image (beyond the int32 range,
+    infinite) that the saturating convert keeps, z wholly beyond either
+    plane and straddling both, faces just off each side of the image, an
+    infinite attribute; at C = 1, 3, 9 and 16. Also the VJP's spheres
+    (``setup_vjp_scenes``)."""
+    height, width = SETUP_IMAGE
+    scenes = {}
+    for channels in (1, 3, 9, 16):
+        rng = np.random.RandomState(60 + channels)
+        n = 301
+        centers = rng.uniform([-40, -40], [width + 40, height + 40],
+                              (n, 1, 2))
+        xy = centers + rng.uniform(-30, 30, (n, 3, 2))
+        z = rng.uniform(-1.5, 1.5, (n, 3, 1))
+        w = rng.uniform(-0.2, 2.0, (n, 3, 1))
+        fv = np.concatenate([xy, z, w], axis=-1).astype(np.float32)
+        fa = rng.rand(n, 3, channels).astype(np.float32)
+        flip = rng.rand(n) < 0.5
+        fv[flip] = fv[flip][:, [0, 2, 1]]
+        base = np.float32([[40.0, 30.0, 0.1, 1.0], [90.0, 50.0, 0.2, 1.5],
+                           [60.0, 110.0, 0.3, 0.8]])
+        hazards = []
+
+        def face(changes):
+            f = base.copy()
+            for (corner, field), value in changes.items():
+                f[corner, field] = value
+            hazards.append(f)
+
+        face({(2, 0): 40.0, (2, 1): 30.0})             # zero area
+        face({(2, 0): 140.0, (2, 1): 70.0})            # on a line
+        for legs, turn in zip(_area_eps_legs(), (1, -1)):
+            f = np.zeros((3, 4), np.float32)
+            f[:, 3] = 1.0
+            f[1, 0], f[2, 1] = legs
+            hazards.append(f if turn > 0 else f[[0, 2, 1]])
+        face({(1, 3): 0.0})                            # invw 0
+        face({(2, 3): -0.5})                           # behind the eye
+        for corner, field in ((1, 0), (2, 1), (0, 2), (1, 3), (0, 0)):
+            face({(corner, field): np.nan})
+        for corner, field, value in ((2, 0, 3e9), (2, 1, 5e9),
+                                     (0, 0, -3e9), (1, 1, -4e9),
+                                     (2, 0, np.inf), (1, 1, -np.inf),
+                                     (0, 1, 2.5e9)):
+            face({(corner, field): value})
+        face({(k, 2): 1.5 for k in range(3)})          # beyond far
+        face({(k, 2): -1.5 for k in range(3)})         # before near
+        face({(0, 2): -2.0, (1, 2): 0.0, (2, 2): 2.0})  # straddling
+        for dx, dy in ((-120.5, 0), (width - 39.5, 0), (0, -140.5),
+                       (0, height - 29.5)):
+            f = base.copy()
+            f[:, 0] += dx
+            f[:, 1] += dy
+            hazards.append(f)
+        fv = np.concatenate([fv, np.stack(hazards)])
+        extra = rng.rand(len(hazards), 3, channels).astype(np.float32)
+        extra[-1, 1, 0] = np.inf
+        scenes[f"hazards C={channels}"] = (fv, np.concatenate([fa, extra]))
+    vjp = setup_vjp_scenes()
+    for name in ("sphere 10224", "clipped sphere"):
+        scenes[name] = vjp[name]
+    return scenes
+
+
+def bits_equal(a, b):
+    """Tensors ``a`` and ``b`` alike in shape and dtype and equal bit for
+    bit, where a float is NaN in one exactly where it is in the other
+    (NaN payloads aside)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = a.isnan()
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        a[~nan].view(bits), b[~nan].view(bits))

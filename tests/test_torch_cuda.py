@@ -75,6 +75,16 @@ and on the 1,001,112-face sphere; inside a CUDA graph replayed ten times on
 new inputs (its status words are zeroed by every replay). One eager
 ``bin_faces_packed`` call launches it five times, and its fields and the
 ten ``_stage`` checksums on the card equal the CPU's.
+
+The forward setup kernel (``triangle_setup.setup_faces``: planes, validity,
+boxes and edge columns in one launch) bit for bit against its plain version
+on the card, NaN where it is NaN: on faces made to hit each of its rules
+(invalid, NaN, far off the image, z beyond either plane, just off each
+side) at C = 1, 3, 9 and 16 (its two compile-time instances and its general
+form; 326 faces, not a multiple of its block), in every box layout, on the
+cells' spheres (1,001,112 faces with the clip off, 99,904 and 10,224 with
+it on) and on inputs off 16-byte alignment; one launch a call, none for no
+faces, and one a forward on each engine (none in a backward).
 """
 
 import contextlib
@@ -91,9 +101,12 @@ import dirt_tpu_torch
 from _torch_port_scene import (
     SCAN_KINDS,
     SCAN_LENGTHS,
+    SETUP_IMAGE,
+    bits_equal,
     needle_soup,
     scan_input,
     screen_soup,
+    setup_fwd_scenes,
     setup_vjp_cotangents,
     setup_vjp_scenes,
     sphere_scene,
@@ -1421,7 +1434,9 @@ def test_sharded_renderer_on_card_matches_cpu(cuda, engine):
     kernel and its sharded backward's reduction (the scatter kernels, or
     the layout swap and the packed backward on halo-spliced neighbour maps)
     run once per slab,
-    and no other engine's; the setup VJP once per slab; image and
+    and no other engine's; the setup VJP once per slab, the forward setup
+    once per slab's forward (and, dense and streaming, once per slab's
+    backward, which sets the planes up one row down); image and
     gradients as on the CPU."""
     verts, colors, faces = sphere_scene(24, 32)
     bg = np.random.RandomState(6).rand(256, 256, 3).astype(np.float32)
@@ -1436,6 +1451,7 @@ def test_sharded_renderer_on_card_matches_cpu(cuda, engine):
         leaves = [t.clone().requires_grad_() for t in (v_t, c_t, bg_t)]
         before = _sharded_counts()
         vjp_before = _launches("setup_vjp")
+        fwd_before = _launches("setup_fwd")
         pix, fid, zbuf, ovf = rasterise_sharded(
             leaves[2], leaves[0], leaves[1], f_t, LocalGroup(4),
             config=config, with_aux=True)
@@ -1446,6 +1462,8 @@ def test_sharded_renderer_on_card_matches_cpu(cuda, engine):
             assert after[name] == tuple(c + n for c in before[name])
         assert _launches("setup_vjp") == vjp_before + (
             4 if device != "cpu" else 0)
+        assert _launches("setup_fwd") == fwd_before + (
+            0 if device == "cpu" else 4 if engine == "packed" else 8)
         outs.append((pix.detach().cpu(), fid.cpu(), zbuf.cpu(), bool(ovf)))
         grads.append([t.grad.cpu() for t in leaves])
     (pix_c, fid_c, z_c, ovf_c), (pix_g, fid_g, z_g, ovf_g) = outs
@@ -1625,21 +1643,8 @@ def test_setup_vjp_kernel_bits_equal_plain_on_card(cuda, name, row_shift):
 
 @functools.lru_cache(maxsize=None)
 def _sphere_faces(n_lat, clip):
-    """(faces [F, 3, 4], attributes [F, 3, 3]) of the bench sphere
-    ``uv_sphere(n_lat, n_lat)`` at 1024 x 1024 on the card, as the raster op
-    saves them: with ``clip`` through the near-plane clip and compaction
-    of the default API."""
-    from dirt_tpu_torch.ops.clipping import clip_compact_screen
-    from dirt_tpu_torch.rasterise_ops import _auto_clip_cap
-
-    _, clip_verts, colors, faces, _, _ = card_common.bench_scene(
-        1024, "cuda", n=n_lat)
-    if clip:
-        fv, fa, _, _ = clip_compact_screen(
-            clip_verts[faces], colors[faces],
-            _auto_clip_cap(faces.shape[0]), 1024, 1024)
-        return fv, fa
-    return screen_from_clip(clip_verts, 1024, 1024)[faces], colors[faces]
+    """``card_common.sphere_faces`` on the card, once a process."""
+    return card_common.sphere_faces(n_lat, clip, "cuda")
 
 
 @pytest.mark.cuda
@@ -1703,7 +1708,8 @@ def test_setup_vjp_kernel_takes_every_layout_on_card(cuda, layout):
 @pytest.mark.parametrize("engine", ["packed", "dense", "csr"])
 def test_one_setup_vjp_launch_per_backward_on_card(cuda, engine):
     """Each engine's backward chains its plane cotangents to the faces in
-    one launch, with the gradients the CPU gives."""
+    one launch, with the gradients the CPU gives; its forward sets the
+    faces up in one launch, and the backward sets none up."""
     verts, colors, faces = sphere_scene(24, 32)
     bg = np.random.RandomState(6).rand(100, 130, 3).astype(np.float32)
     weights = np.random.RandomState(7).randn(100, 130, 3).astype(np.float32)
@@ -1718,11 +1724,15 @@ def test_one_setup_vjp_launch_per_backward_on_card(cuda, engine):
             config=dirt_tpu_torch.RasterConfig(**fields), clip=True)
         leaves = [t.clone().requires_grad_() for t in scene[:3]]
         before = _launches("setup_vjp")
+        fwd_before = _launches("setup_fwd")
         pixels = dirt_tpu_torch.rasterise(leaves[0], leaves[1], leaves[2],
                                           scene[3], config=config)
+        torch.cuda.synchronize()
+        assert _launches("setup_fwd") == fwd_before + launches
         (pixels * torch.tensor(weights, device=device)).sum().backward()
         torch.cuda.synchronize()
         assert _launches("setup_vjp") == before + launches
+        assert _launches("setup_fwd") == fwd_before + launches
         grads.append([t.grad.cpu() for t in leaves])
     for g_cpu, g_card in zip(*grads):
         assert card_common.rel_err(g_card, g_cpu) <= 1e-4
@@ -1760,6 +1770,86 @@ def test_parallel_backwards_launch_setup_vjp_on_card(cuda, path, launches):
         grads.append([t.grad.cpu() for t in leaves])
     for g_cpu, g_card in zip(*grads):
         assert card_common.rel_err(g_card, g_cpu) <= 1e-4
+
+
+# --- the forward setup ----------------------------------------------------
+
+
+def _check_setup_kernel(fv, fa, height, width, engine):
+    """The kernel bit-equal to its plain version on the card (NaN where it
+    is NaN), its columns contiguous, twice, with one launch a call (none
+    for no faces)."""
+    want = triangle_setup.setup_faces_plain(fv, fa, height, width, engine)
+    for _ in range(2):
+        before = _launches("setup_fwd")
+        got = triangle_setup.setup_faces(fv, fa, height, width, engine)
+        torch.cuda.synchronize()
+        assert _launches("setup_fwd") == before + (1 if len(fv) else 0)
+        for g, w in zip(got, want):
+            if w is None:
+                assert g is None
+                continue
+            pairs = zip(g, w) if isinstance(w, tuple) else [(g, w)]
+            assert len(g) == len(w)
+            for a, b in pairs:
+                assert bits_equal(a, b) and a.is_contiguous()
+
+
+_SETUP_SCENES = [f"hazards C={c}" for c in (1, 3, 9, 16)] + [
+    "sphere 10224", "clipped sphere"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["packed", "dense", None])
+@pytest.mark.parametrize("name", _SETUP_SCENES)
+def test_setup_fwd_kernel_bits_equal_plain_on_card(cuda, name, engine):
+    """On the CPU tests' scenes: the instances for C = 3 and 9 and the
+    general form (C = 1, 16); the box columns with the edge columns, the
+    box rows (the dense and streaming engines'), the planes alone."""
+    fv, fa = (torch.as_tensor(a, device=cuda)
+              for a in setup_fwd_scenes()[name])
+    _check_setup_kernel(fv, fa, *SETUP_IMAGE, engine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lat,clip,channels,engine",
+                         [(72, True, 9, "packed"), (224, True, 3, "csr"),
+                          (708, False, 3, "packed")],
+                         ids=["10224 clipped C=9", "99904 clipped",
+                              "1001112"])
+def test_setup_fwd_kernel_on_the_cells_spheres_on_card(cuda, n_lat, clip,
+                                                       channels, engine):
+    """The faces ``deferred10k`` (with the G-buffer's nine channels),
+    ``sphere100k`` and ``sphere1m`` hand the raster op, in their engines'
+    layouts at 1024 x 1024."""
+    fv, fa = _sphere_faces(n_lat, clip)
+    if channels != 3:
+        gen = torch.Generator(device=cuda).manual_seed(n_lat)
+        fa = torch.rand(fv.shape[0], 3, channels, device=cuda, generator=gen)
+    _check_setup_kernel(fv, fa, SIZE, SIZE, engine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels,offset", [(3, 1), (9, 2), (5, 3),
+                                             (3, 0)])
+def test_setup_fwd_kernel_takes_inputs_off_alignment_on_card(cuda, channels,
+                                                             offset):
+    """Contiguous inputs ``offset`` floats off 16-byte alignment (the
+    staged instances' scalar loads), in both box layouts; no faces."""
+    fv, fa = screen_soup(1000 + 37, 384, 512, seed=channels,
+                         channels=channels, spread=40.0)
+
+    def placed(a):
+        buf = torch.randn(offset + a.size, device=cuda)
+        view = buf[offset:].view(a.shape)
+        view.copy_(torch.as_tensor(a))
+        return view
+
+    fv_t, fa_t = placed(fv), placed(fa)
+    assert fv_t.is_contiguous() and fv_t.data_ptr() % 16 == 4 * offset % 16
+    for engine in ("packed", "dense"):
+        _check_setup_kernel(fv_t, fa_t, 384, 512, engine)
+    _check_setup_kernel(fv_t[:0], fa_t[:0], 384, 512, "packed")
 
 
 # --- the port at the cells' size ------------------------------------------
@@ -1836,7 +1926,9 @@ def _plain_kernels():
                 (fused_bwd, "fused_backward_rows_csr", plain_fused_csr),
                 (scan, "max_scan", scan.max_scan_plain),
                 (triangle_setup, "setup_planes_vjp",
-                 triangle_setup.setup_planes_vjp_plain)):
+                 triangle_setup.setup_planes_vjp_plain),
+                (triangle_setup, "setup_faces",
+                 triangle_setup.setup_faces_plain)):
             stack.enter_context(mock.patch.object(module, name, plain))
         yield
 
@@ -2039,36 +2131,36 @@ def _demo_loss(name, *args):
 # (case, (loss_fn, leaves) maker, the kernels one step launches, the
 # gradients' tolerance against the plain path's: 1e-4 where torch's own
 # scatter-adds (vertex normals, texture and vertex gathers) sum with
-# atomics). A packed step bins once (five scans); every backward runs the
-# prologue and the setup VJP once.
+# atomics). Every forward sets its faces up once; a packed step bins once
+# (five scans); every backward runs the prologue and the setup VJP once.
 _STEPS = [
     ("bench packed clip=False", functools.partial(_bench_loss, False),
      {"raster_fwd_packed": 1, "max_scan": 5, "packed_prologue": 1,
-      "packed_bwd": 1, "setup_vjp": 1}, 1e-5),
+      "packed_bwd": 1, "setup_vjp": 1, "setup_fwd": 1}, 1e-5),
     ("bench packed clip=True", functools.partial(_bench_loss, True),
      {"raster_fwd_packed": 1, "max_scan": 5, "packed_prologue": 1,
-      "packed_bwd": 1, "setup_vjp": 1}, 1e-5),
+      "packed_bwd": 1, "setup_vjp": 1, "setup_fwd": 1}, 1e-5),
     ("99904 default API", lambda: card_common.big_sphere_step("cuda")[:2],
      {"raster_fwd_csr": 1, "packed_prologue": 1, "fused_bwd_csr": 1,
-      "setup_vjp": 1}, 1e-5),
+      "setup_vjp": 1, "setup_fwd": 1}, 1e-5),
     *((f"config{n}", functools.partial(_config_loss, n),
        {"raster_fwd_dense": 1, "packed_prologue": 1, "fused_bwd": 1,
-        "setup_vjp": 1}, 1e-4) for n in (1, 2, 3, 4)),
+        "setup_vjp": 1, "setup_fwd": 1}, 1e-4) for n in (1, 2, 3, 4)),
     ("config5", _config5_loss,
      {"raster_fwd_packed": 1, "max_scan": 5, "packed_prologue": 1,
-      "packed_bwd": 1, "setup_vjp": 1}, 1e-4),
+      "packed_bwd": 1, "setup_vjp": 1, "setup_fwd": 1}, 1e-4),
     ("flagship", lambda: entry.entry("cuda"),
      {"raster_fwd_dense": 1, "packed_prologue": 1, "fused_bwd": 1,
-      "setup_vjp": 1}, 1e-4),
+      "setup_vjp": 1, "setup_fwd": 1}, 1e-4),
     ("demo3", functools.partial(_demo_loss, "torch_demo3_textured", 512),
-     {"raster_fwd_dense": 1}, 1e-4),
+     {"raster_fwd_dense": 1, "setup_fwd": 1}, 1e-4),
     ("demo4", functools.partial(_demo_loss, "torch_demo4_lit", 512),
      {"raster_fwd_dense": 1, "packed_prologue": 1, "fused_bwd": 1,
-      "setup_vjp": 1}, 1e-4),
+      "setup_vjp": 1, "setup_fwd": 1}, 1e-4),
     ("demo5", functools.partial(_demo_loss, "torch_demo5_deferred", SIZE, 72,
                                 72),
      {"raster_fwd_packed": 1, "max_scan": 5, "packed_prologue": 1,
-      "packed_bwd": 1, "setup_vjp": 1}, 1e-4),
+      "packed_bwd": 1, "setup_vjp": 1, "setup_fwd": 1}, 1e-4),
 ]
 
 
@@ -2249,11 +2341,11 @@ def test_packed_and_csr_agree_on_the_1001112_face_sphere_on_card(cuda):
     for engine, fields, launches in (
             ("packed", {}, {"raster_fwd_packed": 1, "max_scan": 5,
                             "packed_prologue": 1, "packed_bwd": 1,
-                            "setup_vjp": 1}),
+                            "setup_vjp": 1, "setup_fwd": 1}),
             ("csr", dict(streaming=True), {"raster_fwd_csr": 1,
                                            "packed_prologue": 1,
                                            "fused_bwd_csr": 1,
-                                           "setup_vjp": 1})):
+                                           "setup_vjp": 1, "setup_fwd": 1})):
         config = _bench_config(708, **fields)
         assert card_common.engine_of(config, faces.shape[0]) == engine
         runs[engine], counts = card_common.launched(
@@ -2317,7 +2409,7 @@ def test_overlapped_backward_on_card(cuda, slabs, chunks):
             lambda: _packed_grads(sharded(chunks)))
     assert counts == {"raster_fwd_packed": slabs, "max_scan": 5 * slabs,
                       "subtile_swap": slabs, "packed_bwd": slabs * chunks,
-                      "setup_vjp": slabs * chunks}
+                      "setup_vjp": slabs * chunks, "setup_fwd": slabs}
     assert not bool(overflow)
     assert torch.equal(fid_o, fid_s) and torch.equal(pix_o, pix_s)
     for g, g_s, g_1 in zip(grads_o, grads_s, grads_1):
@@ -2375,7 +2467,7 @@ def test_face_sharded_renderer_on_card(cuda, case):
     ((pix_4, fid_4, _, ovf_4), grads_4), counts = card_common.launched(
         lambda: card_common.render_grads(members, background, verts, colors,
                                          faces, weights, config, False))
-    assert counts == {**launches, "setup_vjp": 4}
+    assert counts == {**launches, "setup_vjp": 4, "setup_fwd": 4}
     assert not bool(ovf_1) and not bool(ovf_4)
     assert torch.equal(fid_4, fid_1)
     assert float((pix_4 - pix_1).detach().abs().max()) <= 3e-5
@@ -2431,7 +2523,11 @@ def test_sharded_renderer_at_full_size_on_card(cuda, case):
                 "csr": {"raster_fwd_csr": slabs, "scatter_faces_csr": slabs},
                 "packed": {"raster_fwd_packed": slabs, "max_scan": 5 * slabs,
                            "subtile_swap": slabs, "packed_bwd": slabs}}
-        assert counts == {**want[engine], "setup_vjp": slabs}
+        # The dense and streaming slabs' backwards set their planes up
+        # again, one row down.
+        assert counts == {**want[engine], "setup_vjp": slabs,
+                          "setup_fwd": slabs * (1 if engine == "packed"
+                                                else 2)}
         assert not bool(ovf_n)
         assert torch.equal(fid_n, fid_1)
         assert float((pix_n - pix_1).detach().abs().max()) <= 3e-5
@@ -2643,7 +2739,7 @@ def test_obj_mesh_renders_on_card_as_the_plain_path(cuda, tmp_path):
             background, clip, colors, f_obj, config=config, clip=False)
 
     (pixels, fid, zbuf, overflow), counts = card_common.launched(render)
-    assert counts == {"raster_fwd_packed": 1, "max_scan": 5}
+    assert counts == {"raster_fwd_packed": 1, "max_scan": 5, "setup_fwd": 1}
     with _plain_kernels():
         pix_p, fid_p, z_p, _ = render()
     assert not bool(overflow) and (fid >= 0).any()
@@ -2660,7 +2756,7 @@ def test_demo_render_main_on_card(cuda, tmp_path, name):
     module = _demo(name)
     (image, fid), counts = card_common.launched(
         lambda: module.main(cuda, str(tmp_path)))
-    assert set(counts) == {"raster_fwd_dense"}
+    assert set(counts) == {"raster_fwd_dense", "setup_fwd"}
     with _plain_kernels():
         image_p, fid_p = module.render(cuda)
     assert torch.equal(fid, fid_p) and torch.equal(image, image_p)
@@ -2671,14 +2767,14 @@ def test_demo_render_main_on_card(cuda, tmp_path, name):
 # reaches the raster op.
 _DEMO_FITS = {
     "torch_demo3_textured": (dict(size=512, steps=60),
-                             {"raster_fwd_dense": 1}),
+                             {"raster_fwd_dense": 1, "setup_fwd": 1}),
     "torch_demo4_lit": (dict(size=512, steps=80),
                         {"raster_fwd_dense": 1, "packed_prologue": 1,
-                         "fused_bwd": 1, "setup_vjp": 1}),
+                         "fused_bwd": 1, "setup_vjp": 1, "setup_fwd": 1}),
     "torch_demo5_deferred": (dict(size=SIZE, steps=80, n_lat=72, n_lon=72),
                              {"raster_fwd_packed": 1, "max_scan": 5,
                               "packed_prologue": 1, "packed_bwd": 1,
-                              "setup_vjp": 1}),
+                              "setup_vjp": 1, "setup_fwd": 1}),
 }
 
 

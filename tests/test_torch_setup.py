@@ -7,6 +7,7 @@ into an add where PyTorch's CPU ops round each step); integers (bboxes,
 counts, ids) are equal.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -17,7 +18,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_scene import SIZE, sphere_scene, screen_soup
+from _torch_port_scene import (
+    SETUP_IMAGE,
+    SIZE,
+    bits_equal,
+    screen_soup,
+    setup_fwd_scenes,
+    sphere_scene,
+)
 from dirt_tpu.core import matrices as jm
 from dirt_tpu.core import mesh as jmesh
 from dirt_tpu.ops import clipping as jc
@@ -148,6 +156,104 @@ def test_bbox_of_far_off_screen_vertices_matches():
     for a, b in zip(want, got):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     assert (got[1][:4] >= got[0][:4]).all()    # none of the four culled
+
+
+_SETUP_SCENES = [f"hazards C={c}" for c in (1, 3, 9, 16)] + [
+    "sphere 10224", "clipped sphere"]
+_SETUP_ENGINES = ["packed", "dense", "csr", None]
+
+
+@functools.lru_cache(maxsize=None)
+def _setup_scene(name):
+    fv, fa = setup_fwd_scenes()[name]
+    return torch.tensor(fv), torch.tensor(fa)
+
+
+@pytest.mark.parametrize("engine", _SETUP_ENGINES)
+@pytest.mark.parametrize("name", _SETUP_SCENES)
+def test_setup_faces_is_the_plain_setup(name, engine):
+    """``setup_faces`` on the CPU: ``setup_planes``' planes and validity,
+    the boxes of ``face_bbox_cols`` as four columns with
+    ``edge_filter_cols`` (packed) or of ``face_bboxes`` as [F, 4] rows
+    (dense, streaming), nothing more without an engine; bit for bit, and
+    untracked."""
+    fv, fa = _setup_scene(name)
+    height, width = SETUP_IMAGE
+    got = tt.setup_faces(fv.clone().requires_grad_(), fa, height, width,
+                         engine)
+    geo, att, valid = tt.setup_planes(fv, fa)
+    for g, w in zip(got[:3], (geo, att, valid)):
+        assert bits_equal(g, w) and not g.requires_grad
+    if engine == "packed":
+        assert len(got.bbox) == 4 and len(got.edges) == 9
+        for g, w in zip(got.bbox + got.edges,
+                        tt.face_bbox_cols(fv, valid, height, width)
+                        + tt.edge_filter_cols(fv)):
+            assert bits_equal(g, w) and not g.requires_grad
+    elif engine is not None:
+        assert got.edges is None and got.bbox.is_contiguous()
+        assert bits_equal(got.bbox,
+                          tt.face_bboxes(fv, valid, height, width))
+    else:
+        assert got.bbox is None and got.edges is None
+
+
+@pytest.mark.parametrize("channels", [1, 3, 9, 16])
+def test_setup_faces_matches_dirt_tpu_on_its_hazards(channels):
+    """The forward setup of the hazard faces against ``dirt_tpu``'s
+    ``setup_planes``, ``face_bbox_cols`` and ``edge_filter_cols``: validity
+    and boxes equal, floats within ``TOL`` (NaN where it is NaN); each
+    rule has faces to single out."""
+    fv, fa = _setup_scene(f"hazards C={channels}")
+    height, width = SETUP_IMAGE
+    got = tt.setup_faces(fv, fa, height, width, "packed")
+    geo_j, att_j, valid_j = jt.setup_planes(fv.numpy(), fa.numpy())
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(valid_j))
+    _close(geo_j, got.geo)
+    _close(att_j, got.att)
+    for a, b in zip(jt.face_bbox_cols(fv.numpy(), valid_j, height, width),
+                    got.bbox):
+        assert b.dtype == torch.int32
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    for a, b in zip(jt.edge_filter_cols(fv.numpy()), got.edges):
+        _close(a, b)
+    xmin, xmax, ymin, ymax = got.bbox
+    binned = (xmax >= xmin) & (ymax >= ymin)
+    # The hazards' last rows: NaN corners, far corners, z beyond either
+    # plane, z straddling both, the faces just off each side.
+    nan, far = slice(-19, -14), slice(-14, -7)
+    # A NaN in x, y or invw makes a face invalid; in z, it is culled.
+    assert got.valid[nan].tolist() == [False, False, True, False, False]
+    assert not bool(binned[nan].any())
+    assert bool(got.valid[far].all() and binned[far].all())
+    assert bool(got.valid[-7:].all() and binned[-5])
+    assert not bool(binned[-7:-5].any() or binned[-4:].any())
+    assert bool(got.att.isinf().any())
+
+
+def _bad_setup_args():
+    fv, fa = (torch.tensor(a) for a in screen_soup(5, 32, 32, seed=1))
+    meta = torch.empty_like(fv, device="meta")
+    return {
+        "face_verts float64": (fv.double(), fa),
+        "face_attrs float16": (fv, fa.half()),
+        "face_verts numpy": (fv.numpy(), fa),
+        "face_verts [F, 3, 3]": (fv[..., :3], fa),
+        "face_attrs [F, 2, C]": (fv, fa[:, :2]),
+        "face_attrs C = 0": (fv, fa[..., :0]),
+        "face_attrs of other faces": (fv, fa[:4]),
+        "face_verts on another device": (meta, fa),
+        "no kernel for the device": (meta, torch.empty_like(fa,
+                                                             device="meta")),
+        "unknown engine": (fv, fa, 32, 32, "tiled"),
+        "no image": (fv, fa, 0, 32, "dense"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_setup_args()))
+def test_setup_faces_raises_on_what_the_kernel_does_not_take(case):
+    with pytest.raises(ValueError, match="setup_faces"):
+        tt.setup_faces(*_bad_setup_args()[case])
 
 
 def _crossing_faces():

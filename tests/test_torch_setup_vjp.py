@@ -250,9 +250,9 @@ def test_chain_through_setup_is_the_vjp_of_the_moved_planes(row_shift):
                                     dict(engine="dense"),
                                     dict(streaming=True)])
 def test_the_raster_op_sets_the_planes_up_once_a_step(fields):
-    """The forward sets the planes up once and its bins carry them; the
-    backward hands them to the engine and the setup VJP (one call), and
-    sets up none again."""
+    """The forward sets the faces up once (``setup_faces``, for its
+    engine) and its bins carry the planes; the backward hands them to the
+    engine and the setup VJP (one call), and sets up none again."""
     import dirt_tpu_torch
     from _torch_port_scene import sphere_scene
     from dirt_tpu_torch import convert
@@ -268,13 +268,12 @@ def test_the_raster_op_sets_the_planes_up_once_a_step(fields):
 
     def counted(name, inner):
         def wrapper(*args, **kwargs):
-            out = inner(*args, **kwargs)
-            calls[name].append(out)
-            return out
+            calls[name].append(args[4:] + tuple(kwargs.values()))
+            return inner(*args, **kwargs)
         return wrapper
 
-    with mock.patch.object(raster, "setup_planes",
-                           counted("setup", raster.setup_planes)), \
+    with mock.patch.object(tt, "setup_faces",
+                           counted("setup", tt.setup_faces)), \
             mock.patch.object(tt, "setup_planes_vjp",
                               counted("vjp", tt.setup_planes_vjp)):
         pixels = dirt_tpu_torch.rasterise(
@@ -283,5 +282,8 @@ def test_the_raster_op_sets_the_planes_up_once_a_step(fields):
         assert (len(calls["setup"]), len(calls["vjp"])) == (1, 0)
         (pixels * w).sum().backward()
     assert (len(calls["setup"]), len(calls["vjp"])) == (1, 1)
+    # The forward's one setup is its engine's: boxes and edge columns in
+    # the layout that engine's binning reads.
+    assert calls["setup"][0] == (fields.get("engine", "csr"),)
     assert all(t.grad is not None and bool(t.grad.abs().sum() > 0)
                for t in leaves)

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """The whole-tile forwards (K5, K7), the fused backwards (K6, K8), the
 layout swap (K4), the packed backward (K2), the packed forward (K1) and the
-neighbour prologue (K3) on one CUDA card, against another tree's, in one
-process.
+neighbour prologue (K3) on one CUDA card, against another tree's, and the
+forward setup (KP) against its plain version, in one process.
 
     python3 tools/bench_raster_ab.py [--parent DIR[,DIR...]] [--runs N]
-        [--kernels K5,K6,K7,K8,K4,K2,K1,K3] [--spheres 224,...]
+        [--kernels K5,K6,K7,K8,K4,K2,K1,K3,KP] [--spheres 224,...]
 
 Times ``ops.raster_fwd.raster_forward_csr`` (raster_fwd_csr.cu) and
 ``ops.fused_bwd.fused_backward_rows_csr`` (fused_bwd_csr.cu) on the
@@ -40,7 +40,12 @@ sharded packed path; and ``ops.packed_bwd.padded_prologue``
 shapes: the bench sphere packed with ``clip=False`` and 3 channels, config
 5 (9 channels), the bench sphere with 16 channels, the default API's
 99,904-face sphere (CSR engine), config 4 at 512 x 512 and the flagship
-step at 256 x 256 with 9 channels (dense).
+step at 256 x 256 with 9 channels (dense); and
+``ops.triangle_setup.setup_faces`` (setup_fwd.cu) beside
+``setup_faces_plain`` on the faces the cells hand the raster op at 1024 x
+1024: the 1,001,112-face sphere (clip off, packed), the 99,904-face sphere
+(clip on, CSR) and the 10,224-face sphere (clip on, packed) with nine
+channels, as the deferred G-buffer has.
 For each shape and variant it prints
 
 * the check: K5's and K7's fid and zbuf equal to the plain (un-culled)
@@ -56,6 +61,7 @@ For each shape and variant it prints
   range; K1's fid, zbuf and pixels and K3's five outputs bit-equal to
   their plain versions (a tree whose kernel differs is reported and timed,
   not refused, like a tree with a part of K1 cut out to split its time);
+  KP's outputs bit-equal to its plain version's, NaN where it is NaN;
 * K5's and K7's faces tested per pixel without the cull and with it
   (``card_common.tests_per_pixel``, this tree's cull boxes) and the bounds
   of ``card_common``;
@@ -472,6 +478,41 @@ def _bench_prologue(tag, args, card, runs, parents):
     return failures
 
 
+def _bench_setup(tag, face_verts, face_attrs, engine, card, runs):
+    """KP on what the raster op's forward hands ``setup_faces`` in a cell,
+    beside its plain version; every output held bit for bit to the plain
+    version's. Returns the failures."""
+    from _torch_port_scene import bits_equal
+    from dirt_tpu_torch.ops import triangle_setup
+
+    size = card_common.SIZE
+    args = (face_verts, face_attrs, size, size, engine)
+    variants = {"new": functools.partial(triangle_setup.setup_faces, *args),
+                "plain": functools.partial(triangle_setup.setup_faces_plain,
+                                           *args)}
+    num_faces, channels = face_verts.shape[0], face_attrs.shape[-1]
+    # Corners and attributes in; geo, att, valid, the boxes and, packed,
+    # the edge columns out; ~70 operations a face and ~10 a channel.
+    per_face = 161 + 24 * channels + (36 if engine == "packed" else 0)
+    bound = card_common.bound(num_faces * per_face,
+                              num_faces * (70 + 10 * channels))
+    print(f"[{tag}] setup_fwd {num_faces} faces, C={channels}, {engine} "
+          f"layout: bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+          f"({card})")
+
+    def flat(out):
+        return [t for v in out if v is not None
+                for t in (v if isinstance(v, tuple) else (v,))]
+
+    got, want = (flat(fn()) for fn in variants.values())
+    same = len(got) == len(want) and all(
+        bits_equal(a, b) for a, b in zip(got, want))
+    print(f"[{tag}] new: every output bit-equal to the plain version's "
+          f"{same}")
+    _time(tag, card, variants, runs, "setup_fwd")
+    return [] if same else [tag]
+
+
 def _packed_calls(step):
     """The prepared inputs one run of ``step()`` hands
     ``packed_entry_rows``."""
@@ -628,9 +669,9 @@ def main():
                         "whose kernels are timed beside this one's; for K1, "
                         "K2, K3, K6 and K8 several, separated by commas")
     parser.add_argument("--runs", type=int, default=20)
-    parser.add_argument("--kernels", default="K5,K6,K7,K8,K4,K2,K1,K3",
-                        help="which of K5, K6, K7, K8, K4, K2, K1, K3 to "
-                        "time (K6 "
+    parser.add_argument("--kernels", default="K5,K6,K7,K8,K4,K2,K1,K3,KP",
+                        help="which of K5, K6, K7, K8, K4, K2, K1, K3, KP "
+                        "to time (K6 "
                         "runs K5 and K8 runs K7 for their inputs); NEEDLES "
                         "holds K6, K8, K9, K10 of both trees against their "
                         "plain versions on far needles")
@@ -868,6 +909,22 @@ def main():
             del call
         if failures:
             raise RuntimeError(f"K3 is wrong on: {failures}")
+
+    if "KP" in kernels:
+        failures = []
+        for n, clip_on, channels, engine in ((708, False, 3, "packed"),
+                                             (224, True, 3, "csr"),
+                                             (72, True, 9, "packed")):
+            fv, fa = card_common.sphere_faces(n, clip_on, device)
+            if channels != 3:
+                fa = card_common.rand(n, *fa.shape[:2], channels,
+                                      device=device)
+            failures += _bench_setup(
+                f"KP {fv.shape[0]} faces clip={clip_on} C={channels}", fv,
+                fa, engine, card, opts.runs)
+            del fv, fa
+        if failures:
+            raise RuntimeError(f"KP is wrong on: {failures}")
 
     if "K4" in kernels:
         packed_cfg = dirt_tpu_torch.suggest_raster_config(

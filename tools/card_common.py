@@ -26,12 +26,8 @@ if str(ROOT) not in sys.path:
 import bench_configs_torch  # noqa: E402
 import dirt_tpu_torch  # noqa: E402
 from dirt_tpu_torch.ops import _build, binning, raster  # noqa: E402
-from dirt_tpu_torch.ops.triangle_setup import (  # noqa: E402
-    edge_filter_cols,
-    face_bbox_cols,
-    screen_from_clip,
-    setup_planes,
-)
+from dirt_tpu_torch.ops import triangle_setup  # noqa: E402
+from dirt_tpu_torch.ops.triangle_setup import screen_from_clip  # noqa: E402
 from dirt_tpu_torch.utils.benchtime import device_time  # noqa: E402
 
 # The cells' image size: every bench scene is SIZE x SIZE.
@@ -153,6 +149,23 @@ def render_grads(rasterise, background, clip, colors, faces, weights, config,
     out = rasterise(bg, verts, cols, faces, config=config, clip=c)
     (out[0] * weights).sum().backward()
     return out, (verts.grad, cols.grad, bg.grad)
+
+
+def sphere_faces(n, clip, device):
+    """(faces [F, 3, 4], attributes [F, 3, 3]) of the bench sphere
+    ``uv_sphere(n, n)`` at SIZE x SIZE, as the raster op gets them: with
+    ``clip`` through the near-plane clip and compaction of the default
+    API."""
+    from dirt_tpu_torch.ops.clipping import clip_compact_screen
+    from dirt_tpu_torch.rasterise_ops import _auto_clip_cap
+
+    _, clip_verts, colors, faces, _, _ = bench_scene(SIZE, device, n=n)
+    if clip:
+        fv, fa, _, _ = clip_compact_screen(
+            clip_verts[faces], colors[faces], _auto_clip_cap(faces.shape[0]),
+            SIZE, SIZE)
+        return fv, fa
+    return screen_from_clip(clip_verts, SIZE, SIZE)[faces], colors[faces]
 
 
 def big_sphere_step(device, n=224):
@@ -301,13 +314,12 @@ class Geometry:
 
 
 def setup(clip, colors, faces, size):
-    """(geo, att, bbox, edges): screen_from_clip, the face gather,
-    setup_planes, face_bbox_cols and edge_filter_cols, as the API runs them
-    with ``clip=False``."""
+    """(geo, att, bbox, edges): screen_from_clip, the face gather and the
+    packed engine's ``triangle_setup.setup_faces`` (its kernel on the card),
+    as the API runs them with ``clip=False``."""
     fv = screen_from_clip(clip, size, size)[faces]
-    geo, att, valid = setup_planes(fv, colors[faces])
-    return geo, att, face_bbox_cols(fv, valid, size, size), \
-        edge_filter_cols(fv)
+    out = triangle_setup.setup_faces(fv, colors[faces], size, size, "packed")
+    return out.geo, out.att, out.bbox, out.edges
 
 
 def bin_faces(bbox, edges, geom, _stage=0):

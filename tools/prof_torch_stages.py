@@ -12,8 +12,8 @@ under the packed engine's honest caps (``card_common.honest``),
 ``clip=False``. The stages, each a function of tensors on the
 card:
 
-  setup             screen_from_clip + face gather + setup_planes +
-                    face_bbox_cols + edge_filter_cols
+  setup             screen_from_clip + face gather + setup_faces (the
+                    planes, boxes and edge columns: one kernel)
   setup+binning     the above + bin_faces_packed
   forward kernel    pack_face_table_v2 + the entry-row gather +
                     raster_forward_packed (K1) on fixed bins
