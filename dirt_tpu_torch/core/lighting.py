@@ -19,11 +19,17 @@ indices and sum each vertex's terms in that order, so normals and their
 gradients repeat bit for bit run to run. ``index_add_`` and
 ``index_select``'s backward sum with atomics there, which made two eager
 gradient steps of demo 5 differ.
+
+On the card, ``vertex_normals``, ``diffuse_directional`` and
+``specular_directional`` each run inside a ``shade`` span
+(``utils/trace.py``) where no other span is open: two markers a call.
 """
 
 from __future__ import annotations
 
 import torch
+
+from dirt_tpu_torch.utils import trace
 
 
 def _f32(x, like=None):
@@ -63,12 +69,14 @@ def vertex_normals(vertices, faces, epsilon: float = 1e-12):
     """
     vertices = _f32(vertices)
     faces = _faces(faces, vertices.device)
-    cross = _face_cross_products(vertices, faces)  # [..., F, 3]
-    acc = torch.zeros_like(vertices)
-    for k in range(3):
-        acc = _add_at_vertices(acc, faces[:, k], cross)
-    norm = torch.sqrt(torch.sum(acc * acc, dim=-1, keepdim=True) + epsilon)
-    return acc / norm
+    with trace.outer_span("shade", vertices):
+        cross = _face_cross_products(vertices, faces)  # [..., F, 3]
+        acc = torch.zeros_like(vertices)
+        for k in range(3):
+            acc = _add_at_vertices(acc, faces[:, k], cross)
+        norm = torch.sqrt(torch.sum(acc * acc, dim=-1, keepdim=True)
+                          + epsilon)
+        return acc / norm
 
 
 def split_vertices_by_face(vertices, faces):
@@ -142,8 +150,9 @@ def diffuse_directional(
     colors = _f32(vertex_colors, normals)
     direction = _f32(light_direction, normals)[..., None, :]
     lcolor = _f32(light_color, normals)[..., None, :]
-    cos = _clamped_cosine(normals, direction, double_sided)
-    return colors * lcolor * cos
+    with trace.outer_span("shade", normals):
+        cos = _clamped_cosine(normals, direction, double_sided)
+        return colors * lcolor * cos
 
 
 def specular_directional(
@@ -172,19 +181,20 @@ def specular_directional(
     cam = _f32(camera_position, positions)[..., None, :]
     ldir = _f32(light_direction, positions)[..., None, :]
     lcolor = _f32(light_color, positions)[..., None, :]
-
-    view = cam - positions
-    view = view / torch.sqrt(
-        torch.sum(view * view, dim=-1, keepdim=True) + 1e-12
-    )
-    cos_nl = torch.sum(normals * ldir, dim=-1, keepdim=True)
-    if double_sided:
-        sign = torch.sign(torch.where(cos_nl == 0.0, 1.0, cos_nl))
-        normals = normals * sign
-        cos_nl = torch.abs(cos_nl)
-    # Reflection of the (toward-light) direction about the normal.
-    reflected = 2.0 * cos_nl * normals - ldir
-    cos_rv = relu_split(torch.sum(reflected * view, dim=-1, keepdim=True))
-    # No highlight on faces turned away from the light.
-    lit = (cos_nl > 0.0).to(positions.dtype)
-    return colors * lcolor * lit * torch.pow(cos_rv, shininess)
+    with trace.outer_span("shade", positions):
+        view = cam - positions
+        view = view / torch.sqrt(
+            torch.sum(view * view, dim=-1, keepdim=True) + 1e-12
+        )
+        cos_nl = torch.sum(normals * ldir, dim=-1, keepdim=True)
+        if double_sided:
+            sign = torch.sign(torch.where(cos_nl == 0.0, 1.0, cos_nl))
+            normals = normals * sign
+            cos_nl = torch.abs(cos_nl)
+        # Reflection of the (toward-light) direction about the normal.
+        reflected = 2.0 * cos_nl * normals - ldir
+        cos_rv = relu_split(torch.sum(reflected * view, dim=-1,
+                                      keepdim=True))
+        # No highlight on faces turned away from the light.
+        lit = (cos_nl > 0.0).to(positions.dtype)
+        return colors * lcolor * lit * torch.pow(cos_rv, shininess)

@@ -558,6 +558,9 @@ def bin_faces(bbox, height: int, width: int, tile_h: int, tile_w: int,
     raw_counts = overlap.sum(dim=1)
     overflow = raw_counts > cap
     counts = torch.clamp(raw_counts, max=cap).to(_I32)
+    # The fullest tile's count over the cap, for the binning's closing
+    # marker (``utils/trace.py``).
+    trace.fills(bin=(raw_counts.max(), cap))
 
     # A key positive exactly on overlaps and decreasing in face index: its
     # ``cap`` largest entries per row, in descending key order, are the first

@@ -27,11 +27,19 @@ The raster op's stages, in a replay's order:
 - ``raster_bwd``: the whole of ``_RasterizeScreen.backward`` (the plane
   cotangents and ``chain_through_setup``).
 
+And the per-vertex shading before it:
+
+- ``shade``: each call of ``core/lighting.py``'s ``vertex_normals``,
+  ``diffuse_directional`` and ``specular_directional`` made where no
+  span is open (:func:`outer_span`).
+
 A step of the raster op launches six markers a forward with ``clip=True``
-(four without) and two a backward: the pairs of :data:`MARKS`, the only
-markers the kernel file instantiates. :func:`span_ms` reads a stage's
-device time per replay from a profiler's device operations, summed over
-each time the stage ran in the replay.
+(four without) and two a backward; each shading call adds two (a lit
+render's normals, diffuse and specular terms six, ``entry.deferred_render``'s
+normals two). These are the pairs of :data:`MARKS`, the only markers the
+kernel file instantiates. :func:`span_ms` reads a stage's device time per
+replay from a profiler's device operations, summed over each time the
+stage ran in the replay.
 
 **Counters.** :func:`counters` is a snapshot of the registry:
 
@@ -42,14 +50,16 @@ each time the stage ran in the replay.
   capture, summed over signatures) and ``graphstep.replays``: a loop whose
   static arguments change every call captures every call.
 - ``fill.pool``, ``fill.work``, ``fill.expand``, ``fill.budget``,
-  ``fill.tile``: device counters, the largest share of a binning cap that
-  any call used since the last :func:`reset` (1 is full; above 1 the call
-  overflowed): ``bin_faces_packed``'s pool cap, work cap, expand cap (the
-  most jobs of one face) and iteration budget, and ``bin_faces_csr``'s
-  per-tile cap (the fullest tile's run) and expand cap (the most tiles of
-  one face). The binning's closing marker folds them in, so they cost no
-  graph node of their own and outlive the graphs that wrote them. Present
-  once a call wrote them.
+  ``fill.tile``, ``fill.bin``: device counters, the largest share of a
+  binning cap that any call used since the last :func:`reset` (1 is full;
+  above 1 the call overflowed): ``bin_faces_packed``'s pool cap, work cap,
+  expand cap (the most jobs of one face) and iteration budget,
+  ``bin_faces_csr``'s per-tile cap (the fullest tile's run) and expand cap
+  (the most tiles of one face), and ``bin_faces``' per-tile cap (the
+  fullest tile's raw count, whose maximum is one reduction of its own).
+  The binning's closing marker folds them in, so the fold costs no graph
+  node and the fills outlive the graphs that wrote them. Present once a
+  call wrote them.
 
 :func:`host_spans` holds ``GraphedStep``'s host stamps of the last
 :data:`RING` calls on the profiler's clock (Unix-time ns): entry to the
@@ -70,12 +80,14 @@ from typing import NamedTuple
 import torch
 
 # The spans' numbers in a marker's symbol: SPANS[k - 1] is span k.
-SPANS = ("clip", "setup", "binning", "raster_fwd", "raster_bwd")
-# (closed, opened) span numbers of each marker the raster op launches, in a
-# step's order; ``csrc/trace_marks.cu``'s kMarks instantiates these alone.
-MARKS = ((0, 1), (1, 0), (0, 2), (2, 3), (3, 4), (4, 0), (0, 5), (5, 0))
+SPANS = ("clip", "setup", "binning", "raster_fwd", "raster_bwd", "shade")
+# (closed, opened) span numbers of each marker launched: the raster op's in
+# a step's order, then a shading call's; ``csrc/trace_marks.cu``'s kMarks
+# instantiates these alone.
+MARKS = ((0, 1), (1, 0), (0, 2), (2, 3), (3, 4), (4, 0), (0, 5), (5, 0),
+         (0, 6), (6, 0))
 # The cap fills the binning's closing marker keeps, in the kernel's order.
-FILLS = ("pool", "work", "expand", "budget", "tile")
+FILLS = ("pool", "work", "expand", "budget", "tile", "bin")
 # GraphedStep calls whose host stamps are kept.
 RING = 8192
 
@@ -239,6 +251,15 @@ def span(name: str, like):
         _OPEN.stack.pop()
         raise
     _mark(_OPEN.stack.pop(), None, like)
+
+
+def outer_span(name: str, like):
+    """:func:`span` ``name`` around the block where no span is open on this
+    thread, else nothing: a stage called inside another's span leaves that
+    span's markers as they pair."""
+    if _OPEN.stack:
+        return contextlib.nullcontext()
+    return span(name, like)
 
 
 def switch(close: str, open_: str, like):

@@ -5,8 +5,9 @@ On the CPU: the registry's count, maximum, snapshot and reset; stage spans
 as no-ops on CPU tensors; the span and switch logic, and the raster op's
 stage sites on every engine, with the card check and the marker launch
 replaced by a recorder (the markers each site would launch, in order, and
-the cap fills on the binning's closing marker); ``GraphedStep``'s counters
-untouched on the CPU path; the markers the kernel file instantiates; each
+the cap fills on the binning's closing marker), the shading calls'
+``shade`` span and ``entry.deferred_render``'s markers; ``GraphedStep``'s
+counters untouched on the CPU path; the markers the kernel file instantiates; each
 new reader on synthetic profiler windows (``benchmark.trace.Window``):
 stages split at their markers with the idle time inside counted, a stage
 run twice in a replay summed, and nothing read from an incomplete window
@@ -18,8 +19,11 @@ tests/test_torch_trace.py``): a profiled replay of a graphed packed fwd+bwd
 step shows each marker once, in the stages' order; a replay's host span
 encloses its ``cudaGraphLaunch`` on the profiler's clock; the pool fill
 equals ``sum(blocks) * POOL_ALIGN / pool_cap`` of an eager call and
-outlives the graph that wrote it; a step with the markers stubbed out
-gives the same bits; and after the stage tool's profiler windows, every
+outlives the graph that wrote it, the CSR binning's fills and the dense
+binning's ``bin`` fill are the host counts; a replay of the lit and the
+deferred pipelines' forwards shows their ``shade`` pairs before the raster
+op's markers; a step with the markers stubbed out gives the same bits; and
+after the stage tool's profiler windows, every
 whole replay of a three-replay session shows each marker once, and a
 session counts as complete only when no replay in it lost a record.
 """
@@ -38,7 +42,8 @@ import torch
 import dirt_tpu_torch
 from _torch_port_scene import sphere_scene
 from benchmark.trace import Window
-from dirt_tpu_torch import convert
+from dirt_tpu_torch import convert, entry
+from dirt_tpu_torch.core import lighting
 from dirt_tpu_torch.ops import binning, raster
 from dirt_tpu_torch.ops.raster import RasterConfig
 from dirt_tpu_torch.utils import trace
@@ -49,6 +54,10 @@ STEP_MARKS = [(None, "clip"), ("clip", None), (None, "setup"),
               ("setup", "binning"), ("binning", "raster_fwd"),
               ("raster_fwd", None), (None, "raster_bwd"),
               ("raster_bwd", None)]
+# The markers of one shading call (``core/lighting.py``).
+SHADE_MARKS = [(None, "shade"), ("shade", None)]
+# The raster op's spans.
+RASTER_SPANS = ("clip", "setup", "binning", "raster_fwd", "raster_bwd")
 ENGINES = {"packed": dict(engine="packed"), "dense": dict(engine="dense"),
            "csr": dict(streaming=True)}
 
@@ -177,7 +186,8 @@ def test_the_kernel_file_instantiates_the_markers_of_marks():
     got = [(int(c), int(o)) for c, o, c2, o2 in re.findall(
         r"\{(\d), (\d), launch<(\d), (\d)>\}", table) if (c, o) == (c2, o2)]
     assert tuple(got) == trace.MARKS
-    assert [trace.marker(MARK.format(c, o)) for c, o in got] == STEP_MARKS
+    assert [trace.marker(MARK.format(c, o)) for c, o in got] == \
+        STEP_MARKS + SHADE_MARKS
 
 
 def test_the_kernel_files_fill_block_is_fills():
@@ -191,8 +201,8 @@ def test_the_kernel_files_fill_block_is_fills():
 
 
 def test_a_marker_outside_marks_raises_before_any_launch():
-    assert [trace.mark_ids(c, o) for c, o in STEP_MARKS] == \
-        list(trace.MARKS)
+    assert [trace.mark_ids(c, o) for c, o in STEP_MARKS + SHADE_MARKS] \
+        == list(trace.MARKS)
     x = torch.ones(2)
     with pytest.raises(ValueError, match="no marker closes setup"):
         trace._mark("setup", "raster_bwd", x)
@@ -234,18 +244,36 @@ def csr_fills(args):
             "expand": widest / expand}
 
 
+def dense_fill(args):
+    """The ``bin`` share of one ``bin_faces`` call, counted on the host
+    from its arguments (bbox, height, width, tile_h, tile_w, cap): the
+    fullest tile's faces (every face whose tile span covers it, as the
+    binning's overlap matrix has them) over the cap."""
+    bbox, height, width, tile_h, tile_w, cap = args
+    tiles_y, tiles_x = -(-height // tile_h), -(-width // tile_w)
+    per_tile = np.zeros((tiles_y, tiles_x), np.int64)
+    for xmin, xmax, ymin, ymax in np.asarray(bbox.cpu()).tolist():
+        for ty in range(max(ymin // tile_h, 0), min(ymax // tile_h + 1,
+                                                     tiles_y)):
+            for tx in range(max(xmin // tile_w, 0), min(xmax // tile_w + 1,
+                                                         tiles_x)):
+                per_tile[ty, tx] += 1
+    return per_tile.max() / cap
+
+
 @pytest.mark.parametrize("engine", list(ENGINES))
 @pytest.mark.parametrize("clip", [True, False])
 def test_raster_op_marks_its_stages(marks, monkeypatch, engine, clip):
     """A fwd+bwd step launches the stages' markers in order, eight with
     the clip and six without, and the binning's closing marker carries its
     cap fills: the packed pool's is sum(blocks) * POOL_ALIGN / pool_cap;
-    the CSR binning's are its fullest tile and its widest face, as a host
-    count has them; the dense binning hands none."""
+    the CSR binning's are its fullest tile and its widest face, and the
+    dense binning's its fullest tile, as a host count has them."""
     bg, verts, colors, faces, config = _scene(engine, clip)
     marks.clear()                         # the counting's own clip
-    made, made_csr = [], []
+    made, made_csr, made_dense = [], [], []
     real, real_csr = binning.bin_faces_packed, binning.bin_faces_csr
+    real_dense = binning.bin_faces
 
     def bin_packed(*args, **kwargs):
         made.append((real(*args, **kwargs), kwargs))
@@ -255,8 +283,13 @@ def test_raster_op_marks_its_stages(marks, monkeypatch, engine, clip):
         made_csr.append(args)
         return real_csr(*args)
 
+    def bin_dense(*args):
+        made_dense.append(args)
+        return real_dense(*args)
+
     monkeypatch.setattr(raster.binning, "bin_faces_packed", bin_packed)
     monkeypatch.setattr(raster.binning, "bin_faces_csr", bin_csr)
+    monkeypatch.setattr(raster.binning, "bin_faces", bin_dense)
     verts = verts.clone().requires_grad_()
     pixels = dirt_tpu_torch.rasterise(bg, verts, colors, faces,
                                       config=config, clip=clip)
@@ -266,25 +299,69 @@ def test_raster_op_marks_its_stages(marks, monkeypatch, engine, clip):
     fills = [shares for _, _, shares in marks if shares]
     if engine == "csr":
         (args,) = made_csr
-        assert made == []
+        assert made == [] and made_dense == []
         assert marks[want.index(("binning", "raster_fwd"))][2] is fills[0]
         assert fills == [pytest.approx(csr_fills(args))]
         assert all(0 < share <= 1 for share in fills[0].values())
         return
-    if engine != "packed":
-        assert fills == [] and made == [] and made_csr == []
+    if engine == "dense":
+        (args,) = made_dense
+        assert made == [] and made_csr == []
+        assert marks[want.index(("binning", "raster_fwd"))][2] is fills[0]
+        assert fills == [{"bin": pytest.approx(dense_fill(args))}]
+        assert 0 < fills[0]["bin"] <= 1
         return
     (bins, kwargs), = made
     assert marks[want.index(("binning", "raster_fwd"))][2] is fills[0]
     cap = -(-kwargs["pool_cap"] // binning.POOL_ALIGN) * binning.POOL_ALIGN
     assert fills[0]["pool"] == pytest.approx(
         float(bins.pool_offs[-1]) * binning.POOL_ALIGN / cap)
-    assert made_csr == []
+    assert made_csr == [] and made_dense == []
     assert set(fills[0]) == ({"pool", "work", "expand", "budget"}
                              if kwargs["work_cap"] is not None
                              else {"pool", "expand", "budget"})
     assert all(0 < share <= 1 for share in fills[0].values())
     assert trace._OPEN.stack == [] and trace._OPEN.fills is None
+
+
+def test_shading_calls_mark_the_shade_span_where_none_is_open(marks):
+    """Each of the three shading calls opens and closes ``shade``; inside
+    another span they launch nothing, and that span's markers pair as
+    before."""
+    verts, _, faces = sphere_scene(4, 6, distance=3.0)
+    verts = torch.as_tensor(verts)[:, :3]
+    faces = torch.as_tensor(faces)
+    colors = torch.full_like(verts, 0.5)
+    light = torch.tensor([0.0, 0.6, 0.8])
+
+    def shade():
+        normals = lighting.vertex_normals(verts, faces)
+        return lighting.diffuse_directional(
+            normals, colors, light, torch.ones(3),
+        ) + lighting.specular_directional(
+            verts, normals, colors, torch.zeros(3), light, torch.ones(3),
+            20.0)
+
+    plain = shade()
+    assert [(c, o) for c, o, _ in marks] == SHADE_MARKS * 3
+    marks.clear()
+    with trace.outer_span("raster_bwd", verts):
+        inside = shade()
+    assert [(c, o) for c, o, _ in marks] == [(None, "raster_bwd"),
+                                              ("raster_bwd", None)]
+    assert torch.equal(inside, plain)
+    assert trace._OPEN.stack == []
+
+
+def test_deferred_render_marks_its_normals_then_the_raster_op(marks):
+    """``entry.deferred_render``'s fwd+bwd step: the normals' ``shade``
+    pair, then the raster op's eight markers."""
+    small = entry.deferred_scene(6, 8, device="cpu")
+    pose = torch.tensor([0.4, 0.3, 0.0], requires_grad=True)
+    image = entry.deferred_render(small[0], pose, *small[1:], 64)
+    image.sum().backward()
+    assert [(c, o) for c, o, _ in marks] == SHADE_MARKS + STEP_MARKS
+    assert trace._OPEN.stack == []
 
 
 def test_graphed_step_counts_nothing_on_the_cpu():
@@ -302,9 +379,10 @@ MARK = "void span_mark<{}, {}>(Fills)"
 
 
 def _replay(t0, corr, marks=True):
-    """One replay's device operations from ``t0`` ns: every stage between
-    its markers, with idle time inside the clip and the binning. Stage
-    times: clip 6,000 ns, binning 6,000, raster_bwd 7,000."""
+    """One replay's device operations from ``t0`` ns: three shading calls
+    and every stage of the raster op between its markers, with idle time
+    inside the normals, the clip and the binning. Stage times: shade 4,500
+    ns over the three calls, clip 6,000, binning 6,000, raster_bwd 7,000."""
     ops, t = [], t0
 
     def op(name, ns):
@@ -315,6 +393,16 @@ def _replay(t0, corr, marks=True):
     def mark(close, open_):
         op(MARK.format(close, open_) if marks else "elementwise", 1000)
 
+    mark(0, 6)                                 # the normals
+    op("index_put", 1500)
+    t += 500                                   # idle inside the shading
+    mark(6, 0)
+    mark(0, 6)                                 # the diffuse term
+    op("mul", 1000)
+    mark(6, 0)
+    mark(0, 6)                                 # the specular term
+    op("pow", 1500)
+    mark(6, 0)
     mark(0, 1)
     op("elementwise", 3000)
     t += 2000                                  # idle inside the clip
@@ -356,7 +444,8 @@ def _read(metric, window):
 
 @pytest.mark.parametrize("metric,ms", [("clip_ms", 0.006),
                                        ("binning_ms", 0.006),
-                                       ("raster_bwd_ms", 0.007)])
+                                       ("raster_bwd_ms", 0.007),
+                                       ("shade_ms", 0.0045)])
 def test_stage_readers_split_at_markers(metric, ms):
     window = _window()
     assert window.complete()
@@ -372,7 +461,8 @@ def _swap(ops, old, new):
 
 @pytest.mark.parametrize("metric,ms", [("clip_ms", 0.006),
                                        ("binning_ms", 0.006),
-                                       ("raster_bwd_ms", 0.007)])
+                                       ("raster_bwd_ms", 0.007),
+                                       ("shade_ms", 0.0045)])
 def test_stage_readers_sum_a_stage_run_twice_in_a_replay(metric, ms):
     """A replay that runs the raster op twice (two views, two slabs) opens
     each span twice: the reader sums both per replay."""
@@ -385,12 +475,13 @@ def test_stage_readers_sum_a_stage_run_twice_in_a_replay(metric, ms):
 
 
 @pytest.mark.parametrize("metric", ["clip_ms", "binning_ms",
-                                    "raster_bwd_ms"])
+                                    "raster_bwd_ms", "shade_ms"])
 @pytest.mark.parametrize("fault", ["incomplete", "missing", "doubled",
                                    "unclosed", "no markers"])
 def test_stage_readers_read_nothing_from_a_faulty_window(metric, fault):
     opening = {"clip_ms": MARK.format(0, 1), "binning_ms": MARK.format(2, 3),
-               "raster_bwd_ms": MARK.format(0, 5)}[metric]
+               "raster_bwd_ms": MARK.format(0, 5),
+               "shade_ms": MARK.format(0, 6)}[metric]
     if fault == "incomplete":
         window = _window(steps=5)
         assert not window.complete()
@@ -400,7 +491,8 @@ def test_stage_readers_read_nothing_from_a_faulty_window(metric, fault):
     elif fault in ("doubled", "unclosed"):
         closing = {"clip_ms": MARK.format(1, 0),
                    "binning_ms": MARK.format(3, 4),
-                   "raster_bwd_ms": MARK.format(5, 0)}[metric]
+                   "raster_bwd_ms": MARK.format(5, 0),
+                   "shade_ms": MARK.format(6, 0)}[metric]
         swapped = ((opening, closing) if fault == "doubled"
                    else (closing, "elementwise"))
         window = _window({3: _swap(_replay(1_300_000, 3), *swapped)})
@@ -431,18 +523,29 @@ def test_tile_cap_use_pct_reads_the_tile_fill(monkeypatch, snapshot, pct):
     assert _read("tile_cap_use_pct", _window(steps=5)) is None
 
 
+@pytest.mark.parametrize("snapshot,pct", [({"fill.bin": 0.5}, 50.0),
+                                          ({"fill.tile": 0.8}, None),
+                                          ({}, None)])
+def test_bin_cap_use_pct_reads_the_dense_bin_fill(monkeypatch, snapshot,
+                                                  pct):
+    monkeypatch.setattr(trace, "counters", lambda: dict(snapshot))
+    assert _read("bin_cap_use_pct", _window()) == pct
+    assert _read("bin_cap_use_pct", _window(steps=5)) is None
+
+
 def test_registry_readers_read_nothing_without_a_card():
     trace.reset()
     assert _read("pool_use_pct", _window()) is None
     assert _read("tile_cap_use_pct", _window()) is None
+    assert _read("bin_cap_use_pct", _window()) is None
 
 
 def test_readers_read_nothing_from_a_program_without_the_registry(
         monkeypatch):
     monkeypatch.setitem(sys.modules, "dirt_tpu_torch.utils.trace", None)
     monkeypatch.delattr(dirt_tpu_torch.utils, "trace")
-    for metric in ("clip_ms", "binning_ms", "raster_bwd_ms",
-                   "pool_use_pct", "tile_cap_use_pct"):
+    for metric in ("clip_ms", "binning_ms", "raster_bwd_ms", "shade_ms",
+                   "pool_use_pct", "tile_cap_use_pct", "bin_cap_use_pct"):
         assert _read(metric, _window()) is None
 
 
@@ -504,7 +607,7 @@ def test_a_replay_shows_each_marker_once_in_order(cuda):
     got = [trace.marker(op[0]) for op in window.ops
            if trace.marker(op[0]) is not None]
     assert got == STEP_MARKS
-    for name in trace.SPANS:
+    for name in RASTER_SPANS:
         assert trace.span_ms(window.ops, window.launches, name) > 0
 
 
@@ -605,6 +708,78 @@ def test_markers_change_no_bits(cuda, monkeypatch, engine):
     bare = GraphedStep(step, args)(*args)
     for got, want in zip(bare, marked):
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_a_graphed_dense_step_leaves_the_bin_fill(cuda, monkeypatch):
+    """The dense binning's fill is the host count of an eager call's
+    arguments, in (0, 1], and a replay alone writes it again; no other
+    engine's slot is written."""
+    made = []
+    real = raster.binning.bin_faces
+
+    def bin_dense(*args):
+        made.append(args)
+        return real(*args)
+
+    step, args = _card_step(cuda, "dense")
+    trace.reset()
+    with monkeypatch.context() as patch:
+        patch.setattr(raster.binning, "bin_faces", bin_dense)
+        step(*args)
+    (call,) = made
+    want = dense_fill(call)
+    counts = trace.counters()
+    assert 0 < counts["fill.bin"] <= 1
+    assert counts["fill.bin"] == pytest.approx(want, rel=1e-6)
+    assert not {"fill.pool", "fill.work", "fill.expand", "fill.budget",
+                "fill.tile"} & set(counts)
+    graphed = GraphedStep(step, args)
+    trace.reset()
+    graphed(*args)                        # a replay alone writes the fill
+    assert trace.counters()["fill.bin"] == pytest.approx(want, rel=1e-6)
+
+
+def _shaded_forward(device, cell):
+    """(forward, args): the graphable forward of a benchmark cell's
+    pipeline at 128 x 128 on ``uv_sphere(24, 48)`` (the dense engine) at
+    its true parameters, under caps suggested for them."""
+    from benchmark import harness, inputs
+    from benchmark.scenes import scene_arrays
+
+    loaded = harness.load_cell(cell)
+    config = dict(loaded.config, size=128, faces=2208,
+                  mesh={"kind": "uv_sphere", "n_lat": 24, "n_lon": 48})
+    pipe = loaded.pipeline
+    scene = pipe.scene(config, scene_arrays(config), device)
+    names = ("light", "pose") if config["pipeline"] == "lit" else ("pose",)
+    params = {name: pipe.true_value(name, config, scene) for name in names}
+    caps = inputs.suggested_caps(pipe, config, scene, [params])
+
+    def forward(*values):
+        with torch.no_grad():
+            return pipe.render(config, scene, caps,
+                               dict(zip(names, values)))["image"]
+
+    return forward, tuple(params.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,calls", [("lit512.fit", 3),
+                                        ("deferred10k.fit", 1)])
+def test_a_shaded_forward_carries_paired_shade_markers(cuda, cell, calls):
+    """A replay of the lit pipeline's forward shows a ``shade`` pair for
+    the normals, the diffuse and the specular calls, the deferred
+    pipeline's one for its normals, then the raster op's forward markers;
+    ``span_ms`` reads the shading's time."""
+    forward, args = _shaded_forward(cuda, cell)
+    graphed = GraphedStep(forward, args)
+    window, _ = _profiled_replay(graphed, args)
+    assert window.complete()
+    got = [trace.marker(op[0]) for op in window.ops
+           if trace.marker(op[0]) is not None]
+    assert got == SHADE_MARKS * calls + STEP_MARKS[:6]
+    assert trace.span_ms(window.ops, window.launches, "shade") > 0
 
 
 # Last in the file: the profiler windows it takes come after every other
