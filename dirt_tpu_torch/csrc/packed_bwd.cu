@@ -10,11 +10,13 @@
 // binned at most once per subtile). The TPU kernel finds it with a 3-pass
 // bf16 one-hot matmul that also carries a "ones" column as the covered
 // flag; here each thread walks its subtile's live iterations in ascending
-// order, compares the staged face ids with its fid, and reads the owning
-// row's 17 geometry columns directly. A pixel with no owner in the live
-// range (background, padding, or an owner outside the chunk slice) is not
-// covered and contributes nothing. All of a row's pixels therefore lie in
-// its own subtile, which is what lets a block take a few subtiles alone.
+// order, compares the staged face ids (entries >> 3) with its fid, and
+// reads the owner's 17 geometry columns from the face table directly, at
+// row fid (the owner's face is the pixel's fid). A pixel with no owner in
+// the live range (background, padding, or an owner outside the chunk
+// slice) is not covered and contributes nothing. All of a row's pixels
+// therefore lie in its own subtile, which is what lets a block take a few
+// subtiles alone.
 //
 // Work decomposition. One block per subtile (lane group) of one (tile,
 // strip), one thread per pixel: 128 threads, four warps of two subtile rows
@@ -25,7 +27,8 @@
 // tile's n_iters (which drops chunks past the tile's content) and to the
 // chunk slice [c_lo, c_hi).
 //   pass 1a: the block stages its subtiles' face ids (128 iterations at a
-//            time) and each thread finds its owner, the first match;
+//            time, 4-byte entries 32 bytes apart) and each thread finds its
+//            owner, the first match;
 //   pass 1b: each thread evaluates the cotangent core for its pixel
 //            (cotangent_core.cuh: the expressions of
 //            raster_bwd.pixel_cotangents_core, in the same order) and stages
@@ -59,11 +62,12 @@
 // wrapper allocated, since the reduce gathers rows by backpointer.
 //
 // What bounds it: by count, bytes (the per-pixel planes once, the live rows'
-// ids and geometry columns, the rows written once). In practice, latency:
-// timed with one pass cut out at a time (tools/bench_raster_ab.py --kernels
-// K2; bench sphere, 1024^2, C = 3, NVIDIA H100 80GB HBM3, 700 W; PERF.md
-// section 6), the first version spent two thirds of its time in pass 2
-// (0.0875 of 0.1332 ms) and a fifth in pass 1b; this one takes 0.0552 ms,
+// entries, the owners' geometry columns, the rows written once). In
+// practice, latency: timed with one pass cut out at a time
+// (tools/bench_raster_ab.py --kernels K2; bench sphere, 1024^2, C = 3,
+// NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), the first version
+// spent two thirds of its time in pass 2 (0.0875 of 0.1332 ms) and a fifth
+// in pass 1b; this one takes 0.0552 ms,
 // about 40% in pass 2 (each row's chain of dependent shared loads and adds,
 // kept in order for the bits), 40% in pass 1b (the core and its loads) and
 // the rest in pass 1a (the serial owner walk, ~20 iterations a strip) and
@@ -91,7 +95,6 @@ constexpr int PACK_ITERS = 64;
 constexpr int PACK_CHUNK = PACK_ITERS * GROUPS;
 constexpr int BLOCK_W = SUBS * SUB_W;         // pixel columns of a block
 constexpr int THREADS = SUB_H * BLOCK_W;
-constexpr int COL_ID = 17;
 constexpr int STAGE = 128;                    // iterations per round
 constexpr unsigned FULL = 0xffffffffu;
 // The ids and the masks: the static shared memory of a block.
@@ -101,16 +104,17 @@ static_assert(GROUPS % SUBS == 0, "a block takes whole lane groups");
 template <int MINB>
 __global__ void __launch_bounds__(THREADS, MINB)
 packed_bwd_kernel(
-    const float* __restrict__ rows, int width,
-    const int* __restrict__ start_block, const int* __restrict__ n_iters,
-    const int* __restrict__ iter_off, const int* __restrict__ strip_iters,
+    const float* __restrict__ table, int width,
+    const int* __restrict__ entries, const int* __restrict__ start_block,
+    const int* __restrict__ n_iters, const int* __restrict__ iter_off,
+    const int* __restrict__ strip_iters,
     const int* __restrict__ fid, const int* __restrict__ bits,
     const float* __restrict__ sval, const float* __restrict__ pix,
     const float* __restrict__ grad, float* __restrict__ out,
     int channels, int hp, int wp, int tile_h, int tiles_x, int c_lo,
     int c_hi, int k_lo, int k_n, int flat) {
   extern __shared__ float cot[];              // [THREADS][k_n]
-  __shared__ float ids[STAGE * SUBS];         // [iteration][subtile]
+  __shared__ int ids[STAGE * SUBS];           // [iteration][subtile]
   // [iteration][subtile][subtile row]: the row's pixels of that subtile row.
   __shared__ __align__(16) unsigned short masks[STAGE * SUBS * SUB_H];
   const int k_cols = 12 + 3 * channels;
@@ -146,15 +150,15 @@ packed_bwd_kernel(
            : (long long)y * wp + x;
 
   // ---- pass 1a: the owning iteration (first match in ascending order) ---
-  const float f = (float)fid[p];
+  const int f = fid[p];
   int own = -1;                               // iteration from lo
   for (int i0 = 0; i0 < n_it; i0 += STAGE) {
     const int n = min(STAGE, n_it - i0);
     __syncthreads();                          // previous stage consumed
     for (int k = tid; k < n * SUBS; k += THREADS) {
       const int j = k / SUBS;
-      ids[k] = __ldg(rows + (row0 + (long long)(i0 + j) * GROUPS + g0 +
-                             (k - j * SUBS)) * width + COL_ID);
+      ids[k] = __ldg(entries + row0 + (long long)(i0 + j) * GROUPS + g0 +
+                     (k - j * SUBS)) >> 3;
     }
     __syncthreads();
     if (own < 0) {
@@ -169,7 +173,7 @@ packed_bwd_kernel(
 
   // ---- pass 1b: the pixel's cotangents (pixel_cotangents_core) ----------
   if (own >= 0) {
-    const float* m = rows + (row0 + (long long)own * GROUPS + g) * width;
+    const float* m = table + (long long)f * width;
     float* my = cot + tid * k_n;
     const float dx = ((float)x + 0.5f) - m[0];
     const float dy = ((float)y + 0.5f) - m[1];
@@ -223,14 +227,15 @@ packed_bwd_kernel(
 }  // namespace
 
 // Plain C entry point (bound with ctypes). All pointers are device
-// pointers; `out` holds (c_hi - c_lo) * 512 zeroed rows of 12 + 3C floats.
+// pointers; `table` is [F + 1, width] floats, every entry >> 3 a row of it;
+// `out` holds (c_hi - c_lo) * 512 zeroed rows of 12 + 3C floats.
 // `cols_per_pass` >= 1 is the most columns one launch may stage; the
 // 12 + 3C columns run in ceil((12 + 3C) / cols_per_pass) launches. `flat`
 // says which layout the per-pixel fields are in (0 image, 1 flat-subtile).
 // The launches go on `stream` and do not synchronise. Returns the first
 // CUDA error code (0 on success).
 extern "C" int dirt_packed_bwd(
-    const float* rows, int width,
+    const float* table, int width, const int* entries,
     const int* start_block, const int* n_iters,
     const int* iter_off, const int* strip_iters,
     const int* fid, const int* bits, const float* sval, const float* pix,
@@ -259,9 +264,9 @@ extern "C" int dirt_packed_bwd(
           cols_per_pass < k_cols - k_lo ? cols_per_pass : k_cols - k_lo;
       kernel<<<blocks, THREADS, THREADS * k_n * (int)sizeof(float),
                static_cast<cudaStream_t>(stream)>>>(
-          rows, width, start_block, n_iters, iter_off, strip_iters, fid, bits,
-          sval, pix, grad, out, channels, hp, wp, tile_h, tiles_x, c_lo, c_hi,
-          k_lo, k_n, flat);
+          table, width, entries, start_block, n_iters, iter_off, strip_iters,
+          fid, bits, sval, pix, grad, out, channels, hp, wp, tile_h, tiles_x,
+          c_lo, c_hi, k_lo, k_n, flat);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }

@@ -85,9 +85,11 @@ class PackedBins(NamedTuple):
     # [F + 1] int32, or None: POOL_ALIGN-slot-block offset of each face's
     # pool run (``pool_offs[F]`` the total), for the packed backward.
     pool_offs: torch.Tensor | None = None
-    # [budget_rows, table_width] f32, or None: the gathered per-entry face
-    # table rows, attached by the forward (``ops.raster._forward_impl``).
-    rows: torch.Tensor | None = None
+    # [F + 1, table_width] f32, or None: the face table
+    # (``raster_fwd.pack_face_table_v2``), attached by
+    # ``ops.raster.prepare_packed``. The packed kernels read budget row r's
+    # face row where it lies, at ``table[entries[r] >> 3]``.
+    table: torch.Tensor | None = None
     # geo [F, 24] and att [F, 3C] f32, or None: the setup's planes,
     # attached by the forward for the backward.
     geo: torch.Tensor | None = None

@@ -2,7 +2,8 @@
 
 Counterpart of ``dirt_tpu/ops/packed_bwd.py``. The backward runs over the
 same packed bins the forward used (``binning.bin_faces_packed``) and the
-face rows the forward gathered (``bins.rows``):
+forward's face table (``bins.table``), which it reads through the bins'
+entries as the forward kernel does:
 
 1. :func:`prepare_backward_packed` runs the neighbor prologue
    (:func:`padded_prologue`, kernel K3) over the unpadded image-space
@@ -59,11 +60,10 @@ from dirt_tpu_torch.ops.raster_bwd import (
 from dirt_tpu_torch.ops.raster_fwd import (
     BIG_Z,
     COL_ATT,
-    COL_ID,
     _check_geometry,
     _to_jobs,
     check_meta,
-    check_rows,
+    check_table,
     check_tensor,
     pack_face_table_v2,
 )
@@ -320,15 +320,16 @@ def prepare_backward_packed(geo, att, fid, zbuf, pixels, grad_pixels, bins,
     )
 
 
-def _entry_table_rows(prep):
-    """``bins.rows`` (the forward's gather), or the same gather anew."""
-    if prep.bins.rows is not None:
-        return prep.bins.rows
+def _entry_table(prep):
+    """The face table the entries index: ``bins.table`` (the forward's),
+    or the same table built anew from the planes."""
+    if prep.bins.table is not None:
+        return prep.bins.table
     table2 = pack_face_table_v2(prep.geo, prep.att)
     col_one = COL_ATT + 3 * prep.channels
     if col_one < table2.shape[1]:
-        table2[:, col_one] = 1.0
-    return table2[prep.bins.entries.long() // 8].contiguous()
+        table2[:, col_one].fill_(1.0)
+    return table2
 
 
 # --- K2: per-entry cotangent rows -------------------------------------------
@@ -352,45 +353,59 @@ def packed_entry_rows(prep: _PackedBwdPrep, c_lo: int = 0,
     if not 0 <= c_lo <= c_hi <= budget_chunks:
         raise ValueError(f"chunk slice [{c_lo}, {c_hi}) outside "
                          f"[0, {budget_chunks}]")
-    rows = _entry_table_rows(prep)
+    table = _entry_table(prep)
+    raster_fwd.check_table_rows(
+        table, prep.bins, None if prep.geo is None else prep.geo.shape[0])
     device = prep.fid_p.device
     if device.type == "cpu":
-        return packed_entry_rows_plain(prep, rows, c_lo, c_hi)
+        return packed_entry_rows_plain(prep, table, c_lo, c_hi)
     if device.type != "cuda":
         raise ValueError(f"packed_entry_rows: no kernel for device {device}")
-    return _launch_bwd(prep, rows, c_lo, c_hi)
+    return _launch_bwd(prep, table, c_lo, c_hi)
 
 
-def packed_entry_rows_plain(prep: _PackedBwdPrep, rows, c_lo: int,
+def packed_entry_rows_plain(prep: _PackedBwdPrep, table, c_lo: int,
                             c_hi: int):
     """Plain PyTorch version of the backward kernel (any device).
 
     Like the kernel: (1) every pixel finds its owning row by walking its
     (strip, group) run in ascending order and taking the first row whose
-    face is its fid; (2) the owner's geometry columns give the pixel's
-    cotangents through ``pixel_cotangents_core``; (3) each row sums its
-    pixels in the subtile's pixel order (row-major over 8 x 16), one pixel
-    position per ``index_add_`` step, so every sum is accumulated in the
-    kernel's order. Fields in flat-subtile layout are first brought back
-    to image layout (the swap is its own inverse).
+    face (``entries >> 3``) is its fid; (2) the owner's geometry columns,
+    read from ``table`` at the owner's face, give the pixel's cotangents
+    through ``pixel_cotangents_core``; (3) each row sums its pixels in the
+    subtile's pixel order (row-major over 8 x 16), one pixel position per
+    ``index_add_`` step, so every sum is accumulated in the kernel's order.
+    Fields in flat-subtile layout are first brought back to image layout
+    (the swap is its own inverse).
     """
-    tile_h, tile_w = prep.tile_h, prep.tile_w
-    _, hp, wp = _check_geometry(prep.pix_cf, tile_h, tile_w)
-    device = prep.fid_p.device
+    face_of = prep.bins.entries.long() >> 3
+    owner = _owners_plain(prep, face_of, c_lo, c_hi)
+    geo = table[:, :GEO_USED][face_of[torch.clamp(owner, min=0)]]
+    return _owned_sums_plain(prep, owner, geo, c_lo, c_hi)
+
+
+def _job_fields(prep):
+    """The five per-pixel fields in image layout, then in job layout
+    [.., T, S, G, 8, 16]."""
+    tiles_y = prep.pix_cf.shape[1] // prep.tile_h
+    tiles_x = prep.pix_cf.shape[2] // prep.tile_w
     fields = (prep.fid_p, prep.bits, prep.sval, prep.pix_cf, prep.grad_cf)
     if prep.flat:
         fields = [raster_fwd.flat_subtile_swap_plain(x) for x in fields]
-    fid_p, bits_p, sval_p, pix_cf, grad_cf = fields
-    tiles_y, tiles_x = hp // tile_h, wp // tile_w
+    return [_to_jobs(x, tiles_y, tiles_x, prep.tile_h // SUB_H)
+            for x in fields]
+
+
+def _owners_plain(prep, ids, c_lo: int, c_hi: int):
+    """[T, S, G, 8, 16] int64: each pixel's owning budget row, the first of
+    its (strip, group) run, clamped to the tile's ``n_iters`` and to the
+    chunk slice, whose ``ids`` entry equals the pixel's fid (compared in
+    ``ids``' dtype); -1 where none does."""
+    tile_h, tile_w = prep.tile_h, prep.tile_w
+    _, hp, wp = _check_geometry(prep.pix_cf, tile_h, tile_w)
+    device = prep.fid_p.device
     strips = tile_h // SUB_H
-    total = tiles_y * tiles_x
-
-    def arange(n):
-        return torch.arange(n, dtype=torch.int64, device=device)
-
-    def jobs(x):
-        return _to_jobs(x, tiles_y, tiles_x, strips)
-
+    total = (hp // tile_h) * (wp // tile_w)
     # Per (tile, strip): the live iterations [lo, hi), clamped to the
     # tile's n_iters and to the chunk slice, as [T, S, 1].
     bins = prep.bins
@@ -403,10 +418,9 @@ def packed_entry_rows_plain(prep: _PackedBwdPrep, rows, c_lo: int,
     lo = torch.maximum(lo, (c_lo - sb) * PACK_ITERS)
     hi = torch.minimum(hi, (c_hi - sb) * PACK_ITERS)
     row0 = sb * PACK_ITERS
-    g = arange(GROUPS)
-    fid = jobs(fid_p).to(torch.float32)                  # [T, S, G, 8, 16]
+    g = torch.arange(GROUPS, dtype=torch.int64, device=device)
+    fid = _job_fields(prep)[0].to(ids.dtype)             # [T, S, G, 8, 16]
     owner = torch.full(fid.shape, -1, dtype=torch.int64, device=device)
-    ids = rows[:, COL_ID]
     n_steps = int(torch.clamp(hi - lo, min=0).max()) if total else 0
     for k in range(n_steps):
         it = lo + k
@@ -415,22 +429,38 @@ def packed_entry_rows_plain(prep: _PackedBwdPrep, rows, c_lo: int,
         hit = ((ids[row][..., None, None] == fid) & live[..., None, None]
                & (owner < 0))
         owner = torch.where(hit, row[..., None, None], owner)
+    return owner
 
+
+def _owned_sums_plain(prep, owner, geo, c_lo: int, c_hi: int):
+    """The rows of the chunk slice [c_lo, c_hi): each pixel with an owner
+    (``owner`` >= 0) adds the cotangents of ``geo`` (its owner's 17
+    geometry columns, [T, S, G, 8, 16, 17]) to its owner's row, one pixel
+    position of the subtile's row-major order at a time."""
+    tile_h, tile_w = prep.tile_h, prep.tile_w
+    _, hp, wp = prep.pix_cf.shape
+    device = owner.device
+    tiles_x = wp // tile_w
+    strips = tile_h // SUB_H
+    total = (hp // tile_h) * tiles_x
+
+    def arange(n):
+        return torch.arange(n, dtype=torch.int64, device=device)
+
+    fid, bits, sval, pix, grad = _job_fields(prep)
     covered = owner >= 0
-    geo = rows[:, :GEO_USED][torch.clamp(owner, min=0)]  # [..., 8, 16, 17]
     t = arange(total)[:, None, None, None, None]
     s = arange(strips)[None, :, None, None, None]
-    xg = ((t % tiles_x) * tile_w + g[None, None, :, None, None] * SUB_W
+    g = arange(GROUPS)[None, None, :, None, None]
+    xg = ((t % tiles_x) * tile_w + g * SUB_W
           + arange(SUB_W)).to(torch.float32) + 0.5
     yg = ((t // tiles_x) * tile_h + s * SUB_H
           + arange(SUB_H)[:, None]).to(torch.float32) + 0.5
     xg, yg = torch.broadcast_tensors(xg, yg, fid)[:2]
-    bits = jobs(bits_p)
-    sval = jobs(sval_p)
     nbrs = [(((bits >> n) & 1) > 0, sval[n]) for n in range(4)]
     d_geo, d_att = pixel_cotangents_core(
         [geo[..., q] for q in range(GEO_USED)], covered, None, None,
-        jobs(pix_cf), jobs(grad_cf), nbrs, xg, yg,
+        pix, grad, nbrs, xg, yg,
     )
     cot = torch.stack(
         [d_geo[GEO_EDGE + q] for q in range(9)]
@@ -454,14 +484,14 @@ def _bwd_fn():
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 10
+        + [ctypes.c_void_p] * 11
         + [ctypes.c_int] * 8
         + [ctypes.c_void_p]
     )
     return fn
 
 
-def _launch_bwd(prep, rows, c_lo, c_hi):
+def _launch_bwd(prep, table, c_lo, c_hi):
     channels, tile_h = prep.channels, prep.tile_h
     _, hp, wp = _check_geometry(prep.pix_cf, tile_h, prep.tile_w)
     device = prep.fid_p.device
@@ -471,7 +501,7 @@ def _launch_bwd(prep, rows, c_lo, c_hi):
     bins = prep.bins
     check_meta(bins, (hp // tile_h) * (wp // prep.tile_w), tile_h // SUB_H,
                device)
-    check_rows(rows, bins, channels, device)
+    check_table(table, bins, channels, device)
     for name, arr, dtype, lead in (
         ("fid_p", prep.fid_p, torch.int32, ()),
         ("bits", prep.bits, torch.int32, ()),
@@ -488,7 +518,7 @@ def _launch_bwd(prep, rows, c_lo, c_hi):
     with raster_fwd.on_device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            rows.data_ptr(), rows.shape[1],
+            table.data_ptr(), table.shape[1], bins.entries.data_ptr(),
             bins.start_block.data_ptr(), bins.n_iters.data_ptr(),
             bins.iter_off.data_ptr(), bins.strip_iters.data_ptr(),
             prep.fid_p.data_ptr(), prep.bits.data_ptr(),

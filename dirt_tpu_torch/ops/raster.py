@@ -301,11 +301,11 @@ def prepare_packed(face_verts_screen, face_attrs, background, config,
                    planes=None):
     """The packed forward up to the raster kernel.
 
-    Triangle setup, packed binning and the face table, with the entry
-    rows gathered once (they ride on ``bins.rows`` for the backward).
-    Returns (table2 [F + 1, W], bins, background [C, Hp, Wp] padded to
-    whole tiles, the concrete config). ``planes`` as
-    :func:`prepare_dense`'s.
+    Triangle setup, packed binning and the face table, which rides on
+    ``bins.table`` to the backward: both packed kernels read each budget
+    row's face row through ``bins.entries``. Returns (table2 [F + 1, W],
+    bins, background [C, Hp, Wp] padded to whole tiles, the concrete
+    config). ``planes`` as :func:`prepare_dense`'s.
     """
     height, width, channels = background.shape
     config = config.concrete(height)
@@ -335,8 +335,7 @@ def prepare_packed(face_verts_screen, face_attrs, background, config,
     col_one = raster_fwd.COL_ATT + 3 * channels
     if col_one < table2.shape[1]:
         table2[:, col_one].fill_(1.0)
-    rows = table2[bins.entries.long() // 8].contiguous()
-    return table2, bins._replace(rows=rows), bg_chw, config
+    return table2, bins._replace(table=table2), bg_chw, config
 
 
 def _face_setup(planes, face_verts_screen, face_attrs, height: int,
@@ -381,12 +380,9 @@ def _forward_impl(face_verts_screen, face_attrs, background, config):
             face_verts_screen, face_attrs, background, config, setup)
         del setup
         if engine == "packed":
-            # K1 reads the gathered rows alone: the table goes before it
-            # runs, so the planes kept for the backward take its room.
-            del table
             pixels_chw, fid, zbuf = raster_fwd.raster_forward_packed(
-                None, lists, bg_chw, tile_h=config.tile_h,
-                tile_w=config.tile_w, rows=lists.rows,
+                table, lists, bg_chw, tile_h=config.tile_h,
+                tile_w=config.tile_w,
             )
             bins = lists._replace(geo=planes[0], att=planes[1])
         elif engine == "csr":
@@ -472,7 +468,7 @@ class _RasterizeScreen(torch.autograd.Function):
 
     Counterpart of ``dirt_tpu.ops.raster``'s custom VJP (``_fwd`` and
     ``_bwd``). The forward keeps the screen-space faces, the outputs and
-    the engine's bins (packed: with the gathered entry rows and the pool
+    the engine's bins (packed: with the face table and the pool
     backpointers; dense and streaming: the per-tile lists and the boxes)
     for the backward, which picks the engine by the kind of bins it finds,
     hands it the forward's plane coefficients (``bins.geo``, ``bins.att``)

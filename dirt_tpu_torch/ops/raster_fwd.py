@@ -100,31 +100,29 @@ def pack_face_table_v2(geo, att):
 
 def raster_forward_packed(
     table2, bins: PackedBins, background_chw, *, tile_h: int, tile_w: int,
-    rows=None,
 ):
     """Forward pass over packed subtile bins (``bin_faces_packed``).
 
     Args:
-        table2: [F + 1, W] from :func:`pack_face_table_v2`; not read
-            (may be None) when ``rows`` is given.
+        table2: [F + 1, W] from :func:`pack_face_table_v2`. Budget row r's
+            job reads the table's row ``bins.entries[r] >> 3`` where it
+            lies; nothing is gathered beforehand.
         bins: PackedBins.
         background_chw: [C, Hp, Wp] f32 padded to tile multiples.
-        rows: optional precomputed ``table2[bins.entries // 8]``.
     Returns:
         pixels [C, Hp, Wp] f32, fid [Hp, Wp] int32, zbuf [Hp, Wp] f32.
     """
-    if rows is None:
-        rows = table2[bins.entries.long() // 8]
+    check_table_rows(table2, bins)
     device = background_chw.device
     if device.type == "cpu":
         return raster_forward_packed_plain(
-            rows, bins, background_chw, tile_h=tile_h, tile_w=tile_w
+            table2, bins, background_chw, tile_h=tile_h, tile_w=tile_w
         )
     if device.type != "cuda":
         raise ValueError(
             f"raster_forward_packed: no kernel for device {device}"
         )
-    return _launch(rows, bins, background_chw, tile_h, tile_w)
+    return _launch(table2, bins, background_chw, tile_h, tile_w)
 
 
 def check_tensor(name, arr, dtype, shape, device):
@@ -185,14 +183,39 @@ def check_meta(bins: PackedBins, total: int, strips: int, device):
         check_tensor(name, getattr(bins, name), torch.int32, (n,), device)
 
 
-def check_rows(rows, bins: PackedBins, channels: int, device):
-    """The gathered entry rows: [budget_rows, >= COL_ATT + 3C] float32."""
+def check_table_rows(table, bins: PackedBins, num_faces: int | None = None):
+    """A packed face table holds F + 1 rows, the faces and the sentinel: F
+    is ``num_faces`` where given, else ``bins.pool_offs``' length less one
+    where the binning kept it (any device: the plain versions index the
+    table by the entries' faces too)."""
+    if num_faces is None and bins.pool_offs is not None:
+        num_faces = bins.pool_offs.shape[0] - 1
+    if table.ndim != 2 or (num_faces is not None
+                           and table.shape[0] != num_faces + 1):
+        want = "F + 1" if num_faces is None else num_faces + 1
+        raise ValueError(f"table: want [{want}, W] (the faces and the "
+                         f"sentinel), got {tuple(table.shape)}")
+
+
+def check_table(table, bins: PackedBins, channels: int, device):
+    """The face table a packed kernel reads through ``bins.entries``:
+    contiguous float32 [F + 1, W], W >= COL_ATT + 3C and a multiple of 4,
+    from a 16-byte aligned start (its rows are read as 16-byte vectors);
+    the entries int32 [budget_rows], with budget rows that fit 32-bit
+    indices. :func:`check_table_rows` checks F."""
     min_width = COL_ATT + 3 * channels
-    if rows.ndim != 2 or rows.shape[1] < min_width:
-        raise ValueError(f"rows: want [budget_rows, >= {min_width}], got "
-                         f"{tuple(rows.shape)}")
-    check_tensor("rows", rows, torch.float32,
-                 (bins.entries.shape[0], rows.shape[1]), device)
+    if table.ndim != 2 or table.shape[1] < min_width or table.shape[1] % 4:
+        raise ValueError(f"table: want [F + 1, W] with W >= {min_width} a "
+                         f"multiple of 4, got {tuple(table.shape)}")
+    check_tensor("table", table, torch.float32, tuple(table.shape), device)
+    if table.data_ptr() % 16:
+        raise ValueError(f"table: want a 16-byte aligned start, got a view "
+                         f"at byte offset {table.data_ptr() % 16}")
+    budget_rows = bins.entries.shape[0]
+    check_tensor("entries", bins.entries, torch.int32, (budget_rows,),
+                 device)
+    if budget_rows >= 2**31:
+        raise ValueError(f"{budget_rows} budget rows exceed 32-bit indices")
 
 
 @functools.cache
@@ -201,34 +224,31 @@ def _kernel_fn():
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 8
+        + [ctypes.c_void_p] * 9
         + [ctypes.c_int] * 4
         + [ctypes.c_void_p]
     )
     return fn
 
 
-def _launch(rows, bins, background_chw, tile_h, tile_w):
+def _launch(table2, bins, background_chw, tile_h, tile_w):
     channels, hp, wp = _check_geometry(background_chw, tile_h, tile_w)
     device = background_chw.device
     total = (hp // tile_h) * (wp // tile_w)
     strips = tile_h // SUB_H
     check_meta(bins, total, strips, device)
-    check_rows(rows, bins, channels, device)
+    check_table(table2, bins, channels, device)
     check_tensor("background", background_chw, torch.float32,
                  (channels, hp, wp), device)
-    # The kernel keeps the winning row as a 32-bit index, its pixel offsets
-    # are 32-bit, and it reads rows and background as 16-byte vectors.
-    if rows.shape[0] >= 2**31 or channels * hp * wp >= 2**31:
-        raise ValueError(f"{rows.shape[0]} rows or a {channels}x{hp}x{wp} "
-                         "image exceed 32-bit indices")
-    if rows.shape[1] % 4:
-        raise ValueError(f"rows: want a width that is a multiple of 4, got "
-                         f"{rows.shape[1]}")
-    for name, array in (("rows", rows), ("background", background_chw)):
-        if array.data_ptr() % 16:
-            raise ValueError(f"{name}: want a 16-byte aligned start, got a "
-                             f"view at byte offset {array.data_ptr() % 16}")
+    # The kernel's pixel offsets are 32-bit, and it reads the background as
+    # 16-byte vectors.
+    if channels * hp * wp >= 2**31:
+        raise ValueError(f"a {channels}x{hp}x{wp} image exceeds 32-bit "
+                         "indices")
+    if background_chw.data_ptr() % 16:
+        raise ValueError(f"background: want a 16-byte aligned start, got a "
+                         f"view at byte offset "
+                         f"{background_chw.data_ptr() % 16}")
 
     pix = torch.empty((channels, hp, wp), dtype=torch.float32, device=device)
     fid = torch.empty((hp, wp), dtype=torch.int32, device=device)
@@ -237,7 +257,7 @@ def _launch(rows, bins, background_chw, tile_h, tile_w):
     with on_device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            rows.data_ptr(), rows.shape[1],
+            table2.data_ptr(), table2.shape[1], bins.entries.data_ptr(),
             bins.start_block.data_ptr(), bins.n_iters.data_ptr(),
             bins.iter_off.data_ptr(), bins.strip_iters.data_ptr(),
             background_chw.data_ptr(), pix.data_ptr(), fid.data_ptr(),
@@ -355,16 +375,18 @@ def _launch_swap(arrays, hp, wp, device):
 
 
 def raster_forward_packed_plain(
-    rows, bins: PackedBins, background_chw, *, tile_h: int, tile_w: int,
+    table2, bins: PackedBins, background_chw, *, tile_h: int, tile_w: int,
 ):
     """Plain PyTorch version of the packed kernel (any device).
 
     Step k evaluates, for every (tile, strip, group) job at once, the
     strip's k-th iteration over the job's 8x16 pixels; a step past the
     strip's run (or past the tile's ``n_iters``) is masked. Like the
-    kernel, the loop keeps the depth and the winning budget row per pixel,
-    and the reciprocal and attribute planes are evaluated once, from the
-    winning row, afterwards — the same expressions in the same order.
+    kernel, each job reads its face's table row through its entry
+    (``table2[entries >> 3]``), the loop keeps the depth and the winning
+    face per pixel, and the reciprocal and attribute planes are evaluated
+    once, from the winner's table row, afterwards — the same expressions
+    in the same order.
     """
     channels, hp, wp = _check_geometry(background_chw, tile_h, tile_w)
     device = background_chw.device
@@ -395,12 +417,14 @@ def raster_forward_packed_plain(
     zb = torch.full(shape, BIG_Z, dtype=torch.float32, device=device)
     best = torch.full(shape, -1, dtype=torch.int64, device=device)
     n_steps = int(torch.clamp(hi - lo, min=0).max()) if total else 0
-    coef = rows[:, :GEO_USED]
+    face_of = bins.entries.long() >> 3                   # [budget_rows]
+    coef = table2[:, :GEO_USED]
     for k in range(n_steps):
         it = lo + k
         live = it < hi                                   # [T, S, 1]
         row = torch.where(live, (row0 + it) * GROUPS + g, 0)  # [T, S, G]
-        m = coef[row][..., None, None]                   # [T, S, G, 17, 1, 1]
+        face = face_of[row]                              # [T, S, G]
+        m = coef[face][..., None, None]                  # [T, S, G, 17, 1, 1]
 
         def cf(q):
             return m[:, :, :, q]
@@ -415,14 +439,14 @@ def raster_forward_packed_plain(
         mask = (inside & (zv < zb) & (zv >= -1.0) & (zv <= 1.0)
                 & live[..., None, None])
         zb = torch.where(mask, zv, zb)
-        best = torch.where(mask, row[..., None, None], best)
+        best = torch.where(mask, face[..., None, None], best)
 
     hit = best >= 0
     cols = torch.tensor(
         [0, 1, 14, 15, 16, COL_ID]
         + [COL_ATT + q for q in range(3 * channels)], device=device,
     )
-    w = rows.index_select(1, cols)[torch.clamp(best, min=0)]  # [..., 6+3C]
+    w = table2.index_select(1, cols)[torch.clamp(best, min=0)]  # [.., 6+3C]
     dx = xf - w[..., 0]
     dy = yf - w[..., 1]
     den = w[..., 2] * dx + w[..., 3] * dy + w[..., 4]

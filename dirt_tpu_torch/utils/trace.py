@@ -22,8 +22,7 @@ The raster op's stages, in a replay's order:
   binning call (``ops/raster.py``, ``prepare_packed`` / ``prepare_dense``
   / ``prepare_csr``);
 - ``binning``: ``bin_faces_packed``, ``bin_faces`` or ``bin_faces_csr``;
-- ``raster_fwd``: the face table, the entry-row gather and the forward
-  kernel (K1, K5 or K7);
+- ``raster_fwd``: the face table and the forward kernel (K1, K5 or K7);
 - ``raster_bwd``: the whole of ``_RasterizeScreen.backward`` (the plane
   cotangents and ``chain_through_setup``).
 

@@ -306,3 +306,31 @@ def bits_equal(a, b):
     bits = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
     return torch.equal(nan, b.isnan()) and torch.equal(
         a[~nan].view(bits), b[~nan].view(bits))
+
+
+def budget_row_gathers(run, budget_rows):
+    """The gathers ``run()`` makes whose output is a 2-D array of
+    ``budget_rows`` rows (a row per packed job, as a copy of the face
+    table in budget-row order is): [(operator, shape)], from every
+    operator's outputs under a dispatch mode, forward and backward
+    alike."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    found = []
+
+    class Outputs(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.__name__.split(".")[0]
+            if name in ("index", "index_select", "gather", "take"):
+                found.extend(
+                    (name, tuple(t.shape)) for t in tree_leaves(out)
+                    if isinstance(t, torch.Tensor) and t.ndim == 2
+                    and t.shape[0] == budget_rows)
+            return out
+
+    with Outputs():
+        run()
+    return found

@@ -63,7 +63,12 @@ for bit against its plain version run on the CPU (the same sums in the
 same order; on the card the plain version's ``index_add_`` flushes
 subnormal sums to zero), and the fused dense backward at each of its
 compile-time instances and its general form with the dense engine's
-tolerance, on lists that reach their cap beside empty tiles.
+tolerance, on lists that reach their cap beside empty tiles. The packed
+forward and backward kernels, which read each budget row's face row from
+the face table through its entry, on what a gradient step hands them on
+the 1,001,112-face sphere at 3 channels and on two slabs of the sharded
+packed path at 3 and 9: bit for bit against their plain versions on the
+card (the backward's rows but for sums below the smallest normal float).
 
 The max-scan kernel (``ops/scan.py``, the packed binning's running maxima)
 equal bit for bit to ``torch.cummax(x, 0).values``, twenty times in a row
@@ -204,12 +209,11 @@ def test_kernel_matches_plain_on_card(cuda, kind, height, width, channels,
     assert not bool(bins.overflow)
     before = _launches("raster_fwd_packed")
     pix_k, fid_k, z_k = raster_fwd.raster_forward_packed(
-        table2, bins, bg_chw, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-        rows=bins.rows)
+        table2, bins, bg_chw, tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     torch.cuda.synchronize()
     assert _launches("raster_fwd_packed") == before + 1
     pix_p, fid_p, z_p = raster_fwd.raster_forward_packed_plain(
-        bins.rows, bins, bg_chw, tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+        table2, bins, bg_chw, tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     assert torch.equal(fid_k, fid_p)
     assert torch.equal(z_k, z_p)
     assert torch.equal(pix_k, pix_p)
@@ -237,9 +241,9 @@ def test_packed_kernel_gives_depth_ties_to_the_lower_id_on_card(cuda,
     assert not bool(bins.overflow)
     geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     pix_k, fid_k, z_k = raster_fwd.raster_forward_packed(
-        table2, bins, bg_chw, rows=bins.rows, **geom)
+        table2, bins, bg_chw, **geom)
     pix_p, fid_p, z_p = raster_fwd.raster_forward_packed_plain(
-        bins.rows, bins, bg_chw, **geom)
+        table2, bins, bg_chw, **geom)
     assert torch.equal(fid_k, fid_p) and torch.equal(z_k, z_p)
     assert torch.equal(pix_k, pix_p)
     covered = fid_k >= 0
@@ -422,7 +426,7 @@ def test_backward_kernel_matches_plain_on_card(cuda, kind, height, width,
     torch.cuda.synchronize()
     assert _launches("packed_bwd") == before + 1
     rows_p = packed_bwd.packed_entry_rows_plain(
-        prep, prep.bins.rows, 0, prep.budget_chunks)
+        prep, prep.bins.table, 0, prep.budget_chunks)
     torch.testing.assert_close(rows_k, rows_p, **TOL_BWD)
     assert (rows_k != 0).any()
     # Deterministic: a second run is equal.
@@ -489,7 +493,7 @@ def test_backward_kernel_on_flat_fields_equals_image_fields(
     rows = packed_bwd.packed_entry_rows(prep)
     assert torch.equal(packed_bwd.packed_entry_rows(flat), rows)
     torch.testing.assert_close(
-        packed_bwd.packed_entry_rows_plain(flat, prep.bins.rows, 0,
+        packed_bwd.packed_entry_rows_plain(flat, prep.bins.table, 0,
                                            prep.budget_chunks),
         rows, **TOL_BWD)
     assert (rows != 0).any()
@@ -509,7 +513,7 @@ def test_backward_kernel_takes_channels_beyond_one_pass(cuda, channels):
     torch.cuda.synchronize()
     assert _launches("packed_bwd") == before + 1
     rows_p = packed_bwd.packed_entry_rows_plain(
-        prep, prep.bins.rows, 0, prep.budget_chunks)
+        prep, prep.bins.table, 0, prep.budget_chunks)
     torch.testing.assert_close(rows_k, rows_p, **TOL_BWD)
     assert (rows_k != 0).any(dim=0).all()           # every column is written
     assert torch.equal(rows_k, packed_bwd.packed_entry_rows(prep))
@@ -546,7 +550,7 @@ def test_backward_kernel_bits_equal_plain_on_card(cuda, channels, layout):
         prep.geo.cpu(), prep.att.cpu(), prep.channels, prep.k_cols,
         prep.tile_h, prep.tile_w, flat=prep.flat)
     rows_p = packed_bwd.packed_entry_rows_plain(
-        on_cpu, on_cpu.bins.rows, 0, prep.budget_chunks)
+        on_cpu, on_cpu.bins.table, 0, prep.budget_chunks)
     assert torch.equal(rows_k.cpu(), rows_p)
     assert int((rows_k != 0).any(1).sum()) > 100
     assert torch.equal(rows_k, packed_bwd.packed_entry_rows(prep))
@@ -1888,14 +1892,9 @@ def _plain_kernels():
             tile_h=tile_h, tile_w=tile_w), raster_fwd.csr_cull_boxes_plain(
                 table, *background_chw.shape[1:]))
 
-    def plain_forward(table2, bins, background_chw, *, tile_h, tile_w,
-                      rows=None):
-        return raster_fwd.raster_forward_packed_plain(
-            rows, bins, background_chw, tile_h=tile_h, tile_w=tile_w)
-
     def plain_rows(prep, c_lo=0, c_hi=None):
         return packed_bwd.packed_entry_rows_plain(
-            prep, packed_bwd._entry_table_rows(prep), c_lo,
+            prep, packed_bwd._entry_table(prep), c_lo,
             prep.budget_chunks if c_hi is None else c_hi)
 
     def plain_fused(geo, bins, counts, fid, bits, sval, pix_cf, grad_cf,
@@ -1915,7 +1914,8 @@ def _plain_kernels():
                 (scatter, "scatter_to_faces_csr", plain_scatter_csr),
                 (raster_fwd, "raster_forward", plain_dense),
                 (raster_fwd, "raster_forward_csr", plain_csr),
-                (raster_fwd, "raster_forward_packed", plain_forward),
+                (raster_fwd, "raster_forward_packed",
+                 raster_fwd.raster_forward_packed_plain),
                 (raster_fwd, "flat_subtile_swap",
                  lambda arrays: [raster_fwd.flat_subtile_swap_plain(a)
                                  for a in arrays]),
@@ -1975,10 +1975,10 @@ def test_packed_kernels_at_full_size_on_card(cuda, channels):
     assert not bool(bins.overflow)
     geom = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
     pix_k, fid_k, z_k = raster_fwd.raster_forward_packed(
-        table2, bins, bg_chw, rows=bins.rows, **geom)
+        table2, bins, bg_chw, **geom)
     for got, want in zip((pix_k, fid_k, z_k),
                          raster_fwd.raster_forward_packed_plain(
-                             bins.rows, bins, bg_chw, **geom)):
+                             table2, bins, bg_chw, **geom)):
         assert torch.equal(got, want)
     assert (fid_k >= 0).any()
     _check_padded_prologue(fid_k[:SIZE, :SIZE], z_k[:SIZE, :SIZE],
@@ -1989,7 +1989,7 @@ def test_packed_kernels_at_full_size_on_card(cuda, channels):
         geo, att, fid_k, z_k, pix_k.permute(1, 2, 0), weights, bins,
         cfg.tile_h, cfg.tile_w)
     rows_k = packed_bwd.packed_entry_rows(prep)
-    rows_p = packed_bwd.packed_entry_rows_plain(prep, bins.rows, 0,
+    rows_p = packed_bwd.packed_entry_rows_plain(prep, bins.table, 0,
                                                 prep.budget_chunks)
     torch.testing.assert_close(rows_k, rows_p, **TOL_BWD)
     assert (rows_k != 0).any()
@@ -2365,6 +2365,83 @@ def test_packed_and_csr_agree_on_the_1001112_face_sphere_on_card(cuda):
         assert card_common.rel_err(g_c, g_p) <= card_common.TOL_ENGINES
 
 
+def _entry_rows_equal_plain(prep, rows, c_lo, c_hi):
+    """K2's rows of the chunk slice [c_lo, c_hi) equal its plain
+    version's on the card bit for bit, but where the two differ by less
+    than the smallest normal float (on the card the plain version's
+    ``index_add_`` flushes subnormal sums to zero)."""
+    plain = packed_bwd.packed_entry_rows_plain(
+        prep, packed_bwd._entry_table(prep), c_lo, c_hi)
+    differ = rows.view(torch.int32) != plain.view(torch.int32)
+    tiny = torch.finfo(torch.float32).tiny
+    return not bool((differ & ((rows - plain).abs() >= tiny)).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,channels", [("1001112", 3), ("slabs", 3),
+                                           ("slabs", 9)])
+def test_packed_kernels_read_the_face_table_through_entries_on_card(
+        cuda, path, channels):
+    """K1 and K2 on what a packed gradient step hands them, each reading
+    every budget row's face row from the forward's face table through its
+    entry: the 1,001,112-face sphere at 1024 x 1024 (clip off; 9 channels
+    at this size are the bench sphere's and config 5's cases above) and
+    two slabs of the sharded packed path (flat-subtile fields in K2), at 3
+    and 9 channels. K1's pixels, fid and zbuf equal its plain version's bit for
+    bit; K2's rows equal its plain version's (see
+    ``_entry_rows_equal_plain``) over the whole budget and over the chunk
+    slices [0, k) and [k, n), which compose to the whole."""
+    n_lat = 708 if path == "1001112" else 72
+    _, verts, colors, faces, background, weights = _bench_scene(n_lat)
+    if channels != 3:
+        colors = card_common.rand(channels, verts.shape[0], channels,
+                                  device=cuda)
+        weights = card_common.rand(channels + 1, SIZE, SIZE, channels,
+                                   device=cuda)
+        background = torch.zeros((SIZE, SIZE, channels), device=cuda)
+    if path == "slabs":
+        def rasterise(bg, v, c, f, config, clip):
+            return rasterise_sharded(bg, v, c, f, LocalGroup(2),
+                                     config=config, with_aux=True)
+    else:
+        rasterise = dirt_tpu_torch.rasterise_with_aux
+    outs, entry_calls = [], []
+
+    def step():
+        entry_calls.extend(card_common.calls(
+            packed_bwd, "packed_entry_rows",
+            lambda: outs.append(card_common.render_grads(
+                rasterise, background, verts, colors, faces, weights,
+                _bench_config(n_lat), False))))
+
+    forward_calls = card_common.calls(raster_fwd, "raster_forward_packed",
+                                      step)
+    (_, _, _, overflow), grads = outs[0]
+    assert not bool(overflow) and grads[0].abs().sum() > 0
+    slabs = 2 if path == "slabs" else 1
+    assert len(forward_calls) == len(entry_calls) == slabs
+    for (table2, bins, bg_chw), geom in forward_calls:
+        assert bins.table is table2
+        assert table2.shape[0] == bins.pool_offs.shape[0]
+        got = raster_fwd.raster_forward_packed(table2, bins, bg_chw, **geom)
+        want = raster_fwd.raster_forward_packed_plain(table2, bins, bg_chw,
+                                                      **geom)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert (got[1] >= 0).any()
+    for (prep,), _ in entry_calls:
+        assert prep.flat is (path == "slabs")
+        n = prep.budget_chunks
+        rows = packed_bwd.packed_entry_rows(prep)
+        assert (rows != 0).any()
+        assert _entry_rows_equal_plain(prep, rows, 0, n)
+        k = n // 3
+        tail = packed_bwd.packed_entry_rows(prep, k)
+        assert _entry_rows_equal_plain(prep, tail, k, n)
+        assert torch.equal(
+            torch.cat([packed_bwd.packed_entry_rows(prep, 0, k), tail]), rows)
+
+
 def _packed_grads(render):
     """``card_common.render_grads`` of the bench sphere under its packed
     caps through ``render(background, vertices, colors, faces, config)``."""
@@ -2421,9 +2498,9 @@ def test_overlapped_backward_on_card(cuda, slabs, chunks):
     assert len(by_prep) == slabs and len(calls) == slabs * chunks
     tiny = torch.finfo(torch.float32).tiny
     for prep, slices in by_prep.values():
-        table_rows = packed_bwd._entry_table_rows(prep)
+        table = packed_bwd._entry_table(prep)
         for c_lo, c_hi, rows in slices:
-            plain = packed_bwd.packed_entry_rows_plain(prep, table_rows, c_lo,
+            plain = packed_bwd.packed_entry_rows_plain(prep, table, c_lo,
                                                        c_hi)
             differ = rows.view(torch.int32) != plain.view(torch.int32)
             assert not (differ & ((rows - plain).abs() >= tiny)).any()

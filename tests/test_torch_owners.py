@@ -75,7 +75,10 @@ def _packed_prep(source):
             jnp.asarray(fv), jnp.asarray(fa), jnp.asarray(bg),
             jnp.asarray(gp), config))
         pixels, fid, zbuf, bins, geo, att = out
-        bins = tbin.PackedBins(*(None if v is None else _t(v) for v in bins))
+        # Without JAX's gathered rows: the port's backward builds its face
+        # table from the planes and reads it through the entries.
+        bins = tbin.PackedBins(*(None if v is None else _t(v)
+                                 for v in bins._replace(rows=None)))
         tile_h, tile_w = config.concrete(height).tile_h, config.tile_w
         geo, att, fid, zbuf, pixels = map(_t, (geo, att, fid, zbuf, pixels))
         num_faces = fv.shape[0]
@@ -92,8 +95,7 @@ def _packed_prep(source):
         table2, bins, bg_chw, cfg = tr.prepare_packed(fv, fa, bg, config)
         tile_h, tile_w = cfg.tile_h, cfg.tile_w
         pix_cf, fid, zbuf = tf.raster_forward_packed(
-            table2, bins, bg_chw, tile_h=tile_h, tile_w=tile_w,
-            rows=bins.rows)
+            table2, bins, bg_chw, tile_h=tile_h, tile_w=tile_w)
         pixels = pix_cf.permute(1, 2, 0)
         geo, att, _ = tt.setup_planes(fv, fa)
         num_faces = fv.shape[0]
@@ -132,7 +134,8 @@ def _pixel_owners(prep, num_faces):
     tiles_x = wp // prep.tile_w
     strips = prep.tile_h // SUB_H
     t, s, rows = _live_rows(prep)
-    ids = tpb._entry_table_rows(prep)[:, COL_ID].long()[rows]   # [N, G]
+    table = tpb._entry_table(prep)
+    ids = table[prep.bins.entries.long() // 8, COL_ID].long()[rows]  # [N, G]
     span = num_faces + 2
     subtile = ((t * strips + s)[:, None] * GROUPS + torch.arange(GROUPS))
     row_key = (subtile * span + ids).reshape(-1)

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_scene import SIZE, sphere_scene
 from dirt_tpu.ops import binning as jbin
 from dirt_tpu.ops import packed_bwd as jp
 from dirt_tpu.ops import raster as jr
@@ -40,7 +41,9 @@ from dirt_tpu_torch.ops import packed_bwd as tp
 from dirt_tpu_torch.ops import raster as tr
 from dirt_tpu_torch.ops import raster_bwd as trb
 from dirt_tpu_torch.ops import raster_fwd as tf
-from dirt_tpu_torch.ops.raster_fwd import BIG_Z
+from dirt_tpu_torch.ops import triangle_setup as tt
+from dirt_tpu_torch.ops.raster_fwd import BIG_Z, COL_ID
+from dirt_tpu_torch.ops.triangle_setup import GEO_USED
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -115,7 +118,7 @@ def test_other_devices_raise():
     ints = fid.new_zeros(512)
     bins = tbin.PackedBins(ints, ints[:1], ints[:1], ints[:1],
                            ints[:1].bool(), ints[:4], ints[:4],
-                           rows=zbuf.new_zeros(512, 32))
+                           table=zbuf.new_zeros(91, 32))
     prep = tp._PackedBwdPrep(fid, fid, zbuf.expand(4, -1, -1), pix, grad,
                              bins, None, None, 3, 21, 32, 128)
     with pytest.raises(ValueError, match="no kernel for device meta"):
@@ -205,7 +208,10 @@ def _both():
                                 jnp.asarray(bg), jnp.asarray(gp), config))
     pixels, fid, zbuf, bins, geo, att = fwd
     assert not bool(bins.overflow)
-    bins_t = tbin.PackedBins(*(None if v is None else _t(v) for v in bins))
+    # Without JAX's gathered rows: the port's backward builds its face
+    # table from the planes and reads it through the entries.
+    bins_t = tbin.PackedBins(*(None if v is None else _t(v)
+                               for v in bins._replace(rows=None)))
     args = dict(geo=_t(geo), att=_t(att), fid=_t(fid), zbuf=_t(zbuf),
                 pixels=_t(pixels), grad_pixels=_t(gp), bins=bins_t)
     config = config.concrete(96)
@@ -238,6 +244,63 @@ def test_entry_rows_chunk_slices_compose_exactly():
     assert torch.equal(torch.cat(parts), full)
     with pytest.raises(ValueError, match="chunk slice"):
         tp.packed_entry_rows(prep, 2, 1)
+
+
+def _row_path(prep, c_lo, c_hi):
+    """The entry rows as K2 found its owners before it read the face table
+    through the entries: every budget row's face row gathered
+    (``table2[entries // 8]``), owners matched by the gathered rows' float
+    id column, their geometry read from the owner's gathered row."""
+    rows = tp._entry_table(prep)[prep.bins.entries.long() // 8]
+    owner = tp._owners_plain(prep, rows[:, COL_ID], c_lo, c_hi)
+    geo = rows[:, :GEO_USED][torch.clamp(owner, min=0)]
+    return tp._owned_sums_plain(prep, owner, geo, c_lo, c_hi)
+
+
+def _sphere_prep(overflow):
+    """The port's backward inputs for its own forward of a UV sphere on
+    the CPU (the face table on the bins), under twice the suggested budget
+    or, with ``overflow``, half of it, so the binning overflows."""
+    clip, colors, faces = sphere_scene(16, 24)
+    fv = tt.screen_from_clip(torch.tensor(clip), SIZE, SIZE)[faces]
+    fa = torch.tensor(colors)[faces]
+    gen = torch.Generator().manual_seed(8)
+    bg = torch.rand(SIZE, SIZE, 3, generator=gen)
+    grad = torch.randn(SIZE, SIZE, 3, generator=gen)
+    config = tr.suggest_config(fv, SIZE, SIZE,
+                               tr.RasterConfig(engine="packed"))
+    config = config._replace(budget=config.budget // 2 if overflow
+                             else 2 * config.budget)
+    pixels, fid, zbuf, bins, cfg = tr._forward_impl(fv, fa, bg, config)
+    assert bool(bins.overflow) is overflow
+    assert bins.table is not None
+    return tp.prepare_backward_packed(bins.geo, bins.att, fid, zbuf, pixels,
+                                      grad, bins, cfg.tile_h, cfg.tile_w)
+
+
+@pytest.mark.parametrize("case", ["soup", "soup flat", "sphere", "overflow"])
+def test_entry_rows_through_entries_equal_the_row_path(case):
+    """The wrapper's plain path (owners by ``entries >> 3``, geometry from
+    the table at the owner's face) gives the gathered rows' entry rows bit
+    for bit, over the whole budget and over chunk slices: on the soup's
+    JAX bins (no table on them: the backward builds it from the planes),
+    in image and flat-subtile layout, and on the port's own bins of a
+    sphere, which hold sentinel entries in live iterations and padding
+    rows past the tiles' runs, with and without an overflowing binning."""
+    if case.startswith("soup"):
+        prep = _port_prep(**({"nbrs": tuple(_t(s) for s in _both()["stacks"])}
+                             if case == "soup flat" else {}))
+        assert prep.bins.table is None and prep.flat is (case == "soup flat")
+    else:
+        prep = _sphere_prep(case == "overflow")
+    bins = prep.bins
+    assert bool((bins.entries >> 3 == prep.geo.shape[0]).any())
+    assert int(bins.n_iters.sum()) * 8 < bins.entries.shape[0]
+    n = prep.budget_chunks
+    for lo, hi in ((0, n), (0, 1), (1, n // 2), (n // 2, n)):
+        got = tp.packed_entry_rows(prep, lo, hi)
+        assert torch.equal(got, _row_path(prep, lo, hi))
+    assert int((tp.packed_entry_rows(prep) != 0).any(1).sum()) > 20
 
 
 def _port_backward(**kw):

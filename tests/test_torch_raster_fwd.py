@@ -25,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_scene import SIZE, screen_soup, sphere_scene
+from _torch_port_scene import (SIZE, budget_row_gathers, screen_soup,
+                               sphere_scene)
 from dirt_tpu.ops import binning as jb
 from dirt_tpu.ops import raster_fwd as jf
 from dirt_tpu.ops import triangle_setup as jt
@@ -118,6 +119,102 @@ def test_coplanar_tie_goes_to_lower_id():
     # Face 1 wins only where face 0 does not cover.
     fid0 = _both(fv[:1], fa[:1], 64, 128, 32)[1][1].numpy()
     assert not ((fid == 1) & (fid0 == 0)).any()
+
+
+def _row_path(table2, bins, bg_chw, **geom):
+    """The forward as it read the face table before the kernels read it
+    through the entries: every budget row's face row gathered
+    (``table2[entries // 8]``) and read in budget-row order. Run through
+    the same plain version, with the gathered rows as its table and each
+    budget row as its own entry (the strip bits kept); fid comes from the
+    rows' id column either way."""
+    rows = table2[bins.entries.long() // 8]
+    own = torch.arange(rows.shape[0], dtype=torch.int32) * 8 \
+        + (bins.entries & 7)
+    return tf.raster_forward_packed_plain(
+        rows, bins._replace(entries=own, pool_offs=None, table=None),
+        bg_chw, **geom)
+
+
+def _packed_case(case):
+    """(table2, bins, background, tile geometry) of a port forward on the
+    CPU: the sphere under suggested caps, a soup at C = 2 with one tile
+    row of 64, or the sphere binned under half its budget, so the
+    binning overflows."""
+    if case == "soup":
+        fv, fa = screen_soup(90, 192, 256, seed=7, channels=2, spread=40.0)
+        fv, fa = torch.tensor(fv), torch.tensor(fa)
+        height, width, tile_h = 192, 256, 64
+    else:
+        clip, colors, faces = sphere_scene(16, 24)
+        fv = tt.screen_from_clip(torch.tensor(clip), SIZE, SIZE)[faces]
+        fa = torch.tensor(colors)[faces]
+        height = width = SIZE
+        tile_h = 32
+    bg = torch.rand(height, width, fa.shape[-1],
+                    generator=torch.Generator().manual_seed(3))
+    config = tr.suggest_config(
+        fv, height, width, tr.RasterConfig(engine="packed", tile_h=tile_h))
+    if case == "overflow":
+        config = config._replace(budget=config.budget // 2)
+    else:
+        config = config._replace(budget=2 * config.budget)
+    table2, bins, bg_chw, cfg = tr.prepare_packed(fv, fa, bg, config)
+    assert bool(bins.overflow) is (case == "overflow")
+    return table2, bins, bg_chw, dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+
+
+@pytest.mark.parametrize("case", ["sphere", "soup", "overflow"])
+def test_forward_through_entries_equals_the_row_path(case):
+    """The wrapper's plain path, which reads each job's face row through
+    its entry, gives the gathered rows' result bit for bit: fid, zbuf and
+    pixels. The bins hold sentinel entries (the face past the last) in
+    live iterations and padding rows past the tiles' runs."""
+    table2, bins, bg_chw, geom = _packed_case(case)
+    assert bins.table is table2
+    num_faces = table2.shape[0] - 1
+    assert bool((bins.entries >> 3 == num_faces).any())
+    assert int(bins.n_iters.sum()) * 8 < bins.entries.shape[0]
+    got = tf.raster_forward_packed(table2, bins, bg_chw, **geom)
+    want = _row_path(table2, bins, bg_chw, **geom)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1] >= 0).any() and (got[1] < 0).any()
+
+
+def test_packed_step_gathers_no_row_per_budget_row():
+    """A packed forward and backward through the raster op makes no copy
+    of the face table in budget-row order: no gather of the step outputs
+    [budget_rows, *] (the check sees one where a step makes it)."""
+    table2, bins, bg_chw, geom = _packed_case("sphere")
+    budget_rows = bins.entries.shape[0]
+    clip, colors, faces = sphere_scene(16, 24)
+    fv = tt.screen_from_clip(torch.tensor(clip), SIZE, SIZE)[faces]
+    fa = torch.tensor(colors)[faces].requires_grad_()
+    fv.requires_grad_()
+    config = tr.suggest_config(
+        fv, SIZE, SIZE, tr.RasterConfig(engine="packed", tile_h=32))
+    config = config._replace(budget=2 * config.budget)
+    bg = torch.rand(SIZE, SIZE, 3)
+
+    def step():
+        pixels = tr.rasterize_screen(fv, fa, bg, config)[0]
+        (pixels * pixels).sum().backward()
+
+    assert budget_row_gathers(step, budget_rows) == []
+    assert fv.grad.abs().max() > 0 and fa.grad.abs().max() > 0
+    assert ("index", (budget_rows, 32)) in budget_row_gathers(
+        lambda: _row_path(table2, bins, bg_chw, **geom), budget_rows)
+
+
+def test_table_of_other_faces_raises():
+    """The packed forward and backward take only the face table of the
+    binning's faces: F + 1 rows (the sentinel last)."""
+    table2, bins, bg_chw, geom = _packed_case("sphere")
+    with pytest.raises(ValueError, match="the faces and the sentinel"):
+        tf.raster_forward_packed(table2[:-1], bins, bg_chw, **geom)
+    with pytest.raises(ValueError, match="the faces and the sentinel"):
+        tf.raster_forward_packed(table2[None], bins, bg_chw, **geom)
 
 
 def test_other_devices_raise():

@@ -25,7 +25,10 @@ deferred pipelines' forwards shows their ``shade`` pairs before the raster
 op's markers; a step with the markers stubbed out gives the same bits; and
 after the stage tool's profiler windows, every
 whole replay of a three-replay session shows each marker once, and a
-session counts as complete only when no replay in it lost a record.
+session counts as complete only when no replay in it lost a record; last,
+a packed fwd+bwd step recorded with its operators' shapes makes no copy of
+the face table in budget-row order (no index or gather reads the table,
+none writes ``budget_rows`` rows).
 """
 
 import gc
@@ -828,3 +831,44 @@ def test_replays_profiled_after_a_tools_windows_keep_or_flag_markers(cuda):
                 assert [trace.marker(op[0]) for op in ops
                         if trace.marker(op[0]) is not None] == STEP_MARKS
         assert window.complete() == (min(counts) == max(counts))
+
+
+# After the windows above: a profile, even of host operators alone, taken
+# before a replay's markers are read has cost that read its first record.
+@pytest.mark.cuda
+def test_packed_step_makes_no_row_gather_on_card(cuda):
+    """One packed forward and backward of the bench sphere at 1024 x 1024,
+    recorded by ``torch.profiler`` with ``record_shapes=True``: no index or
+    gather operator reads the face table ([F + 1, W]), and, from every
+    operator's outputs under a dispatch mode (the profiler records no
+    output shapes), none makes an array of ``budget_rows`` rows; K1 and K2
+    launched once each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import card_common
+    from _torch_port_scene import budget_row_gathers
+    from dirt_tpu_torch.ops import raster_fwd
+
+    _, verts, colors, faces, background, weights = card_common.bench_scene(
+        1024, cuda)
+    config = dirt_tpu_torch.suggest_raster_config(verts, faces, 1024, 1024,
+                                                  clip=False)
+
+    def step():
+        return card_common.render_grads(
+            dirt_tpu_torch.rasterise_with_aux, background, verts, colors,
+            faces, weights, config, False)
+
+    ((table2, bins, _), _), = card_common.calls(
+        raster_fwd, "raster_forward_packed", step)
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        _, counts = card_common.launched(step)
+    assert counts["raster_fwd_packed"] == counts["packed_bwd"] == 1
+    gathers = [e for e in prof.events() if e.name in (
+        "aten::index", "aten::index_select", "aten::gather", "aten::take")]
+    assert gathers
+    assert [e.input_shapes for e in gathers if e.input_shapes
+            and list(e.input_shapes[0]) == list(table2.shape)] == []
+    assert budget_row_gathers(step, bins.entries.shape[0]) == []

@@ -26,14 +26,16 @@ per-pixel fields the sharded packed halo backward hands it (one slab of
 ``rasterise_sharded``, the bench sphere at 3 and 9 channels: 12 and 24
 planes of 1024 x 1024), captured from one run; and
 ``ops.packed_bwd.packed_entry_rows`` (packed_bwd.cu) on what the
-packed backward hands it on four shapes: the bench sphere at 1024 x 1024
+packed backward hands it on five shapes: the 1,001,112-face sphere of the
+``sphere1m_1024`` config and the bench sphere at 1024 x 1024
 with ``clip=False`` and 3 channels (the bench's main path), config 5's
 9-channel G-buffer at 1024 x 1024, the bench sphere with 16 channels (two
 launches) and one slab of the sharded packed path (``rasterise_sharded``
 with one local slab: flat-subtile fields); and
 ``ops.raster_fwd.raster_forward_packed`` (raster_fwd_packed.cu) on what the
-op hands it on four shapes: the bench sphere at 1024 x 1024 with
-``clip=False`` and 3 channels (the bench's main path), config 5's
+op hands it on five shapes: the 1,001,112-face sphere and the bench sphere
+at 1024 x 1024 with ``clip=False`` and 3 channels (the bench's main path),
+config 5's
 9-channel G-buffer, the bench sphere with 16 channels and one slab of the
 sharded packed path; and ``ops.packed_bwd.padded_prologue``
 (packed_prologue.cu) on what the single-device backwards hand it on six
@@ -74,7 +76,11 @@ For each shape and variant it prints
 * back-to-back time: ``--runs`` calls queued without a synchronise, per call,
   and the host's time to queue one call;
 * for K4 the same figures for one strided ``contiguous()`` copy of the
-  stacked planes (the PyTorch call that computes the same permutation).
+  stacked planes (the PyTorch call that computes the same permutation);
+  for K1 and K2 against a tree whose kernels read a gathered copy of the
+  face table (``rows``, from before they read it through the entries),
+  that tree's kernel on rows gathered beforehand and, apart, the gather
+  itself (``table2[entries // 8]``), as that tree's forward ran it.
 
 ``--kernels NEEDLES`` instead holds K6, K8, K9 and K10 of both trees against
 their plain versions on what the backward hands them on the far-needle
@@ -98,6 +104,8 @@ without a CUDA device.
 """
 
 import argparse
+import contextlib
+import copy
 import functools
 import importlib.util
 import inspect
@@ -123,7 +131,10 @@ def _parent_module(root, label="parent"):
     (attributes of the namespace returned) whose ``_build.load(name)``
     builds ``csrc/<name>.cu`` of that tree at first use (into a library
     named after ``label``): its wrappers, host code and all, around its
-    kernels."""
+    kernels. Each imports the tree's own modules loaded before it (its
+    ``packed_bwd`` that tree's ``raster_fwd``), the rest from this tree."""
+    import dirt_tpu_torch.ops as ops
+
     libs = {}
 
     def load(name):
@@ -137,10 +148,49 @@ def _parent_module(root, label="parent"):
         spec = importlib.util.spec_from_file_location(
             f"{label}_{name}", path)
         module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
+        with contextlib.ExitStack() as stack:
+            for done, mod in modules.items():
+                stack.enter_context(mock.patch.dict(
+                    sys.modules, {f"dirt_tpu_torch.ops.{done}": mod}))
+                stack.enter_context(
+                    mock.patch.object(ops, done, mod, create=True))
+            spec.loader.exec_module(module)
         module._build = types.SimpleNamespace(load=load)
         modules[name] = module
     return types.SimpleNamespace(**modules)
+
+
+def _row_gather(table2, bins):
+    """The gather the packed forward ran before its kernels read the face
+    table through the entries: every budget row's face row, in budget-row
+    order (``[budget_rows, W]``)."""
+    return table2[bins.entries.long() // 8].contiguous()
+
+
+def _packed_forward_of(module, table2, bins, bg_chw, geom):
+    """A call of ``module.raster_forward_packed`` (some tree's) on the
+    inputs; a tree whose K1 reads the gathered rows gets them, gathered
+    here once."""
+    fn = module.raster_forward_packed
+    if "rows" in inspect.signature(fn).parameters:
+        return functools.partial(fn, table2, bins, bg_chw,
+                                 rows=_row_gather(table2, bins), **geom)
+    return functools.partial(fn, table2, bins, bg_chw, **geom)
+
+
+def _entry_rows_of(module, prep):
+    """A call of ``module.packed_entry_rows`` (some tree's) on ``prep``; a
+    tree whose K2 reads the gathered rows (``bins.rows``) gets them,
+    gathered here once, on bins that carry them."""
+    from dirt_tpu_torch.ops import packed_bwd
+
+    if hasattr(module, "_entry_table_rows"):
+        old = copy.copy(prep)
+        old.bins = types.SimpleNamespace(
+            **prep.bins._asdict(),
+            rows=_row_gather(packed_bwd._entry_table(prep), prep.bins))
+        return functools.partial(module.packed_entry_rows, old)
+    return functools.partial(module.packed_entry_rows, prep)
 
 
 def _boxes_of(fn, bbox, cull):
@@ -331,8 +381,8 @@ def _bench_packed(tag, prep, card, runs, parents):
     passes)."""
     from dirt_tpu_torch.ops import packed_bwd
 
-    rows = packed_bwd._entry_table_rows(prep)
-    want = packed_bwd.packed_entry_rows_plain(prep, rows, 0,
+    table = packed_bwd._entry_table(prep)
+    want = packed_bwd.packed_entry_rows_plain(prep, table, 0,
                                               prep.budget_chunks)
     # The plain version on the CPU as well, whose sums keep subnormals.
     bins_cpu = type(prep.bins)(*(None if v is None else v.cpu()
@@ -343,16 +393,13 @@ def _bench_packed(tag, prep, card, runs, parents):
         bins_cpu, prep.geo.cpu(), prep.att.cpu(), prep.channels, prep.k_cols,
         prep.tile_h, prep.tile_w, flat=prep.flat)
     want_cpu = packed_bwd.packed_entry_rows_plain(
-        prep_cpu, rows.cpu(), 0, prep.budget_chunks).to(want.device)
+        prep_cpu, table.cpu(), 0, prep.budget_chunks).to(want.device)
     channels, hp, wp = prep.pix_cf.shape
     bins = prep.bins
     live = card_common.packed_live(bins, prep.tile_h)
     covered = int((prep.fid_p >= 0).sum())
-    bound = card_common.bound(
-        live * 8 * rows.shape[1] * 4
-        + 4 * (2 * bins.n_iters.numel() + 2 * bins.iter_off.numel())
-        + 4 * hp * wp * (6 + 2 * channels) + 4 * want.numel(),
-        covered * card_common.core_flops(channels))
+    bound = card_common.packed_backward_bound(bins, prep.tile_h, prep.fid_p,
+                                              want.numel(), channels)
     passes = -(-prep.k_cols // packed_bwd.columns_per_pass(prep.fid_p.device))
     print(f"[{tag}] packed_bwd rows {tuple(want.shape)}, "
           f"{'flat-subtile' if prep.flat else 'image'} layout, live "
@@ -362,8 +409,7 @@ def _bench_packed(tag, prep, card, runs, parents):
           f"{bound['bound_by']} ({card})")
     variants = {"new": functools.partial(packed_bwd.packed_entry_rows, prep)}
     for label, parent in parents.items():
-        variants[label] = functools.partial(
-            parent.packed_bwd.packed_entry_rows, prep)
+        variants[label] = _entry_rows_of(parent.packed_bwd, prep)
     failures = []
     first = None
     tiny = torch.finfo(torch.float32).tiny
@@ -397,6 +443,10 @@ def _bench_packed(tag, prep, card, runs, parents):
                 failures.append(tag)
         print(line)
     _time(tag, card, variants, runs, "packed_bwd")
+    if any(hasattr(p.packed_bwd, "_entry_table_rows")
+           for p in parents.values()):
+        _time(tag, card, {"the older trees' row gather": functools.partial(
+            _row_gather, table, bins)}, runs, "gather")
     return failures
 
 
@@ -409,23 +459,22 @@ def _bench_packed_forward(tag, call, card, runs, parents):
 
     (table2, bins, bg_chw), kwargs = call
     geom = dict(tile_h=kwargs["tile_h"], tile_w=kwargs["tile_w"])
-    rows = kwargs["rows"]
-    want = raster_fwd.raster_forward_packed_plain(rows, bins, bg_chw, **geom)
+    want = raster_fwd.raster_forward_packed_plain(table2, bins, bg_chw,
+                                                  **geom)
     covered = int((want[1] >= 0).sum())
     bound = card_common.packed_forward_bound(
         bins, geom["tile_h"], bg_chw.shape[0], want[1])
-    print(f"[{tag}] raster_fwd_packed rows {tuple(rows.shape)}, bg "
+    print(f"[{tag}] raster_fwd_packed table {tuple(table2.shape)}, "
+          f"{bins.entries.shape[0]} budget rows, bg "
           f"{tuple(bg_chw.shape)}, tile_h {geom['tile_h']}, live iterations "
           f"{card_common.packed_live(bins, geom['tile_h'])}, covered "
           f"{covered} px: bound {bound['bound_ms']:.4f} ms by "
           f"{bound['bound_by']} ({card})")
-    variants = {"new": functools.partial(
-        raster_fwd.raster_forward_packed, table2, bins, bg_chw, rows=rows,
-        **geom)}
+    variants = {"new": _packed_forward_of(raster_fwd, table2, bins, bg_chw,
+                                          geom)}
     for label, parent in parents.items():
-        variants[label] = functools.partial(
-            parent.raster_fwd.raster_forward_packed, table2, bins, bg_chw,
-            rows=rows, **geom)
+        variants[label] = _packed_forward_of(parent.raster_fwd, table2, bins,
+                                             bg_chw, geom)
     failures = []
     for label, fn in variants.items():
         got = fn()
@@ -438,6 +487,11 @@ def _bench_packed_forward(tag, call, card, runs, parents):
         if label == "new" and any(bad):
             failures.append(tag)
     _time(tag, card, variants, runs, "raster_fwd_packed")
+    if any("rows" in inspect.signature(
+            p.raster_fwd.raster_forward_packed).parameters
+           for p in parents.values()):
+        _time(tag, card, {"the older trees' row gather": functools.partial(
+            _row_gather, table2, bins)}, runs, "gather")
     return failures
 
 
@@ -781,10 +835,18 @@ def main():
     if "NEEDLES" in kernels:
         _bench_needles(card, parent)
 
+    if "K1" in kernels or "K2" in kernels:
+        # The 1,001,112-face sphere of the sphere1m_1024 config, clip off,
+        # under its honest packed caps.
+        (_, clip1m, colors1m, faces1m, bg1m, w1m), cfg1m = \
+            card_common.scene_and_config(device, size, 708)
+        tag1m = f"{faces1m.shape[0]:,}-face sphere {size}^2 packed C=3"
+
     if "K2" in kernels:
-        # The packed backward's four shapes: the bench's main path (clip
-        # off), config 5's G-buffer, 16 channels (two launches), and one
-        # slab of the sharded packed path (flat-subtile fields).
+        # The packed backward's five shapes: the 1M sphere, the bench's
+        # main path (clip off), config 5's G-buffer, 16 channels (two
+        # launches), and one slab of the sharded packed path (flat-subtile
+        # fields).
         packed_cfg = dirt_tpu_torch.suggest_raster_config(
             clip, faces, size, size, clip=False)
         config5 = bench_configs_torch.config5(device)
@@ -800,6 +862,9 @@ def main():
                     colors16, faces,
                     card_common.rand(6, size, size, 16, device=device))
         shapes = [
+            (tag1m, lambda: card_common.render_grads(
+                dirt_tpu_torch.rasterise_with_aux, bg1m, clip1m, colors1m,
+                faces1m, w1m, cfg1m, False)),
             (f"bench sphere {size}^2 packed clip=False C=3",
              lambda: card_common.render_grads(
                  dirt_tpu_torch.rasterise_with_aux, background, clip, colors,
@@ -827,7 +892,7 @@ def main():
             raise RuntimeError(f"K2 is wrong on: {failures}")
 
     if "K1" in kernels:
-        # The packed forward's four shapes, as the op hands them to it.
+        # The packed forward's five shapes, as the op hands them to it.
         from dirt_tpu_torch.ops import raster_fwd
 
         packed_cfg = dirt_tpu_torch.suggest_raster_config(
@@ -836,6 +901,8 @@ def main():
         render5, leaves5 = config5.forward, config5.leaves
         colors16 = card_common.rand(5, clip.shape[0], 16, device=device)
         shapes = [
+            (tag1m, lambda: dirt_tpu_torch.rasterise(
+                bg1m, clip1m, colors1m, faces1m, config=cfg1m, clip=False)),
             (f"bench sphere {size}^2 packed clip=False C=3",
              lambda: dirt_tpu_torch.rasterise(
                  background, clip, colors, faces, config=packed_cfg,

@@ -343,28 +343,61 @@ def packed_live(bins, tile_h):
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
+def packed_live_faces(bins, tile_h):
+    """The distinct faces of the jobs the packed kernels run (the live
+    iterations' entries >> 3, the sentinel included): the face-table rows
+    they read, each of which the function needs once."""
+    strips = tile_h // 8
+    lo = bins.iter_off.long().reshape(-1, strips)
+    hi = torch.minimum(lo + bins.strip_iters.long().reshape(-1, strips),
+                       bins.n_iters.long()[:, None])
+    n = torch.clamp(hi - lo, min=0).reshape(-1)
+    ts = torch.repeat_interleave(torch.arange(n.numel(), device=n.device), n)
+    first = torch.cumsum(n, 0) - n
+    it = lo.reshape(-1)[ts] + torch.arange(ts.numel(), device=n.device) \
+        - first[ts]
+    row0 = bins.start_block.long()[ts // strips] * 64 + it
+    rows = row0[:, None] * 8 + torch.arange(8, device=n.device)
+    return int(torch.unique(bins.entries.long()[rows] >> 3).numel())
+
+
 def packed_forward_bound(bins, tile_h, channels, fid):
     """raster_fwd_packed's bound, from ``bins`` and the forward's [Hp, Wp]
-    face ids: the 14 test columns (0..13) of each live job's row, and the
-    denominator, id and 3C attribute columns (14..17, 19..) once for each
-    distinct winning row (a face wins at most one row of an 8 x 16
-    subtile); the per-tile and per-strip fields; the background where no
-    face won; the three outputs written once. One coverage and depth test
-    per (pixel, live iteration) and one attribute evaluation per covered
-    pixel."""
+    face ids: each live job's entry; the 14 test columns (0..13) of each
+    face a live job names, read from the face table by face, once; the
+    denominator and 3C attribute columns (14..16, 19..) and the id column
+    once for each distinct winning face; the per-tile and per-strip
+    fields; the background where no face won; the three outputs written
+    once. One coverage and depth test per (pixel, live iteration) and one
+    attribute evaluation per covered pixel."""
     hp, wp = fid.shape
     live = packed_live(bins, tile_h)
     hit = fid >= 0
     covered = int(hit.sum())
-    ys, xs = torch.nonzero(hit, as_tuple=True)
-    subtile = (ys // 8) * (wp // 16) + xs // 16
-    won = int(torch.unique(subtile * (int(fid.max()) + 1)
-                           + fid[hit].long()).numel())
+    won = int(torch.unique(fid[hit]).numel())
     meta_bytes = 4 * (2 * bins.n_iters.numel() + 2 * bins.iter_off.numel())
-    return bound(live * 8 * 14 * 4 + won * (4 + 3 * channels) * 4
+    return bound(live * 8 * 4 + packed_live_faces(bins, tile_h) * 14 * 4
+                 + won * (4 + 3 * channels) * 4
                  + meta_bytes + 4 * hp * wp * (channels + 2)
                  + 4 * (hp * wp - covered) * channels,
                  live * 1024 * TEST_FLOPS + covered * attr_flops(channels))
+
+
+def packed_backward_bound(bins, tile_h, fid_p, out_values, channels):
+    """packed_bwd's bound: each live job's entry; the 17 geometry columns
+    of each face that owns a pixel, read from the face table by face, once;
+    the per-tile and per-strip fields; the per-pixel planes (fid, bits,
+    four sval, C pixel and C gradient planes) once; the ``out_values``
+    floats of the rows written once. The cotangent core per covered
+    pixel."""
+    hp, wp = fid_p.shape
+    live = packed_live(bins, tile_h)
+    owned = fid_p >= 0
+    owners = int(torch.unique(fid_p[owned]).numel())
+    meta_bytes = 4 * (2 * bins.n_iters.numel() + 2 * bins.iter_off.numel())
+    return bound(live * 8 * 4 + owners * 17 * 4 + meta_bytes
+                 + 4 * hp * wp * (6 + 2 * channels) + 4 * out_values,
+                 int(owned.sum()) * core_flops(channels))
 
 
 def prologue_bound(height, width, hp, wp, channels):

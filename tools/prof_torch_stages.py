@@ -15,13 +15,12 @@ card:
   setup             screen_from_clip + face gather + setup_faces (the
                     planes, boxes and edge columns: one kernel)
   setup+binning     the above + bin_faces_packed
-  forward kernel    pack_face_table_v2 + the entry-row gather +
-                    raster_forward_packed (K1) on fixed bins
+  forward kernel    pack_face_table_v2 + raster_forward_packed (K1) on
+                    fixed bins
   forward total     rasterise(..., clip=False)
   fwd+bwd total     the same with loss = sum(pixels * w), loss.backward()
   backward core     backward_packed on fixed forward results
   prologue (K3)     padded_prologue
-  entry-row gather  packed_bwd._entry_table_rows (bins without rows)
   entry rows (K2)   packed_entry_rows
   pool reduce       pool_reduce_rows
   chain             raster.chain_through_setup on the backward core's
@@ -73,23 +72,21 @@ DEVICE_BOUND = 0.5
 
 
 def forward_kernel(geo, att, bins, bg_chw, geom):
-    """(table2, rows, pixels [C, Hp, Wp], fid, zbuf [Hp, Wp]): the face
-    table, the entry-row gather and K1, as ``prepare_packed`` and
+    """(table2, pixels [C, Hp, Wp], fid, zbuf [Hp, Wp]): the face table
+    and K1, which reads it through the entries, as ``prepare_packed`` and
     ``_forward_impl`` run them."""
     table2 = raster_fwd.pack_face_table_v2(geo, att)
     col_one = raster_fwd.COL_ATT + att.shape[1]
     if col_one < table2.shape[1]:
-        table2[:, col_one] = 1.0
-    rows = table2[bins.entries.long() // 8].contiguous()
+        table2[:, col_one].fill_(1.0)
     pixels, fid, zbuf = raster_fwd.raster_forward_packed(
-        table2, bins, bg_chw, tile_h=geom.tile_h, tile_w=geom.tile_w,
-        rows=rows)
-    return table2, rows, pixels, fid, zbuf
+        table2, bins, bg_chw, tile_h=geom.tile_h, tile_w=geom.tile_w)
+    return table2, pixels, fid, zbuf
 
 
 def staged_forward(scene, config):
     """The packed forward stage by stage: (pixels [H, W, C], fid, zbuf
-    [H, W], geo, att, bins with the entry rows attached, the
+    [H, W], geo, att, bins with the face table attached, the
     :class:`Geometry`)."""
     _, clip, colors, faces, background, _ = scene
     size = background.shape[0]
@@ -97,9 +94,9 @@ def staged_forward(scene, config):
     geo, att, bbox, edges = setup(clip, colors, faces, size)
     bins = bin_faces(bbox, edges, geom)
     bg_chw = raster._padded_background(background, geom.tile_h, geom.tile_w)
-    _, rows, pixels, fid, zbuf = forward_kernel(geo, att, bins, bg_chw, geom)
+    table2, pixels, fid, zbuf = forward_kernel(geo, att, bins, bg_chw, geom)
     return (pixels.permute(1, 2, 0)[:size, :size], fid[:size, :size],
-            zbuf[:size, :size], geo, att, bins._replace(rows=rows), geom)
+            zbuf[:size, :size], geo, att, bins._replace(table=table2), geom)
 
 
 def _prepared(prologue, bins, geo, att, geom):
@@ -141,7 +138,6 @@ def stages(scene, config):
     prologue = packed_bwd.padded_prologue(fid, zbuf, pixels, weights,
                                           geom.tile_h, geom.tile_w)
     prep = _prepared(prologue, bins, geo, att, geom)
-    bare = _prepared(prologue, bins._replace(rows=None), geo, att, geom)
     entry_rows = packed_bwd.packed_entry_rows(prep)
     fv = screen_from_clip(clip, size, size)[faces]
     fa = colors[faces]
@@ -169,8 +165,6 @@ def stages(scene, config):
         ("prologue (K3)",
          lambda *f: packed_bwd.padded_prologue(*f, geom.tile_h, geom.tile_w),
          (fid, zbuf, pixels, weights)),
-        ("entry-row gather",
-         lambda g: packed_bwd._entry_table_rows(bare), (geo,)),
         ("entry rows (K2)",
          lambda g: packed_bwd.packed_entry_rows(prep), (geo,)),
         ("pool reduce",
