@@ -18,7 +18,15 @@ metric or cell sits in a file of its own here, found by that name:
 
 The harness talks to the port only through ``dirt_tpu_torch.rasterise``,
 ``rasterise_with_aux``, ``suggest_raster_config``,
-``dirt_tpu_torch.entry.deferred_render`` and
-``dirt_tpu_torch.utils.graphstep.GraphedStep``; ``reference/`` imports
-nothing of the port.
+``dirt_tpu_torch.entry.deferred_render``, ``dirt_tpu_torch.core.lighting``
+(the ``lit`` pipeline's shading),
+``dirt_tpu_torch.utils.graphstep.GraphedStep`` and
+``dirt_tpu_torch.utils.trace`` (the spans and fills that the readers under
+``layers/`` read); ``reference/`` imports nothing of the port.
+
+A parameter that only a pipeline's per-pixel shading reads, such as a
+texture sampled at the rasterised UVs, needs new files alone: the
+reference differentiates the shading exactly and the raster by DIRT's rule
+(``reference/steps.py``), and the roofline counts every parameter at the
+shape its pipeline gives it (``roofline.py``).
 """

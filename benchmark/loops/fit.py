@@ -5,13 +5,17 @@ and ``torch.optim.Adam(capturable=True)``'s update; the host then reads the
 loss and the overflow flag back, as a loop that watches its loss does. Fits
 of ``steps_per_fit`` steps run back to back; each starts from the next of
 ``starts`` parameter sets drawn from the seed, with Adam's state zeroed.
+Where the mix gives ``start_seed``, the sets are drawn from that seed, the
+same in every run, and the run's seed only orders them: where a step's
+time follows the pose (the packed binning at 1M faces), the seed then
+changes what is fitted (the target) and not the work of the window.
 
-Mix keys: ``steps_per_fit``, ``starts``, ``init`` and ``target`` (parameter
-rules, ``benchmark/inputs.py``), ``trained`` ({name: {"lr": [[from_step,
-rate], ...]}} in the optimiser's order), ``betas``, ``eps``, ``loss``,
-``check_from`` (the first steps of the compared windows), ``faults``
-(``benchmark/faults.py``), ``trace_steps`` (steps under the profiler) and
-``forward_replays``.
+Mix keys: ``steps_per_fit``, ``starts``, ``start_seed`` (optional),
+``init`` and ``target`` (parameter rules, ``benchmark/inputs.py``),
+``trained`` ({name: {"lr": [[from_step, rate], ...]}} in the optimiser's
+order), ``betas``, ``eps``, ``loss``, ``check_from`` (the first steps of
+the compared windows), ``faults`` (``benchmark/faults.py``),
+``trace_steps`` (steps under the profiler) and ``forward_replays``.
 
 ``correct`` follows the training protocol: set-up drives the first fit
 through the window's own call to the end of the last compared window, and
@@ -37,7 +41,7 @@ import torch
 from benchmark import check, inputs
 from benchmark.clock import Phases
 from benchmark.reference.steps import fit_steps, frame
-from benchmark.scenes import scene_arrays
+from benchmark.scenes import scene_arrays, seed_sequence
 
 CHECK_STEPS = 3
 
@@ -68,9 +72,13 @@ class FitLoop:
         self.phases.mark("scene")
         self.target_params = inputs.make_params(
             mix["target"], pipe, config, scene, seed, "target")
-        self.starts = [inputs.make_params(mix["init"], pipe, config, scene,
-                                          seed, f"start{k}")
-                       for k in range(mix["starts"])]
+        self.starts = [inputs.make_params(
+            mix["init"], pipe, config, scene, mix.get("start_seed", seed),
+            f"start{k}") for k in range(mix["starts"])]
+        if "start_seed" in mix:
+            order = seed_sequence(seed, "start_order").permutation(
+                mix["starts"])
+            self.starts = [self.starts[k] for k in order]
         # Caps over a grid that holds every start pose, the same for every
         # seed, so that the seed changes neither the caps nor the work.
         spread = mix["init"].get("pose", {}).get("near_true", 0.0)

@@ -42,7 +42,14 @@ def frame(pipeline, config, inputs, params, prec="float64"):
 def loss_and_grads(pipeline, config, inputs, params, target, trained, prec,
                    loss_fn):
     """(loss, image, fid, {name: gradient}) of ``loss_fn(image, target)``
-    with DIRT's interior and silhouette terms."""
+    with DIRT's interior and silhouette terms.
+
+    The per-pixel shading is differentiated exactly, as TF's autodiff did
+    after DIRT's ``rasterise``; DIRT's approximate gradient applies only at
+    the raster. A parameter's gradient is the sum of its two routes: through
+    ``shade`` with the raster output held (a texture that ``shade`` reads)
+    and through the raster (DIRT's surrogate). Where one route does not
+    reach it, the other is taken as it is."""
     fv, fa, background, shade = pipeline.prepare(config, inputs, params,
                                                  prec)
     size = config["size"]
@@ -51,11 +58,22 @@ def loss_and_grads(pipeline, config, inputs, params, target, trained, prec,
     held = pixels.detach().requires_grad_()
     image = shade(held)
     loss = loss_fn(image, target)
-    upstream, = torch.autograd.grad(loss, held)
+    leaves = [params[name] for name in trained]
+    upstream, *shaded = torch.autograd.grad(loss, [held, *leaves],
+                                            allow_unused=True)
     total = (torch.sum(pixels * upstream)
              + edge_surrogate(fv, fid, zbuf, pixels, upstream))
-    grads = torch.autograd.grad(total, [params[name] for name in trained])
-    return loss.detach(), image.detach(), fid, dict(zip(trained, grads))
+    rastered = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = {}
+    for name, through_shade, through_raster in zip(trained, shaded,
+                                                   rastered):
+        if through_shade is None and through_raster is None:
+            raise RuntimeError(f"the trained parameter {name!r} reaches "
+                               f"neither the raster nor the shading")
+        grads[name] = (through_raster if through_shade is None
+                       else through_shade if through_raster is None
+                       else through_shade + through_raster)
+    return loss.detach(), image.detach(), fid, grads
 
 
 def fit_steps(pipeline, config, inputs, state, fixed, target, fit, first,

@@ -20,6 +20,8 @@ implements it.
 
 from __future__ import annotations
 
+import math
+
 from benchmark.scenes import scene_arrays
 
 PEAK_BYTES = 3.35e12
@@ -42,12 +44,13 @@ def cotangent_flops(channels: int) -> int:
 
 
 def param_bytes(cell) -> int:
-    """Bytes of the parameters a step reads (pose and per-vertex ones)."""
-    verts = len(scene_arrays(cell.config)["verts"])
-    sizes = {"pose": 3, "bump": verts, "colors": verts * cell.config.get(
-        "channels", 3)}
+    """Bytes of the parameters a step reads: a fit's trained ones, a
+    frame's pose, each at the shape its pipeline gives it in the cell's
+    scene (built on the CPU)."""
+    scene = cell.pipeline.scene(cell.config, scene_arrays(cell.config), "cpu")
     names = (cell.mix["trained"] if cell.mix["loop"] == "fit" else ["pose"])
-    return F32 * sum(sizes[name] for name in names)
+    return F32 * sum(math.prod(cell.pipeline.shape(name, scene))
+                     for name in names)
 
 
 def step_work(cell, covered: int):
