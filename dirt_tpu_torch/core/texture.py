@@ -5,18 +5,28 @@ or nearest lookup at continuous UVs, with ``clamp`` / ``repeat`` wrapping
 per axis. Gradients flow to the texture and (bilinear) to the UVs.
 
 The four bilinear corners are row gathers (``index_select`` on the
-texture flattened to [Ht * Wt, C]) with their own wrapped indices, so
-autograd's backward is an ``index_add_`` that carries the texture gradient
-(indexing with two index tensors would go through a sorting
-``index_put_`` instead). The JAX package's packed-corner row table and its
-sort / cumsum / searchsorted gradient exist because that backend's
-scatter-add is slow; they have no counterpart here, and neither has the
-``custom_vjp`` keyword.
+texture flattened to [Ht * Wt, C]) with their own wrapped indices, made
+one after another by one autograd function (:class:`_Rows`) whose
+backward carries the texture gradient: every corner's rows
+``index_add_``-ed into one zeroed [Ht * Wt, C] buffer (indexing with two
+index tensors would go through a sorting ``index_put_`` instead). The UV
+gradient (the ``fu`` and ``fv`` terms) stays in autograd. The JAX
+package's packed-corner row table and its sort / cumsum / searchsorted
+gradient exist because that backend's scatter-add is slow; they have no
+counterpart here, and neither has the ``custom_vjp`` keyword.
+
+On the card, ``sample_texture`` runs inside a ``texture`` span
+(``utils/trace.py``) where no other span is open, and the texture
+gradient's scatter inside a ``texture_grad`` span: two markers each. A
+texture that needs no gradient has no backward, so no scatter and no
+``texture_grad`` markers.
 """
 
 from __future__ import annotations
 
 import torch
+
+from dirt_tpu_torch.utils import trace
 
 
 def sample_texture(texture, uv, mode: str = "bilinear", wrap="clamp",
@@ -37,15 +47,16 @@ def sample_texture(texture, uv, mode: str = "bilinear", wrap="clamp",
     texture = torch.as_tensor(texture, dtype=torch.float32)
     uv = torch.as_tensor(uv, dtype=torch.float32, device=texture.device)
     wrap = _wrap_axes(wrap)
-    if mode == "nearest":
-        out = _nearest(texture, uv, wrap)
-    elif mode == "bilinear":
-        out = _bilinear(texture, uv, wrap)
-    else:
+    if mode not in ("nearest", "bilinear"):
         raise ValueError(f"unknown sampling mode: {mode!r}")
-    if channels_first:
-        return out.movedim(-1, 0)
-    return out
+    with trace.outer_span("texture", texture):
+        if mode == "nearest":
+            out = _nearest(texture, uv, wrap)
+        else:
+            out = _bilinear(texture, uv, wrap)
+        if channels_first:
+            return out.movedim(-1, 0)
+        return out
 
 
 def _continuous_coords(texture, uv):
@@ -82,12 +93,50 @@ def _clip_split(x, lo: float, hi: float):
                          x.new_full((), hi))
 
 
-def _texels(texture, iv, iu):
-    """texture[iv, iu] -> [..., C] as one flat row gather."""
+class _Rows(torch.autograd.Function):
+    """Rows of a flat texture [N, C] at several corners, each a pair of
+    integer index tensors ``(iv, iu)`` on a texture ``width`` texels wide:
+    one ``index_select`` of ``iv * width + iu`` each, one corner's flat
+    index alive at a time unless the backward needs them (``grad``: grad
+    mode was on where the lookup was called). The backward adds each
+    corner's gradient rows into one zeroed [N, C] buffer with
+    ``index_add_``, inside the ``texture_grad`` span. The indices are
+    integers, so autograd runs it only where the texture needs a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, flat, width, grad, *coords):
+        rows, kept = [], []
+        for iv, iu in zip(coords[::2], coords[1::2]):
+            index = (iv * width + iu).reshape(-1)
+            rows.append(flat.index_select(0, index))
+            if grad and ctx.needs_input_grad[0]:
+                kept.append(index)
+            # Let this corner's index go before the next one is formed.
+            del index
+        ctx.save_for_backward(*kept)
+        ctx.rows = flat.shape[0]
+        return tuple(rows)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        indices = ctx.saved_tensors
+        with trace.outer_span("texture_grad", grads[0]):
+            out = grads[0].new_zeros((ctx.rows, grads[0].shape[1]))
+            for index, grad in zip(indices, grads):
+                out.index_add_(0, index, grad)
+        return (out, None, None, *(None,) * (2 * len(indices)))
+
+
+def _texels(texture, *corners):
+    """texture[iv, iu] -> [..., C] for each ``(iv, iu)`` of ``corners``,
+    as row gathers of the flattened texture (:class:`_Rows`)."""
     ht, wt, channels = texture.shape
-    rows = texture.reshape(ht * wt, channels).index_select(
-        0, (iv * wt + iu).reshape(-1))
-    return rows.reshape(*iv.shape, channels)
+    rows = _Rows.apply(texture.reshape(ht * wt, channels), wt,
+                       torch.is_grad_enabled(),
+                       *(t for corner in corners for t in corner))
+    return [row.reshape(*iv.shape, channels)
+            for row, (iv, _) in zip(rows, corners)]
 
 
 def _nearest(texture, uv, wrap):
@@ -97,7 +146,7 @@ def _nearest(texture, uv, wrap):
     # torch.round rounds half to even, like jnp.round.
     iu = _wrap_index(torch.round(u).to(torch.int64), wt, wu)
     iv = _wrap_index(torch.round(v).to(torch.int64), ht, wv)
-    return _texels(texture, iv, iu)
+    return _texels(texture, (iv, iu))[0]
 
 
 def _bilinear(texture, uv, wrap):
@@ -121,10 +170,8 @@ def _bilinear(texture, uv, wrap):
     # (clamp: the last texel neighbors itself).
     u1 = _wrap_index(u0 + 1, wt, wu)
     v1 = _wrap_index(v0 + 1, ht, wv)
-    t00 = _texels(texture, v0, u0)
-    t01 = _texels(texture, v0, u1)
-    t10 = _texels(texture, v1, u0)
-    t11 = _texels(texture, v1, u1)
+    t00, t01, t10, t11 = _texels(texture, (v0, u0), (v0, u1), (v1, u0),
+                                 (v1, u1))
     top = t00 * (1.0 - fu) + t01 * fu
     bottom = t10 * (1.0 - fu) + t11 * fu
     return top * (1.0 - fv) + bottom * fv

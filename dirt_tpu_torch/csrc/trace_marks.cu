@@ -2,11 +2,11 @@
 //
 // Replaces no TPU kernel: a CUDA-graph replay carries no host spans, since
 // the port's Python runs only while the graph is captured. So a stage of
-// the raster op or of the shading (``dirt_tpu_torch/utils/trace.py``'s
-// SPANS table) is bounded on the device itself: a one-thread kernel that
-// does nothing is launched on the stage's stream where the stage opens and
-// where it closes, and a capture records those launches into the graph like
-// any other. A profiler's device trace (torch.profiler, Nsight Systems) shows
+// the raster op, of the shading or of the texture lookup
+// (``dirt_tpu_torch/utils/trace.py``'s SPANS table) is bounded on the
+// device itself: a one-thread kernel that does nothing is launched on the
+// stage's stream where the stage opens and where it closes, and a capture
+// records those launches into the graph like any other. A profiler's device trace (torch.profiler, Nsight Systems) shows
 // ``span_mark<C, O>`` in every replay, on the same clock as every other
 // device operation: the marker that closes span C (0: none) and opens span
 // O (0: none), so stages that abut share one marker.
@@ -60,13 +60,16 @@ struct Mark {
 };
 
 // The markers launched (trace.py's MARKS): the raster op's in a step's
-// order, then a shading call's.
+// order, then a shading call's, a texture lookup's and a texture
+// gradient's.
 const Mark kMarks[] = {
     {0, 1, launch<0, 1>}, {1, 0, launch<1, 0>},   // clip
     {0, 2, launch<0, 2>}, {2, 3, launch<2, 3>},   // setup, binning
     {3, 4, launch<3, 4>}, {4, 0, launch<4, 0>},   // raster_fwd
     {0, 5, launch<0, 5>}, {5, 0, launch<5, 0>},   // raster_bwd
-    {0, 6, launch<0, 6>}, {6, 0, launch<6, 0>}};  // shade
+    {0, 6, launch<0, 6>}, {6, 0, launch<6, 0>},   // shade
+    {0, 7, launch<0, 7>}, {7, 0, launch<7, 0>},   // texture
+    {0, 8, launch<0, 8>}, {8, 0, launch<8, 0>}};  // texture_grad
 
 }  // namespace
 

@@ -32,11 +32,19 @@ And the per-vertex shading before it:
   ``diffuse_directional`` and ``specular_directional`` made where no
   span is open (:func:`outer_span`).
 
+And the texture lookup after it:
+
+- ``texture``: each call of ``core/texture.py``'s ``sample_texture`` made
+  where no span is open;
+- ``texture_grad``: the texture gradient's scatter in its backward (only
+  where the texture needs a gradient).
+
 A step of the raster op launches six markers a forward with ``clip=True``
 (four without) and two a backward; each shading call adds two (a lit
 render's normals, diffuse and specular terms six, ``entry.deferred_render``'s
-normals two). These are the pairs of :data:`MARKS`, the only markers the
-kernel file instantiates. :func:`span_ms` reads a stage's device time per
+normals two), each texture lookup two, and each texture gradient two.
+These are the pairs of :data:`MARKS`, the only markers the kernel file
+instantiates. :func:`span_ms` reads a stage's device time per
 replay from a profiler's device operations, summed over each time the
 stage ran in the replay.
 
@@ -79,12 +87,13 @@ from typing import NamedTuple
 import torch
 
 # The spans' numbers in a marker's symbol: SPANS[k - 1] is span k.
-SPANS = ("clip", "setup", "binning", "raster_fwd", "raster_bwd", "shade")
+SPANS = ("clip", "setup", "binning", "raster_fwd", "raster_bwd", "shade",
+         "texture", "texture_grad")
 # (closed, opened) span numbers of each marker launched: the raster op's in
-# a step's order, then a shading call's; ``csrc/trace_marks.cu``'s kMarks
-# instantiates these alone.
+# a step's order, then a shading call's, a texture lookup's and a texture
+# gradient's; ``csrc/trace_marks.cu``'s kMarks instantiates these alone.
 MARKS = ((0, 1), (1, 0), (0, 2), (2, 3), (3, 4), (4, 0), (0, 5), (5, 0),
-         (0, 6), (6, 0))
+         (0, 6), (6, 0), (0, 7), (7, 0), (0, 8), (8, 0))
 # The cap fills the binning's closing marker keeps, in the kernel's order.
 FILLS = ("pool", "work", "expand", "budget", "tile", "bin")
 # GraphedStep calls whose host stamps are kept.

@@ -6,7 +6,8 @@ as no-ops on CPU tensors; the span and switch logic, and the raster op's
 stage sites on every engine, with the card check and the marker launch
 replaced by a recorder (the markers each site would launch, in order, and
 the cap fills on the binning's closing marker), the shading calls'
-``shade`` span and ``entry.deferred_render``'s markers; ``GraphedStep``'s
+``shade`` span, ``entry.deferred_render``'s markers and a textured fit
+step's ``texture`` and ``texture_grad`` pairs; ``GraphedStep``'s
 counters untouched on the CPU path; the markers the kernel file instantiates; each
 new reader on synthetic profiler windows (``benchmark.trace.Window``):
 stages split at their markers with the idle time inside counted, a stage
@@ -22,7 +23,10 @@ equals ``sum(blocks) * POOL_ALIGN / pool_cap`` of an eager call and
 outlives the graph that wrote it, the CSR binning's fills and the dense
 binning's ``bin`` fill are the host counts; a replay of the lit and the
 deferred pipelines' forwards shows their ``shade`` pairs before the raster
-op's markers; a step with the markers stubbed out gives the same bits; and
+op's markers (and the deferred one its ``texture`` pair after them); every
+replay of a graphed textured fit step shows the ``texture`` pair in its
+forward and the ``texture_grad`` pair once in its backward; a step with
+the markers stubbed out gives the same bits; and
 after the stage tool's profiler windows, every
 whole replay of a three-replay session shows each marker once, and a
 session counts as complete only when no replay in it lost a record; last,
@@ -47,6 +51,7 @@ from _torch_port_scene import sphere_scene
 from benchmark.trace import Window
 from dirt_tpu_torch import convert, entry
 from dirt_tpu_torch.core import lighting
+from dirt_tpu_torch.core.texture import sample_texture
 from dirt_tpu_torch.ops import binning, raster
 from dirt_tpu_torch.ops.raster import RasterConfig
 from dirt_tpu_torch.utils import trace
@@ -59,6 +64,11 @@ STEP_MARKS = [(None, "clip"), ("clip", None), (None, "setup"),
               ("raster_bwd", None)]
 # The markers of one shading call (``core/lighting.py``).
 SHADE_MARKS = [(None, "shade"), ("shade", None)]
+# The markers of one texture lookup and of its gradient's scatter
+# (``core/texture.py``).
+TEXTURE_MARKS = [(None, "texture"), ("texture", None)]
+TEXTURE_GRAD_MARKS = [(None, "texture_grad"), ("texture_grad", None)]
+ALL_MARKS = STEP_MARKS + SHADE_MARKS + TEXTURE_MARKS + TEXTURE_GRAD_MARKS
 # The raster op's spans.
 RASTER_SPANS = ("clip", "setup", "binning", "raster_fwd", "raster_bwd")
 ENGINES = {"packed": dict(engine="packed"), "dense": dict(engine="dense"),
@@ -189,8 +199,7 @@ def test_the_kernel_file_instantiates_the_markers_of_marks():
     got = [(int(c), int(o)) for c, o, c2, o2 in re.findall(
         r"\{(\d), (\d), launch<(\d), (\d)>\}", table) if (c, o) == (c2, o2)]
     assert tuple(got) == trace.MARKS
-    assert [trace.marker(MARK.format(c, o)) for c, o in got] == \
-        STEP_MARKS + SHADE_MARKS
+    assert [trace.marker(MARK.format(c, o)) for c, o in got] == ALL_MARKS
 
 
 def test_the_kernel_files_fill_block_is_fills():
@@ -204,8 +213,7 @@ def test_the_kernel_files_fill_block_is_fills():
 
 
 def test_a_marker_outside_marks_raises_before_any_launch():
-    assert [trace.mark_ids(c, o) for c, o in STEP_MARKS + SHADE_MARKS] \
-        == list(trace.MARKS)
+    assert [trace.mark_ids(c, o) for c, o in ALL_MARKS] == list(trace.MARKS)
     x = torch.ones(2)
     with pytest.raises(ValueError, match="no marker closes setup"):
         trace._mark("setup", "raster_bwd", x)
@@ -358,13 +366,64 @@ def test_shading_calls_mark_the_shade_span_where_none_is_open(marks):
 
 def test_deferred_render_marks_its_normals_then_the_raster_op(marks):
     """``entry.deferred_render``'s fwd+bwd step: the normals' ``shade``
-    pair, then the raster op's eight markers."""
+    pair, the raster op's forward markers, the texture lookup's pair, then
+    the raster op's backward pair; its texture needs no gradient, so no
+    ``texture_grad`` pair."""
     small = entry.deferred_scene(6, 8, device="cpu")
     pose = torch.tensor([0.4, 0.3, 0.0], requires_grad=True)
     image = entry.deferred_render(small[0], pose, *small[1:], 64)
     image.sum().backward()
-    assert [(c, o) for c, o, _ in marks] == SHADE_MARKS + STEP_MARKS
+    assert [(c, o) for c, o, _ in marks] == (SHADE_MARKS + STEP_MARKS[:6]
+                                             + TEXTURE_MARKS + STEP_MARKS[6:])
     assert trace._OPEN.stack == []
+
+
+def _textured_step(device, size=64):
+    """(step, args): one fit step of the ``textured512.fit`` cell's
+    pipeline at ``size``² (its mesh, texture shape and clip flag), the
+    texture and the pose trained: ``step(texture, pose) -> (image,
+    d_texture, d_pose)``."""
+    from benchmark import harness, inputs
+    from benchmark.scenes import scene_arrays
+
+    loaded = harness.load_cell("textured512.fit")
+    config = dict(loaded.config, size=size)
+    pipe = loaded.pipeline
+    scene = pipe.scene(config, scene_arrays(config), device)
+    pose = pipe.true_value("pose", config, scene)
+    caps = inputs.suggested_caps(pipe, config, scene, [{"pose": pose}])
+    target = torch.rand(size, size, 3, generator=torch.Generator()
+                        .manual_seed(3)).to(device)
+    texture = torch.full(tuple(config["texture_shape"]), 0.5, device=device)
+
+    def step(tex, pose):
+        tex, pose = (t.detach().requires_grad_() for t in (tex, pose))
+        out = pipe.render(config, scene, caps, {"texture": tex, "pose": pose})
+        loss = torch.mean((out["image"] - target) ** 2)
+        return (out["image"].detach(),
+                *torch.autograd.grad(loss, (tex, pose)))
+
+    return step, (texture, pose + 0.02)
+
+
+def test_a_textured_fit_step_marks_its_lookup_and_scatter(marks):
+    """A fit step of the textured pipeline (texture and pose trained): the
+    raster op's forward markers, the ``texture`` pair, then in the backward
+    the ``texture_grad`` pair once, before the raster op's backward pair.
+    With a texture that needs no gradient, no ``texture_grad`` pair."""
+    step, args = _textured_step("cpu")
+    marks.clear()
+    _, d_texture, d_pose = step(*args)
+    assert [(c, o) for c, o, _ in marks] == (
+        STEP_MARKS[:6] + TEXTURE_MARKS + TEXTURE_GRAD_MARKS + STEP_MARKS[6:])
+    assert float(d_texture.abs().sum()) > 0 and float(d_pose.abs().sum()) > 0
+    assert trace._OPEN.stack == []
+    marks.clear()
+    uv = torch.rand(8, 8, 2, generator=torch.Generator().manual_seed(4))
+    uv.requires_grad_()
+    sample_texture(args[0], uv).sum().backward()
+    assert [(c, o) for c, o, _ in marks] == TEXTURE_MARKS
+    assert uv.grad is not None and not args[0].requires_grad
 
 
 def test_graphed_step_counts_nothing_on_the_cpu():
@@ -382,10 +441,13 @@ MARK = "void span_mark<{}, {}>(Fills)"
 
 
 def _replay(t0, corr, marks=True):
-    """One replay's device operations from ``t0`` ns: three shading calls
-    and every stage of the raster op between its markers, with idle time
-    inside the normals, the clip and the binning. Stage times: shade 4,500
-    ns over the three calls, clip 6,000, binning 6,000, raster_bwd 7,000."""
+    """One replay's device operations from ``t0`` ns: three shading calls,
+    every stage of the raster op between its markers, a texture lookup
+    after the forward and its gradient's scatter before the raster op's
+    backward, with idle time inside the normals, the clip, the binning and
+    the scatter. Stage times: shade 4,500 ns over the three calls, clip
+    6,000, binning 6,000, texture 2,000, texture_grad 4,000, raster_bwd
+    7,000."""
     ops, t = [], t0
 
     def op(name, ns):
@@ -419,7 +481,14 @@ def _replay(t0, corr, marks=True):
     mark(3, 4)
     op("raster_fwd_packed", 2000)
     mark(4, 0)
+    mark(0, 7)                                 # the texture lookup
+    op("index_select", 2000)
+    mark(7, 0)
     op("loss", 500)
+    mark(0, 8)                                 # the texture gradient
+    op("index_add", 3000)
+    t += 1000                                  # idle inside the scatter
+    mark(8, 0)
     mark(0, 5)
     op("packed_bwd", 7000)
     mark(5, 0)
@@ -448,7 +517,9 @@ def _read(metric, window):
 @pytest.mark.parametrize("metric,ms", [("clip_ms", 0.006),
                                        ("binning_ms", 0.006),
                                        ("raster_bwd_ms", 0.007),
-                                       ("shade_ms", 0.0045)])
+                                       ("shade_ms", 0.0045),
+                                       ("texture_ms", 0.002),
+                                       ("texture_grad_ms", 0.004)])
 def test_stage_readers_split_at_markers(metric, ms):
     window = _window()
     assert window.complete()
@@ -465,7 +536,9 @@ def _swap(ops, old, new):
 @pytest.mark.parametrize("metric,ms", [("clip_ms", 0.006),
                                        ("binning_ms", 0.006),
                                        ("raster_bwd_ms", 0.007),
-                                       ("shade_ms", 0.0045)])
+                                       ("shade_ms", 0.0045),
+                                       ("texture_ms", 0.002),
+                                       ("texture_grad_ms", 0.004)])
 def test_stage_readers_sum_a_stage_run_twice_in_a_replay(metric, ms):
     """A replay that runs the raster op twice (two views, two slabs) opens
     each span twice: the reader sums both per replay."""
@@ -478,13 +551,16 @@ def test_stage_readers_sum_a_stage_run_twice_in_a_replay(metric, ms):
 
 
 @pytest.mark.parametrize("metric", ["clip_ms", "binning_ms",
-                                    "raster_bwd_ms", "shade_ms"])
+                                    "raster_bwd_ms", "shade_ms",
+                                    "texture_ms", "texture_grad_ms"])
 @pytest.mark.parametrize("fault", ["incomplete", "missing", "doubled",
                                    "unclosed", "no markers"])
 def test_stage_readers_read_nothing_from_a_faulty_window(metric, fault):
     opening = {"clip_ms": MARK.format(0, 1), "binning_ms": MARK.format(2, 3),
                "raster_bwd_ms": MARK.format(0, 5),
-               "shade_ms": MARK.format(0, 6)}[metric]
+               "shade_ms": MARK.format(0, 6),
+               "texture_ms": MARK.format(0, 7),
+               "texture_grad_ms": MARK.format(0, 8)}[metric]
     if fault == "incomplete":
         window = _window(steps=5)
         assert not window.complete()
@@ -495,7 +571,9 @@ def test_stage_readers_read_nothing_from_a_faulty_window(metric, fault):
         closing = {"clip_ms": MARK.format(1, 0),
                    "binning_ms": MARK.format(3, 4),
                    "raster_bwd_ms": MARK.format(5, 0),
-                   "shade_ms": MARK.format(6, 0)}[metric]
+                   "shade_ms": MARK.format(6, 0),
+                   "texture_ms": MARK.format(7, 0),
+                   "texture_grad_ms": MARK.format(8, 0)}[metric]
         swapped = ((opening, closing) if fault == "doubled"
                    else (closing, "elementwise"))
         window = _window({3: _swap(_replay(1_300_000, 3), *swapped)})
@@ -548,7 +626,8 @@ def test_readers_read_nothing_from_a_program_without_the_registry(
     monkeypatch.setitem(sys.modules, "dirt_tpu_torch.utils.trace", None)
     monkeypatch.delattr(dirt_tpu_torch.utils, "trace")
     for metric in ("clip_ms", "binning_ms", "raster_bwd_ms", "shade_ms",
-                   "pool_use_pct", "tile_cap_use_pct", "bin_cap_use_pct"):
+                   "texture_ms", "texture_grad_ms", "pool_use_pct",
+                   "tile_cap_use_pct", "bin_cap_use_pct"):
         assert _read(metric, _window()) is None
 
 
@@ -773,16 +852,57 @@ def _shaded_forward(device, cell):
 def test_a_shaded_forward_carries_paired_shade_markers(cuda, cell, calls):
     """A replay of the lit pipeline's forward shows a ``shade`` pair for
     the normals, the diffuse and the specular calls, the deferred
-    pipeline's one for its normals, then the raster op's forward markers;
-    ``span_ms`` reads the shading's time."""
+    pipeline's one for its normals, then the raster op's forward markers,
+    and the deferred pipeline's ``texture`` pair after them; ``span_ms``
+    reads the shading's time."""
     forward, args = _shaded_forward(cuda, cell)
     graphed = GraphedStep(forward, args)
     window, _ = _profiled_replay(graphed, args)
     assert window.complete()
     got = [trace.marker(op[0]) for op in window.ops
            if trace.marker(op[0]) is not None]
-    assert got == SHADE_MARKS * calls + STEP_MARKS[:6]
+    textured = TEXTURE_MARKS if cell == "deferred10k.fit" else []
+    assert got == SHADE_MARKS * calls + STEP_MARKS[:6] + textured
     assert trace.span_ms(window.ops, window.launches, "shade") > 0
+
+
+@pytest.mark.cuda
+def test_a_graphed_textured_step_carries_its_markers_every_replay(cuda):
+    """Three replays of a graphed fit step of the textured pipeline at
+    128 x 128, profiled in one session: every replay shows the raster op's
+    forward markers, the ``texture`` pair, the ``texture_grad`` pair once
+    and the raster op's backward pair, and ``span_ms`` reads both texture
+    spans above 0; the replay's outputs are the eager step's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step, args = _textured_step(cuda, 128)
+    eager = step(*args)
+    graphed = GraphedStep(step, args)
+    graphed(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            out = graphed(*args)
+        torch.cuda.synchronize()
+    window = Window.from_profile(prof, 3, 0.0)
+    assert window.complete()
+    replays = {}
+    for op in window.ops:
+        if window.launches.get(op[3]) == "cudaGraphLaunch":
+            replays.setdefault(op[3], []).append(op)
+    assert len(replays) == 3
+    want = (STEP_MARKS[:6] + TEXTURE_MARKS + TEXTURE_GRAD_MARKS
+            + STEP_MARKS[6:])
+    for ops in replays.values():
+        ops.sort(key=lambda op: op[1])
+        assert [trace.marker(op[0]) for op in ops
+                if trace.marker(op[0]) is not None] == want
+    for name in ("texture", "texture_grad"):
+        assert trace.span_ms(window.ops, window.launches, name) > 0
+    torch.testing.assert_close(out[0], eager[0], rtol=0, atol=0)
+    for got, ref in zip(out[1:], eager[1:]):
+        torch.testing.assert_close(got, ref, rtol=1e-5,
+                                   atol=1e-6 * float(ref.abs().max()))
 
 
 # Last in the file: the profiler windows it takes come after every other
